@@ -1,0 +1,88 @@
+// Helpers shared by the packed attention kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace msvit {
+
+// Query rows per block (one thread each) and key/value rows per staged
+// tile; the tile halves where two tiles would pass 48 KB of static shared
+// memory (f32 at head size 128).
+constexpr int kRows = 64;
+constexpr int kKv = 64;
+
+template <typename T, int DHT>
+__host__ __device__ constexpr int kv_rows() {
+  return 2 * kKv * DHT * static_cast<int>(sizeof(T)) <= 48 * 1024 ? kKv
+                                                                  : kKv / 2;
+}
+
+// Eight consecutive elements <-> eight floats, as one or two 16-byte moves.
+template <typename T>
+struct Vec8;
+
+template <>
+struct Vec8<float> {
+  static __device__ __forceinline__ void load(const float* p, float* o) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+
+template <>
+struct Vec8<__nv_bfloat16> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* o) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float2 f = __bfloat1622float2(h[t]);
+      o[2 * t] = f.x;
+      o[2 * t + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* v) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) h[t] = __floats2bfloat162_rn(v[2 * t], v[2 * t + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+};
+
+// Copy rows [row0, row0 + rows) of one head's `width`-byte column slice
+// (starting `col_bytes` into each row of `row_bytes`) into shared memory,
+// `Chunk`-sized moves, neighbouring threads on neighbouring chunks.  Rows
+// past `n` are zero-filled.  All threads of the block take part.
+template <typename Chunk>
+__device__ __forceinline__ void stage_tile(char* dst, const char* img,
+                                           long long row_bytes,
+                                           long long col_bytes, int width,
+                                           int row0, int rows, int n) {
+  const int chunks = width / static_cast<int>(sizeof(Chunk));
+  const int total = rows * chunks;
+  for (int c = threadIdx.x; c < total; c += blockDim.x) {
+    const int r = c / chunks;
+    const int cc = c - r * chunks;
+    const int j = row0 + r;
+    Chunk v{};
+    if (j < n) {
+      v = *reinterpret_cast<const Chunk*>(img + j * row_bytes + col_bytes +
+                                          cc * sizeof(Chunk));
+    }
+    reinterpret_cast<Chunk*>(dst + r * width)[cc] = v;
+  }
+}
+
+}  // namespace msvit

@@ -1,0 +1,6 @@
+"""Base ViT trunk, standard ViT front end and the int8 serving path."""
+
+from msvit_tpu_torch.models.base.config import BaseViTConfig
+from msvit_tpu_torch.models.base.vit import ViTModel
+
+__all__ = ["BaseViTConfig", "ViTModel"]

@@ -1,0 +1,253 @@
+"""PyTorch port, ops: each op of `msvit_tpu_torch.ops` against its JAX
+counterpart on the same numpy inputs (CPU; the JAX Pallas kernels run in
+interpret mode, as the JAX package's own tests run them).  On the CPU the
+port's kernel wrappers take their plain versions."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from msvit_tpu.ops import gelu as jgelu
+from msvit_tpu.ops import quant as jquant
+from msvit_tpu.ops.packed_attention import (
+    packed_attention as j_packed,
+    packed_attention_int8 as j_packed_int8,
+)
+from msvit_tpu_torch.ops import gelu as tgelu
+from msvit_tpu_torch.ops import quant as tquant
+from msvit_tpu_torch.ops.packed_attention import (
+    packed_attention,
+    packed_attention_int8,
+)
+
+B, N, D, H = 2, 37, 64, 4
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _qkv(seed, shape=(B, N, 3 * D), scale=1.0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * scale
+
+
+def _mask(kind, seed, b=B, h=H, n=N):
+    rng = np.random.default_rng(seed)
+    if kind == "bool":
+        m = rng.random((b, 1, n, n)) < 0.7
+        m |= np.eye(n, dtype=bool)[None, None]
+        m[:, :, 0, :] = False  # one fully masked row: mean(V) on both
+        return m
+    if kind == "additive":
+        return (-100.0 * (rng.random((b, h, n, n)) < 0.3)).astype(np.float32)
+    return None
+
+
+# ------------------------------------------------------------------ K1 ----
+
+_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_kind", [None, "bool", "additive"])
+@pytest.mark.parametrize("scale", [None, 1.0])
+def test_packed_attention_plain_matches_jax(dtype, mask_kind, scale):
+    """K1 plain vs JAX `packed_attention` (interpret).  Tolerance: f32
+    1e-5 max abs; bf16 2e-2 (the bar of tests/test_packed_attention.py)."""
+    x = _qkv(0)
+    m = _mask(mask_kind, 1)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = j_packed(jnp.asarray(x, jdt), H,
+                    mask=None if m is None else jnp.asarray(m), scale=scale)
+    before = packed_attention.launches
+    got = packed_attention(torch.from_numpy(x).to(tdt), H,
+                           mask=None if m is None else torch.from_numpy(m),
+                           scale=scale)
+    assert packed_attention.launches == before  # CPU: plain version
+    assert got.dtype == tdt and got.shape == (B, N, D)
+    np.testing.assert_allclose(_np(got), _np(want), atol=_TOL[dtype], rtol=0)
+
+
+def test_packed_attention_flattens_large_logits_like_jax():
+    """The bounded-logit contract: logits past +-80 are clamped, not
+    max-subtracted, on both sides (f32, 1e-5 of the value scale: v is
+    scaled by 12 here)."""
+    x = _qkv(2, scale=12.0)
+    want = j_packed(jnp.asarray(x), H)
+    got = packed_attention(torch.from_numpy(x), H)
+    np.testing.assert_allclose(_np(got), _np(want), atol=12 * 1e-5, rtol=0)
+
+
+def test_packed_attention_vitb_image_shape():
+    """One image at ViT-B's shape [1, 197, 2304], 12 heads, bf16 (2e-2)."""
+    x = _qkv(3, shape=(1, 197, 2304))
+    want = j_packed(jnp.asarray(x, jnp.bfloat16), 12)
+    got = packed_attention(torch.from_numpy(x).bfloat16(), 12)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=0)
+
+
+def test_packed_attention_raises_off_cpu_without_kernel():
+    """A tensor that is not on the CPU goes to a kernel or raises."""
+    x = torch.empty((B, N, 3 * D), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        packed_attention(x, H)
+    with pytest.raises(ValueError, match="no kernel"):
+        packed_attention_int8(x.to(torch.int8), torch.ones(3), H)
+
+
+# ------------------------------------------------------------------ K3 ----
+
+
+def _int8_inputs(seed):
+    x = _qkv(seed, scale=0.5)
+    sec = np.abs(x.reshape(-1, 3, D)).max(axis=(0, 2)) / 127.0
+    q = np.clip(np.round(x / np.repeat(sec, D)), -127, 127).astype(np.int8)
+    return q, sec.astype(np.float32)
+
+
+def test_packed_attention_int8_bf16_out_matches_jax():
+    """K3 plain vs JAX `packed_attention_int8`, bf16 out: rtol 1e-2 with
+    atol 2e-3 for entries near zero."""
+    q, sec = _int8_inputs(4)
+    want = j_packed_int8(jnp.asarray(q), jnp.asarray(sec), H)
+    got = packed_attention_int8(torch.from_numpy(q), torch.from_numpy(sec), H)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=2e-3)
+
+
+def test_packed_attention_int8_int8_out_matches_jax():
+    """K3 int8 out: |delta| <= 1 everywhere, >= 99% of entries equal."""
+    q, sec = _int8_inputs(5)
+    ref = _np(j_packed_int8(jnp.asarray(q), jnp.asarray(sec), H))
+    inv = np.float32(127.0 / np.abs(ref).max())
+    want = np.asarray(j_packed_int8(jnp.asarray(q), jnp.asarray(sec), H,
+                                    out_inv_scale=inv, int8_out=True))
+    got = packed_attention_int8(torch.from_numpy(q), torch.from_numpy(sec),
+                                H, out_inv_scale=torch.tensor(inv),
+                                int8_out=True)
+    assert got.dtype == torch.int8
+    delta = np.abs(got.numpy().astype(np.int32) - want.astype(np.int32))
+    assert delta.max() <= 1
+    assert (delta == 0).mean() >= 0.99
+
+
+# --------------------------------------------------------- elementwise ----
+
+_GRID = np.linspace(-10.0, 10.0, 4001, dtype=np.float32)
+
+
+@pytest.mark.parametrize("name", ["gelu_erf_tanh", "gelu_erf", "erf_tanh", "erf"])
+def test_gelu_matches_jax(name):
+    """Same f32 formulas: 1e-6 max abs (transcendental ulps)."""
+    want = getattr(jgelu, name)(jnp.asarray(_GRID))
+    got = getattr(tgelu, name)(torch.from_numpy(_GRID))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-6, rtol=0)
+    # bf16 in -> bf16 out, one bf16 ulp
+    gb = getattr(tgelu, name)(torch.from_numpy(_GRID).bfloat16())
+    wb = getattr(jgelu, name)(jnp.asarray(_GRID, jnp.bfloat16))
+    assert gb.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(gb), _np(wb), rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_layer_norm_matches_jax(out_dtype):
+    """f32 statistics: f32 out 1e-5; bf16 out one bf16 ulp (rtol 2^-7)."""
+    from msvit_tpu.models.base.norm import LayerNorm as JLN
+    from msvit_tpu_torch.models.base.norm import LayerNorm as TLN
+
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal((3, 11, D)) * 3 + 1).astype(np.float32)
+    w = rng.standard_normal(D).astype(np.float32)
+    b = rng.standard_normal(D).astype(np.float32)
+    want = JLN(epsilon=1e-6, out_dtype=getattr(jnp, out_dtype)).apply(
+        {"params": {"scale": w, "bias": b}}, jnp.asarray(x))
+    ln = TLN(D, 1e-6, out_dtype=getattr(torch, out_dtype))
+    with torch.no_grad():
+        ln.weight.copy_(torch.from_numpy(w))
+        ln.bias.copy_(torch.from_numpy(b))
+        got = ln(torch.from_numpy(x))
+    assert got.dtype == getattr(torch, out_dtype)
+    if out_dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2 ** -7, atol=1e-6)
+
+
+# ---------------------------------------------------------------- int8 ----
+
+
+def _weight(seed, k=96, n=40):
+    return (np.random.default_rng(seed).standard_normal((k, n)) * 0.05).astype(np.float32)
+
+
+def test_quantize_weight_matches_jax():
+    """int8 values equal and scales equal (the port keeps [out, in])."""
+    w = _weight(7)
+    jq = jquant.quantize_weight(jnp.asarray(w))
+    tq = tquant.quantize_weight(torch.from_numpy(w.T.copy()))
+    np.testing.assert_array_equal(tq.values.numpy(), np.asarray(jq.values).T)
+    np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale)[0])
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("requant", [False, True])
+def test_int8_matmul_matches_jax(static, requant):
+    """int8 GEMM, dynamic or calibrated activation scale, dequant or
+    requant epilogue.  Dequant (f32 out): 1e-5 relative; requant (int8
+    out): |delta| <= 1 and >= 99% equal (one rounding at a .5 boundary)."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 13, 96)).astype(np.float32)
+    w = _weight(9)
+    bias = rng.standard_normal(40).astype(np.float32) * 0.1
+    act = np.float32(np.abs(x).max() / 127 * 1.1) if static else None
+    inv = (np.float32(1.0) / np.linspace(0.01, 0.05, 40, dtype=np.float32)
+           if requant else None)
+    jq = jquant.quantize_weight(jnp.asarray(w))
+    want = np.asarray(jquant.int8_matmul(
+        jnp.asarray(x), jq, jnp.asarray(bias), out_dtype=jnp.float32,
+        act_scale=None if act is None else jnp.asarray(act),
+        out_inv_scale=None if inv is None else jnp.asarray(inv)))
+    tq = tquant.quantize_weight(torch.from_numpy(w.T.copy()))
+    got = tquant.int8_matmul(
+        torch.from_numpy(x), tq, torch.from_numpy(bias),
+        out_dtype=torch.float32,
+        act_scale=None if act is None else torch.tensor(act),
+        out_inv_scale=None if inv is None else torch.from_numpy(inv)).numpy()
+    assert got.shape == want.shape == (2, 13, 40)
+    if requant:
+        assert got.dtype == np.int8
+        delta = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert delta.max() <= 1 and (delta == 0).mean() >= 0.99
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------------- imports ----
+
+
+def test_port_imports_no_jax():
+    """`msvit_tpu_torch` and every submodule import without JAX or the
+    JAX package (the card's machine has no JAX)."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "import msvit_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'msvit_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'msvit_tpu' or m.startswith('msvit_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
