@@ -1,4 +1,5 @@
-"""Flax param tree -> state dict of the port's `ViTModel`.
+"""Flax param tree -> state dict of the port's `ViTModel` (and of
+`ViTForImageClassification`, `classifier_params_from_jax`).
 
 Takes the JAX package's `ViTModel` params as nested dicts of numpy arrays
 (with or without the top-level "params" collection) and never imports JAX.
@@ -78,6 +79,16 @@ def vit_params_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
     _norm(out, "layernorm", params["layernorm"])
     if "pooler_dense" in params:
         _dense(out, "pooler_dense", params["pooler_dense"])
+    return out
+
+
+def classifier_params_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX `ViTForImageClassification` params ({"vit": ..., "classifier":
+    ...}) -> state dict for the port's `ViTForImageClassification`."""
+    if "params" in params:
+        params = params["params"]
+    out = {f"vit.{k}": v for k, v in vit_params_from_jax(params["vit"], cfg).items()}
+    _dense(out, "classifier", params["classifier"])
     return out
 
 

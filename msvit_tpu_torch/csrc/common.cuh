@@ -14,10 +14,49 @@ namespace msvit {
 constexpr int kRows = 64;
 constexpr int kKv = 64;
 
+// Mask operand: none, bool (one byte per entry, true = attend) or
+// additive f32; shaped [B|1, 1|H, N, N], last two dims contiguous.
+enum MaskKind { kNoMask = 0, kBoolMask = 1, kAddMask = 2 };
+
 template <typename T, int DHT>
 __host__ __device__ constexpr int kv_rows() {
   return 2 * kKv * DHT * static_cast<int>(sizeof(T)) <= 48 * 1024 ? kKv
                                                                   : kKv / 2;
+}
+
+// Threads per query (or key) row in the backward kernels: each holds a
+// slice of at most 32 head elements in f32 registers, so that a thread of
+// the dK/dV kernel keeps k, v, dk and dv (4 x 32 floats) without spilling
+// at any head size; dot products are summed across the row's threads with
+// shuffles.
+template <int DHT>
+__host__ __device__ constexpr int row_threads() {
+  return DHT > 32 ? DHT / 32 : 1;
+}
+
+// Sum over the `TPR` neighbouring lanes of one row (TPR a power of two
+// dividing 32; every lane of the warp must take part).
+template <int TPR>
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off /= 2)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Round an f32 value to T and back: the compute-dtype casts of the TPU
+// kernels' probability and score-gradient panels.
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
 // Eight consecutive elements <-> eight floats, as one or two 16-byte moves.

@@ -27,8 +27,6 @@
 namespace msvit {
 namespace {
 
-enum MaskKind { kNoMask = 0, kBoolMask = 1, kAddMask = 2 };
-
 // One block = (64 query rows, head, image); one thread = one query row,
 // holding q and the output accumulator in f32 registers.  DHT is the head
 // size rounded up to a bucket; dh is the real one (a multiple of 8).

@@ -4,6 +4,11 @@
   (with stochastic depth while training);
 * cross-context attention: optional per-layer ``context_states`` are
   concatenated onto K/V only;
+* dropout and stochastic depth draw from explicit generators: a block
+  given an integer ``seed`` draws its masks from a generator seeded with
+  it, so a recomputed block (``config.remat``, `torch.utils.checkpoint`)
+  draws the same masks; ``self.training`` stands for JAX's
+  ``deterministic=False``;
 * masks: bool (True = attend) or additive float;
 * LayerNorms in float32, matmuls in the policy's compute dtype.
 
@@ -12,14 +17,14 @@ dtype at use, as in the JAX package.  Weights are drawn on the CPU from an
 explicit `torch.Generator` (truncated normal at +-2 std, zero biases), so
 the same seed gives the same weights on every device.
 
-Self-attention takes the packed path (`ops/packed_attention.py`, kernel
-K1) when the JAX package would on its kernel device: plain
-self-attention, no probabilities requested, no mask or a [B, 1|H, N, N]
-one, and not the masked >= 512-token regime that JAX sends to its
-fused/flash kernels.  The JAX package's VMEM fit gates have no
-counterpart.  Unlike JAX, which takes the packed path only on a TPU, the
-port takes it on every device: on the CPU the wrapper runs K1's plain
-version.
+Self-attention takes the packed path (`ops/packed_attention.py`: K1 for
+inference, K1-lse and K2 under autograd) when the JAX package would on its
+kernel device: plain self-attention, no probabilities requested, no mask
+or a [B, 1|H, N, N] one, and not the masked >= 512-token regime that JAX
+sends to its fused/flash kernels.  The JAX package's VMEM fit gates have
+no counterpart.  Unlike JAX, which takes the packed path only on a TPU,
+the port takes it on every device: on the CPU the wrappers run the plain
+versions.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from msvit_tpu_torch.models.base.config import BaseViTConfig
@@ -35,6 +41,7 @@ from msvit_tpu_torch.models.base.norm import LayerNorm
 from msvit_tpu_torch.ops.attention import multi_head_attention
 from msvit_tpu_torch.ops.gelu import gelu_erf, gelu_erf_tanh
 from msvit_tpu_torch.ops.packed_attention import packed_attention
+from msvit_tpu_torch.utils.rng import draw_seed, fold_in
 
 
 def trunc_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
@@ -44,6 +51,22 @@ def trunc_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
     nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std,
                           generator=generator)
     return t
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax `nn.Dropout`: keep each entry with
+    probability 1 - rate and divide it by that; the keep mask is drawn from
+    `generator` (the device's default generator when None)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def is_stochastic(config: BaseViTConfig) -> bool:
+    """Whether training draws random masks (dropout or stochastic depth)."""
+    return (config.hidden_dropout_prob > 0 or config.attention_probs_dropout_prob > 0
+            or config.drop_path_rate > 0)
 
 
 class Linear(nn.Module):
@@ -109,6 +132,7 @@ class BaseViTSelfAttention(nn.Module):
         context_states: Optional[torch.Tensor] = None,
         attention_mask: Optional[torch.Tensor] = None,
         output_attentions: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.config
         h, dh = cfg.num_attention_heads, cfg.head_dim
@@ -122,9 +146,9 @@ class BaseViTSelfAttention(nn.Module):
             b = None if self.qkv.bias is None else self.qkv.bias.to(compute) * qs
             qkvp = F.linear(x, w, b)
             out = packed_attention(qkvp, h, mask=attention_mask, scale=1.0)
-            out = F.dropout(out, p_drop) if p_drop > 0 else out
+            out = dropout(out, p_drop, generator) if p_drop > 0 else out
             out = self.output_dense(out)
-            return self._hidden_dropout(out), None
+            return self._hidden_dropout(out, generator), None
 
         qkv = self.qkv(x).unflatten(-1, (3, h, dh))  # [..., N, 3, H, dh]
         q, k, v = (qkv.select(-3, t).transpose(-3, -2) for t in range(3))
@@ -142,14 +166,14 @@ class BaseViTSelfAttention(nn.Module):
             implementation=cfg.attn_implementation,
             output_probs=output_attentions,
         )
-        out = F.dropout(out, p_drop) if p_drop > 0 else out
+        out = dropout(out, p_drop, generator) if p_drop > 0 else out
         out = out.transpose(-3, -2).reshape(*hidden_states.shape[:-1], h * dh)
         out = self.output_dense(out)
-        return self._hidden_dropout(out), probs
+        return self._hidden_dropout(out, generator), probs
 
-    def _hidden_dropout(self, out: torch.Tensor) -> torch.Tensor:
+    def _hidden_dropout(self, out, generator):
         p = self.config.hidden_dropout_prob
-        return F.dropout(out, p) if p > 0 and self.training else out
+        return dropout(out, p, generator) if p > 0 and self.training else out
 
 
 def _activation(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -176,7 +200,17 @@ class BaseMLP(nn.Module):
                           config, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(_activation(self.act, self.fc1(x)))
+        h = self.fc1(x)
+        if torch.is_grad_enabled() and h.requires_grad:
+            # keep only the GELU's input for the backward and recompute the
+            # formula there: autograd would otherwise keep ~7 f32 [B, N,
+            # 4D] temporaries of the elementwise erf per layer (the JAX
+            # package's XLA fusion keeps none)
+            a = torch.utils.checkpoint.checkpoint(
+                _activation, self.act, h, use_reentrant=False)
+        else:
+            a = _activation(self.act, h)
+        return self.fc2(a)
 
 
 class BaseSwiGLUFFN(nn.Module):
@@ -193,11 +227,12 @@ class BaseSwiGLUFFN(nn.Module):
         return self.weights_out(F.silu(x1) * x2)
 
 
-def _drop_path(x: torch.Tensor, rate: float) -> torch.Tensor:
+def _drop_path(x: torch.Tensor, rate: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
     """Per-sample stochastic depth (training only)."""
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.floor(keep + torch.rand(shape, device=x.device))
+    mask = torch.floor(keep + torch.rand(shape, generator=generator, device=x.device))
     return (x / keep) * mask.to(x.dtype)
 
 
@@ -219,10 +254,10 @@ class BaseViTLayer(nn.Module):
         self.layer_scale2 = nn.Parameter(
             torch.full((d,), config.layerscale_value, dtype=policy.param))
 
-    def _branch(self, y: torch.Tensor, ls: torch.Tensor) -> torch.Tensor:
+    def _branch(self, y, ls, generator):
         y = y * ls.to(y.dtype)
         rate = self.config.drop_path_rate
-        return _drop_path(y, rate) if rate > 0 and self.training else y
+        return _drop_path(y, rate, generator) if rate > 0 and self.training else y
 
     def forward(
         self,
@@ -230,22 +265,34 @@ class BaseViTLayer(nn.Module):
         context_states: Optional[torch.Tensor] = None,
         attention_mask: Optional[torch.Tensor] = None,
         output_attentions: bool = False,
+        seed: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """`seed`: the block's masks (dropout, stochastic depth, in that
+        order) come from a generator seeded with it; None draws them from
+        the device's default generator."""
+        g = None
+        if seed is not None and self.training and is_stochastic(self.config):
+            g = torch.Generator(hidden_states.device).manual_seed(seed)
         attn_out, probs = self.attention(
             self.norm1(hidden_states), context_states=context_states,
             attention_mask=attention_mask, output_attentions=output_attentions,
+            generator=g,
         )
-        hidden_states = self._branch(attn_out, self.layer_scale1) + hidden_states
+        hidden_states = self._branch(attn_out, self.layer_scale1, g) + hidden_states
         mlp_out = self.mlp(self.norm2(hidden_states))
-        hidden_states = self._branch(mlp_out, self.layer_scale2) + hidden_states
+        hidden_states = self._branch(mlp_out, self.layer_scale2, g) + hidden_states
         return hidden_states, probs
 
 
 class BaseViTEncoder(nn.Module):
-    """Stack of blocks, with optional per-layer context states."""
+    """Stack of blocks, with optional per-layer context states.  Under
+    ``config.remat`` each block is recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant), the counterpart of JAX's
+    `nn.remat` with no policy (full recompute)."""
 
     def __init__(self, config: BaseViTConfig, generator: torch.Generator):
         super().__init__()
+        self.config = config
         self.layer = nn.ModuleList(
             BaseViTLayer(config, generator) for _ in range(config.num_hidden_layers)
         )
@@ -257,16 +304,30 @@ class BaseViTEncoder(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         output_attentions: bool = False,
         output_hidden_states: bool = False,
+        seed: Optional[int] = None,
     ):
+        """`seed`: block i draws its masks from `fold_in(seed, i)`; None
+        while training with dropout or stochastic depth draws one seed from
+        the default CPU generator."""
+        cfg = self.config
+        if seed is None and self.training and is_stochastic(cfg):
+            seed = draw_seed(None)
+        remat = cfg.remat and torch.is_grad_enabled()
         all_hidden = [] if output_hidden_states else None
         all_attn = [] if output_attentions else None
         for i, layer in enumerate(self.layer):
             if output_hidden_states:
                 all_hidden.append(hidden_states)
             ctx = context_states[i] if context_states is not None else None
-            hidden_states, probs = layer(
-                hidden_states, ctx, attention_mask, output_attentions
-            )
+            args = (hidden_states, ctx, attention_mask, output_attentions,
+                    None if seed is None else fold_in(seed, i))
+            if remat:
+                # the block's masks come from its seed, not from the global
+                # RNG, so the RNG state need not be saved for the recompute
+                hidden_states, probs = torch.utils.checkpoint.checkpoint(
+                    layer, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                hidden_states, probs = layer(*args)
             if output_attentions:
                 all_attn.append(probs)
         if output_hidden_states:

@@ -1,6 +1,12 @@
 """Standard ViT assembled from the base trunk (counterpart of
 `msvit_tpu/models/base/vit.py`): patch embeddings + encoder + final
-LayerNorm (+ optional tanh pooler).
+LayerNorm (+ optional tanh pooler), and `ViTForImageClassification`, a
+linear head on the CLS token.
+
+While training with dropout or stochastic depth, a forward draws one seed
+from the `generator` it is given (the default CPU generator when None):
+the embeddings' dropout takes `fold_in(seed, 0)`, the trunk
+`fold_in(seed, 1)`.
 
 Pixels are NHWC at the public functions, as in the JAX package.  Patchify
 is a reshape in (p1, p2, c) order plus one Linear.  Position-embedding
@@ -17,8 +23,10 @@ import torch
 from torch import nn
 
 from msvit_tpu_torch.models.base.config import BaseViTConfig
-from msvit_tpu_torch.models.base.model import BaseViTEncoder, Linear, trunc_normal
+from msvit_tpu_torch.models.base.model import (
+    BaseViTEncoder, Linear, dropout, is_stochastic, trunc_normal)
 from msvit_tpu_torch.models.base.norm import LayerNorm
+from msvit_tpu_torch.utils.rng import draw_seed, fold_in
 
 
 def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -66,7 +74,8 @@ class ViTEmbeddings(nn.Module):
             self.cls_token = nn.Parameter(
                 trunc_normal((1, 1, d), std, generator).to(param))
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
         check_grid(cfg, pixel_values)
         x = self.patch_projection(patchify(pixel_values, cfg.patch_size))
@@ -75,7 +84,7 @@ class ViTEmbeddings(nn.Module):
             x = torch.cat([cls.to(x.dtype), x], dim=1)
         x = x + self.position_embeddings.to(x.dtype)
         p = cfg.hidden_dropout_prob
-        return nn.functional.dropout(x, p) if p > 0 and self.training else x
+        return dropout(x, p, generator) if p > 0 and self.training else x
 
 
 class ViTModel(nn.Module):
@@ -116,13 +125,20 @@ class ViTModel(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         output_attentions: bool = False,
         output_hidden_states: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> dict:
-        x = self.embeddings(pixel_values)
+        g_emb, seed = None, None
+        if self.training and is_stochastic(self.config):
+            base = draw_seed(generator)
+            g_emb = torch.Generator(pixel_values.device).manual_seed(fold_in(base, 0))
+            seed = fold_in(base, 1)
+        x = self.embeddings(pixel_values, generator=g_emb)
         x, all_hidden, all_attn = self.encoder(
             x,
             attention_mask=attention_mask,
             output_attentions=output_attentions,
             output_hidden_states=output_hidden_states,
+            seed=seed,
         )
         x = self.layernorm(x)
         pooled = None
@@ -135,3 +151,37 @@ class ViTModel(nn.Module):
             "hidden_states": all_hidden,
             "attentions": all_attn,
         }
+
+
+class ViTForImageClassification(nn.Module):
+    """ViT + linear classification head on the CLS token (counterpart of
+    the JAX package's `ViTForImageClassification`): state-dict keys under
+    ``vit.`` and ``classifier.``; logits in f32.
+
+    Weights are drawn on the CPU from `generator` (seed 0 when None), the
+    trunk's first, then moved to `device`."""
+
+    def __init__(
+        self,
+        config: BaseViTConfig,
+        num_labels: int = 1000,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.config = config
+        self.vit = ViTModel(config, generator=generator)
+        self.classifier = Linear(config.hidden_size, num_labels, True, config,
+                                 generator)
+        if device is not None:
+            self.to(device)
+
+    def forward(self, pixel_values: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """pixel_values [B, H, W, C] -> logits [B, num_labels] f32.
+        `generator` feeds dropout and stochastic depth while training."""
+        x = self.vit(pixel_values, generator=generator)["last_hidden_state"]
+        return self.classifier(x[:, 0]).float()

@@ -1,11 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every `msvit_tpu_torch/csrc/*.cu` is compiled by `nvcc` for Hopper
-(`sm_90a`) into ONE shared library with a plain C interface, loaded with
+(`sm_90a`), one `nvcc` per source, all started together, and the objects
+are linked into ONE shared library with a plain C interface, loaded with
 `ctypes`.  Nothing is built at import: the first kernel launch calls
 `library()`, which builds into `msvit_tpu_torch/_build/` (listed in
 `.gitignore`).  The library's file name carries a hash of the sources and
 the flags, so a stale library is never loaded.  A failed build raises.
+ptxas's report (registers, shared memory, spills per kernel) is kept
+beside the library (`ptxas_report()`).
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` turns a non-zero code into an exception.
@@ -25,10 +28,9 @@ from typing import List
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +45,14 @@ _SIGNATURES = {
                                _F, _F, _P],
     # qkv_q, scales[4], out, int8_out, b, n, h, dh, scale, stream
     "msvit_packed_attention_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # qkv, mask, out, lse, dtype, b, n, h, dh, mask_kind, mask_sb, mask_sh,
+    # scale, mask_value, stream
+    "msvit_packed_attention_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _LL, _LL, _F, _F, _P],
+    # qkv, mask, out, lse, g, delta, dqkv, dtype, b, n, h, dh, mask_kind,
+    # mask_sb, mask_sh, scale, mask_value, stream
+    "msvit_packed_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _LL, _LL, _F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -74,21 +84,50 @@ def _nvcc() -> str:
     )
 
 
+def _library_path() -> Path:
+    return BUILD_DIR / f"libmsvit_kernels_{source_hash()}.so"
+
+
+def ptxas_report() -> Path:
+    """ptxas's per-kernel report of the current library's build."""
+    return _library_path().with_suffix(".ptxas.txt")
+
+
 def build() -> Path:
     """Compile the kernels unless a library of the same sources exists;
     returns its path."""
-    so = BUILD_DIR / f"libmsvit_kernels_{source_hash()}.so"
+    so = _library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for cu in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{cu.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj), str(cu)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    report, failed = [], []
+    for cmd, _, proc in jobs:  # wait for every compile, failed or not
+        text = proc.communicate()[0]
+        report.append(f"$ {' '.join(cmd)}\n{text}")
+        if proc.returncode != 0:
+            failed.append(report[-1])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    tmp = so.with_name(f"{tag}.tmp.so")
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+           *(str(obj) for _, obj, _ in jobs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink()
     if res.returncode != 0:
         raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}"
+            f"kernel link failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}"
         )
+    ptxas_report().write_text("\n".join(report))
     os.replace(tmp, so)
     return so
 

@@ -11,8 +11,12 @@ import torch
 
 from msvit_tpu_torch.ops.packed_attention import (
     packed_attention,
+    packed_attention_bwd,
+    packed_attention_bwd_plain,
     packed_attention_int8,
     packed_attention_int8_plain,
+    packed_attention_lse,
+    packed_attention_lse_plain,
     packed_attention_plain,
 )
 
@@ -84,9 +88,23 @@ def test_k1_large_logits_flatten_like_plain(dev):
 
 
 def test_k1_refuses_grad_and_bad_inputs(dev):
+    """A CUDA input that requires grad goes through PackedAttentionFunction:
+    K1-lse forward, K2 backward (one launch each), the gradient equal to
+    K2's plain version on the same residuals; bad inputs still raise."""
     x = _qkv(1, 37, 64, torch.float32, dev).requires_grad_()
-    with pytest.raises(NotImplementedError, match="training"):
-        packed_attention(x, 4)
+    g = _qkv(1, 37, 64, torch.float32, dev, seed=9)[..., :64].contiguous()
+    n1, n2, n0 = (packed_attention_lse.launches, packed_attention_bwd.launches,
+                  packed_attention.launches)
+    out = packed_attention(x, 4)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert packed_attention_lse.launches == n1 + 1
+    assert packed_attention_bwd.launches == n2 + 1
+    assert packed_attention.launches == n0
+    with torch.no_grad():
+        o, lse = packed_attention_lse_plain(x, 4)
+        want = packed_attention_bwd_plain(x, None, o, lse, g, 4)
+    assert (x.grad - want).abs().max().item() <= _bwd_tol(torch.float32, want)
     with torch.inference_mode():
         with pytest.raises(ValueError, match="head size"):
             packed_attention(_qkv(1, 37, 4 * 12, torch.bfloat16, dev), 4)
@@ -94,6 +112,78 @@ def test_k1_refuses_grad_and_bad_inputs(dev):
             packed_attention(_qkv(1, 37, 64, torch.bfloat16, dev)[:, ::2], 4)
         with pytest.raises(TypeError):
             packed_attention(_qkv(1, 37, 64, torch.float16, dev), 4)
+    with pytest.raises(ValueError, match="head size"):
+        packed_attention_lse(_qkv(1, 37, 4 * 12, torch.bfloat16, dev), 4)
+    with pytest.raises(ValueError, match="lse"):
+        xb = _qkv(1, 37, 64, torch.bfloat16, dev)
+        packed_attention_bwd(xb, None, xb[..., :64].contiguous(),
+                             torch.zeros(1, 4, 36, device=dev),
+                             xb[..., :64].contiguous(), 4)
+
+
+# K1-lse: out as K1 (p stays f32 into P.V in the kernel); lse is f32 from
+# f32 scores in another summation order: 1e-5 of its size.
+def _lse_err(got, want):
+    return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+
+# K2: the kernel mirrors the bf16 roundings of pb and ds, but its f32 sums
+# run in another order and can move a rounding by one bf16 step; bf16 3e-2
+# (the JAX package's bar for its backward), f32 1e-4, each of max |dqkv|.
+def _bwd_tol(dtype, want):
+    base = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    return base * max(1.0, want.float().abs().max().item())
+
+
+def _train_case(b, n, h, dh, dtype, dev, seed, mask=None, scale=1.0):
+    """Kernel vs plain for K1-lse (out, lse) and K2 (dqkv, from the plain
+    forward's residuals and a random cotangent)."""
+    x = _qkv(b, n, h * dh, dtype, dev, seed=seed)
+    if scale != 1.0:
+        x[..., : 2 * h * dh] *= scale
+    g = _qkv(b, n, h * dh, dtype, dev, seed=seed + 1)[..., : h * dh].contiguous()
+    n1, n2 = packed_attention_lse.launches, packed_attention_bwd.launches
+    with torch.no_grad():
+        o, lse = packed_attention_lse(x, h, mask=mask)
+        wo, wl = packed_attention_lse_plain(x, h, mask=mask)
+        got = packed_attention_bwd(x, mask, wo, wl, g, h)
+        want = packed_attention_bwd_plain(x, mask, wo, wl, g, h)
+    torch.cuda.synchronize()
+    assert (packed_attention_lse.launches, packed_attention_bwd.launches) == (n1 + 1, n2 + 1)
+    assert o.dtype == dtype and lse.dtype == torch.float32 and got.dtype == dtype
+    assert torch.isfinite(o).all() and torch.isfinite(got).all()
+    assert (o.float() - wo.float()).abs().max().item() <= _TOL[dtype]
+    assert _lse_err(lse, wl) <= 1e-5
+    assert (got.float() - want.float()).abs().max().item() <= _bwd_tol(dtype, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,dh", [(37, 4, 16), (197, 12, 64), (70, 2, 128),
+                                    (5, 3, 8)])
+def test_k1_lse_and_k2_match_plain(dev, dtype, n, h, dh):
+    _train_case(2, n, h, dh, dtype, dev, seed=20)
+
+
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+@pytest.mark.parametrize("heads_in_mask", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_lse_and_k2_masks_match_plain(dev, kind, heads_in_mask, dtype):
+    b, n, h, dh = 2, 37, 4, 16
+    r = torch.rand(b, heads_in_mask, n, n, generator=torch.Generator().manual_seed(21))
+    if kind == "bool":
+        m = r < 0.7
+        m[:, :, 0, :] = False  # fully masked row: mean(V), lse = mask_value + log N
+    else:
+        m = -100.0 * (r < 0.3).float()
+    _train_case(b, n, h, dh, dtype, dev, seed=22, mask=m.to(dev))
+    _train_case(b, n, h, dh, dtype, dev, seed=23, mask=m[:1].to(dev))  # broadcast
+
+
+def test_k1_lse_and_k2_large_logits(dev):
+    """q and k scaled by 12 (|s| in the hundreds): exact, finite, equal to
+    the plain versions."""
+    _train_case(2, 37, 4, 16, torch.float32, dev, seed=24, scale=12.0)
+    _train_case(2, 197, 12, 64, torch.float32, dev, seed=25, scale=12.0)
 
 
 def _int8(b, n, d, dev, seed):

@@ -16,7 +16,10 @@ import jax.numpy as jnp
 
 from msvit_tpu.ops import gelu as jgelu
 from msvit_tpu.ops import quant as jquant
+from msvit_tpu.ops.attention import DEFAULT_MASK_VALUE
 from msvit_tpu.ops.packed_attention import (
+    _packed_backward as j_packed_backward,
+    _packed_forward as j_packed_forward,
     packed_attention as j_packed,
     packed_attention_int8 as j_packed_int8,
 )
@@ -24,7 +27,10 @@ from msvit_tpu_torch.ops import gelu as tgelu
 from msvit_tpu_torch.ops import quant as tquant
 from msvit_tpu_torch.ops.packed_attention import (
     packed_attention,
+    packed_attention_bwd,
     packed_attention_int8,
+    packed_attention_lse,
+    packed_attention_plain,
 )
 
 B, N, D, H = 2, 37, 64, 4
@@ -102,6 +108,154 @@ def test_packed_attention_raises_off_cpu_without_kernel():
         packed_attention(x, H)
     with pytest.raises(ValueError, match="no kernel"):
         packed_attention_int8(x.to(torch.int8), torch.ones(3), H)
+
+
+# ------------------------------------------------ K1-lse, K2, autograd ----
+
+_BWD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def _close_scaled(got, want, tol):
+    """max |got - want| <= tol * max(1, max |want|)."""
+    want = _np(want)
+    np.testing.assert_allclose(_np(got), want, rtol=0,
+                               atol=tol * max(1.0, np.abs(want).max()))
+
+
+def _j_mask(m):
+    return None if m is None else jnp.asarray(m)
+
+
+def _t_mask(m):
+    return None if m is None else torch.from_numpy(m)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_kind", [None, "bool", "additive"])
+@pytest.mark.parametrize("scale", [None, 1.0])
+def test_packed_attention_lse_plain_matches_jax(dtype, mask_kind, scale):
+    """K1-lse plain vs JAX `_packed_forward(with_lse=True)` (interpret),
+    out and lse.  Tolerance: f32 1e-5 max abs; bf16 2e-2 (out; lse is f32
+    from f32 scores: 1e-4)."""
+    x = _qkv(10)
+    m = _mask(mask_kind, 11)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    sc = 1.0 / (D // H) ** 0.5 if scale is None else scale
+    want_o, want_l = j_packed_forward(
+        jnp.asarray(x, jdt), _j_mask(m), H, sc, DEFAULT_MASK_VALUE,
+        with_lse=True)
+    before = packed_attention_lse.launches
+    got_o, got_l = packed_attention_lse(torch.from_numpy(x).to(tdt), H,
+                                        mask=_t_mask(m), scale=scale)
+    assert packed_attention_lse.launches == before  # CPU: plain version
+    assert got_o.dtype == tdt and got_o.shape == (B, N, D)
+    assert got_l.dtype == torch.float32 and got_l.shape == (B, H, N)
+    np.testing.assert_allclose(_np(got_o), _np(want_o), atol=_TOL[dtype], rtol=0)
+    np.testing.assert_allclose(_np(got_l), _np(want_l),
+                               atol=1e-4 if dtype == "bfloat16" else 1e-5,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_kind", [None, "bool", "additive"])
+@pytest.mark.parametrize("scale", [None, 1.0])
+def test_packed_attention_bwd_plain_matches_jax(dtype, mask_kind, scale):
+    """K2 plain vs JAX `_packed_backward` (interpret) on the same
+    residuals (JAX's own forward) and cotangent.  Tolerance: f32 1e-5,
+    bf16 3e-2 (the bar of tests/test_packed_attention.py), each times
+    max(1, max |dqkv|): at scale 1.0 the logits reach ~20 and dqkv ~10."""
+    x = _qkv(12)
+    m = _mask(mask_kind, 13)
+    g = _qkv(14, shape=(B, N, D))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    sc = 1.0 / (D // H) ** 0.5 if scale is None else scale
+    jx, jm = jnp.asarray(x, jdt), _j_mask(m)
+    out, lse = j_packed_forward(jx, jm, H, sc, DEFAULT_MASK_VALUE, with_lse=True)
+    want = j_packed_backward(jx, jm, out, lse, jnp.asarray(g, jdt), H, sc,
+                             DEFAULT_MASK_VALUE)
+    before = packed_attention_bwd.launches
+    got = packed_attention_bwd(
+        torch.from_numpy(x).to(tdt), _t_mask(m),
+        torch.tensor(_np(out)).to(tdt), torch.tensor(_np(lse)),
+        torch.from_numpy(g).to(tdt), H, scale=scale)
+    assert packed_attention_bwd.launches == before
+    assert got.dtype == tdt and got.shape == (B, N, 3 * D)
+    _close_scaled(got, want, _BWD_TOL[dtype])
+
+
+def _jax_value_and_grad(x, m, g, dtype, scale=None):
+    jdt = getattr(jnp, dtype)
+
+    def f(q):
+        o = j_packed(q, H, mask=_j_mask(m), scale=scale)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(g))
+
+    return jax.value_and_grad(f)(jnp.asarray(x, jdt))
+
+
+def _torch_value_and_grad(x, m, g, dtype, scale=None):
+    q = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
+    o = packed_attention(q, H, mask=_t_mask(m), scale=scale)
+    val = (o.float() * torch.from_numpy(g)).sum()
+    val.backward()
+    return val.detach(), q.grad
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_kind", [None, "bool", "additive"])
+def test_packed_attention_grad_matches_jax(dtype, mask_kind):
+    """Autograd through `packed_attention` (PackedAttentionFunction: K1-lse
+    and K2 plain on the CPU) vs `jax.value_and_grad` of JAX's
+    `packed_attention`.  Value rtol 1e-5 (f32) / 1e-2 (bf16); dqkv f32
+    1e-5, bf16 3e-2, each times max(1, max |dqkv|)."""
+    x = _qkv(15)
+    m = _mask(mask_kind, 16)
+    g = _qkv(17, shape=(B, N, D))
+    jv, jg = _jax_value_and_grad(x, m, g, dtype)
+    n1, n2 = packed_attention_lse.launches, packed_attention_bwd.launches
+    tv, tg = _torch_value_and_grad(x, m, g, dtype)
+    assert (packed_attention_lse.launches, packed_attention_bwd.launches) == (n1, n2)
+    assert tg.dtype == getattr(torch, dtype) and tg.shape == (B, N, 3 * D)
+    np.testing.assert_allclose(float(tv), float(jv),
+                               rtol=1e-5 if dtype == "float32" else 1e-2)
+    _close_scaled(tg, jg, _BWD_TOL[dtype])
+
+
+def test_packed_training_stable_at_large_logits_like_jax():
+    """Port of tests/test_packed_attention.py::
+    test_packed_training_stable_at_large_logits: q and k scaled by 12
+    (logits far past the inference clamp), f32 [2, 37, 192], 4 heads.
+    Under autograd the port must take JAX's max-subtracted `with_lse`
+    softmax, not the shaved one: value rtol 1e-3, dqkv 3e-2."""
+    rng = np.random.default_rng(18)
+    x = rng.standard_normal((2, 37, 192)).astype(np.float32)
+    x[..., :128] *= 12.0  # q | k sections
+    g = rng.standard_normal((2, 37, 64)).astype(np.float32)
+    jv, jg = _jax_value_and_grad(x, None, g, "float32")
+    tv, tg = _torch_value_and_grad(x, None, g, "float32")
+    assert np.isfinite(_np(tg)).all()
+    np.testing.assert_allclose(float(tv), float(jv), rtol=1e-3)
+    np.testing.assert_allclose(_np(tg), _np(jg), atol=3e-2, rtol=0)
+
+
+def test_packed_attention_gradcheck_float64():
+    """torch.autograd.gradcheck of PackedAttentionFunction (plain versions
+    in float64) on a tiny shape with a bool mask and a fully masked row."""
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.standard_normal((1, 5, 24))).requires_grad_()
+    m = torch.from_numpy(rng.random((1, 1, 5, 5)) < 0.7)
+    m[..., 1, :] = True
+    assert torch.autograd.gradcheck(
+        lambda q: packed_attention(q, 2, mask=m), (x,), eps=1e-6, atol=1e-5)
+
+
+def test_packed_attention_inference_path_unchanged():
+    """Without autograd the dispatch stays on K1 (shaved softmax), even
+    for a tensor that requires grad."""
+    x = torch.from_numpy(_qkv(20, scale=12.0)).requires_grad_()
+    with torch.no_grad():
+        got = packed_attention(x, H)
+    np.testing.assert_array_equal(_np(got), _np(packed_attention_plain(x.detach(), H)))
 
 
 # ------------------------------------------------------------------ K3 ----
