@@ -9,7 +9,7 @@ fails (non-zero exit, no result line) if any phase fails:
    card's name and power limit as nvidia-smi reports them;
 2. build: compiles the hand-written kernels from `msvit_tpu_torch/csrc`
    (one nvcc per source, in parallel) and prints ptxas's registers and
-   spills for the training kernels;
+   spills for the training and the fused kernels;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (max abs error against a stated tolerance), then
    both timed with CUDA events in turns (plain, kernel, kernel, plain):
@@ -28,12 +28,22 @@ fails (non-zero exit, no result line) if any phase fails:
    restores step 10 bit for bit, K1-lse and K2 were launched; one step
    with remat gives the gradients of one without;
 7. step time: the train step at bs64 and bs256 (`benchmarks/bench_train.py`'s
-   size), ms/step, img/s and peak memory.
+   size), ms/step, img/s and peak memory;
+8. multistate serving at `bench.py`'s config (ViT-B/8 @224, 816 tokens,
+   spectral clustering at layers 4, 6, 8 and 10), seeded weights, int8
+   calibrated on 8 images: without clustering events the int8 (K4) and
+   bf16 (K5) forwards against the plain attention path and int8 against
+   bf16; with them, valid outputs, K4 and K5 launched 11 times per forward
+   of their own, the partition's agreement with the plain path, ms/batch,
+   img/s, clustering's share, peak memory and host syncs;
+9. fused kernels: K4 and K5 against their plain versions at [8,12,816,64]
+   with the soft mask of the served partition (also a bool mask with a
+   fully masked row, f32, and cross-context K/V), then timed.
 
 The second-to-last line is a JSON object with each kernel's launches in its
-path's run (serving for K1 and K3, training for K1-lse and K2), its error
-and its time beside the plain version's; the last is
-`{"ok": true, "device": {...}}`.
+path's run (serving for K1 and K3, training for K1-lse and K2, the
+clustered multistate forwards for K4 and K5), its error and its time beside
+the plain version's; the last is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -70,6 +81,22 @@ K2_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 GRAD_LOSS_REL_TOL = 1e-2
 GRAD_COS_TOL = 0.99
 LAYERS = 12
+# multistate serving at the bench config: ViT-B/8 @224, 784 patch tokens
+# + 2 x 16 TX/RX slots, batch 8.  K4/K5 take K1's tolerances (they too keep
+# p in f32 into P.V where the plain versions round it), each of max(1, max
+# |plain|): under a real partition a row may attend a few keys only, its
+# output near a single value of V, where one bf16 step is 2^-8 of it
+MS_BATCH = 8
+MS_CLUSTERS = 16
+MS_SHAPE = (MS_BATCH, 12, 816, 64)  # the attention's [B, H, N, dh]
+# kernel path vs plain attention path, the same weights, no clustering
+# event.  bf16: the parity bar.  int8: every activation is requantized to
+# int8 at a static scale, so a one-ulp difference at a rounding boundary
+# moves a whole int8 step and the two paths' roundings decorrelate over 12
+# layers: they sit about twice as far apart as each sits from bf16 (int8 vs
+# bf16 0.9989 measured on an NVIDIA H100, so ~0.9978), hence 0.995
+MS_BF16_COS = 0.999
+MS_INT8_COS = 0.995
 
 
 def log(msg: str) -> None:
@@ -528,8 +555,247 @@ def step_time_phase(dev, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+def multistate_config(**overrides):
+    """The multistate serving config of `bench.py::_bench_multistate`."""
+    from msvit_tpu_torch.models.clustering import SpectralClusteringConfig
+    from msvit_tpu_torch.models.multistate import MultiStateViTConfig
+
+    cfg = MultiStateViTConfig(
+        patch_size=8, image_size=224, pregeneration_period=4, generation_period=2,
+        clustering=SpectralClusteringConfig(
+            ncut_dim=8, num_sample=1024, max_clusters=MS_CLUSTERS,
+            eigenvalue_threshold=0.1, ncut_dist="rbf", eig_method="subspace",
+            late_num_sample=256))
+    return dataclasses.replace(cfg, **overrides)
+
+
+def scene_pixels(seed: int, k: int = 6) -> torch.Tensor:
+    """[8, 224, 224, 3] images of 8x8 patches copied from k seeded
+    prototypes (plus a little noise), laid out in 4 x 4 blocks of 7 x 7
+    patches: the tokens fall into k groups, so clustering has a partition
+    to find.  (At random weights, N(0, 1) pixels give it none: every
+    event keeps one cluster.)"""
+    g = torch.Generator().manual_seed(seed)
+    protos = torch.randn(k, 8, 8, 3, generator=g) * 3.0
+    blocks = torch.randint(0, k, (MS_BATCH, 4, 4), generator=g)
+    lab = blocks.repeat_interleave(7, 1).repeat_interleave(7, 2)  # [B, 28, 28]
+    x = protos[lab] + 0.1 * torch.randn(MS_BATCH, 28, 28, 8, 8, 3, generator=g)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(MS_BATCH, 224, 224, 3)
+
+
+def _fused_counts() -> dict:
+    from msvit_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_inference)
+
+    return {"K4": fused_attention_inference.launches, "K5": fused_attention.launches}
+
+
+def _reset_fused_counts() -> None:
+    from msvit_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_inference)
+
+    fused_attention_inference.launches = 0
+    fused_attention.launches = 0
+
+
+def wall_ms(fn, runs: int = 10, warmup: int = 2) -> float:
+    """Mean host ms per call of work that ends in a synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / runs * 1e3
+
+
+def min_cos(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The smallest per-image cosine."""
+    return min(cos(x, y) for x, y in zip(a, b))
+
+
+def _check_multistate_out(label: str, out: dict, cfg) -> None:
+    lh, tx = out["last_hidden_state"], out["cluster_tokens"]
+    rt, ids = out["receiver_to_transmitter_attentions"], out["last_cluster_indices"]
+    nc = out["num_clusters"]
+    b, c, d, n = MS_BATCH, cfg.max_clusters, cfg.hidden_size, cfg.num_patches
+    shapes = (tuple(lh.shape), tuple(tx.shape), tuple(rt.shape), tuple(ids.shape))
+    if shapes != ((b, n, d), (b, c, d), (b, cfg.num_attention_heads, c, c), (b, n)):
+        raise AssertionError(f"{label}: output shapes {shapes}")
+    if not all(torch.isfinite(t).all() for t in (lh, tx, rt)):
+        raise AssertionError(f"{label}: non-finite outputs")
+    if nc.numel() != 1 or not 1 <= int(nc) <= c:
+        raise AssertionError(f"{label}: num_clusters {nc.tolist()}")
+    if int(ids.min()) < 0 or int(ids.max()) >= int(nc):
+        raise AssertionError(f"{label}: cluster ids outside [0, {int(nc)})")
+
+
+def multistate_phase(dev, smi: str) -> tuple:
+    """The multistate encoder served at the bench config, seeded weights:
+    the int8 forward (K4) and the bf16 eval forward (K5), each against the
+    plain attention path, without and with clustering events; launches,
+    outputs, times.  Returns (launches, the int8 run's partition)."""
+    from msvit_tpu_torch.models.multistate import (
+        MultiStateViTEncoderModel, calibrate_multistate_act_scales,
+        quantize_multistate_params, quantized_multistate_apply)
+    from msvit_tpu_torch.utils.rng import Rng
+
+    t0 = time.perf_counter()
+    cfg = multistate_config()
+    flat = multistate_config(pregeneration_period=LAYERS)  # no clustering event
+    model = MultiStateViTEncoderModel(
+        cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
+    state = model.state_dict()
+
+    def twin(c):  # the same weights under another config
+        m = MultiStateViTEncoderModel(c, device=dev).eval()
+        m.load_state_dict(state)
+        return m
+
+    qparams = quantize_multistate_params(model)
+    scales = calibrate_multistate_act_scales(qparams, cfg, scene_pixels(1).to(dev), Rng(0))
+    pix = scene_pixels(2).to(dev)
+    torch.cuda.synchronize()
+    log(f"[multistate] ViT-B/8 multistate encoder (816 tokens, 16 cluster slots) built, "
+        f"quantized, calibrated on 8 seeded scene images in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def int8(c, use_kernels=None):
+        return quantized_multistate_apply(qparams, c, pix, Rng(3), act_scales=scales,
+                                          use_kernels=use_kernels)
+
+    def bf16(m):
+        with torch.inference_mode():
+            return m(pix, rng=Rng(3))
+
+    # no clustering event: one valid cluster slot; the shave (K4) and the
+    # exact softmax differ only in the empty slots' fully penalised rows
+    flat_k = twin(flat)
+    flat_p = twin(dataclasses.replace(flat, attn_implementation="xla"))
+    ik, ip, bk, bp = int8(flat), int8(flat, use_kernels=False), bf16(flat_k), bf16(flat_p)
+    def agree(a, b):  # min per-image cosine of the patch tokens and of TX_0
+        return min(min_cos(a["last_hidden_state"], b["last_hidden_state"]),
+                   min_cos(a["cluster_tokens"][:, :1], b["cluster_tokens"][:, :1]))
+
+    c_int8, c_bf16, c_mixed, c_floor = agree(ik, ip), agree(bk, bp), agree(ik, bk), agree(ip, bp)
+    log(f"[multistate] no clustering event, min per-image cosine: bf16 kernel path vs "
+        f"plain path {c_bf16!r} (tolerance >= {MS_BF16_COS!r}); int8 kernel path vs "
+        f"plain path {c_int8!r} (tolerance >= {MS_INT8_COS!r}); int8 vs bf16 on the kernel "
+        f"path {c_mixed!r}, on the plain path {c_floor!r} (tolerance >= 0.98)")
+    if c_bf16 < MS_BF16_COS or c_int8 < MS_INT8_COS:
+        raise AssertionError("multistate kernel path disagrees with the plain path")
+    if min(c_mixed, c_floor) < 0.98:
+        raise AssertionError("multistate int8 disagrees with bf16")
+    del flat_k, flat_p, ik, ip, bk, bp
+
+    # the bench config: clustering at layers 4, 6, 8 and 10
+    _reset_fused_counts()
+    ci = int8(cfg)
+    n_int8 = _fused_counts()
+    _reset_fused_counts()
+    cb = bf16(model)
+    n_bf16 = _fused_counts()
+    torch.cuda.synchronize()
+    log(f"[multistate] launches per forward: int8 {n_int8}, bf16 {n_bf16}")
+    if n_int8 != {"K4": LAYERS - 1, "K5": 0} or n_bf16 != {"K4": 0, "K5": LAYERS - 1}:
+        raise AssertionError(f"launches int8 {n_int8}, bf16 {n_bf16}: want K4 and K5 "
+                             f"{LAYERS - 1} times each in its own forward")
+    launches = {"K4": n_int8["K4"], "K5": n_bf16["K5"]}
+    _check_multistate_out("int8", ci, cfg)
+    _check_multistate_out("bf16", cb, cfg)
+    cp = int8(cfg, use_kernels=False)
+    bfp = bf16(twin(dataclasses.replace(cfg, attn_implementation="xla")))
+    for label, got, want in (("int8", ci, cp), ("bf16", cb, bfp)):
+        same = (got["last_cluster_indices"] == want["last_cluster_indices"]).float().mean()
+        log(f"[multistate] {label} with clustering: num_clusters {int(got['num_clusters'])} "
+            f"(plain path {int(want['num_clusters'])}), tokens in the same cluster as "
+            f"on the plain path {same.item()!r}; cluster sizes "
+            f"{torch.bincount(got['last_cluster_indices'].flatten(), minlength=MS_CLUSTERS).tolist()}")
+    del cp, bfp
+    torch.cuda.empty_cache()
+
+    # host syncs of one forward (`eigh` checks its error code on the host)
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        int8(cfg)
+    torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+
+    t_int8 = wall_ms(lambda: int8(cfg))
+    t_flat = wall_ms(lambda: int8(flat))
+    t_bf16 = wall_ms(lambda: bf16(model))
+    torch.cuda.reset_peak_memory_stats()
+    int8(cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[multistate] int8 forward bs8 with clustering: {t_int8!r} ms/batch "
+        f"({MS_BATCH / t_int8 * 1e3!r} img/s); without events {t_flat!r} ms, so "
+        f"clustering (4 events) takes {(t_int8 - t_flat) / t_int8!r} of the forward; "
+        f"bf16 forward {t_bf16!r} ms/batch ({MS_BATCH / t_bf16 * 1e3!r} img/s); "
+        f"peak memory {peak!r} GiB during an int8 forward (bf16 and int8 weights "
+        f"resident); host syncs per forward {syncs} (10 runs after 2 of warm-up, "
+        f"host clock; {smi})")
+    return launches, (ci["last_cluster_indices"], ci["num_clusters"])
+
+
+def fused_kernel_phase(dev, smi: str, partition) -> dict:
+    """K4 and K5 against their plain versions at the multistate shape, on
+    q/k/v views of a packed QKV output, the soft mask of the served
+    partition; also a bool mask with a fully masked row, f32, and
+    cross-context K/V (Nq 197, Nk 816); then both timed."""
+    from msvit_tpu_torch.models.multistate import build_multistate_attention_mask
+    from msvit_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_inference, fused_attention_inference_plain,
+        fused_attention_plain)
+    from msvit_tpu_torch.ops.packed_attention import unpack_qkv
+
+    b, h, n, dh = MS_SHAPE
+    g = torch.Generator().manual_seed(8)
+    ids, n_clusters = partition
+    soft = torch.where(build_multistate_attention_mask(ids, n_clusters, MS_CLUSTERS),
+                       0.0, -100.0)  # [8, 1, 816, 816] f32
+    mb = torch.rand(b, 1, n, n, generator=g) < 0.7
+    mb[0, 0, 5, :] = False  # one fully masked row: mean(V)
+    mb = mb.to(dev)
+    x = torch.randn(b, n, 3 * h * dh, generator=g).to(dev)
+    qf, kf, vf = unpack_qkv(x, h)
+    q, k, v = unpack_qkv(x.to(torch.bfloat16), h)
+    res = {}
+    with torch.inference_mode():
+        for name, fn, plain in (("K4", fused_attention_inference, fused_attention_inference_plain),
+                                ("K5", fused_attention, fused_attention_plain)):
+            cases = [
+                (f"bf16 {list(MS_SHAPE)} soft mask of the served partition", (q, k, v), soft),
+                (f"bf16 {list(MS_SHAPE)} bool mask [8,1,816,816], one row fully masked",
+                 (q, k, v), mb),
+                (f"f32 {list(MS_SHAPE)} soft mask (tf32 off)", (qf, kf, vf), soft),
+                ("bf16 cross-context Nq 197, Nk 816, soft mask",
+                 (q[:, :, :197], k, v), soft[:, :, :197]),
+            ]
+            errs = []
+            for label, (qq, kk, vv), m in cases:
+                want = plain(qq, kk, vv, mask=m)
+                err = max_err(fn(qq, kk, vv, mask=m), want)
+                tol = K1_TOL[qq.dtype] * max(1.0, want.float().abs().max().item())
+                log(f"[fused-kernels] {name} {label}: max_abs_err {err!r} (tolerance "
+                    f"{tol!r}) {'ok' if err <= tol else 'FAILED'}")
+                if err > tol:
+                    raise AssertionError(f"{name} {label}: error {err} > {tol}")
+                errs.append(err)
+            ms, plain_ms = race(lambda: fn(q, k, v, mask=soft),
+                                lambda: plain(q, k, v, mask=soft))
+            torch.cuda.synchronize()
+            log(f"[fused-kernels] {name} bf16 {list(MS_SHAPE)} soft mask: kernel {ms!r} ms, "
+                f"plain {plain_ms!r} ms (median of 20, CUDA events; {smi})")
+            res[name] = dict(err=errs[0], ms=ms, plain_ms=plain_ms)
+    return res
+
+
 def ptxas_lines() -> list:
-    """Registers and spills of the training kernels from ptxas's report."""
+    """Registers and spills of the training and the fused kernels from
+    ptxas's report."""
     from msvit_tpu_torch.ops import _build
 
     out, name = [], None
@@ -542,9 +808,11 @@ def ptxas_lines() -> list:
         if m and name:
             spill = f"spills {m.group(1)}/{m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and re.search(r"lse_kernel|packed_bwd", name):
-            kern = re.search(r"(packed_(?:bwd_dq|bwd_dkv|attention_lse)_kernel)",
-                             name).group(1)
+        if m and name and re.search(r"lse_kernel|packed_bwd|fused_attention", name):
+            kern = re.search(r"(packed_(?:bwd_dq|bwd_dkv|attention_lse)_kernel|"
+                             r"fused_attention_kernel)", name).group(1)
+            if kern == "fused_attention_kernel":
+                kern = "K4 fused_attention_kernel" if "Lb1E" in name else "K5 fused_attention_kernel"
             dh = re.search(r"Li(\d+)E", name).group(1)
             dt = "bf16" if "bfloat16" in name else "f32"
             out.append(f"{kern} {dt} dh{dh}: {m.group(1)} registers, {spill}")
@@ -580,17 +848,24 @@ def main() -> None:
     launches.update(training_phase(dev, smi))
     torch.cuda.empty_cache()
     step_time_phase(dev, smi)
+    torch.cuda.empty_cache()
+    ms_launches, partition = multistate_phase(dev, smi)
+    launches.update(ms_launches)
+    torch.cuda.empty_cache()
+    kernels.update(fused_kernel_phase(dev, smi, partition))
     src = "msvit_tpu_torch/csrc/"
-    tpu = "msvit_tpu/ops/packed_attention.py:"
+    packed, fused = "msvit_tpu/ops/packed_attention.py:", "msvit_tpu/ops/fused_attention.py:"
     rows = [
-        dict(name=name, route="cuda", source=src + cu, replaces=tpu + line,
+        dict(name=name, route="cuda", source=src + cu, replaces=tpu,
              launches=launches[k], max_abs_err=kernels[k]["err"],
              ms=kernels[k]["ms"], plain_ms=kernels[k]["plain_ms"])
-        for k, name, cu, line in (
-            ("K1", "packed_attention", "packed_attention.cu", "118"),
-            ("K3", "packed_attention_int8", "packed_attention_int8.cu", "883"),
-            ("K1-lse", "packed_attention_lse", "packed_attention_lse.cu", "118"),
-            ("K2", "packed_attention_bwd", "packed_attention_bwd.cu", "682"),
+        for k, name, cu, tpu in (
+            ("K1", "packed_attention", "packed_attention.cu", packed + "118"),
+            ("K3", "packed_attention_int8", "packed_attention_int8.cu", packed + "883"),
+            ("K1-lse", "packed_attention_lse", "packed_attention_lse.cu", packed + "118"),
+            ("K2", "packed_attention_bwd", "packed_attention_bwd.cu", packed + "682"),
+            ("K4", "fused_attention_inference", "fused_attention.cu", fused + "303"),
+            ("K5", "fused_attention", "fused_attention.cu", fused + "141"),
         )
     ]
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,6 @@
 """Flax param tree -> state dict of the port's `ViTModel` (and of
-`ViTForImageClassification`, `classifier_params_from_jax`).
+`ViTForImageClassification`, `classifier_params_from_jax`, and of
+`MultiStateViTEncoderModel`, `multistate_params_from_jax`).
 
 Takes the JAX package's `ViTModel` params as nested dicts of numpy arrays
 (with or without the top-level "params" collection) and never imports JAX.
@@ -89,6 +90,27 @@ def classifier_params_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Ten
         params = params["params"]
     out = {f"vit.{k}": v for k, v in vit_params_from_jax(params["vit"], cfg).items()}
     _dense(out, "classifier", params["classifier"])
+    return out
+
+
+def multistate_params_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX `MultiStateViTEncoderModel` params ({"embeddings": ...,
+    "backbone": {"transmitter_token", "receiver_token", "layer_i"}}) ->
+    state dict for the port's `MultiStateViTEncoderModel`."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    emb = params["embeddings"]
+    _dense(out, "embeddings.patch_projection", emb["patch_projection"])
+    out["embeddings.position_embeddings"] = _t(emb["position_embeddings"])
+    bb = params["backbone"]
+    out["backbone.transmitter_token"] = _t(bb["transmitter_token"])
+    out["backbone.receiver_token"] = _t(bb["receiver_token"])
+    n_layers = len([k for k in bb if k.startswith("layer_")])
+    if cfg is not None and n_layers != cfg.num_hidden_layers:
+        raise ValueError(f"tree has {n_layers} layers, config {cfg.num_hidden_layers}")
+    for i in range(n_layers):
+        _layer(out, f"backbone.layer.{i}", bb[f"layer_{i}"])
     return out
 
 

@@ -1,1 +1,2 @@
-"""Model families of the port (the base trunk so far)."""
+"""Model families of the port: the base trunk, token clustering and the
+multistate encoder."""

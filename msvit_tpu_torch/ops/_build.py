@@ -53,6 +53,13 @@ _SIGNATURES = {
     # mask_sb, mask_sh, scale, mask_value, stream
     "msvit_packed_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _LL, _LL, _F, _F, _P],
+    # q, k, v, mask, out, dtype, b, h, nq, nk, dh, strides[12] (host),
+    # mask_kind, mask_sb, mask_sh, scale, mask_value, stream
+    "msvit_fused_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              ctypes.POINTER(_LL), _I, _LL, _LL, _F, _F, _P],
+    "msvit_fused_attention_inference": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, ctypes.POINTER(_LL), _I, _LL,
+                                        _LL, _F, _F, _P],
 }
 
 _lock = threading.Lock()

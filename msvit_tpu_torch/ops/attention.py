@@ -5,8 +5,9 @@ float masks are additive, cross-context keys/values are concatenated onto
 K/V by the caller, softmax statistics are float32.
 
 ``xla_attention`` is the plain path (plain tensor ops in the JAX package
-too, so plain torch here).  The Pallas kernels the JAX dispatch can reach
-(`fused` K4/K5, `flash` K7) are not ported yet: asking for them raises.
+too, so plain torch here).  ``"fused"`` runs the per-head fused kernels
+(`ops/fused_attention.py`: K5, or K4 with ``inference=True``); ``"flash"``
+(K7) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -19,10 +20,9 @@ import torch
 # masked rows while being -inf for softmax purposes in f32.
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-_NOT_PORTED = (
-    "attention implementation {!r} needs a kernel not ported yet "
-    "(ops/fused_attention.py K4/K5, ops/flash_attention.py K7; ROADMAP.md "
-    "queue 2)"
+_FLASH_NOT_PORTED = (
+    "attention implementation 'flash' needs K7 (ops/flash_attention.py "
+    "`_flash_forward`), not ported yet (ROADMAP.md queue 2)"
 )
 
 
@@ -59,6 +59,12 @@ def xla_attention(
     return out.to(q.dtype), probs
 
 
+def _kernel_shapes_ok(q, k, mask) -> bool:
+    """The fused kernels take 4D [B, H, N, dh] operands and no mask or a
+    4D one (bool or additive)."""
+    return q.ndim == 4 and k.ndim == 4 and (mask is None or mask.ndim == 4)
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -68,27 +74,36 @@ def multi_head_attention(
     implementation: str = "auto",
     output_probs: bool = False,
     mask_value: float = DEFAULT_MASK_VALUE,
+    inference: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Dispatching attention front end.
+    """Dispatching attention front end, the JAX package's rule.
 
-    "auto" takes the plain path where the JAX package leaves its kernels:
-    probabilities requested, K/V longer than Q, fewer than 512 kv tokens,
-    or tensors on the CPU.  Elsewhere on the card JAX would run the
-    fused/flash kernels, which this port does not have yet, so it raises
-    rather than silently running a different path."""
+    "auto" takes the plain path where JAX leaves its kernels: probabilities
+    requested, fewer than 512 kv tokens, or tensors on the CPU (JAX off the
+    TPU).  Otherwise (K/V as long as Q or longer alike) it takes "fused":
+    K5, or K4 with ``inference=True`` (serving only, not differentiable).
+    JAX's VMEM gate `_fused_eligible`, which sends larger score tiles to
+    flash (K7), has no counterpart: the port's fused kernels have no tile
+    limit.  "fused" with probabilities requested or other than 4D operands
+    takes the plain path, as in JAX."""
     if implementation == "auto":
-        plain = (
-            output_probs
-            or q.device.type == "cpu"
-            or k.shape[-2] != q.shape[-2]
-            or k.shape[-2] < 512
+        if output_probs or q.device.type == "cpu" or k.shape[-2] < 512:
+            implementation = "xla"
+        elif _kernel_shapes_ok(q, k, mask):
+            implementation = "fused"
+        else:
+            implementation = "xla"
+    if implementation == "fused" and not output_probs and _kernel_shapes_ok(q, k, mask):
+        from msvit_tpu_torch.ops.fused_attention import (
+            fused_attention,
+            fused_attention_inference,
         )
-        if not plain:
-            raise NotImplementedError(_NOT_PORTED.format("auto (fused/flash)"))
-        implementation = "xla"
-    if implementation in ("fused", "flash"):
-        raise NotImplementedError(_NOT_PORTED.format(implementation))
-    if implementation not in ("xla", "packed"):
+
+        fn = fused_attention_inference if inference else fused_attention
+        return fn(q, k, v, mask=mask, scale=scale, mask_value=mask_value), None
+    if implementation == "flash":
+        raise NotImplementedError(_FLASH_NOT_PORTED)
+    if implementation not in ("xla", "packed", "fused"):
         raise ValueError(f"unknown attention implementation {implementation!r}")
     out, probs = xla_attention(
         q, k, v, mask=mask, scale=scale, mask_value=mask_value

@@ -1,0 +1,223 @@
+"""Per-head fused attention (counterpart of `msvit_tpu/ops/fused_attention.py`).
+
+Attention on ``q [B, H, Nq, dh]`` and ``k, v [B, H, Nk, dh]`` (Nq != Nk
+allowed: cross-context K/V), bool (True = attend) or additive f32 masks
+``[B|1, 1|H, Nq, Nk]`` applied after the f32 upcast.  Two kernels, one
+hand-written CUDA source for Hopper (`csrc/fused_attention.cu`) with two
+entry points, each with a plain PyTorch version beside it:
+
+* `fused_attention` -- K5, the TPU kernel `_fused_forward` without its lse
+  branch: the exact, max-subtracted softmax (the bf16 eval forward of the
+  multistate encoder).  Under autograd on the card it raises: the training
+  forward (K5's lse branch) and its backward (K6) are the next slice.
+* `fused_attention_inference` -- K4, the TPU kernel `_fused_inference`:
+  the shaved serving softmax exp(clip(s, +-80)) with no row max, exact for
+  |s| < 80 (the multistate int8 serving forward).
+
+The kernels read q, k, v through their strides (the last dim contiguous),
+so views of the QKV GEMM output need no copy, and write the output
+``[B, Nq, H, dh]`` in memory, returned as the ``[B, H, Nq, dh]`` view.
+
+Each wrapper takes the plain version for a tensor on the CPU, and for a
+tensor on the card launches its kernel or raises: there is no fallback.
+Each counts its kernel launches (`.launches`).
+
+Fully masked rows: the port gives mean(V) over the Nk keys.  The TPU
+kernels give sum(V) / (ceil(Nk / 128) * 128): the keys they pad up to a
+multiple of 128 enter the softmax's denominator (K5 with p = exp(0), K4
+with exp(-80)).  The port does not copy that padding artifact
+(`tests/test_torch_multistate.py::test_fully_masked_row_deviation`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from msvit_tpu_torch.ops import _build
+from msvit_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
+from msvit_tpu_torch.ops.packed_attention import _DTYPE_CODES, _acc, _ptr, _scores
+
+_NEXT_SLICE = (
+    "fused_attention under autograd on the card needs K5's lse branch "
+    "(`_fused_forward(with_lse=True)`) and the K6 backward "
+    "(`flash_attention_bwd`), not ported yet (ROADMAP.md queue 1, item 5: "
+    "multistate training)"
+)
+
+
+def _dims(q, k, v):
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(
+            f"q, k, v must be [B, H, N, dh]; got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    if tuple(k.shape) != (b, h, nk, dh) or tuple(v.shape) != (b, h, nk, dh):
+        raise ValueError(
+            f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+            f"[{b}, {h}, Nk, {dh}]")
+    return b, h, nq, nk, dh
+
+
+# ---------------------------------------------------------- plain versions
+
+
+def fused_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> torch.Tensor:
+    """Plain version of K5, the TPU kernel `_kernel` step for step: f32
+    scores times `scale`, the mask after the upcast, m = row max,
+    p = exp(s - m), l = sum p in f32, P.V with p rounded to v's dtype,
+    times 1/l (1 where l == 0).  A row whose scores are all -inf gives
+    zeros.  f64 inputs compute in f64."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    acc = _acc(q.dtype)
+    s = _scores(q, k, scale, mask, mask_value, acc)
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(m == -torch.inf, 0.0, m)  # all -inf: p = 0, not NaN
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).to(acc), v.to(acc))
+    return (o * torch.where(l == 0.0, 1.0, 1.0 / l)).to(q.dtype)
+
+
+def fused_attention_inference_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> torch.Tensor:
+    """Plain version of K4, the TPU kernel `_kernel_inference` step for
+    step: f32 scores times `scale`, the mask after the upcast,
+    p = exp(clip(s, -80, 80)), l = sum p in f32, P.V with p rounded to v's
+    dtype, then / l."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    s = _scores(q, k, scale, mask, mask_value)
+    p = torch.exp(s.clamp(-80.0, 80.0))
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (o / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
+# ----------------------------------------------------------------- kernels
+
+
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """`t` if the kernel can read it through its strides (last dim
+    contiguous, every row 16-byte aligned), else a contiguous copy."""
+    es = t.element_size()
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all((s * es) % 16 == 0 for s in t.stride()[:3]))
+    return t if ok else t.contiguous()
+
+
+def _mask_args(mask, b, h, nq, nk, device, name):
+    """(kind, mask tensor, image stride, head stride): kind 0 none, 1 bool
+    (one byte per entry), 2 additive f32; strides in elements, 0 where the
+    mask broadcasts."""
+    if mask is None:
+        return 0, None, 0, 0
+    if (mask.ndim != 4 or mask.shape[0] not in (1, b) or mask.shape[1] not in (1, h)
+            or tuple(mask.shape[2:]) != (nq, nk)):
+        raise ValueError(
+            f"{name}: mask {tuple(mask.shape)} does not fit [B|1, 1|H, {nq}, {nk}]")
+    if mask.device != device:
+        raise ValueError(f"{name}: mask on another device")
+    if mask.dtype == torch.bool:
+        kind, m = 1, mask.view(torch.uint8)
+    elif mask.is_floating_point():
+        kind, m = 2, mask.to(torch.float32)
+    else:
+        raise TypeError(f"{name}: mask dtype {mask.dtype}")
+    if m.stride(3) != 1 or m.stride(2) != nk:
+        m = m.contiguous()
+    sb = m.stride(0) if m.shape[0] > 1 else 0
+    sh = m.stride(1) if m.shape[1] > 1 else 0
+    return kind, m, sb, sh
+
+
+def _run(wrapper, entry: str, plain, q, k, v, mask, scale, mask_value, grad_error):
+    """The plain version for CPU tensors; for CUDA tensors the kernel
+    `entry` (counted on `wrapper.launches`), or an exception."""
+    name = wrapper.__name__
+    b, h, nq, nk, dh = _dims(q, k, v)
+    if scale is None:
+        scale = 1.0 / dh**0.5
+    if q.device.type == "cpu":
+        return plain(q, k, v, mask, scale, mask_value)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(grad_error)
+    for t in (q, k, v):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: no kernel for tensors on {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: q, k, v on different devices")
+        if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{name}: dtypes {q.dtype}, {k.dtype}, {v.dtype} "
+                            "unsupported (f32 or bf16, all alike)")
+    if dh % 8 or dh > 128:
+        raise ValueError(f"{name}: head size {dh} unsupported (a multiple of 8, <= 128)")
+    q, k, v = _operand(q), _operand(k), _operand(v)
+    kind, m, sb, sh = _mask_args(mask, b, h, nq, nk, q.device, name)
+    out = torch.empty((b, nq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        code = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, h, nq, nk, dh, strides, kind, sb, sh,
+            float(scale), float(mask_value), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, code, name)
+    wrapper.launches += 1
+    return out
+
+
+def fused_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> torch.Tensor:
+    """Exact softmax attention (K5's forward).  q [B, H, Nq, dh]; k, v
+    [B, H, Nk, dh]; bf16 or f32; mask [B|1, 1|H, Nq, Nk] bool or additive;
+    scale defaults to 1/sqrt(dh).  Returns [B, H, Nq, dh] in q's dtype."""
+    return _run(fused_attention, "msvit_fused_attention", fused_attention_plain,
+                q, k, v, mask, scale, mask_value, _NEXT_SLICE)
+
+
+fused_attention.launches = 0
+
+
+def fused_attention_inference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> torch.Tensor:
+    """Serving-only attention with the shaved softmax (K4); arguments as
+    `fused_attention`.  Not differentiable (the TPU function has no VJP):
+    under autograd on the card it raises."""
+    return _run(fused_attention_inference, "msvit_fused_attention_inference",
+                fused_attention_inference_plain, q, k, v, mask, scale, mask_value,
+                "fused_attention_inference is serving-only (no gradient); "
+                "training takes fused_attention")
+
+
+fused_attention_inference.launches = 0

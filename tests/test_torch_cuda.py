@@ -213,6 +213,115 @@ def test_k3_matches_plain(dev, n, h, dh):
     assert (delta == 0).float().mean().item() >= 0.99
 
 
+def _fused_fns(kernel):
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    if kernel == "K5":
+        return fa.fused_attention, fa.fused_attention_plain
+    return fa.fused_attention_inference, fa.fused_attention_inference_plain
+
+
+def _heads(b, nq, nk, h, dh, dtype, dev, seed, packed):
+    """q [B, H, Nq, dh], k, v [B, H, Nk, dh]: views of packed [B, N, 3D]
+    GEMM outputs (strided, the model's layout) or contiguous tensors."""
+    from msvit_tpu_torch.ops.packed_attention import unpack_qkv
+
+    if packed:
+        q = unpack_qkv(_qkv(b, nq, h * dh, dtype, dev, seed=seed), h)[0]
+        _, k, v = unpack_qkv(_qkv(b, nk, h * dh, dtype, dev, seed=seed + 1), h)
+        return q, k, v
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(b, h, n, dh, generator=g).to(dtype).to(dev)
+                 for n in (nq, nk, nk))
+
+
+def _fused_mask(kind, b, h, nq, nk, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    if kind is None:
+        return None
+    if kind.startswith("bool"):
+        m = torch.rand(b, h if kind == "bool_per_head" else 1, nq, nk, generator=g) < 0.7
+        m[:, :, 0, :] = False  # a fully masked row: mean(V)
+        return m.to(dev)
+    # additive: the multistate soft penalty on ~30% of the entries
+    hm = h if kind == "additive_per_head" else 1
+    return (-100.0 * (torch.rand(b, hm, nq, nk, generator=g) < 0.3).float()).to(dev)
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nk,h,dh,mask,packed", [
+    (37, 37, 4, 16, None, False),
+    (70, 70, 2, 32, "bool_per_head", True),
+    (130, 130, 3, 64, "additive", True),
+    (65, 200, 2, 128, "additive_per_head", False),  # K/V longer than Q
+    (197, 816, 2, 64, "bool", True),  # cross-context at the bench kv length
+    (5, 9, 3, 8, "bool_per_head", False),
+    (100, 30, 2, 40, "additive", False),  # Q longer than K/V
+])
+def test_k4_k5_match_plain(dev, kernel, dtype, nq, nk, h, dh, mask, packed):
+    """K4 and K5 against their plain versions at odd shapes (N not a
+    multiple of 64, head sizes 8-128, Nq != Nk), every mask kind, q/k/v
+    strided views of the QKV GEMM output or contiguous.  Tolerances as K1
+    (the kernels keep p in f32 into P.V where the plain versions round it),
+    of max(1, max |plain|): a row attending few keys has an output near a
+    single value of V, where one bf16 step is 2^-8 of it."""
+    fn, plain = _fused_fns(kernel)
+    q, k, v = _heads(2, nq, nk, h, dh, dtype, dev, seed=30, packed=packed)
+    m = _fused_mask(mask, 2, h, nq, nk, dev, seed=31)
+    before = fn.launches
+    with torch.inference_mode():
+        got = fn(q, k, v, mask=m)
+        want = plain(q, k, v, mask=m)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == (2, h, nq, dh) and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    tol = _TOL[dtype] * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if mask is not None and mask.startswith("bool"):  # row 0: mean(V)
+        mean_v = v.float().mean(2)
+        assert (got[:, :, 0].float() - mean_v).abs().max().item() <= tol
+
+
+def test_k5_large_logits_and_minus_inf_rows(dev):
+    """K5 is exact at any logit scale (q and k x 12: |s| in the hundreds);
+    an additive -inf row gives zeros, as the TPU kernel's l == 0 guard."""
+    q, k, v = _heads(2, 70, 90, 2, 64, torch.float32, dev, seed=32, packed=False)
+    m = torch.zeros(2, 1, 70, 90, device=dev)
+    m[1, 0, 3] = -torch.inf
+    fn, plain = _fused_fns("K5")
+    with torch.inference_mode():
+        got = fn(q * 12, k * 12, v, mask=m)
+        want = plain(q * 12, k * 12, v, mask=m)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[1, :, 3], torch.zeros_like(got[1, :, 3]))
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_fused_kernels_refuse_grad_and_bad_inputs(dev):
+    """Under autograd on the card K5 raises (its lse branch and the K6
+    backward are the next slice) instead of running a plain version, and so
+    does the serving-only K4; unsupported inputs raise."""
+    fn5, _ = _fused_fns("K5")
+    fn4, _ = _fused_fns("K4")
+    q, k, v = _heads(1, 37, 37, 2, 16, torch.float32, dev, seed=33, packed=False)
+    qg = q.clone().requires_grad_()
+    n5, n4 = fn5.launches, fn4.launches
+    with pytest.raises(NotImplementedError, match="K6"):
+        fn5(qg, k, v)
+    with pytest.raises(NotImplementedError, match="serving-only"):
+        fn4(qg, k, v)
+    assert (fn5.launches, fn4.launches) == (n5, n4)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="head size"):
+            fn5(q[..., :12], k[..., :12], v[..., :12])
+        with pytest.raises(TypeError):
+            fn5(q.half(), k.half(), v.half())
+        with pytest.raises(ValueError, match="mask"):
+            fn4(q, k, v, mask=torch.ones(1, 1, 37, 36, dtype=torch.bool, device=dev))
+
+
 @pytest.mark.parametrize("rows", [5, 16, 17, 197])
 def test_int8_matmul_on_card_matches_cpu(dev, rows):
     """`torch._int_mm` on the card (rows <= 16 padded) against the CPU:
