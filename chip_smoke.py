@@ -38,12 +38,29 @@ fails (non-zero exit, no result line) if any phase fails:
    img/s, clustering's share, peak memory and host syncs;
 9. fused kernels: K4 and K5 against their plain versions at [8,12,816,64]
    with the soft mask of the served partition (also a bool mask with a
-   fully masked row, f32, and cross-context K/V), then timed.
+   fully masked row, f32, and cross-context K/V), then timed;
+10. multistate training kernels: K5-lse and K6 against their plain versions
+   at [8,12,816,64] (the served partition's soft mask in bf16 and f32, a
+   bool mask with a fully masked row, cross-context K/V, large logits),
+   then timed;
+11. multistate gradient: `MultiStateViTForImageClassification` at
+   `benchmarks/bench_multistate_train_r3.py`'s config (shared-anchor NCut,
+   bs8) on the kernel path against the plain attention path, the loss and
+   the TX/RX/classifier gradients, without and with clustering events;
+12. multistate training: `Trainer` takes 10 steps of the TX/RX tokens and
+   the classifier; the loss falls, frozen weights stay bit-equal, K5-lse
+   and K6 run 11 times a step; ms/step, memory, host syncs;
+13. the fine-tune example (`python -m msvit_tpu_torch.examples.train_multistate
+   --steps 3`, patch 16: K1-lse and K2 with the soft mask).
 
-The second-to-last line is a JSON object with each kernel's launches in its
-path's run (serving for K1 and K3, training for K1-lse and K2, the
-clustered multistate forwards for K4 and K5), its error and its time beside
-the plain version's; the last is `{"ok": true, "device": {...}}`.
+Every kernel is timed beside the least time the card could take for its
+work (`bound`) and, where one PyTorch call computes the same function,
+that call (`scaled_dot_product_attention` or its backward; the port never
+calls it).  The second-to-last line is a JSON object with each kernel's
+launches in its path's run (serving for K1 and K3, training for K1-lse and
+K2, the clustered multistate forwards for K4 and K5, multistate training
+for K5-lse and K6), its error, its time beside the plain version's, the
+library call's and the bound; the last is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -97,6 +114,23 @@ MS_SHAPE = (MS_BATCH, 12, 816, 64)  # the attention's [B, H, N, dh]
 # bf16 0.9989 measured on an NVIDIA H100, so ~0.9978), hence 0.995
 MS_BF16_COS = 0.999
 MS_INT8_COS = 0.995
+# multistate training at `benchmarks/bench_multistate_train_r3.py`'s config
+# (ViT-B/8 @224, shared-anchor NCut, 10 labels, bs8).  K5-lse out and lse as
+# K5 and K1-lse.  K6: the kernel rounds p (into dV) and ds (into dQ, dK) to
+# the compute dtype as the plain version does, but its f32 sums run in
+# another order and can move a rounding by one bf16 step: bf16 2e-2, f32
+# 1e-4, each of max(1, max |plain|).  The model's loss and trainable
+# gradients on the kernel path against the plain attention path: relative
+# loss 1e-2, per-tensor cosine 0.999 (bf16 compute either way)
+MS_LABELS = 10
+K6_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+MS_GRAD_LOSS_REL_TOL = 1e-2
+MS_GRAD_COS = 0.999
+# the least time of a call (bound_ms): the larger of its bytes (each input
+# read once, each output written once) over the memory rate and its
+# operations over the peak rate of their type (H100 SXM data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 
 def log(msg: str) -> None:
@@ -142,10 +176,50 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def library_ms(fn) -> float:
+    """Median ms of 20 CUDA-event runs of the PyTorch call that computes a
+    kernel's function (its yardstick; the port never calls it)."""
+    return statistics.median(time_ms(fn, runs=20))
+
+
+def bound(inputs, outputs, ops: float, dtype) -> dict:
+    """The least time the card could take for a call that reads `inputs`
+    once, writes `outputs` once and does `ops` operations of `dtype`:
+    {"bound_ms", "bound_by"}."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs) if t is not None)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    if t_bytes >= t_ops:
+        return {"bound_ms": t_bytes, "bound_by": "bytes"}
+    return {"bound_ms": t_ops, "bound_by": "operations"}
+
+
+def attn_ops(b: int, h: int, nq: int, nk: int, dh: int, products: int) -> float:
+    """Operations of `products` [Nq, Nk] x dh matrix products per head."""
+    return 2.0 * products * b * h * nq * nk * dh
+
+
+def sdpa(q, k, v, mask=None):
+    """The library yardstick: one `scaled_dot_product_attention` call; a
+    bool mask as is, an additive one cast to q's dtype."""
+    if mask is not None and mask.dtype != torch.bool:
+        mask = mask.to(q.dtype)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def sdpa_bwd(q, k, v, g, mask=None):
+    """A function timing the backward of `sdpa` for cotangent g (the
+    forward runs once, outside it)."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = sdpa(*leaves, mask)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
 def kernel_phase(dev, smi: str) -> dict:
     from msvit_tpu_torch.ops.packed_attention import (
         packed_attention, packed_attention_int8,
-        packed_attention_int8_plain, packed_attention_plain)
+        packed_attention_int8_plain, packed_attention_plain, unpack_qkv)
 
     g = torch.Generator().manual_seed(0)
     res = {}
@@ -161,11 +235,15 @@ def kernel_phase(dev, smi: str) -> dict:
     with torch.inference_mode():
         # K1, main path shape, bf16, unmasked
         x = torch.randn(MAIN_SHAPE, generator=g).to(torch.bfloat16).to(dev)
-        e_k1 = check("K1 bf16 [64,197,2304]",
-                     max_err(packed_attention(x, 12), packed_attention_plain(x, 12)),
+        out = packed_attention(x, 12)
+        e_k1 = check("K1 bf16 [64,197,2304]", max_err(out, packed_attention_plain(x, 12)),
                      K1_TOL[torch.bfloat16])
         k1_ms, k1_plain = race(lambda: packed_attention(x, 12),
                                lambda: packed_attention_plain(x, 12))
+        k1_lib = library_ms(lambda: sdpa(*unpack_qkv(x, 12)))
+        b, n, d3 = MAIN_SHAPE
+        ops = attn_ops(b, 12, n, n, d3 // 36, 2)
+        k1_bound = bound([x], [out], ops, torch.bfloat16)
         # K1 masked and f32
         xs = torch.randn(4, 197, 2304, generator=g).to(dev)
         mb = (torch.rand(4, 1, 197, 197, generator=g) < 0.7).to(dev)
@@ -204,13 +282,15 @@ def kernel_phase(dev, smi: str) -> dict:
             lambda: packed_attention_int8(q, sec, 12, out_inv_scale=inv, int8_out=True),
             lambda: packed_attention_int8_plain(q, sec, 12, out_inv_scale=inv,
                                                 int8_out=True))
+        k3_bound = bound([q, sec], [gq], ops, torch.int8)
     torch.cuda.synchronize()
-    log(f"[kernels] K1 bf16 [64,197,2304]: kernel {k1_ms!r} ms, plain {k1_plain!r} ms "
+    log(f"[kernels] K1 bf16 [64,197,2304]: kernel {k1_ms!r} ms, plain {k1_plain!r} ms, "
+        f"library (scaled_dot_product_attention) {k1_lib!r} ms, bound {k1_bound} "
         f"(median of 20, CUDA events; {smi})")
-    log(f"[kernels] K3 int8-out [64,197,2304]: kernel {k3_ms!r} ms, plain {k3_plain!r} ms "
-        f"(median of 20, CUDA events; {smi})")
-    res["K1"] = dict(err=e_k1, ms=k1_ms, plain_ms=k1_plain)
-    res["K3"] = dict(err=e_k3, ms=k3_ms, plain_ms=k3_plain)
+    log(f"[kernels] K3 int8-out [64,197,2304]: kernel {k3_ms!r} ms, plain {k3_plain!r} ms, "
+        f"no library call, bound {k3_bound} (median of 20, CUDA events; {smi})")
+    res["K1"] = dict(err=e_k1, ms=k1_ms, plain_ms=k1_plain, library_ms=k1_lib, **k1_bound)
+    res["K3"] = dict(err=e_k3, ms=k3_ms, plain_ms=k3_plain, library_ms=None, **k3_bound)
     return res
 
 
@@ -377,13 +457,23 @@ def train_kernel_phase(dev, smi: str) -> dict:
                              lambda: packed_attention_lse_plain(x, 12))
         b_ms, b_plain = race(lambda: packed_attention_bwd(x, None, wo, wl, gr, 12),
                              lambda: packed_attention_bwd_plain(x, None, wo, wl, gr, 12))
+        qkv = unpack_qkv(x, 12)
+        f_lib = library_ms(lambda: sdpa(*qkv))
+        b_lib = library_ms(sdpa_bwd(*qkv, gr.reshape(x.shape[0], x.shape[1], 12, -1)
+                                    .transpose(1, 2)))
     torch.cuda.synchronize()
+    b, n, d3 = MAIN_SHAPE
+    f_bound = bound([x], [wo, wl], attn_ops(b, 12, n, n, d3 // 36, 2), torch.bfloat16)
+    # K2 writes dqkv, x's shape and dtype
+    b_bound = bound([x, wo, wl, gr], [x], attn_ops(b, 12, n, n, d3 // 36, 5), torch.bfloat16)
     log(f"[train-kernels] K1-lse bf16 [64,197,2304]: kernel {f_ms!r} ms, plain "
-        f"{f_plain!r} ms (median of 20, CUDA events; {smi})")
+        f"{f_plain!r} ms, library (scaled_dot_product_attention) {f_lib!r} ms, bound "
+        f"{f_bound} (median of 20, CUDA events; {smi})")
     log(f"[train-kernels] K2 bf16 [64,197,2304]: kernel {b_ms!r} ms, plain "
-        f"{b_plain!r} ms (median of 20, CUDA events; {smi})")
-    return {"K1-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain),
-            "K2": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain)}
+        f"{b_plain!r} ms, library (its backward) {b_lib!r} ms, bound {b_bound} "
+        f"(median of 20, CUDA events; {smi})")
+    return {"K1-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **f_bound),
+            "K2": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_bound)}
 
 
 def _training_counts():
@@ -786,11 +876,256 @@ def fused_kernel_phase(dev, smi: str, partition) -> dict:
                 errs.append(err)
             ms, plain_ms = race(lambda: fn(q, k, v, mask=soft),
                                 lambda: plain(q, k, v, mask=soft))
+            lib = library_ms(lambda: sdpa(q, k, v, soft))
+            lim = bound([q, k, v, soft], [q], attn_ops(b, h, n, n, dh, 2), torch.bfloat16)
             torch.cuda.synchronize()
             log(f"[fused-kernels] {name} bf16 {list(MS_SHAPE)} soft mask: kernel {ms!r} ms, "
-                f"plain {plain_ms!r} ms (median of 20, CUDA events; {smi})")
-            res[name] = dict(err=errs[0], ms=ms, plain_ms=plain_ms)
+                f"plain {plain_ms!r} ms, library (scaled_dot_product_attention, the mask "
+                f"in bf16) {lib!r} ms, bound {lim} (median of 20, CUDA events; {smi})")
+            res[name] = dict(err=errs[0], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)
     return res
+
+
+def _ms_train_counts() -> dict:
+    from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from msvit_tpu_torch.ops.fused_attention import fused_attention_lse
+
+    return {"K5-lse": fused_attention_lse.launches, "K6": flash_attention_bwd.launches,
+            **_fused_counts()}
+
+
+def _reset_ms_train_counts() -> None:
+    from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from msvit_tpu_torch.ops.fused_attention import fused_attention_lse
+
+    fused_attention_lse.launches = 0
+    flash_attention_bwd.launches = 0
+    _reset_fused_counts()
+
+
+def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
+    """K5-lse (out, lse) and K6 (dq, dk, dv from the plain forward's
+    residuals and a strided cotangent) against their plain versions at the
+    multistate shape: q/k/v views of a packed QKV output with the served
+    partition's soft mask, the same in f32, a bool mask with a fully
+    masked row, cross-context K/V (Nq 197, Nk 816), and large logits (q
+    and k x 12, f32); then timed beside `scaled_dot_product_attention` and
+    its backward."""
+    from msvit_tpu_torch.models.multistate import build_multistate_attention_mask
+    from msvit_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    from msvit_tpu_torch.ops.fused_attention import (
+        fused_attention_lse, fused_attention_lse_plain)
+    from msvit_tpu_torch.ops.packed_attention import unpack_qkv
+
+    b, h, n, dh = MS_SHAPE
+    gen = torch.Generator().manual_seed(9)
+    ids, n_clusters = partition
+    soft = torch.where(build_multistate_attention_mask(ids, n_clusters, MS_CLUSTERS),
+                       0.0, -100.0)  # [8, 1, 816, 816] f32
+    mb = torch.rand(b, 1, n, n, generator=gen) < 0.7
+    mb[0, 0, 5, :] = False  # one fully masked row
+    mb = mb.to(dev)
+    x = torch.randn(b, n, 3 * h * dh, generator=gen).to(dev)
+    # the cotangent as autograd hands it: a [B, H, N, dh] view of [B, N, H, dh]
+    g = torch.randn(b, n, h, dh, generator=gen).to(dev).transpose(1, 2)
+    qf, kf, vf = unpack_qkv(x, h)
+    q, k, v = unpack_qkv(x.to(torch.bfloat16), h)
+    big = x.clone()
+    big[..., :2 * h * dh] *= 12.0  # q and k: logits in the hundreds
+    qb, kb, vb = unpack_qkv(big, h)
+    cases = [
+        (f"bf16 {list(MS_SHAPE)} soft mask of the served partition", (q, k, v), soft, g),
+        (f"f32 {list(MS_SHAPE)} soft mask (tf32 off)", (qf, kf, vf), soft, g),
+        (f"bf16 {list(MS_SHAPE)} bool mask [8,1,816,816], one row fully masked",
+         (q, k, v), mb, g),
+        ("bf16 cross-context Nq 197, Nk 816, soft mask", (q[:, :, :197], k, v),
+         soft[:, :, :197], g[:, :, :197]),
+        (f"f32 {list(MS_SHAPE)} large logits, soft mask", (qb, kb, vb), soft, g),
+    ]
+    errs = []
+    with torch.no_grad():
+        for label, (qq, kk, vv), m, gg in cases:
+            o, lse = fused_attention_lse(qq, kk, vv, mask=m)
+            wo, wl = fused_attention_lse_plain(qq, kk, vv, mask=m)
+            got = flash_attention_bwd(qq, kk, vv, wo, gg.to(qq.dtype), wl, m)
+            want = flash_attention_bwd_plain(qq, kk, vv, wo, gg.to(qq.dtype), wl, m)
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(t).all() for t in (o, lse, *got)):
+                raise AssertionError(f"K5-lse/K6 {label}: non-finite output")
+            e_o = max_err(o, wo)
+            tol_o = K1_TOL[qq.dtype] * max(1.0, wo.float().abs().max().item())
+            e_l = ((lse - wl).abs() / wl.abs().clamp_min(1.0)).max().item()
+            e_d = max(max_err(a, w) for a, w in zip(got, want))
+            tol_d = K6_TOL[qq.dtype] * max(1.0, max(w.float().abs().max().item() for w in want))
+            ok = e_o <= tol_o and e_l <= LSE_REL_TOL and e_d <= tol_d
+            log(f"[ms-train-kernels] {label}: K5-lse out max_abs_err {e_o!r} (tolerance "
+                f"{tol_o!r}), lse rel err {e_l!r} (tolerance {LSE_REL_TOL!r}); K6 dq/dk/dv "
+                f"max_abs_err {e_d!r} (tolerance {tol_d!r}) {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise AssertionError(f"{label}: K5-lse/K6 disagree with plain")
+            errs.append((e_o, e_d))
+        wo, wl = fused_attention_lse_plain(q, k, v, mask=soft)
+        gb = g.to(torch.bfloat16)
+        f_ms, f_plain = race(lambda: fused_attention_lse(q, k, v, mask=soft),
+                             lambda: fused_attention_lse_plain(q, k, v, mask=soft))
+        b_ms, b_plain = race(lambda: flash_attention_bwd(q, k, v, wo, gb, wl, soft),
+                             lambda: flash_attention_bwd_plain(q, k, v, wo, gb, wl, soft))
+        f_lib = library_ms(lambda: sdpa(q, k, v, soft))
+        b_lib = library_ms(sdpa_bwd(q, k, v, gb, soft))
+    torch.cuda.synchronize()
+    f_bound = bound([q, k, v, soft], [wo, wl], attn_ops(b, h, n, n, dh, 2), torch.bfloat16)
+    # K6 writes dq, dk, dv: the shapes of q, k, v
+    b_bound = bound([q, k, v, wo, gb, wl, soft], [q, k, v], attn_ops(b, h, n, n, dh, 5),
+                    torch.bfloat16)
+    log(f"[ms-train-kernels] K5-lse bf16 {list(MS_SHAPE)} soft mask: kernel {f_ms!r} ms, "
+        f"plain {f_plain!r} ms, library (scaled_dot_product_attention, the mask in bf16) "
+        f"{f_lib!r} ms, bound {f_bound} (median of 20, CUDA events; {smi})")
+    log(f"[ms-train-kernels] K6 bf16 {list(MS_SHAPE)} soft mask: kernel {b_ms!r} ms, "
+        f"plain {b_plain!r} ms, library (the backward of that call) {b_lib!r} ms, bound "
+        f"{b_bound} (median of 20, CUDA events; {smi})")
+    return {"K5-lse": dict(err=errs[0][0], ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
+                           **f_bound),
+            "K6": dict(err=errs[0][1], ms=b_ms, plain_ms=b_plain, library_ms=b_lib,
+                       **b_bound)}
+
+
+def ms_train_config(**overrides):
+    """The multistate fine-tune config of
+    `benchmarks/bench_multistate_train_r3.py` (ViT-B/8 @224, 816 tokens)."""
+    from msvit_tpu_torch.models.clustering import SpectralClusteringConfig
+    from msvit_tpu_torch.models.multistate import MultiStateViTConfig
+
+    cfg = MultiStateViTConfig(
+        patch_size=8, image_size=224, pregeneration_period=4, generation_period=2,
+        clustering=SpectralClusteringConfig(
+            ncut_dim=8, num_sample=512, max_clusters=MS_CLUSTERS,
+            eigenvalue_threshold=0.1, ncut_dist="rbf", shared_anchors=True))
+    return dataclasses.replace(cfg, **overrides)
+
+
+def ms_classifier(dev, cfg):
+    """`MultiStateViTForImageClassification` in training mode, weights
+    drawn from seed 0 (the same under every config), with the example's
+    trainable set (TX/RX tokens, classifier) requiring grad."""
+    from msvit_tpu_torch.examples.train_multistate import trainable
+    from msvit_tpu_torch.models.multistate import MultiStateViTForImageClassification
+
+    model = MultiStateViTForImageClassification(
+        cfg, MS_LABELS, generator=torch.Generator().manual_seed(0), device=dev)
+    for name, p in model.named_parameters():
+        p.requires_grad_(trainable(tuple(name.split("."))))
+    return model.train()
+
+
+def ms_train_grad_phase(dev, smi: str) -> None:
+    """The classifier's loss and trainable gradients on the kernel path
+    (K5-lse, K6) against the plain attention path, the same weights,
+    without and with clustering events."""
+    from msvit_tpu_torch.utils.rng import Rng
+
+    pix = scene_pixels(2).to(dev)
+    labels = torch.arange(MS_BATCH, device=dev) % MS_LABELS
+    for events in (False, True):
+        cfg = ms_train_config() if events else ms_train_config(pregeneration_period=LAYERS)
+        runs = {}
+        for path in ("kernel", "plain"):
+            c = cfg if path == "kernel" else dataclasses.replace(cfg, attn_implementation="xla")
+            model = ms_classifier(dev, c)
+            _reset_ms_train_counts()
+            out = model(pix, labels, rng=Rng(7))
+            out["loss"].backward()
+            torch.cuda.synchronize()
+            runs[path] = (out["loss"].item(), _ms_train_counts(),
+                          out["last_cluster_indices"], int(out["num_clusters"]),
+                          {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                           if p.grad is not None})
+            del model, out
+        (lk, nk, ik, ck, gk), (lp, _, ip, cp, gp) = runs["kernel"], runs["plain"]
+        want = {"K5-lse": LAYERS - 1, "K6": LAYERS - 1, "K4": 0, "K5": 0}
+        if nk != want:
+            raise AssertionError(f"kernel path launches {nk}, want {want}")
+        same = (ik == ip).float().mean().item()
+        label = "with clustering events" if events else "no clustering event"
+        log(f"[ms-train-grad] {label}: num_clusters kernel path {ck}, plain path {cp}; "
+            f"tokens in the same cluster {same!r}; launches {nk}")
+        if events and not (same == 1.0 and ck == cp):
+            log(f"[ms-train-grad] {label}: partitions differ, gradients not compared")
+            continue
+        rel = abs(lk - lp) / abs(lp)
+        coss = {n: cos(gk[n], gp[n]) for n in gp}
+        log(f"[ms-train-grad] {label}, partitions equal: loss kernel path {lk!r}, plain "
+            f"path {lp!r}, relative difference {rel!r} (tolerance {MS_GRAD_LOSS_REL_TOL!r}); "
+            f"gradient cosines {coss} (tolerance >= {MS_GRAD_COS!r}; {smi})")
+        if set(gk) != set(gp) or len(gp) != 4:
+            raise AssertionError(f"trainable gradients {sorted(gk)} vs {sorted(gp)}")
+        if rel > MS_GRAD_LOSS_REL_TOL or min(coss.values()) < MS_GRAD_COS:
+            raise AssertionError(f"{label}: kernel-path gradients disagree with the plain path")
+
+
+def ms_train_phase(dev, smi: str) -> dict:
+    """`Trainer` takes 10 steps of the TX/RX tokens and the classifier at
+    the bench config on a fixed batch, step s drawing from a generator
+    seeded with `fold_in(seed, s)` (dropout and the clustering `Rng`):
+    losses, frozen weights, launches, ms/step, memory, host syncs."""
+    from msvit_tpu_torch.examples.train_multistate import loss_fn, trainable
+    from msvit_tpu_torch.train import Trainer, make_optimizer
+
+    model = ms_classifier(dev, ms_train_config())
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    tr = Trainer(loss_fn, make_optimizer(1e-3, trainable=trainable), model)
+    batch = (scene_pixels(2).to(dev), torch.arange(MS_BATCH, device=dev) % MS_LABELS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_ms_train_counts()
+    losses, times = [], []
+    for s in range(10):  # one `fit` call per step: its loss is read, synchronizing
+        t0 = time.perf_counter()
+        losses.append(tr.fit(itertools.repeat(batch), num_steps=s + 1, seed=0))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = _ms_train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tr.fit(itertools.repeat(batch), num_steps=11, seed=0)
+    torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    ms = statistics.median(times[1:])
+    unchanged = all(torch.equal(p.detach(), frozen[n]) for n, p in model.named_parameters()
+                    if n in frozen)
+    log(f"[ms-train] 10 Trainer steps bs{MS_BATCH} (TX/RX + classifier trainable, "
+        f"{len(frozen)} frozen tensors): losses {losses}; median {ms!r} ms/step "
+        f"({MS_BATCH / ms * 1e3!r} img/s, steps 2-10, host clock, each ending in the "
+        f"loss read); peak memory {peak!r} GiB; host syncs per step {syncs}; frozen "
+        f"weights bit-equal {unchanged}; launches {launches} ({smi})")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError("multistate training: a loss is not finite or did not fall")
+    if not unchanged:
+        raise AssertionError("multistate training changed a frozen weight")
+    want = {"K5-lse": 10 * (LAYERS - 1), "K6": 10 * (LAYERS - 1), "K4": 0, "K5": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    return {"K5-lse": launches["K5-lse"], "K6": launches["K6"]}
+
+
+def ms_train_example_phase(dev, smi: str) -> None:
+    """`python -m msvit_tpu_torch.examples.train_multistate --steps 3`, in
+    process (patch 16 @224, 228 tokens: K1-lse and K2 with the soft mask)."""
+    from msvit_tpu_torch.examples import train_multistate
+
+    _reset_training_counts()
+    t0 = time.perf_counter()
+    losses = train_multistate.main(["--steps", "3"])
+    torch.cuda.synchronize()
+    counts = _training_counts()
+    log(f"[ms-train-example] 3 steps in {time.perf_counter() - t0:.1f} s (model build "
+        f"included); launches {counts} ({smi})")
+    if len(losses) != 3 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"example losses {losses}")
+    if counts != {"K1-lse": 3 * (LAYERS - 1), "K2": 3 * (LAYERS - 1)}:
+        raise AssertionError(f"example launches {counts}")
 
 
 def ptxas_lines() -> list:
@@ -808,11 +1143,15 @@ def ptxas_lines() -> list:
         if m and name:
             spill = f"spills {m.group(1)}/{m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and re.search(r"lse_kernel|packed_bwd|fused_attention", name):
+        if m and name and re.search(r"lse_kernel|packed_bwd|fused_attention|flash_bwd", name):
             kern = re.search(r"(packed_(?:bwd_dq|bwd_dkv|attention_lse)_kernel|"
-                             r"fused_attention_kernel)", name).group(1)
-            if kern == "fused_attention_kernel":
-                kern = "K4 fused_attention_kernel" if "Lb1E" in name else "K5 fused_attention_kernel"
+                             r"fused_attention_kernel|flash_bwd_(?:dq|dkv)_kernel)",
+                             name).group(1)
+            if kern == "fused_attention_kernel":  # K5-lse is K5 with an lse pointer
+                kern = ("K4 fused_attention_kernel" if "Lb1E" in name
+                        else "K5/K5-lse fused_attention_kernel")
+            elif kern.startswith("flash_bwd"):
+                kern = "K6 " + kern
             dh = re.search(r"Li(\d+)E", name).group(1)
             dt = "bf16" if "bfloat16" in name else "f32"
             out.append(f"{kern} {dt} dh{dh}: {m.group(1)} registers, {spill}")
@@ -853,12 +1192,23 @@ def main() -> None:
     launches.update(ms_launches)
     torch.cuda.empty_cache()
     kernels.update(fused_kernel_phase(dev, smi, partition))
+    torch.cuda.empty_cache()
+    kernels.update(ms_train_kernel_phase(dev, smi, partition))
+    torch.cuda.empty_cache()
+    ms_train_grad_phase(dev, smi)
+    torch.cuda.empty_cache()
+    launches.update(ms_train_phase(dev, smi))
+    torch.cuda.empty_cache()
+    ms_train_example_phase(dev, smi)
     src = "msvit_tpu_torch/csrc/"
     packed, fused = "msvit_tpu/ops/packed_attention.py:", "msvit_tpu/ops/fused_attention.py:"
+    flash = "msvit_tpu/ops/flash_attention.py:"
     rows = [
         dict(name=name, route="cuda", source=src + cu, replaces=tpu,
              launches=launches[k], max_abs_err=kernels[k]["err"],
-             ms=kernels[k]["ms"], plain_ms=kernels[k]["plain_ms"])
+             ms=kernels[k]["ms"], plain_ms=kernels[k]["plain_ms"],
+             bound_ms=kernels[k]["bound_ms"], bound_by=kernels[k]["bound_by"],
+             library_ms=kernels[k]["library_ms"])
         for k, name, cu, tpu in (
             ("K1", "packed_attention", "packed_attention.cu", packed + "118"),
             ("K3", "packed_attention_int8", "packed_attention_int8.cu", packed + "883"),
@@ -866,6 +1216,8 @@ def main() -> None:
             ("K2", "packed_attention_bwd", "packed_attention_bwd.cu", packed + "682"),
             ("K4", "fused_attention_inference", "fused_attention.cu", fused + "303"),
             ("K5", "fused_attention", "fused_attention.cu", fused + "141"),
+            ("K5-lse", "fused_attention_lse", "fused_attention.cu", fused + "141"),
+            ("K6", "flash_attention_bwd", "flash_attention_bwd.cu", flash + "367"),
         )
     ]
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,8 @@
 """Flax param tree -> state dict of the port's `ViTModel` (and of
-`ViTForImageClassification`, `classifier_params_from_jax`, and of
-`MultiStateViTEncoderModel`, `multistate_params_from_jax`).
+`ViTForImageClassification`, `classifier_params_from_jax`, of
+`MultiStateViTEncoderModel`, `multistate_params_from_jax`, and of
+`MultiStateViTForImageClassification`,
+`multistate_classifier_params_from_jax`).
 
 Takes the JAX package's `ViTModel` params as nested dicts of numpy arrays
 (with or without the top-level "params" collection) and never imports JAX.
@@ -111,6 +113,20 @@ def multistate_params_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Ten
         raise ValueError(f"tree has {n_layers} layers, config {cfg.num_hidden_layers}")
     for i in range(n_layers):
         _layer(out, f"backbone.layer.{i}", bb[f"layer_{i}"])
+    return out
+
+
+def multistate_classifier_params_from_jax(
+    params: Mapping, cfg=None
+) -> Dict[str, torch.Tensor]:
+    """JAX `MultiStateViTForImageClassification` params ({"encoder": ...,
+    "classifier": ...}) -> state dict for the port's
+    `MultiStateViTForImageClassification`."""
+    if "params" in params:
+        params = params["params"]
+    out = {f"encoder.{k}": v
+           for k, v in multistate_params_from_jax(params["encoder"], cfg).items()}
+    _dense(out, "classifier", params["classifier"])
     return out
 
 

@@ -1,9 +1,15 @@
-// Per-head fused attention on [B, H, N, dh] operands (bf16 / f32): K4 and
-// K5's forward.
+// Per-head fused attention on [B, H, N, dh] operands (bf16 / f32): K4, K5
+// and K5-lse.
 //
-// Replaces two TPU kernels of `msvit_tpu/ops/fused_attention.py`:
+// Replaces the TPU kernels of `msvit_tpu/ops/fused_attention.py`:
 //   * K5 `_fused_forward` with `with_lse=False` (body `_kernel`): the exact,
 //     max-subtracted softmax; entry point `msvit_fused_attention`;
+//   * K5-lse, the same function with `with_lse=True`: the training forward,
+//     which also writes lse = m + log(l) per query row (0 where l == 0, the
+//     TPU kernel's `where(l > 0, ...)`) as a compact [B, H, Nq] f32; the TPU
+//     kernel's lane-replicated [B, H, Nq_pad, 128] layout, of which its VJP
+//     keeps lane 0 only, does not carry over; entry point
+//     `msvit_fused_attention_lse`;
 //   * K4 `_fused_inference` (body `_kernel_inference`): the shaved softmax
 //     p = exp(clip(s, -80, 80)) with no row max, o = P.V / l; entry point
 //     `msvit_fused_attention_inference`.
@@ -60,7 +66,8 @@ template <typename T, int DHT, bool SHAVED>
 __global__ void __launch_bounds__(kRows)
 fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const void* __restrict__ mask,
-                       T* __restrict__ out, Strides st, int nq, int nk,
+                       T* __restrict__ out, float* __restrict__ lse,
+                       Strides st, int nq, int nk,
                        int dh, int mask_kind, long long mask_sb,
                        long long mask_sh, float scale, float mask_value) {
   constexpr int KV = kv_rows<T, DHT>();
@@ -155,6 +162,9 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (!active) return;
+  if (lse != nullptr)  // K5-lse (never with SHAVED)
+    lse[(static_cast<long long>(b) * gridDim.y + h) * nq + i] =
+        l > 0.f ? m + logf(l) : 0.f;
   T* o = out + b * st.ob + h * st.oh + i * st.on;
   // K4: l >= Nk * exp(-80) > 0, divided as the TPU kernel divides; K5:
   // times 1/l, 1 where l == 0 (the TPU kernel's guard)
@@ -173,35 +183,35 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DHT, bool SHAVED>
 void launch(const void* q, const void* k, const void* v, const void* mask,
-            void* out, const Strides& st, int b, int h, int nq, int nk,
-            int dh, int mask_kind, long long sb, long long sh, float scale,
-            float mask_value, cudaStream_t stream) {
+            void* out, float* lse, const Strides& st, int b, int h, int nq,
+            int nk, int dh, int mask_kind, long long sb, long long sh,
+            float scale, float mask_value, cudaStream_t stream) {
   const dim3 grid((nq + kRows - 1) / kRows, h, b);
   fused_attention_kernel<T, DHT, SHAVED><<<grid, kRows, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(out), st, nq, nk, dh,
+      static_cast<const T*>(v), mask, static_cast<T*>(out), lse, st, nq, nk, dh,
       mask_kind, sb, sh, scale, mask_value);
 }
 
 template <typename T, bool SHAVED>
 void dispatch(const void* q, const void* k, const void* v, const void* mask,
-              void* out, const Strides& st, int b, int h, int nq, int nk,
-              int dh, int mask_kind, long long sb, long long sh, float scale,
-              float mask_value, cudaStream_t stream) {
+              void* out, float* lse, const Strides& st, int b, int h, int nq,
+              int nk, int dh, int mask_kind, long long sb, long long sh,
+              float scale, float mask_value, cudaStream_t stream) {
   if (dh <= 16) {
-    launch<T, 16, SHAVED>(q, k, v, mask, out, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 16, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
   } else if (dh <= 32) {
-    launch<T, 32, SHAVED>(q, k, v, mask, out, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 32, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
   } else if (dh <= 64) {
-    launch<T, 64, SHAVED>(q, k, v, mask, out, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 64, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
   } else {
-    launch<T, 128, SHAVED>(q, k, v, mask, out, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 128, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
   }
 }
 
 template <bool SHAVED>
 int run(const void* q, const void* k, const void* v, const void* mask,
-        void* out, int dtype, int b, int h, int nq, int nk, int dh,
+        void* out, float* lse, int dtype, int b, int h, int nq, int nk, int dh,
         const long long* strides, int mask_kind, long long mask_sb,
         long long mask_sh, float scale, float mask_value, void* stream) {
   if (dh <= 0 || dh > 128 || dh % 8 != 0 || nq <= 0 || nk <= 0 || b <= 0 ||
@@ -213,10 +223,10 @@ int run(const void* q, const void* k, const void* v, const void* mask,
                    strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    dispatch<float, SHAVED>(q, k, v, mask, out, st, b, h, nq, nk, dh,
+    dispatch<float, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh,
                             mask_kind, mask_sb, mask_sh, scale, mask_value, s);
   } else if (dtype == 1) {
-    dispatch<__nv_bfloat16, SHAVED>(q, k, v, mask, out, st, b, h, nq, nk, dh,
+    dispatch<__nv_bfloat16, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh,
                                     mask_kind, mask_sb, mask_sh, scale,
                                     mask_value, s);
   } else {
@@ -243,7 +253,7 @@ int msvit_fused_attention(const void* q, const void* k, const void* v,
                           const long long* strides, int mask_kind,
                           long long mask_sb, long long mask_sh, float scale,
                           float mask_value, void* stream) {
-  return msvit::run<false>(q, k, v, mask, out, dtype, b, h, nq, nk, dh,
+  return msvit::run<false>(q, k, v, mask, out, nullptr, dtype, b, h, nq, nk, dh,
                            strides, mask_kind, mask_sb, mask_sh, scale,
                            mask_value, stream);
 }
@@ -257,9 +267,23 @@ int msvit_fused_attention_inference(const void* q, const void* k,
                                     long long mask_sb, long long mask_sh,
                                     float scale, float mask_value,
                                     void* stream) {
-  return msvit::run<true>(q, k, v, mask, out, dtype, b, h, nq, nk, dh,
+  return msvit::run<true>(q, k, v, mask, out, nullptr, dtype, b, h, nq, nk, dh,
                           strides, mask_kind, mask_sb, mask_sh, scale,
                           mask_value, stream);
+}
+
+// K5-lse, the training forward: as msvit_fused_attention, plus lse
+// [B, H, Nq] f32 (contiguous), written.
+int msvit_fused_attention_lse(const void* q, const void* k, const void* v,
+                              const void* mask, void* out, void* lse,
+                              int dtype, int b, int h, int nq, int nk, int dh,
+                              const long long* strides, int mask_kind,
+                              long long mask_sb, long long mask_sh,
+                              float scale, float mask_value, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return msvit::run<false>(q, k, v, mask, out, static_cast<float*>(lse),
+                           dtype, b, h, nq, nk, dh, strides, mask_kind,
+                           mask_sb, mask_sh, scale, mask_value, stream);
 }
 
 }  // extern "C"

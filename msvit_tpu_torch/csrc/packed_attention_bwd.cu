@@ -43,87 +43,6 @@
 namespace msvit {
 namespace {
 
-// A thread's view of one row: the row's index, this thread's slice and the
-// slice's first head element.
-template <int DHT>
-struct RowSlice {
-  static constexpr int kTpr = row_threads<DHT>();
-  static constexpr int kCh = DHT / kTpr;  // head elements per thread
-  int row;
-  int e0;
-  __device__ RowSlice(int block_row0)
-      : row(block_row0 + static_cast<int>(threadIdx.x) / kTpr),
-        e0((static_cast<int>(threadIdx.x) % kTpr) * kCh) {}
-};
-
-template <typename T, int CH>
-__device__ __forceinline__ void load_slice(const T* p, int e0, int dh,
-                                           float* out) {
-#pragma unroll
-  for (int e = 0; e < CH; e += 8)
-    if (e0 + e < dh) Vec8<T>::load(p + e0 + e, out + e);
-}
-
-template <typename T, int CH>
-__device__ __forceinline__ void store_slice(T* p, int e0, int dh,
-                                            const float* v, float scale) {
-#pragma unroll
-  for (int e = 0; e < CH; e += 8) {
-    if (e0 + e < dh) {
-      float r[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) r[t] = v[e + t] * scale;
-      Vec8<T>::store(p + e0 + e, r);
-    }
-  }
-}
-
-// Partial dot products of a register slice with two shared-memory rows:
-// a.x and b.y over this thread's slice of the head.
-template <typename T, int CH>
-__device__ __forceinline__ void dot2(const float* a, const T* x,
-                                     const float* b, const T* y, int e0,
-                                     int dh, float& ax, float& by) {
-  ax = 0.f;
-  by = 0.f;
-#pragma unroll
-  for (int e = 0; e < CH; e += 8) {
-    if (e0 + e < dh) {
-      float xf[8], yf[8];
-      Vec8<T>::load(x + e0 + e, xf);
-      Vec8<T>::load(y + e0 + e, yf);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        ax = fmaf(a[e + t], xf[t], ax);
-        by = fmaf(b[e + t], yf[t], by);
-      }
-    }
-  }
-}
-
-// acc += c * x over this thread's slice (x a shared-memory row).
-template <typename T, int CH>
-__device__ __forceinline__ void axpy(float* acc, float c, const T* x, int e0,
-                                     int dh) {
-#pragma unroll
-  for (int e = 0; e < CH; e += 8) {
-    if (e0 + e < dh) {
-      float xf[8];
-      Vec8<T>::load(x + e0 + e, xf);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) acc[e + t] = fmaf(c, xf[t], acc[e + t]);
-    }
-  }
-}
-
-__device__ __forceinline__ float apply_mask(float s, int kind,
-                                            const uint8_t* mb, const float* mf,
-                                            long long at, float mask_value) {
-  if (kind == kBoolMask) return mb[at] ? s : mask_value;
-  if (kind == kAddMask) return s + mf[at];
-  return s;
-}
-
 template <typename T, int DHT>
 __global__ void __launch_bounds__(kRows * row_threads<DHT>())
 packed_bwd_dq_kernel(const T* __restrict__ qkv, const void* __restrict__ mask,

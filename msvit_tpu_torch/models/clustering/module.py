@@ -11,9 +11,10 @@ Randomness: the functions take an `Rng` (utils/rng.py) wherever the JAX
 package takes a key and split it in JAX's order, so a stream that draws
 JAX's numbers reproduces JAX's partition.
 
-The config classes are ported field for field.  The FPS and axis-align
-variants and `shared_anchors=True` raise `NotImplementedError` when a
-model is built (`check_supported`).
+The config classes are ported field for field.  `shared_anchors=True`
+takes `ncut_shared` (one Nystrom anchor pool shared across parents).  The
+FPS and axis-align variants raise `NotImplementedError` when a model is
+built (`check_supported`).
 """
 
 from __future__ import annotations
@@ -24,9 +25,9 @@ from typing import Optional, Tuple
 import torch
 
 from msvit_tpu_torch.ops.kmeans import kmeans
-from msvit_tpu_torch.ops.ncut import ncut
+from msvit_tpu_torch.ops.ncut import ncut, ncut_shared
 
-_ROADMAP = "ROADMAP.md queue 2 (multistate: ncut_shared, FPS, axis-align)"
+_ROADMAP = "ROADMAP.md queue 1, item 5 (multistate: FPS, axis-align)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +54,7 @@ class SpectralClusteringConfig(ClusteringConfig):
     eig_iters: int = 12
     # affinity product dtype; "" = float32 for "eigh", bfloat16 otherwise
     matmul_dtype: str = ""
-    shared_anchors: bool = False  # not ported: raises
+    shared_anchors: bool = False  # one anchor pool for all parents
     anchors_per_parent: int = 256
     # per-parent sample budget of calls that can see more than one parent
     # (0 = num_sample everywhere)
@@ -89,9 +90,6 @@ def check_supported(config: ClusteringConfig) -> None:
         raise NotImplementedError(
             f"clustering model_type={config.model_type!r} is not ported yet "
             f"({_ROADMAP})")
-    if config.shared_anchors:
-        raise NotImplementedError(
-            f"shared_anchors=True (ncut_shared) is not ported yet ({_ROADMAP})")
 
 
 def _ncut_matmul_dtype(config: ClusteringConfig) -> str:
@@ -127,12 +125,17 @@ def _spectral_single(
     if c_bound > 1 and config.late_num_sample:
         num_sample = config.late_num_sample
 
-    vecs, vals = ncut(
-        flat_x, num_eig=config.ncut_dim, key=k_ncut, num_sample=num_sample,
-        distance=config.ncut_dist, gamma=config.affinity_focal_gamma,
-        mask=member, eig_method=config.eig_method, eig_iters=config.eig_iters,
-        matmul_dtype=_ncut_matmul_dtype(config),
-    )  # [Cb, M, e], [Cb, e]
+    common = dict(num_eig=config.ncut_dim, num_sample=num_sample,
+                  distance=config.ncut_dist, gamma=config.affinity_focal_gamma,
+                  eig_method=config.eig_method, eig_iters=config.eig_iters,
+                  matmul_dtype=_ncut_matmul_dtype(config))
+    if config.shared_anchors:
+        vecs, vals = ncut_shared(flat_x, key=k_ncut[0], member=member,
+                                 anchors_per_parent=config.anchors_per_parent,
+                                 **common)
+    else:
+        vecs, vals = ncut(flat_x, key=k_ncut, mask=member, **common)
+    # [Cb, M, e], [Cb, e]
 
     # children = #(eigenvalues above threshold), clamped to >= 1 and to the
     # slots still free, in parent order (JAX's `lax.scan`: a loop over

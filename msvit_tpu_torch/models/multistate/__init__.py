@@ -6,6 +6,7 @@ from msvit_tpu_torch.models.multistate.config import MultiStateViTConfig
 from msvit_tpu_torch.models.multistate.model import (
     MultiStateViTEncoderBackbone,
     MultiStateViTEncoderModel,
+    MultiStateViTForImageClassification,
     build_multistate_attention_mask,
 )
 from msvit_tpu_torch.models.multistate.quantized import (
@@ -16,7 +17,8 @@ from msvit_tpu_torch.models.multistate.quantized import (
 
 __all__ = [
     "MultiStateViTConfig", "MultiStateViTEncoderBackbone",
-    "MultiStateViTEncoderModel", "build_multistate_attention_mask",
+    "MultiStateViTEncoderModel", "MultiStateViTForImageClassification",
+    "build_multistate_attention_mask",
     "calibrate_multistate_act_scales", "quantize_multistate_params",
     "quantized_multistate_apply",
 ]

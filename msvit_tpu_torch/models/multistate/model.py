@@ -13,15 +13,23 @@
   cumsum + `searchsorted(right=True)`, in pooled mode (ids global across
   the batch) and per image.
 * The layers are the base trunk's `BaseViTLayer`.  At the bench shape
-  (816 tokens, masked) its attention takes the fused kernel K5 on the card
-  (`ops/attention.py`); the last layer, whose RX -> TX probabilities are an
-  output, the plain path.
+  (816 tokens, masked) its attention takes the fused kernels on the card
+  (`ops/attention.py`): K5, and under autograd K5-lse with the K6
+  backward; the last layer, whose RX -> TX probabilities are an output,
+  the plain path.
+* `MultiStateViTForImageClassification`: a linear head over the
+  occupancy-weighted mean of the TX tokens, the fine-tuning story (TX/RX
+  tokens and the head train, the trunk frozen; gradients flow through
+  every layer).
 
 Clustering sees `detach()`ed f32 hidden states and draws from an `Rng`
 (utils/rng.py) split in the JAX package's order.  Cluster counts stay on
-the device.  Not ported yet: `MultiStateViTForImageClassification`,
-`compress_tokens_with_cluster_indices` (the training slice), and the
-banded mode (K10), which raises at build.
+the device.  Dropout and drop-path (``self.training`` stands for JAX's
+``deterministic=False``) draw from seeded generators, never the global
+RNG: a forward draws one seed from its `generator`; the embeddings take
+`fold_in(seed, 0)` and block i `fold_in(fold_in(seed, 1), i)`, as
+`ViTModel` does.  Not ported yet: `compress_tokens_with_cluster_indices`
+and the banded mode (K10), which raises at build.
 """
 
 from __future__ import annotations
@@ -31,11 +39,14 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from msvit_tpu_torch.models.base.model import BaseViTLayer, trunc_normal
+import torch.nn.functional as F
+
+from msvit_tpu_torch.models.base.model import (
+    BaseViTLayer, Linear, is_stochastic, trunc_normal)
 from msvit_tpu_torch.models.base.vit import ViTEmbeddings
 from msvit_tpu_torch.models.clustering import cluster, max_children_bound
 from msvit_tpu_torch.models.multistate.config import MultiStateViTConfig
-from msvit_tpu_torch.utils.rng import Rng, draw_seed
+from msvit_tpu_torch.utils.rng import Rng, draw_seed, fold_in
 
 
 def as_rng(rng) -> Any:
@@ -132,8 +143,14 @@ class MultiStateViTEncoderBackbone(nn.Module):
         output_cluster_indices: bool = False,
         output_cluster_tokens: bool = False,
         output_attentions: bool = False,
+        seed: Optional[int] = None,
     ) -> Dict[str, Any]:
+        """`seed`: block i draws its dropout and drop-path masks from
+        `fold_in(seed, i)`; None while training with either draws one seed
+        from the default CPU generator."""
         cfg = self.config
+        if seed is None and self.training and is_stochastic(cfg):
+            seed = draw_seed(None)
         b, n, _ = hidden_states.shape
         c = cfg.max_clusters
         rng = as_rng(rng)
@@ -169,7 +186,8 @@ class MultiStateViTEncoderBackbone(nn.Module):
             # or when per-layer attentions are asked for
             need_probs = output_attentions or i == cfg.num_hidden_layers - 1
             concat, probs = layer(concat, attention_mask=soft_mask(mask, cfg),
-                                  output_attentions=need_probs)
+                                  output_attentions=need_probs,
+                                  seed=None if seed is None else fold_in(seed, i))
             cluster_tokens = concat[:, :2 * c].reshape(b, c, 2, -1)
             hidden_states = concat[:, 2 * c:]
 
@@ -228,12 +246,64 @@ class MultiStateViTEncoderModel(nn.Module):
             self.to(device)
 
     def forward(self, pixel_values: torch.Tensor, rng=None,
+                generator: Optional[torch.Generator] = None,
                 **output_kwargs: bool) -> Dict[str, Any]:
-        """pixel_values [B, H, W, C] NHWC; `rng` an `Rng`, an int seed, or
-        None (a seed from the default CPU generator)."""
-        out = self.backbone(self.embeddings(pixel_values), rng=rng, **output_kwargs)
+        """pixel_values [B, H, W, C] NHWC; `rng` (clustering) an `Rng`, an
+        int seed, or None (a seed from the default CPU generator);
+        `generator` feeds dropout and drop-path while training."""
+        g_emb, seed = None, None
+        if self.training and is_stochastic(self.config):
+            base = draw_seed(generator)
+            g_emb = torch.Generator(pixel_values.device).manual_seed(fold_in(base, 0))
+            seed = fold_in(base, 1)
+        out = self.backbone(self.embeddings(pixel_values, generator=g_emb), rng=rng,
+                            seed=seed, **output_kwargs)
         if self.add_pooling_layer:
             out["cluster_tokens"] = out["last_cluster_tokens"][:, :, 0, :]
             out["receiver_to_transmitter_attentions"] = out[
                 "last_receiver_to_transmitter_attentions"]
+        return out
+
+
+class MultiStateViTForImageClassification(nn.Module):
+    """Classification head over the pooled transmitter tokens (counterpart
+    of the JAX package's class): the occupancy-weighted mean of the TX
+    tokens (only clusters that own tokens count; the count floored at 1)
+    -> an f32 linear `classifier`; mean cross-entropy when `labels` are
+    given.  State-dict keys under ``encoder.`` and ``classifier.``.
+
+    Weights are drawn on the CPU from `generator` (seed 0 when None), the
+    encoder's first, then moved to `device`."""
+
+    def __init__(
+        self,
+        config: MultiStateViTConfig,
+        num_labels: int = 1000,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.config = config
+        self.encoder = MultiStateViTEncoderModel(config, True, generator=generator)
+        self.classifier = Linear(config.hidden_size, num_labels, True, config, generator)
+        self.classifier.compute_dtype = torch.float32  # flax Dense(dtype=float32)
+        if device is not None:
+            self.to(device)
+
+    def forward(self, pixel_values: torch.Tensor,
+                labels: Optional[torch.Tensor] = None, rng=None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """The encoder's outputs plus `logits` [B, num_labels] f32 and `loss`
+        (None without labels).  `rng` and `generator` as the encoder's."""
+        out = self.encoder(pixel_values, rng=rng, generator=generator)
+        tx = out["cluster_tokens"].float()  # [B, C, D]
+        c = tx.shape[1]
+        occ = (F.one_hot(out["last_cluster_indices"], c).sum(1) > 0).float()  # [B, C]
+        pooled = (tx * occ[..., None]).sum(1) / occ.sum(1, keepdim=True).clamp_min(1.0)
+        logits = self.classifier(pooled)
+        loss = None if labels is None else F.cross_entropy(logits, labels)
+        out.update(logits=logits, loss=loss)
         return out

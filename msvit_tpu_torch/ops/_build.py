@@ -60,6 +60,16 @@ _SIGNATURES = {
     "msvit_fused_attention_inference": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                         _I, _I, ctypes.POINTER(_LL), _I, _LL,
                                         _LL, _F, _F, _P],
+    # q, k, v, mask, out, lse, then as msvit_fused_attention
+    "msvit_fused_attention_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, ctypes.POINTER(_LL), _I, _LL, _LL, _F,
+                                  _F, _P],
+    # q, k, v, out, g, lse, mask, delta, dq, dk, dv, dtype, b, h, nq, nk, dh,
+    # strides[24] (host), mask_kind, mask_sb, mask_sh, scale, mask_value,
+    # stream
+    "msvit_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, ctypes.POINTER(_LL),
+                                  _I, _LL, _LL, _F, _F, _P],
 }
 
 _lock = threading.Lock()

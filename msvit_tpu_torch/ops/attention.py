@@ -6,8 +6,10 @@ K/V by the caller, softmax statistics are float32.
 
 ``xla_attention`` is the plain path (plain tensor ops in the JAX package
 too, so plain torch here).  ``"fused"`` runs the per-head fused kernels
-(`ops/fused_attention.py`: K5, or K4 with ``inference=True``); ``"flash"``
-(K7) is not ported yet and raises.
+(`ops/fused_attention.py`): K5, or K4 with ``inference=True``, and under
+autograd `FusedAttentionFunction` (K5-lse forward, K6 backward from
+`ops/flash_attention.py`).  ``"flash"`` (K7, the online-softmax tiled
+forward) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _FLASH_NOT_PORTED = (
     "attention implementation 'flash' needs K7 (ops/flash_attention.py "
-    "`_flash_forward`), not ported yet (ROADMAP.md queue 2)"
+    "`_flash_forward`), not ported yet (ROADMAP.md queue 2; its backward, "
+    "K6, is ported and serves \"fused\")"
 )
 
 
@@ -81,7 +84,8 @@ def multi_head_attention(
     "auto" takes the plain path where JAX leaves its kernels: probabilities
     requested, fewer than 512 kv tokens, or tensors on the CPU (JAX off the
     TPU).  Otherwise (K/V as long as Q or longer alike) it takes "fused":
-    K5, or K4 with ``inference=True`` (serving only, not differentiable).
+    K5 (K5-lse and K6 under autograd), or K4 with ``inference=True``
+    (serving only, not differentiable).
     JAX's VMEM gate `_fused_eligible`, which sends larger score tiles to
     flash (K7), has no counterpart: the port's fused kernels have no tile
     limit.  "fused" with probabilities requested or other than 4D operands

@@ -184,10 +184,17 @@ def test_ncut_parent_smaller_than_sample_matches_jax():
 
 
 def test_ncut_shared_and_kway_ncut_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tncut_mod.ncut_shared()
+    """`kway_ncut` is not ported and raises; `ncut_shared` is ported now
+    (held against JAX in tests/test_torch_multistate_train.py) and gives
+    an embedding per parent."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tncut_mod.kway_ncut()
+    member = torch.from_numpy(np.arange(120) < 60)[None].repeat(2, 1)
+    member[1] = ~member[1]
+    vecs, vals = tncut_mod.ncut_shared(torch.from_numpy(blobs()), 4, Rng(0), member,
+                                       num_sample=32, anchors_per_parent=8)
+    assert vecs.shape == (2, 120, 4) and vals.shape == (2, 4)
+    assert torch.isfinite(vecs).all() and torch.isfinite(vals).all()
 
 
 # ------------------------------------------------------ spectral module ----
@@ -243,7 +250,7 @@ def test_max_children_bound_matches_jax(max_parents):
 
 
 @pytest.mark.parametrize("cfg", [tcl.FPSClusteringConfig(), tcl.AxisAlignClusteringConfig(),
-                                 tcl.SpectralClusteringConfig(shared_anchors=True)])
+                                 tcl.ClusteringConfig()])
 def test_unported_clustering_raises(cfg):
     x = torch.zeros(1, 8, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

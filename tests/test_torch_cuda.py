@@ -300,16 +300,23 @@ def test_k5_large_logits_and_minus_inf_rows(dev):
 
 
 def test_fused_kernels_refuse_grad_and_bad_inputs(dev):
-    """Under autograd on the card K5 raises (its lse branch and the K6
-    backward are the next slice) instead of running a plain version, and so
-    does the serving-only K4; unsupported inputs raise."""
+    """Under autograd on the card K5 runs FusedAttentionFunction (K5-lse
+    forward, K6 backward: one launch each, no K5 launch), while the
+    serving-only K4 still raises instead of running a plain version;
+    unsupported inputs raise."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+    from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd
+
     fn5, _ = _fused_fns("K5")
     fn4, _ = _fused_fns("K4")
     q, k, v = _heads(1, 37, 37, 2, 16, torch.float32, dev, seed=33, packed=False)
     qg = q.clone().requires_grad_()
     n5, n4 = fn5.launches, fn4.launches
-    with pytest.raises(NotImplementedError, match="K6"):
-        fn5(qg, k, v)
+    nl, nb = fa.fused_attention_lse.launches, flash_attention_bwd.launches
+    fn5(qg, k, v).sum().backward()
+    torch.cuda.synchronize()
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    assert (fa.fused_attention_lse.launches, flash_attention_bwd.launches) == (nl + 1, nb + 1)
     with pytest.raises(NotImplementedError, match="serving-only"):
         fn4(qg, k, v)
     assert (fn5.launches, fn4.launches) == (n5, n4)
@@ -320,6 +327,111 @@ def test_fused_kernels_refuse_grad_and_bad_inputs(dev):
             fn5(q.half(), k.half(), v.half())
         with pytest.raises(ValueError, match="mask"):
             fn4(q, k, v, mask=torch.ones(1, 1, 37, 36, dtype=torch.bool, device=dev))
+        with pytest.raises(ValueError, match="lse"):
+            flash_attention_bwd(q, k, v, q, q, torch.zeros(1, 2, 36, device=dev))
+
+
+# K5-lse: out as K5; lse 1e-5 of max(1, |lse|) (f32 sums in another order).
+# K6: the kernel rounds p (into dV) and ds (into dQ, dK) to the compute dtype
+# as the plain version does, but its f32 sums run in another order and can
+# move a rounding by one bf16 step: bf16 2e-2, f32 1e-4, each of max(1,
+# max |plain|).
+_K6_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _k6_check(got, want, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a).all(), name
+        tol = _K6_TOL[dtype] * max(1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol, name
+
+
+def _ms_train_case(q, k, v, m, dtype, dev, seed):
+    from msvit_tpu_torch.ops import fused_attention as fa
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    b, h, nq, dh = q.shape
+    g = torch.randn(b, nq, h, dh, generator=torch.Generator().manual_seed(seed))
+    g = g.to(dtype).to(dev).transpose(1, 2)  # strided, as autograd hands it
+    n1, n2 = fa.fused_attention_lse.launches, fl.flash_attention_bwd.launches
+    with torch.no_grad():
+        o, lse = fa.fused_attention_lse(q, k, v, mask=m)
+        wo, wl = fa.fused_attention_lse_plain(q, k, v, mask=m)
+        got = fl.flash_attention_bwd(q, k, v, wo, g, wl, m)
+        want = fl.flash_attention_bwd_plain(q, k, v, wo, g, wl, m)
+    torch.cuda.synchronize()
+    assert (fa.fused_attention_lse.launches, fl.flash_attention_bwd.launches) == (n1 + 1, n2 + 1)
+    assert o.shape == q.shape and o.dtype == dtype and lse.dtype == torch.float32
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    tol = _TOL[dtype] * max(1.0, wo.float().abs().max().item())
+    assert (o.float() - wo.float()).abs().max().item() <= tol
+    assert _lse_err(lse, wl) <= 1e-5
+    _k6_check(got, want, dtype)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nk,h,dh,mask,packed", [
+    (37, 37, 4, 16, None, False),
+    (70, 70, 2, 32, "bool_per_head", True),
+    (130, 130, 3, 64, "additive", True),
+    (65, 200, 2, 128, "additive_per_head", False),  # K/V longer than Q
+    (197, 816, 2, 64, "bool", True),  # cross-context at the bench kv length
+    (5, 9, 3, 8, "bool_per_head", False),
+    (100, 30, 2, 40, "additive", False),  # Q longer than K/V
+    (96, 96, 2, 128, "bool", True),
+])
+def test_k5_lse_and_k6_match_plain(dev, dtype, nq, nk, h, dh, mask, packed):
+    """K5-lse (out, lse) and K6 (dq, dk, dv from the plain forward's
+    residuals and a strided cotangent) against their plain versions at odd
+    shapes: N not a multiple of 64, head sizes 8-128, Nq != Nk, every mask
+    kind per head and broadcast, q/k/v strided views of the QKV GEMM output
+    or contiguous.  A bool mask's row 0 is fully masked."""
+    q, k, v = _heads(2, nq, nk, h, dh, dtype, dev, seed=40, packed=packed)
+    _ms_train_case(q, k, v, _fused_mask(mask, 2, h, nq, nk, dev, seed=41), dtype, dev, 42)
+
+
+def test_k5_lse_and_k6_large_logits_and_minus_inf_rows(dev):
+    """q and k x 12 (|s| in the hundreds): exact and finite; an additive
+    -inf row: out zeros, lse 0, and no gradient through it."""
+    q, k, v = _heads(2, 70, 90, 2, 64, torch.float32, dev, seed=43, packed=True)
+    m = torch.zeros(2, 1, 70, 90, device=dev)
+    m[1, 0, 3] = -torch.inf
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    dq, dk, dv = _ms_train_case(q * 12, k * 12, v, m, torch.float32, dev, 44)
+    with torch.no_grad():
+        o, lse = fa.fused_attention_lse(q * 12, k * 12, v, mask=m)
+    assert torch.equal(o[1, :, 3], torch.zeros_like(o[1, :, 3]))
+    assert torch.equal(lse[1, :, 3], torch.zeros_like(lse[1, :, 3]))
+    assert torch.equal(dq[1, :, 3], torch.zeros_like(dq[1, :, 3]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_function_grads_match_plain_function(dev, dtype):
+    """Autograd through `fused_attention` on the card (FusedAttentionFunction:
+    K5-lse, K6) against the same Function on CPU copies (the plain
+    versions), q/k/v views of one QKV GEMM output with the multistate soft
+    mask: value and the QKV output's gradient within K6's bar."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+    from msvit_tpu_torch.ops.packed_attention import unpack_qkv
+
+    b, n, h, dh = 2, 130, 3, 64
+    gen = torch.Generator().manual_seed(45)
+    x = torch.randn(b, n, 3 * h * dh, generator=gen).to(dtype)
+    m = -100.0 * (torch.rand(b, 1, n, n, generator=gen) < 0.3).float()
+    w = torch.randn(b, h, n, dh, generator=gen)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xd = x.to(d).requires_grad_()
+        q, k, v = unpack_qkv(xd, h)
+        out = fa.fused_attention(q, k, v, mask=m.to(d))
+        (out.float() * w.to(d)).sum().backward()
+        grads.append(xd.grad.cpu())
+    torch.cuda.synchronize()
+    tol = _K6_TOL[dtype] * max(1.0, grads[1].float().abs().max().item())
+    assert (grads[0].float() - grads[1].float()).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("rows", [5, 16, 17, 197])

@@ -23,7 +23,7 @@ from msvit_tpu.models import multistate as jms
 from msvit_tpu.models.clustering import SpectralClusteringConfig as JSpectral
 from msvit_tpu.models.clustering.module import _ncut_matmul_dtype
 from msvit_tpu.ops.kmeans import kmeans as jkmeans
-from msvit_tpu.ops.ncut import ncut as jncut
+from msvit_tpu.ops.ncut import ncut as jncut, ncut_shared as jncut_shared
 from msvit_tpu.settings import parity_policy as j_parity
 import msvit_tpu_torch.ops.attention as tattn
 import msvit_tpu_torch.ops.fused_attention as tfused
@@ -291,8 +291,8 @@ def _pair(jcfg, tcfg, pix, seed=3):
 
 
 def _event_margins(jcfg, out, key):
-    """Replays the JAX run's clustering events from its collected hidden
-    states and ids: the smallest distance of an eigenvalue to the
+    """Replays the JAX run's clustering events (per-parent or shared-anchor
+    NCut) from its collected hidden states and ids: the smallest distance of an eigenvalue to the
     threshold, and the smallest relative gap between a member token's
     nearest and second-nearest active KMeans center.  Equality of the two
     packages' partitions rests on both being far from 0."""
@@ -312,11 +312,16 @@ def _event_margins(jcfg, out, key):
             member = fp[None, :] == jnp.arange(cb)[:, None]
             keys = jax.random.split(k, 2 * cc.max_clusters)
             ns = cc.late_num_sample if (cb > 1 and cc.late_num_sample) else cc.num_sample
-            vecs, vals = jax.vmap(lambda m, kk: jncut(
-                fx, cc.ncut_dim, kk, num_sample=ns, distance=cc.ncut_dist,
-                gamma=cc.affinity_focal_gamma, mask=m, eig_method=cc.eig_method,
-                eig_iters=cc.eig_iters, matmul_dtype=_ncut_matmul_dtype(cc)))(
-                    member, keys[:cb])
+            common = dict(num_sample=ns, distance=cc.ncut_dist,
+                          gamma=cc.affinity_focal_gamma, eig_method=cc.eig_method,
+                          eig_iters=cc.eig_iters, matmul_dtype=_ncut_matmul_dtype(cc))
+            if cc.shared_anchors:
+                vecs, vals = jncut_shared(fx, cc.ncut_dim, keys[0], member,
+                                          anchors_per_parent=cc.anchors_per_parent,
+                                          **common)
+            else:
+                vecs, vals = jax.vmap(lambda m, kk: jncut(
+                    fx, cc.ncut_dim, kk, mask=m, **common))(member, keys[:cb])
             has = np.asarray(member.any(1))
             v = np.asarray(vals)[has]
             eig_margin = min(eig_margin, float(np.abs(v - cc.eigenvalue_threshold).min()))
@@ -460,7 +465,7 @@ def test_config_fields_match_jax():
 @pytest.mark.parametrize("kw,match", [
     (dict(banded_attention=True), "K10"),
     (dict(clustering=dict(model_type="fps")), "fps"),
-    (dict(clustering=dict(shared_anchors=True)), "shared_anchors"),
+    (dict(clustering=dict(model_type="axis")), "axis"),
 ])
 def test_unported_options_raise_at_build(kw, match):
     _, tcfg = _cfgs(**kw)
