@@ -51,7 +51,29 @@ fails (non-zero exit, no result line) if any phase fails:
    the classifier; the loss falls, frozen weights stay bit-equal, K5-lse
    and K6 run 11 times a step; ms/step, memory, host syncs;
 13. the fine-tune example (`python -m msvit_tpu_torch.examples.train_multistate
-   --steps 3`, patch 16: K1-lse and K2 with the soft mask).
+   --steps 3`, patch 16: K1-lse and K2 with the soft mask);
+14. the int8 apply's other attention modes at `bench.py`'s 224-px config:
+   `attn_mode="int8"` (K9, calibrated scales) and `"banded"` (K10), each
+   against `"bf16"` without clustering events, and with them valid outputs,
+   11 launches per forward, the partition's agreement, ms/batch;
+15. multistate serving at 448 px (`benchmarks/bench_multistate.py`'s
+   `i448:shared1024/256`: 3168 tokens, shared-anchor NCut), the seeded
+   scene at 448: the bf16 and int8 forwards (K7 in 11 layers, K4 and K5 in
+   none) against the plain attention path without clustering events; with
+   them valid outputs; the banded forward (K10 in 11 layers) against the
+   dense one, the same weights and draws (in bf16 the partitions'
+   agreement and the patch-token cosine, in f32 equal partitions);
+   ms/batch, img/s, peak memory, host syncs of each;
+16. flash kernels: K7 and K7-lse against their plain versions at
+   [8,12,3168,64] with the 448 partition's soft mask (also f32, a bool mask
+   with a fully masked row, Nq 197 x Nk 3168), `FlashAttentionFunction`'s
+   gradients (K7-lse + K6) against the plain versions, then K7 timed;
+17. banded kernel: K10 against its plain version on the token rows of the
+   448 partition ([8, 32+3136, 2304]) and the 224 one ([8, 32+784, 2304]),
+   then timed;
+18. masked int8 kernel: K9 against its plain version at [8,816,2304] with
+   the 224 partition's soft mask and a bool mask, bf16 and int8 out, then
+   timed.
 
 Every kernel is timed beside the least time the card could take for its
 work (`bound`) and, where one PyTorch call computes the same function,
@@ -59,8 +81,10 @@ that call (`scaled_dot_product_attention` or its backward; the port never
 calls it).  The second-to-last line is a JSON object with each kernel's
 launches in its path's run (serving for K1 and K3, training for K1-lse and
 K2, the clustered multistate forwards for K4 and K5, multistate training
-for K5-lse and K6), its error, its time beside the plain version's, the
-library call's and the bound; the last is `{"ok": true, "device": {...}}`.
+for K5-lse and K6, the clustered 448-px bf16 forward for K7, the 224-px
+int8-attention forward for K9, the 448-px banded forward for K10), its
+error, its time beside the plain version's, the library call's and the
+bound; the last is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -106,6 +130,7 @@ LAYERS = 12
 MS_BATCH = 8
 MS_CLUSTERS = 16
 MS_SHAPE = (MS_BATCH, 12, 816, 64)  # the attention's [B, H, N, dh]
+MS448_SHAPE = (MS_BATCH, 12, 3168, 64)  # at 448 px: 3136 patch tokens + 32
 # kernel path vs plain attention path, the same weights, no clustering
 # event.  bf16: the parity bar.  int8: every activation is requantized to
 # int8 at a static scale, so a one-ulp difference at a rounding boundary
@@ -114,6 +139,19 @@ MS_SHAPE = (MS_BATCH, 12, 816, 64)  # the attention's [B, H, N, dh]
 # bf16 0.9989 measured on an NVIDIA H100, so ~0.9978), hence 0.995
 MS_BF16_COS = 0.999
 MS_INT8_COS = 0.995
+# attn_mode="int8" (K9) against "bf16" (K4), the int8 GEMMs alike, no
+# clustering event: K9 also quantizes each probability to a 1/127 step
+# (truncating; the sum of the quantized probabilities divides) and the
+# attention output to int8 at the calibrated proj scale, per layer, where
+# "bf16" keeps both in bf16; two quantizations more in each of 11 layers,
+# so the int8-vs-bf16 bar of the multistate phase: 0.98
+MS_INT8_ATTN_COS = 0.98
+# the banded forward's partition against the dense one's in bf16: at the
+# 448-px scene the later clustering events split groups of near-identical
+# tokens, and bf16 rounding moves a few of them whatever the kernel (the
+# plain attention path against the dense kernel path: purity 0.99964 on
+# NVIDIA H100 80GB HBM3, 700 W); in f32 the partitions are equal
+MS_PARTITION_PURITY = 0.999
 # multistate training at `benchmarks/bench_multistate_train_r3.py`'s config
 # (ViT-B/8 @224, shared-anchor NCut, 10 labels, bs8).  K5-lse out and lse as
 # K5 and K1-lse.  K6: the kernel rounds p (into dV) and ds (into dQ, dK) to
@@ -225,12 +263,7 @@ def kernel_phase(dev, smi: str) -> dict:
     res = {}
 
     def check(name, err, tol):
-        ok = err <= tol
-        log(f"[kernels] {name}: max_abs_err {err!r} (tolerance {tol!r}) "
-            f"{'ok' if ok else 'FAILED'}")
-        if not ok:
-            raise AssertionError(f"{name}: error {err} > {tol}")
-        return err
+        return _check("kernels", name, err, tol)
 
     with torch.inference_mode():
         # K1, main path shape, bf16, unmasked
@@ -659,18 +692,20 @@ def multistate_config(**overrides):
     return dataclasses.replace(cfg, **overrides)
 
 
-def scene_pixels(seed: int, k: int = 6) -> torch.Tensor:
-    """[8, 224, 224, 3] images of 8x8 patches copied from k seeded
-    prototypes (plus a little noise), laid out in 4 x 4 blocks of 7 x 7
-    patches: the tokens fall into k groups, so clustering has a partition
-    to find.  (At random weights, N(0, 1) pixels give it none: every
-    event keeps one cluster.)"""
+def scene_pixels(seed: int, k: int = 6, size: int = 224) -> torch.Tensor:
+    """[8, size, size, 3] images of 8x8 patches copied from k seeded
+    prototypes (plus a little noise), laid out in 4 x 4 blocks of patches
+    (7 x 7 at 224 px, 14 x 14 at 448): the tokens fall into k groups, so
+    clustering has a partition to find.  (At random weights, N(0, 1) pixels
+    give it none: every event keeps one cluster.)  A seed gives the same
+    prototypes and block layout at every size."""
     g = torch.Generator().manual_seed(seed)
     protos = torch.randn(k, 8, 8, 3, generator=g) * 3.0
     blocks = torch.randint(0, k, (MS_BATCH, 4, 4), generator=g)
-    lab = blocks.repeat_interleave(7, 1).repeat_interleave(7, 2)  # [B, 28, 28]
-    x = protos[lab] + 0.1 * torch.randn(MS_BATCH, 28, 28, 8, 8, 3, generator=g)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(MS_BATCH, 224, 224, 3)
+    p = size // 8
+    lab = blocks.repeat_interleave(p // 4, 1).repeat_interleave(p // 4, 2)  # [B, p, p]
+    x = protos[lab] + 0.1 * torch.randn(MS_BATCH, p, p, 8, 8, 3, generator=g)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(MS_BATCH, size, size, 3)
 
 
 def _fused_counts() -> dict:
@@ -764,11 +799,7 @@ def multistate_phase(dev, smi: str) -> tuple:
     flat_k = twin(flat)
     flat_p = twin(dataclasses.replace(flat, attn_implementation="xla"))
     ik, ip, bk, bp = int8(flat), int8(flat, use_kernels=False), bf16(flat_k), bf16(flat_p)
-    def agree(a, b):  # min per-image cosine of the patch tokens and of TX_0
-        return min(min_cos(a["last_hidden_state"], b["last_hidden_state"]),
-                   min_cos(a["cluster_tokens"][:, :1], b["cluster_tokens"][:, :1]))
-
-    c_int8, c_bf16, c_mixed, c_floor = agree(ik, ip), agree(bk, bp), agree(ik, bk), agree(ip, bp)
+    c_int8, c_bf16, c_mixed, c_floor = _agree(ik, ip), _agree(bk, bp), _agree(ik, bk), _agree(ip, bp)
     log(f"[multistate] no clustering event, min per-image cosine: bf16 kernel path vs "
         f"plain path {c_bf16!r} (tolerance >= {MS_BF16_COS!r}); int8 kernel path vs "
         f"plain path {c_int8!r} (tolerance >= {MS_INT8_COS!r}); int8 vs bf16 on the kernel "
@@ -805,13 +836,7 @@ def multistate_phase(dev, smi: str) -> tuple:
     del cp, bfp
     torch.cuda.empty_cache()
 
-    # host syncs of one forward (`eigh` checks its error code on the host)
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        int8(cfg)
-    torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    syncs = _syncs(lambda: int8(cfg))  # `eigh` checks its error code on the host
 
     t_int8 = wall_ms(lambda: int8(cfg))
     t_flat = wall_ms(lambda: int8(flat))
@@ -1086,12 +1111,7 @@ def ms_train_phase(dev, smi: str) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     launches = _ms_train_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        tr.fit(itertools.repeat(batch), num_steps=11, seed=0)
-    torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    syncs = _syncs(lambda: tr.fit(itertools.repeat(batch), num_steps=11, seed=0))
     ms = statistics.median(times[1:])
     unchanged = all(torch.equal(p.detach(), frozen[n]) for n, p in model.named_parameters()
                     if n in frozen)
@@ -1128,11 +1148,491 @@ def ms_train_example_phase(dev, smi: str) -> None:
         raise AssertionError(f"example launches {counts}")
 
 
+def ms448_config(**overrides):
+    """`benchmarks/bench_multistate.py`'s `i448:shared1024/256` case: ViT-B/8
+    @448 (3136 patch tokens + 2 x 16 TX/RX slots = 3168), clustering at
+    layers 4, 6, 8 and 10 with shared-anchor NCut."""
+    from msvit_tpu_torch.models.clustering import SpectralClusteringConfig
+    from msvit_tpu_torch.models.multistate import MultiStateViTConfig
+
+    cfg = MultiStateViTConfig(
+        patch_size=8, image_size=448, pregeneration_period=4, generation_period=2,
+        clustering=SpectralClusteringConfig(
+            ncut_dim=8, num_sample=1024, max_clusters=MS_CLUSTERS,
+            eigenvalue_threshold=0.1, ncut_dist="rbf", eig_method="subspace",
+            shared_anchors=True, anchors_per_parent=256))
+    return dataclasses.replace(cfg, **overrides)
+
+
+def _attn_counts() -> dict:
+    """Launch counts of the multistate serving kernels."""
+    from msvit_tpu_torch.ops.banded_attention import token_rows
+    from msvit_tpu_torch.ops.flash_attention import flash_attention
+    from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked
+
+    return {**_fused_counts(), "K7": flash_attention.launches,
+            "K9": packed_attention_int8_masked.launches, "K10": token_rows.launches}
+
+
+def _reset_attn_counts() -> None:
+    from msvit_tpu_torch.ops.banded_attention import token_rows
+    from msvit_tpu_torch.ops.flash_attention import flash_attention
+    from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked
+
+    _reset_fused_counts()
+    flash_attention.launches = 0
+    packed_attention_int8_masked.launches = 0
+    token_rows.launches = 0
+
+
+def _launched(label: str, want: dict) -> None:
+    """Fail unless the counts since the last reset are `want` (kernels not
+    named: 0)."""
+    got = _attn_counts()
+    full = {k: want.get(k, 0) for k in got}
+    log(f"[{label}] launches per forward {got}")
+    if got != full:
+        raise AssertionError(f"{label}: launches {got}, want {full}")
+
+
+def _syncs(fn) -> int:
+    """Host synchronizations during one call of `fn`."""
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fn()
+    torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _peak_gib(fn) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _agree(a: dict, b: dict) -> float:
+    """Min per-image cosine of the patch tokens and of TX_0."""
+    return min(min_cos(a["last_hidden_state"], b["last_hidden_state"]),
+               min_cos(a["cluster_tokens"][:, :1], b["cluster_tokens"][:, :1]))
+
+
+def _purity(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Agreement of two partitions whatever their labels: the share of
+    tokens in the best-matching cluster, each way, the smaller (1.0 when the
+    partitions are equal up to relabelling)."""
+    c = int(max(a.max(), b.max())) + 1
+    cont = torch.bincount((a * c + b).flatten(), minlength=c * c).reshape(c, c)
+    return min(cont.amax(1).sum().item(), cont.amax(0).sum().item()) / a.numel()
+
+
+def _sizes(out: dict) -> list:
+    return torch.bincount(out["last_cluster_indices"].flatten(), minlength=MS_CLUSTERS).tolist()
+
+
+def ms448_phase(dev, smi: str) -> tuple:
+    """Multistate serving at 448 px (3168 tokens), seeded weights and the
+    seeded scene at 448: without clustering events the bf16 and int8
+    forwards (K7 in 11 layers) against the plain attention path; with them
+    valid outputs, K7 launched 11 times per forward of each and K4, K5 not
+    at all; ms/batch, img/s, peak memory, host syncs, clusters.  Then the
+    banded mode (K10, 11 launches) against the dense forward, the same
+    weights and draws: in bf16 the partitions' agreement and the
+    patch-token cosine, in f32 equal partitions and the cosine.  Returns
+    (launches, the bf16 run's partition)."""
+    from msvit_tpu_torch.models.multistate import (
+        MultiStateViTEncoderModel, calibrate_multistate_act_scales,
+        quantize_multistate_params, quantized_multistate_apply)
+    from msvit_tpu_torch.settings import parity_policy
+    from msvit_tpu_torch.utils.rng import Rng
+
+    t0 = time.perf_counter()
+    cfg = ms448_config()
+    flat = ms448_config(pregeneration_period=LAYERS)
+    model = MultiStateViTEncoderModel(
+        cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
+    state = model.state_dict()
+
+    def twin(c):
+        m = MultiStateViTEncoderModel(c, device=dev).eval()
+        m.load_state_dict(state)
+        return m
+
+    qparams = quantize_multistate_params(model)
+    scales = calibrate_multistate_act_scales(qparams, cfg, scene_pixels(1, size=448).to(dev),
+                                             Rng(0))
+    # seed 5: seed 2's scene at 448 keeps one cluster under shared anchors
+    # (the first event's eigenvalues stay under the threshold), seed 5's
+    # splits (9 clusters; NVIDIA H100 80GB HBM3, 700 W)
+    pix = scene_pixels(5, size=448).to(dev)
+    torch.cuda.synchronize()
+    log(f"[ms448] ViT-B/8 multistate encoder at 448 px (3136 patch tokens, 3168 with "
+        f"the TX/RX slots) built, quantized, calibrated on 8 seeded scene images in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def int8(c, use_kernels=None):
+        return quantized_multistate_apply(qparams, c, pix, Rng(3), act_scales=scales,
+                                          use_kernels=use_kernels)
+
+    def bf16(m):
+        with torch.inference_mode():
+            return m(pix, rng=Rng(3))
+
+    with torch.inference_mode():
+        n2 = model(scene_pixels(2, size=448).to(dev), rng=Rng(3))["num_clusters"]
+    log(f"[ms448] seed 2's scene at 448 px: num_clusters {int(n2)} (seed 5's is served)")
+    flat_k = twin(flat)
+    _reset_attn_counts()
+    bk = bf16(flat_k)
+    _launched("ms448 bf16, no clustering event", {"K7": LAYERS - 1})
+    bp = bf16(twin(dataclasses.replace(flat, attn_implementation="xla")))
+    c_bf16 = _agree(bk, bp)
+    del bk, bp, flat_k
+    _reset_attn_counts()
+    ik = int8(flat)
+    _launched("ms448 int8, no clustering event", {"K7": LAYERS - 1})
+    ip = int8(flat, use_kernels=False)
+    c_int8 = _agree(ik, ip)
+    del ik, ip
+    torch.cuda.empty_cache()
+    log(f"[ms448] no clustering event, min per-image cosine: bf16 kernel path (K7) vs "
+        f"plain path {c_bf16!r} (tolerance >= {MS_BF16_COS!r}); int8 kernel path vs plain "
+        f"path {c_int8!r} (tolerance >= {MS_INT8_COS!r})")
+    if c_bf16 < MS_BF16_COS or c_int8 < MS_INT8_COS:
+        raise AssertionError("448-px kernel path disagrees with the plain path")
+
+    _reset_attn_counts()
+    ci = int8(cfg)
+    _launched("ms448 int8 with clustering", {"K7": LAYERS - 1})
+    _reset_attn_counts()
+    cb = bf16(model)
+    _launched("ms448 bf16 with clustering", {"K7": LAYERS - 1})
+    launches = {"K7": _attn_counts()["K7"]}
+    _check_multistate_out("ms448 int8", ci, cfg)
+    _check_multistate_out("ms448 bf16", cb, cfg)
+    for label, out in (("int8", ci), ("bf16", cb)):
+        log(f"[ms448] {label} with clustering: num_clusters {int(out['num_clusters'])}, "
+            f"cluster sizes {_sizes(out)}")
+    partition = (cb["last_cluster_indices"], cb["num_clusters"])
+    del ci
+    torch.cuda.empty_cache()
+
+    # banded: the same weights and draws, tokens kept cluster-sorted (K10)
+    banded = twin(dataclasses.replace(cfg, banded_attention=True))
+    _reset_attn_counts()
+    cd = bf16(banded)
+    _launched("ms448 banded bf16 with clustering", {"K10": LAYERS - 1})
+    launches["K10"] = _attn_counts()["K10"]
+    _check_multistate_out("ms448 banded", cd, cfg)
+    cx = bf16(twin(dataclasses.replace(cfg, attn_implementation="xla")))
+    ids_b, ids_d, ids_x = (o["last_cluster_indices"] for o in (cd, cb, cx))
+    p_band, p_plain = _purity(ids_b, ids_d), _purity(ids_x, ids_d)
+    c_band = min_cos(cd["last_hidden_state"], cb["last_hidden_state"])
+    log(f"[ms448] banded vs dense bf16 forward, the same weights and draws: num_clusters "
+        f"{int(cd['num_clusters'])} vs {int(cb['num_clusters'])}, partitions equal "
+        f"{torch.equal(ids_b, ids_d)}, agreement (purity) {p_band!r} (tolerance >= "
+        f"{MS_PARTITION_PURITY!r}; the plain attention path vs the dense kernel path "
+        f"{p_plain!r}: the later events split near-identical tokens, which bf16 rounding "
+        f"moves whatever the kernel); min per-image patch-token cosine {c_band!r} "
+        f"(tolerance >= {MS_BF16_COS!r})")
+    if p_band < MS_PARTITION_PURITY or c_band < MS_BF16_COS:
+        raise AssertionError("448-px banded forward disagrees with the dense forward")
+    del cd, cx
+    # the same in f32 (parity policy), where rounding moves no token
+    f32 = dataclasses.replace(cfg, policy=parity_policy())
+    _reset_attn_counts()
+    d32 = bf16(twin(f32))
+    b32 = bf16(twin(dataclasses.replace(f32, banded_attention=True)))
+    _launched("ms448 f32 dense + banded", {"K7": LAYERS - 1, "K10": LAYERS - 1})
+    same = torch.equal(d32["last_cluster_indices"], b32["last_cluster_indices"])
+    c32 = min_cos(d32["last_hidden_state"], b32["last_hidden_state"])
+    log(f"[ms448] banded vs dense forward in f32 (parity policy, tf32 off), the same "
+        f"weights and draws: num_clusters {int(b32['num_clusters'])} vs "
+        f"{int(d32['num_clusters'])}, partitions equal {same}; min per-image patch-token "
+        f"cosine {c32!r} (tolerance >= {MS_BF16_COS!r})")
+    if not same or c32 < MS_BF16_COS:
+        raise AssertionError("448-px banded forward (f32) disagrees with the dense forward")
+    del cb, d32, b32
+    torch.cuda.empty_cache()
+
+    rows = []
+    for label, fn in (("int8", lambda: int8(cfg)), ("bf16", lambda: bf16(model)),
+                      ("banded bf16", lambda: bf16(banded))):
+        ms = wall_ms(fn, runs=3, warmup=1)
+        syncs, peak = _syncs(fn), _peak_gib(fn)
+        rows.append(f"{label} {ms!r} ms/batch ({MS_BATCH / ms * 1e3!r} img/s, peak "
+                    f"{peak!r} GiB, host syncs {syncs})")
+    log(f"[ms448] forward bs8 with clustering: {'; '.join(rows)} (3 runs after 1 of "
+        f"warm-up, host clock; peak memory with the bf16 and int8 weights resident; {smi})")
+    return launches, partition
+
+
+def ms224_attn_modes_phase(dev, smi: str) -> dict:
+    """The int8 apply at `bench.py`'s 224-px config in its other attention
+    modes: "int8" (K9, calibrated scales) and "banded" (K10), each against
+    `attn_mode="bf16"` (K4) with the same weights and draws: without
+    clustering events the outputs' cosine; with them valid outputs, 11
+    launches per forward, the partition's agreement, ms/batch."""
+    from msvit_tpu_torch.models.multistate import (
+        MultiStateViTEncoderModel, calibrate_multistate_act_scales,
+        quantize_multistate_params, quantized_multistate_apply)
+    from msvit_tpu_torch.utils.rng import Rng
+
+    cfg = multistate_config()
+    flat = multistate_config(pregeneration_period=LAYERS)
+    model = MultiStateViTEncoderModel(
+        cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
+    qparams = quantize_multistate_params(model)
+    scales = calibrate_multistate_act_scales(qparams, cfg, scene_pixels(1).to(dev), Rng(0))
+    pix = scene_pixels(2).to(dev)
+
+    def run(c, mode):
+        return quantized_multistate_apply(qparams, c, pix, Rng(3), act_scales=scales,
+                                          attn_mode=mode)
+
+    ref_flat, ref = run(flat, "bf16"), run(cfg, "bf16")
+    launches = {}
+    for mode, k in (("int8", "K9"), ("banded", "K10")):
+        _reset_attn_counts()
+        f = run(flat, mode)
+        _launched(f"ms224 {mode}, no clustering event", {k: LAYERS - 1})
+        _reset_attn_counts()
+        out = run(cfg, mode)
+        _launched(f"ms224 {mode} with clustering", {k: LAYERS - 1})
+        launches[k] = _attn_counts()[k]
+        _check_multistate_out(f"ms224 {mode}", out, cfg)
+        c_flat = _agree(f, ref_flat)
+        same = _purity(out["last_cluster_indices"], ref["last_cluster_indices"])
+        ms = wall_ms(lambda: run(cfg, mode), runs=5)
+        tol = MS_INT8_ATTN_COS if mode == "int8" else MS_INT8_COS
+        log(f"[ms224] attn_mode={mode!r} vs 'bf16': no clustering event, min per-image "
+            f"cosine {c_flat!r} (tolerance >= {tol!r}); with clustering, num_clusters "
+            f"{int(out['num_clusters'])} vs {int(ref['num_clusters'])}, partition agreement "
+            f"(purity) {same!r}; {ms!r} ms/batch "
+            f"({MS_BATCH / ms * 1e3!r} img/s; 5 runs after 2 of warm-up, host clock; {smi})")
+        if c_flat < tol:
+            raise AssertionError(f"attn_mode={mode!r} disagrees with 'bf16'")
+    return launches
+
+
+def _soft(ids, n_clusters):
+    from msvit_tpu_torch.models.multistate import build_multistate_attention_mask
+
+    return torch.where(build_multistate_attention_mask(ids, n_clusters, MS_CLUSTERS),
+                       0.0, -100.0)  # [8, 1, S, S] f32
+
+
+def _check(tag: str, label: str, err: float, tol: float) -> float:
+    log(f"[{tag}] {label}: max_abs_err {err!r} (tolerance {tol!r}) "
+        f"{'ok' if err <= tol else 'FAILED'}")
+    if err > tol:
+        raise AssertionError(f"{tag} {label}: error {err} > {tol}")
+    return err
+
+
+def flash_kernel_phase(dev, smi: str, partition) -> dict:
+    """K7 and K7-lse against their plain versions at [8,12,3168,64] on q/k/v
+    views of a packed QKV output with the 448-px partition's soft mask (also
+    f32, a bool mask with a fully masked row, Nq 197 x Nk 3168), the lse;
+    `FlashAttentionFunction`'s gradients against the plain Function
+    (K7-lse + K6 vs plain, [2,12,3168,64]); then K7 timed."""
+    from msvit_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
+    from msvit_tpu_torch.ops.flash_attention import (
+        FlashAttentionFunction, flash_attention, flash_attention_bwd_plain,
+        flash_attention_lse, flash_attention_lse_plain, flash_attention_plain)
+    from msvit_tpu_torch.ops.packed_attention import unpack_qkv
+
+    b, h, n, dh = MS448_SHAPE
+    gen = torch.Generator().manual_seed(10)
+    soft = _soft(*partition)
+    x = torch.randn(b, n, 3 * h * dh, generator=gen).to(dev)
+    qf, kf, vf = unpack_qkv(x, h)
+    q, k, v = unpack_qkv(x.to(torch.bfloat16), h)
+    mb = torch.rand(b, 1, n, n, generator=gen) < 0.7
+    mb[0, 0, 5, :] = False  # one fully masked row: mean(V)
+    mb = mb.to(dev)
+    shape = list(MS448_SHAPE)
+    cases = [
+        (f"bf16 {shape} soft mask of the 448 partition", (q, k, v), soft),
+        (f"f32 {shape} soft mask (tf32 off)", (qf, kf, vf), soft),
+        (f"bf16 {shape} bool mask, one row fully masked", (q, k, v), mb),
+        ("bf16 Nq 197 x Nk 3168, soft mask", (q[:, :, :197], k, v), soft[:, :, :197]),
+    ]
+    errs = []
+    with torch.inference_mode():
+        for label, (qq, kk, vv), m in cases:
+            o, lse = flash_attention_lse(qq, kk, vv, mask=m)
+            wo, wl = flash_attention_lse_plain(qq, kk, vv, mask=m)
+            got = flash_attention(qq, kk, vv, mask=m)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(got).all() and torch.equal(got, o)):
+                raise AssertionError(f"K7 {label}: non-finite, or K7 != K7-lse's out")
+            tol = K1_TOL[qq.dtype] * max(1.0, wo.float().abs().max().item())
+            errs.append(_check("flash-kernels", f"K7 {label}", max_err(got, wo), tol))
+            e_l = ((lse - wl).abs() / wl.abs().clamp_min(1.0)).max().item()
+            _check("flash-kernels", f"K7-lse {label} lse (relative)", e_l, LSE_REL_TOL)
+            del o, lse, wo, wl, got
+        torch.cuda.empty_cache()
+        ms, plain_ms = race(lambda: flash_attention(q, k, v, mask=soft),
+                            lambda: flash_attention_plain(q, k, v, mask=soft))
+        lib = library_ms(lambda: sdpa(q, k, v, soft))
+    # the Function's gradients (K7-lse forward, K6 backward) against the
+    # plain versions of both on the same residuals' recipe
+    xd = x[:2].to(torch.bfloat16).requires_grad_()
+    qq, kk, vv = unpack_qkv(xd, h)
+    g = torch.randn(2, h, n, dh, generator=gen).to(dev).to(torch.bfloat16)
+    FlashAttentionFunction.apply(qq, kk, vv, soft[:2], dh**-0.5, DEFAULT_MASK_VALUE).backward(g)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        wo, wl = flash_attention_lse_plain(qq, kk, vv, mask=soft[:2])
+        want = flash_attention_bwd_plain(qq, kk, vv, wo, g, wl, soft[:2])
+    got = unpack_qkv(xd.grad, h)
+    e_g = max(max_err(a, w) for a, w in zip(got, want))
+    tol_g = K6_TOL[torch.bfloat16] * max(1.0, max(w.float().abs().max().item() for w in want))
+    _check("flash-kernels", "FlashAttentionFunction bf16 [2,12,3168,64] soft mask: dq, dk, "
+           "dv vs the plain K7-lse and K6", e_g, tol_g)
+    del xd, g, wo, wl, want, got
+    lim = bound([q, k, v, soft], [q], attn_ops(b, h, n, n, dh, 2), torch.bfloat16)
+    log(f"[flash-kernels] K7 bf16 {shape} soft mask: kernel {ms!r} ms, plain {plain_ms!r} "
+        f"ms, library (scaled_dot_product_attention, the mask in bf16) {lib!r} ms, bound "
+        f"{lim} (median of 20, CUDA events; {smi})")
+    return {"K7": dict(err=errs[0], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)}
+
+
+def banded_kernel_phase(dev, smi: str, part448, part224) -> dict:
+    """K10 against its plain version on the token rows of each partition
+    (sorted by cluster id, a stable sort): [8, 32+3136, 2304] at 448 px (and
+    one cluster, the band of the layers before the first event) and
+    [8, 32+784, 2304] at 224, bf16 (f32 at 224 too); then timed.  Its work
+    depends on the partition: the bound counts the pairs of tokens in one
+    cluster plus each token's RX key, the work this data needs (the band's
+    tiles and the dense N x S are logged as upper bounds)."""
+    from msvit_tpu_torch.ops.banded_attention import (
+        BAND_KEYS, BAND_ROWS, band_limits, token_rows, token_rows_plain)
+
+    h, dh = 12, 64
+    pfx = 2 * MS_CLUSTERS
+    gen = torch.Generator().manual_seed(11)
+    res = {}
+    one = torch.zeros_like(part448[0])  # the layers before the first event
+    for tag, (ids, _) in (("448", part448), ("224", part224),
+                          ("448 one-cluster", (one, None))):
+        cid = torch.sort(ids, dim=1, stable=True).values
+        b, n = cid.shape
+        x = (torch.randn(b, pfx + n, 3 * h * dh, generator=gen) * 0.5).to(dev)
+        x[..., :h * dh] *= dh**-0.5  # the q third pre-scaled
+        xb = x.to(torch.bfloat16)
+        shape = f"[{b}, {pfx}+{n}, {3 * h * dh}]"
+        cases = [(f"bf16 {shape}, the {tag} partition", xb)]
+        if tag == "224":
+            cases.append((f"f32 {shape}, the {tag} partition (tf32 off)", x))
+        with torch.inference_mode():
+            for label, xx in cases:
+                got = token_rows(xx, cid, h, MS_CLUSTERS)
+                want = token_rows_plain(xx, cid, h, MS_CLUSTERS)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"K10 {label}: non-finite output")
+                tol = K1_TOL[xx.dtype] * max(1.0, want.float().abs().max().item())
+                err = _check("banded-kernels", f"K10 {label}", max_err(got, want), tol)
+                if xx is xb:
+                    e_bf16 = err
+                del got, want
+            torch.cuda.empty_cache()
+            ms, plain_ms = race(lambda: token_rows(xb, cid, h, MS_CLUSTERS),
+                                lambda: token_rows_plain(xb, cid, h, MS_CLUSTERS))
+            # the library yardstick: SDPA over the token rows' queries and
+            # every key, the equivalent mask (own cluster, own RX) in bf16
+            cols = torch.arange(pfx + n, device=dev)
+            key_cid = F.pad(cid, (pfx, 0), value=-1)
+            keep = (cols[None, None] == 2 * cid[:, :, None] + 1) | (
+                (cols[None, None] >= pfx) & (cid[:, :, None] == key_cid[:, None, :]))
+            add = torch.where(keep, 0.0, float("-inf")).to(torch.bfloat16)[:, None]
+            t = xb.reshape(b, pfx + n, 3, h, dh).permute(2, 0, 3, 1, 4)
+            lib = library_ms(lambda: F.scaled_dot_product_attention(
+                t[0][:, :, pfx:], t[1], t[2], attn_mask=add, scale=1.0))
+            del add, keep
+        sizes = torch.stack([torch.bincount(r, minlength=MS_CLUSTERS) for r in cid]).double()
+        pairs = (sizes**2).sum().item() + b * n  # same-cluster keys + the RX key
+        band = band_limits(cid.to(torch.int32), MS_CLUSTERS)
+        walked = ((band[:, 1] - band[:, 0] + 1).double() * BAND_ROWS * BAND_KEYS).sum().item()
+        out = torch.empty(b, n, h * dh, dtype=torch.bfloat16, device=dev)
+        lim = bound([xb, cid.to(torch.int32)], [out], 4.0 * h * dh * pairs, torch.bfloat16)
+        log(f"[banded-kernels] K10 bf16 {shape} ({tag} partition, cluster sizes "
+            f"{sizes.sum(0).long().tolist()}): kernel {ms!r} ms, plain {plain_ms!r} ms, "
+            f"library (scaled_dot_product_attention, the equivalent mask in bf16) {lib!r} ms, "
+            f"bound {lim} for the {pairs:.0f} query-key pairs this partition needs; upper "
+            f"bounds: the band's tiles {walked:.0f} pairs, dense {b * n * (pfx + n)} "
+            f"(median of 20, CUDA events; {smi})")
+        res["K10" if tag == "448" else f"K10@{tag}"] = dict(
+            err=e_bf16, ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)
+    return res
+
+
+def int8_attn_kernel_phase(dev, smi: str, partition) -> dict:
+    """K9 against its plain version at [8,816,2304] (per-section quantized
+    qkv) with the 224 partition's soft mask, bf16 and int8 out, also a bool
+    mask with a fully masked row; then the int8-out call timed."""
+    from msvit_tpu_torch.ops.packed_attention import (
+        packed_attention_int8_masked, packed_attention_int8_masked_plain)
+
+    b, h, n, dh = MS_SHAPE
+    d = h * dh
+    gen = torch.Generator().manual_seed(12)
+    soft = _soft(*partition)
+    xf = torch.randn(b, n, 3 * d, generator=gen).to(dev)
+    sec = xf.reshape(-1, 3, d).abs().amax(dim=(0, 2)) / 127.0
+    q = torch.clamp(torch.round(xf / sec.repeat_interleave(d)), -127, 127).to(torch.int8)
+    mb = torch.rand(b, 1, n, n, generator=gen) < 0.7
+    mb[0, 0, 5, :] = False
+    mb = mb.to(dev)
+    with torch.inference_mode():
+        for label, m in (("soft mask of the 224 partition", soft),
+                         ("bool mask, one row fully masked", mb)):
+            got = packed_attention_int8_masked(q, sec, h, mask=m)
+            want = packed_attention_int8_masked_plain(q, sec, h, mask=m)
+            e_b = _check("int8-attn-kernels", f"K9 int8 [8,816,2304] {label}, bf16 out",
+                         max_err(got, want), K3_BF16_REL_TOL * want.float().abs().max().item())
+            inv = 127.0 / want.float().abs().amax()
+            gq = packed_attention_int8_masked(q, sec, h, mask=m, out_inv_scale=inv, int8_out=True)
+            wq = packed_attention_int8_masked_plain(q, sec, h, mask=m, out_inv_scale=inv,
+                                                    int8_out=True)
+            delta = (gq.int() - wq.int()).abs()
+            same = (delta == 0).float().mean().item()
+            log(f"[int8-attn-kernels] K9 int8 [8,816,2304] {label}, int8 out: max |delta| "
+                f"{delta.max().item()} (tolerance 1), exactly equal {same!r} (tolerance >= 0.99)")
+            if delta.max().item() > 1 or same < 0.99:
+                raise AssertionError("K9 int8 out disagrees with its plain version")
+            if m is soft:
+                err, args = e_b, (inv, gq)
+        inv, gq = args
+        ms, plain_ms = race(
+            lambda: packed_attention_int8_masked(q, sec, h, mask=soft, out_inv_scale=inv,
+                                                 int8_out=True),
+            lambda: packed_attention_int8_masked_plain(q, sec, h, mask=soft,
+                                                       out_inv_scale=inv, int8_out=True))
+    torch.cuda.synchronize()
+    # the additive mask rides bf16, as the kernel reads it
+    lim = bound([q, sec, soft.to(torch.bfloat16)], [gq], attn_ops(b, h, n, n, dh, 2), torch.int8)
+    log(f"[int8-attn-kernels] K9 int8-out [8,816,2304] soft mask: kernel {ms!r} ms, plain "
+        f"{plain_ms!r} ms, no library call, bound {lim} (median of 20, CUDA events; {smi})")
+    return {"K9": dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **lim)}
+
+
+
 def ptxas_lines() -> list:
-    """Registers and spills of the training and the fused kernels from
-    ptxas's report."""
+    """Registers and spills of the training, the fused, the flash, the
+    banded and the int8 kernels from ptxas's report."""
     from msvit_tpu_torch.ops import _build
 
+    kernels = (r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8)_kernel|"
+               r"fused_attention_kernel|flash_bwd_(?:dq|dkv)_kernel|"
+               r"flash_forward_kernel|banded_kernel")
+    tags = {"fused_attention_kernel": None, "flash_bwd_dq_kernel": "K6",
+            "flash_bwd_dkv_kernel": "K6", "flash_forward_kernel": "K7/K7-lse",
+            "banded_kernel": "K10", "packed_attention_int8_kernel": None}
     out, name = [], None
     for line in _build.ptxas_report().read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1143,17 +1643,19 @@ def ptxas_lines() -> list:
         if m and name:
             spill = f"spills {m.group(1)}/{m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and re.search(r"lse_kernel|packed_bwd|fused_attention|flash_bwd", name):
-            kern = re.search(r"(packed_(?:bwd_dq|bwd_dkv|attention_lse)_kernel|"
-                             r"fused_attention_kernel|flash_bwd_(?:dq|dkv)_kernel)",
-                             name).group(1)
+        found = re.search(kernels, name) if m and name else None
+        if found:
+            kern = found.group(0)
             if kern == "fused_attention_kernel":  # K5-lse is K5 with an lse pointer
-                kern = ("K4 fused_attention_kernel" if "Lb1E" in name
-                        else "K5/K5-lse fused_attention_kernel")
-            elif kern.startswith("flash_bwd"):
-                kern = "K6 " + kern
+                tag = "K4" if "Lb1E" in name else "K5/K5-lse"
+            elif kern == "packed_attention_int8_kernel":
+                tag = "K9" if "Lb1E" in name else "K3"
+            else:
+                tag = tags.get(kern)
+            if tag:
+                kern = f"{tag} {kern}"
             dh = re.search(r"Li(\d+)E", name).group(1)
-            dt = "bf16" if "bfloat16" in name else "f32"
+            dt = ("int8" if "int8" in kern else "bf16" if "bfloat16" in name else "f32")
             out.append(f"{kern} {dt} dh{dh}: {m.group(1)} registers, {spill}")
     return out
 
@@ -1200,6 +1702,17 @@ def main() -> None:
     launches.update(ms_train_phase(dev, smi))
     torch.cuda.empty_cache()
     ms_train_example_phase(dev, smi)
+    torch.cuda.empty_cache()
+    launches.update(ms224_attn_modes_phase(dev, smi))
+    torch.cuda.empty_cache()
+    l448, part448 = ms448_phase(dev, smi)
+    launches.update(l448)
+    torch.cuda.empty_cache()
+    kernels.update(flash_kernel_phase(dev, smi, part448))
+    torch.cuda.empty_cache()
+    kernels.update(banded_kernel_phase(dev, smi, part448, partition))
+    torch.cuda.empty_cache()
+    kernels.update(int8_attn_kernel_phase(dev, smi, partition))
     src = "msvit_tpu_torch/csrc/"
     packed, fused = "msvit_tpu/ops/packed_attention.py:", "msvit_tpu/ops/fused_attention.py:"
     flash = "msvit_tpu/ops/flash_attention.py:"
@@ -1218,6 +1731,10 @@ def main() -> None:
             ("K5", "fused_attention", "fused_attention.cu", fused + "141"),
             ("K5-lse", "fused_attention_lse", "fused_attention.cu", fused + "141"),
             ("K6", "flash_attention_bwd", "flash_attention_bwd.cu", flash + "367"),
+            ("K7", "flash_attention", "flash_attention.cu", flash + "242"),
+            ("K9", "packed_attention_int8_masked", "packed_attention_int8.cu", packed + "1082"),
+            ("K10", "token_rows", "banded_attention.cu",
+             "msvit_tpu/ops/banded_attention.py:282"),
         )
     ]
     print(json.dumps({"kernels": rows}))

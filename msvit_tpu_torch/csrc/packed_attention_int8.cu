@@ -23,19 +23,83 @@
 // kv tiles: the first finds the row max, the second recomputes the scores
 // (cheaper than keeping N scores per thread) and accumulates.  Tensor-core
 // int8 mma comes in a later change.
+//
+// K9, `msvit_tpu/ops/packed_attention.py::_packed_int8_grouped` (body
+// `_kernel_int8_grouped`, its pallas_call), is the masked serving kernel of
+// the multistate trunk (`attn_mode="int8"`): the same layout and two passes,
+// with four differences from K3, each the TPU kernel's:
+//   * a mask, bool (where-valid with mask_value) or additive, the additive
+//     one read as bf16 (the wrapper casts it; the model's 0 / -100 soft
+//     mask is bf16-exact), [B|1, 1|H, N, N] with the last two dims
+//     contiguous, applied to the scaled scores before the row max;
+//   * the exp is pre-scaled: pq = trunc(exp(s - m + ln 127)), 127 at the
+//     row max (an f32 exp within an ulp of 127 there, so the card's expf
+//     and the TPU's exp may truncate one step apart);
+//   * l is the integer sum of the quantized pq, floored at 1, and
+//     o = (pq . v) * (s_v / l): the division by the quantized sum cancels
+//     the truncation bias that K3's f32 sum keeps;
+//   * bf16 or int8 out, as K3.
+// The TPU's head-pair grid and its VMEM gate do not carry over: any N.
+// Its mask is read per query row from device memory (rows of neighbouring
+// threads N * 2 bytes apart), twice (once per pass).
 
 #include "common.cuh"
 
 namespace msvit {
 namespace {
 
+// Write one row's int32 accumulators as bf16 (dequant(a)) or as int8,
+// clip(rint(dequant(a) * inv_s_out), +-127) (rint is half-to-even, like
+// jnp.round).
+template <int DHT, typename F>
+__device__ __forceinline__ void store_row(const int* acc, void* out,
+                                          long long o_off, int int8_out,
+                                          float inv_s_out, int dh, F dequant) {
+  constexpr int W = DHT / 4;
+  const int words = dh / 4;
+  if (int8_out) {
+    int* o = reinterpret_cast<int*>(static_cast<int8_t*>(out) + o_off);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      if (w < words) {
+        unsigned packed = 0;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float r = fminf(fmaxf(rintf(dequant(acc[4 * w + t]) * inv_s_out),
+                                      -127.f), 127.f);
+          packed |= (static_cast<unsigned>(static_cast<int>(r)) & 0xffu)
+                    << (8 * t);
+        }
+        o[w] = static_cast<int>(packed);
+      }
+    }
+  } else {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + o_off;
+#pragma unroll
+    for (int e = 0; e < DHT; e += 8) {
+      if (e < dh) {
+        float r[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) r[t] = dequant(acc[e + t]);
+        Vec8<__nv_bfloat16>::store(o + e, r);
+      }
+    }
+  }
+}
+
+constexpr float kLn127 = 4.8441870864585885f;  // exp(s - m + ln 127) = 127 p
+
 // One block = (64 query rows, head, image); one thread = one query row.
-template <int DHT>
+// MASKED: K9 (mask, pre-scaled exp, integer l); otherwise K3.
+template <int DHT, bool MASKED>
 __global__ void __launch_bounds__(kRows)
 packed_attention_int8_kernel(const int8_t* __restrict__ qkv,
                              const float* __restrict__ sc,
+                             const void* __restrict__ mask,
                              void* __restrict__ out, int int8_out, int n,
-                             int h_count, int dh, float scale) {
+                             int h_count, int dh, int mask_kind,
+                             long long mask_sb, long long mask_sh, float scale,
+                             float mask_value) {
   constexpr int W = DHT / 4;  // packed int8x4 words per row
   __shared__ __align__(16) int8_t ks[kKv * DHT];
   __shared__ __align__(16) int8_t vs[kKv * DHT];
@@ -53,6 +117,10 @@ packed_attention_int8_kernel(const int8_t* __restrict__ qkv,
   const float s_v = sc[2];
   const float inv_s_out = sc[3];
   const float c = (scale * s_q) * s_k;
+  const long long moff =
+      b * mask_sb + h * mask_sh + static_cast<long long>(i) * n;
+  const uint8_t* mb = static_cast<const uint8_t*>(mask) + moff;
+  const __nv_bfloat16* mf = static_cast<const __nv_bfloat16*>(mask) + moff;
 
   int qw[W];
 #pragma unroll
@@ -68,13 +136,22 @@ packed_attention_int8_kernel(const int8_t* __restrict__ qkv,
       }
     }
   }
-  auto score = [&](int j) {
+  // the scaled score of key tile row j, key index `at`, with the mask
+  auto score = [&](int j, int at) {
     const int* kr = reinterpret_cast<const int*>(ks + j * dh);
     int a = 0;
 #pragma unroll
     for (int w = 0; w < W; ++w)
       if (w < words) a = __dp4a(qw[w], kr[w], a);
-    return static_cast<float>(a) * c;
+    float s = static_cast<float>(a) * c;
+    if (MASKED) {
+      if (mask_kind == kBoolMask) {
+        s = mb[at] ? s : mask_value;
+      } else if (mask_kind == kAddMask) {
+        s += __bfloat162float(mf[at]);
+      }
+    }
+    return s;
   };
 
   // Pass 1: the row max.
@@ -87,14 +164,16 @@ packed_attention_int8_kernel(const int8_t* __restrict__ qkv,
     __syncthreads();
     if (!active) continue;
     const int cnt = min(kKv, n - kv0);
-    for (int j = 0; j < cnt; ++j) m = fmaxf(m, score(j));
+    for (int j = 0; j < cnt; ++j) m = fmaxf(m, score(j, kv0 + j));
   }
 
-  // Pass 2: p = exp(s - m), l = sum p, pq = trunc(127 p), acc = sum pq v.
+  // Pass 2, K3: p = exp(s - m), l = sum p, pq = trunc(127 p); K9:
+  // pq = trunc(exp(s - m + ln 127)), lq = sum pq; both acc = sum pq v.
   int acc[DHT];
 #pragma unroll
   for (int e = 0; e < DHT; ++e) acc[e] = 0;
   float l = 0.f;
+  int lq = 0;
   for (int kv0 = 0; kv0 < n; kv0 += kKv) {
     __syncthreads();
     stage_tile<uint2>(reinterpret_cast<char*>(ks),
@@ -107,9 +186,15 @@ packed_attention_int8_kernel(const int8_t* __restrict__ qkv,
     if (!active) continue;
     const int cnt = min(kKv, n - kv0);
     for (int j = 0; j < cnt; ++j) {
-      const float p = expf(score(j) - m);
-      l += p;
-      const int pq = static_cast<int>(p * 127.f);  // truncating, p <= 1
+      int pq;  // truncating casts: the exponent is <= 0, so pq <= 127
+      if (MASKED) {
+        pq = static_cast<int>(expf(score(j, kv0 + j) - m + kLn127));
+        lq += pq;
+      } else {
+        const float p = expf(score(j, kv0 + j) - m);
+        l += p;
+        pq = static_cast<int>(p * 127.f);
+      }
       const int* vr = reinterpret_cast<const int*>(vs + j * dh);
 #pragma unroll
       for (int w = 0; w < W; ++w) {
@@ -124,47 +209,47 @@ packed_attention_int8_kernel(const int8_t* __restrict__ qkv,
   }
   if (!active) return;
 
-  if (l == 0.f) l = 1.f;
-  const float kv = s_v / 127.f;
   const long long o_off = (static_cast<long long>(b) * n + i) * d + h * dh;
-  if (int8_out) {
-    int* o = reinterpret_cast<int*>(static_cast<int8_t*>(out) + o_off);
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      if (w < words) {
-        unsigned packed = 0;
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float o_f = static_cast<float>(acc[4 * w + t]) * kv / l;
-          const float r = fminf(fmaxf(rintf(o_f * inv_s_out), -127.f), 127.f);
-          packed |= (static_cast<unsigned>(static_cast<int>(r)) & 0xffu)
-                    << (8 * t);
-        }
-        o[w] = static_cast<int>(packed);
-      }
-    }
+  if (MASKED) {
+    const float f = s_v / fmaxf(static_cast<float>(lq), 1.f);
+    store_row<DHT>(acc, out, o_off, int8_out, inv_s_out, dh,
+                   [&](int a) { return static_cast<float>(a) * f; });
   } else {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + o_off;
-#pragma unroll
-    for (int e = 0; e < DHT; e += 8) {
-      if (e < dh) {
-        float r[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          r[t] = static_cast<float>(acc[e + t]) * kv / l;
-        Vec8<__nv_bfloat16>::store(o + e, r);
-      }
-    }
+    if (l == 0.f) l = 1.f;
+    const float kv = s_v / 127.f;
+    store_row<DHT>(acc, out, o_off, int8_out, inv_s_out, dh,
+                   [&](int a) { return static_cast<float>(a) * kv / l; });
   }
 }
 
-template <int DHT>
-void launch(const void* qkv, const void* sc, void* out, int int8_out, int b,
-            int n, int h, int dh, float scale, cudaStream_t stream) {
+template <bool MASKED>
+int run(const void* qkv, const void* sc, const void* mask, void* out,
+        int int8_out, int b, int n, int h, int dh, int mask_kind,
+        long long mask_sb, long long mask_sh, float scale, float mask_value,
+        void* stream) {
+  if (dh <= 0 || dh > 128 || dh % 8 != 0 || n <= 0 || b <= 0 || h <= 0 ||
+      b > 65535 || h > 65535 || mask_kind < 0 || mask_kind > 2 ||
+      (mask_kind != kNoMask && mask == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kRows - 1) / kRows, h, b);
-  packed_attention_int8_kernel<DHT><<<grid, kRows, 0, stream>>>(
-      static_cast<const int8_t*>(qkv), static_cast<const float*>(sc), out,
-      int8_out, n, h, dh, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* x = static_cast<const int8_t*>(qkv);
+  const float* f = static_cast<const float*>(sc);
+#define MSVIT_INT8_LAUNCH(DHT)                                              \
+  packed_attention_int8_kernel<DHT, MASKED><<<grid, kRows, 0, s>>>(         \
+      x, f, mask, out, int8_out, n, h, dh, mask_kind, mask_sb, mask_sh,     \
+      scale, mask_value)
+  if (dh <= 16) {
+    MSVIT_INT8_LAUNCH(16);
+  } else if (dh <= 32) {
+    MSVIT_INT8_LAUNCH(32);
+  } else if (dh <= 64) {
+    MSVIT_INT8_LAUNCH(64);
+  } else {
+    MSVIT_INT8_LAUNCH(128);
+  }
+#undef MSVIT_INT8_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -172,25 +257,28 @@ void launch(const void* qkv, const void* sc, void* out, int int8_out, int b,
 
 extern "C" {
 
-// qkv: int8 [B, N, 3*h*dh]; scales: float32[4] on the device; out: int8 or
-// bfloat16 [B, N, h*dh].  Returns cudaGetLastError() after the launch.
+// K3.  qkv: int8 [B, N, 3*h*dh]; scales: float32[4] on the device; out: int8
+// or bfloat16 [B, N, h*dh].  Returns cudaGetLastError() after the launch.
 int msvit_packed_attention_int8(const void* qkv, const void* scales,
                                 void* out, int int8_out, int b, int n, int h,
                                 int dh, float scale, void* stream) {
-  if (dh <= 0 || dh > 128 || dh % 8 != 0 || n <= 0 || b <= 0 || h <= 0 ||
-      b > 65535 || h > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 16) {
-    msvit::launch<16>(qkv, scales, out, int8_out, b, n, h, dh, scale, s);
-  } else if (dh <= 32) {
-    msvit::launch<32>(qkv, scales, out, int8_out, b, n, h, dh, scale, s);
-  } else if (dh <= 64) {
-    msvit::launch<64>(qkv, scales, out, int8_out, b, n, h, dh, scale, s);
-  } else {
-    msvit::launch<128>(qkv, scales, out, int8_out, b, n, h, dh, scale, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return msvit::run<false>(qkv, scales, nullptr, out, int8_out, b, n, h, dh, 0,
+                           0, 0, scale, 0.f, stream);
+}
+
+// K9: as msvit_packed_attention_int8, plus a mask.  mask_kind: 0 none, 1 bool
+// (one byte per entry), 2 additive bfloat16; mask_sb / mask_sh its image
+// and head strides in elements (0 where broadcast), its last two dims
+// contiguous [N, N].
+int msvit_packed_attention_int8_masked(const void* qkv, const void* scales,
+                                       const void* mask, void* out,
+                                       int int8_out, int b, int n, int h,
+                                       int dh, int mask_kind, long long mask_sb,
+                                       long long mask_sh, float scale,
+                                       float mask_value, void* stream) {
+  return msvit::run<true>(qkv, scales, mask, out, int8_out, b, n, h, dh,
+                          mask_kind, mask_sb, mask_sh, scale, mask_value,
+                          stream);
 }
 
 }  // extern "C"

@@ -21,10 +21,16 @@ Self-attention takes the packed path (`ops/packed_attention.py`: K1 for
 inference, K1-lse and K2 under autograd) when the JAX package would on its
 kernel device: plain self-attention, no probabilities requested, no mask
 or a [B, 1|H, N, N] one, and not the masked >= 512-token regime that JAX
-sends to its fused/flash kernels.  The JAX package's VMEM fit gates have
-no counterpart.  Unlike JAX, which takes the packed path only on a TPU,
-the port takes it on every device: on the CPU the wrappers run the plain
-versions.
+sends to its fused/flash kernels.  The JAX package's VMEM fit gates
+(`packed_vmem_ok`, `grouped_vmem_ok`) are not ported: the unmasked ViT-B/8
+at 448 px keeps the packed path here where JAX falls to flash.  Unlike
+JAX, which takes the packed path only on a TPU, the port takes it on every
+device: on the CPU the wrappers run the plain versions.
+
+With ``banded_segments`` (the multistate trunk's banded mode) the same
+q-prescaled QKV projection goes to `ops/banded_attention.py::
+multistate_banded_attention` (K10 for the token rows) instead of a masked
+kernel; context states or requested probabilities then raise, as in JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from torch import nn
 from msvit_tpu_torch.models.base.config import BaseViTConfig
 from msvit_tpu_torch.models.base.norm import LayerNorm
 from msvit_tpu_torch.ops.attention import multi_head_attention
+from msvit_tpu_torch.ops.banded_attention import (
+    BandedSegments, multistate_banded_attention)
 from msvit_tpu_torch.ops.gelu import gelu_erf, gelu_erf_tanh
 from msvit_tpu_torch.ops.packed_attention import packed_attention
 from msvit_tpu_torch.utils.rng import draw_seed, fold_in
@@ -133,19 +141,30 @@ class BaseViTSelfAttention(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         output_attentions: bool = False,
         generator: Optional[torch.Generator] = None,
+        banded_segments: Optional[BandedSegments] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.config
         h, dh = cfg.num_attention_heads, cfg.head_dim
         compute = cfg.policy.compute
         x = hidden_states.to(compute)
         p_drop = cfg.attention_probs_dropout_prob if self.training else 0.0
+        if banded_segments is not None and (
+                context_states is not None or output_attentions or x.ndim != 3):
+            # never drop the cluster structure silently (no dense mask was
+            # passed in banded mode)
+            raise ValueError("banded_segments requires plain self-attention "
+                             "without output_attentions")
 
-        if self._use_packed(x, context_states, attention_mask, output_attentions):
+        if banded_segments is not None or self._use_packed(
+                x, context_states, attention_mask, output_attentions):
             qs = self.qscale.to(compute)
             w = self.qkv.weight.to(compute) * qs[:, None]
             b = None if self.qkv.bias is None else self.qkv.bias.to(compute) * qs
             qkvp = F.linear(x, w, b)
-            out = packed_attention(qkvp, h, mask=attention_mask, scale=1.0)
+            if banded_segments is not None:
+                out = multistate_banded_attention(qkvp, banded_segments, h)
+            else:
+                out = packed_attention(qkvp, h, mask=attention_mask, scale=1.0)
             out = dropout(out, p_drop, generator) if p_drop > 0 else out
             out = self.output_dense(out)
             return self._hidden_dropout(out, generator), None
@@ -266,17 +285,20 @@ class BaseViTLayer(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         output_attentions: bool = False,
         seed: Optional[int] = None,
+        banded_segments: Optional[BandedSegments] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """`seed`: the block's masks (dropout, stochastic depth, in that
         order) come from a generator seeded with it; None draws them from
-        the device's default generator."""
+        the device's default generator.  `banded_segments`: the multistate
+        cluster structure of a cluster-sorted sequence, in place of a mask
+        (the attention runs `multistate_banded_attention`)."""
         g = None
         if seed is not None and self.training and is_stochastic(self.config):
             g = torch.Generator(hidden_states.device).manual_seed(seed)
         attn_out, probs = self.attention(
             self.norm1(hidden_states), context_states=context_states,
             attention_mask=attention_mask, output_attentions=output_attentions,
-            generator=g,
+            generator=g, banded_segments=banded_segments,
         )
         hidden_states = self._branch(attn_out, self.layer_scale1, g) + hidden_states
         mlp_out = self.mlp(self.norm2(hidden_states))

@@ -22,7 +22,8 @@ class MultiStateViTConfig(BaseViTConfig):
     # soft mask penalty: scores - inf * (1 - mask)
     attention_mask_inf: float = 1e2
     clustering: ClusteringConfig = SpectralClusteringConfig()
-    # cluster-banded attention (K10): not ported, raises at build
+    # cluster-banded attention: tokens kept sorted by cluster id, the trunk
+    # layers' attention `ops/banded_attention.py` (K10), no [S, S] mask
     banded_attention: bool = False
 
     @property
@@ -32,9 +33,4 @@ class MultiStateViTConfig(BaseViTConfig):
 
     def check_supported(self) -> None:
         super().check_supported()
-        if self.banded_attention:
-            raise NotImplementedError(
-                "not ported yet: banded_attention=True needs K10 "
-                "(ops/banded_attention.py `_token_rows_banded`; ROADMAP.md "
-                "queue 2)")
         check_clustering(self.clustering)

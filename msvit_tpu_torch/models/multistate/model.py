@@ -15,8 +15,18 @@
 * The layers are the base trunk's `BaseViTLayer`.  At the bench shape
   (816 tokens, masked) its attention takes the fused kernels on the card
   (`ops/attention.py`): K5, and under autograd K5-lse with the K6
-  backward; the last layer, whose RX -> TX probabilities are an output,
-  the plain path.
+  backward; at 448 px (3168 tokens) the flash kernels: K7, and under
+  autograd K7-lse with K6.  The last layer, whose RX -> TX probabilities
+  are an output, takes the plain path.
+* Banded mode (`config.banded_attention`, ignored under
+  `output_attentions`): the tokens are kept sorted by cluster id (a stable
+  sort, as `jnp.argsort`: ids tie everywhere, and another order of ties
+  would move every row block's band), the trunk layers get a
+  `BandedSegments` in place of the mask (`ops/banded_attention.py`, K10 for
+  the token rows), clustering sees the tokens in their original order (its
+  anchor draws are positional: banded and dense modes then cluster alike),
+  the last layer builds the dense mask over the sorted tokens, and every
+  output is unsorted.
 * `MultiStateViTForImageClassification`: a linear head over the
   occupancy-weighted mean of the TX tokens, the fine-tuning story (TX/RX
   tokens and the head train, the trunk frozen; gradients flow through
@@ -28,8 +38,7 @@ the device.  Dropout and drop-path (``self.training`` stands for JAX's
 ``deterministic=False``) draw from seeded generators, never the global
 RNG: a forward draws one seed from its `generator`; the embeddings take
 `fold_in(seed, 0)` and block i `fold_in(fold_in(seed, 1), i)`, as
-`ViTModel` does.  Not ported yet: `compress_tokens_with_cluster_indices`
-and the banded mode (K10), which raises at build.
+`ViTModel` does.  Not ported: `compress_tokens_with_cluster_indices`.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from msvit_tpu_torch.models.base.model import (
 from msvit_tpu_torch.models.base.vit import ViTEmbeddings
 from msvit_tpu_torch.models.clustering import cluster, max_children_bound
 from msvit_tpu_torch.models.multistate.config import MultiStateViTConfig
+from msvit_tpu_torch.ops.banded_attention import BandedSegments
 from msvit_tpu_torch.utils.rng import Rng, draw_seed, fold_in
 
 
@@ -115,6 +125,31 @@ def recluster(config: MultiStateViTConfig, hidden: torch.Tensor,
             max_children_bound(config.clustering, parents_bound))
 
 
+class SortedTokens:
+    """The banded mode's token order: `order` maps a sorted position to the
+    original token index, `inv` back (identity while `active` is False,
+    which makes every method a no-op)."""
+
+    def __init__(self, active: bool, b: int, n: int, device):
+        self.active = active
+        self.inv = torch.arange(n, device=device).expand(b, n)
+
+    def unsort(self, arr: torch.Tensor) -> torch.Tensor:
+        """`arr` [B, N, ...] in sorted order -> original order."""
+        if not self.active:
+            return arr
+        idx = self.inv.reshape(self.inv.shape + (1,) * (arr.ndim - 2))
+        return torch.gather(arr, 1, idx.expand(arr.shape))
+
+    def resort(self, child_indices: torch.Tensor, hidden: torch.Tensor):
+        """Sort original-order `hidden` [B, N, D] by the new ids (a stable
+        sort); returns (hidden, cluster ids) in the sorted order."""
+        order = torch.argsort(child_indices, dim=1, stable=True)
+        self.inv = torch.argsort(order, dim=1)
+        hidden = torch.gather(hidden, 1, order[..., None].expand(hidden.shape))
+        return hidden, torch.gather(child_indices, 1, order)
+
+
 def initial_cluster_tokens(tx: torch.Tensor, rx: torch.Tensor, b: int, c: int,
                            dtype: torch.dtype) -> torch.Tensor:
     """[B, C, 2, D]: the TX/RX pair in every slot."""
@@ -160,7 +195,9 @@ class MultiStateViTEncoderBackbone(nn.Module):
             self.transmitter_token, self.receiver_token, b, c, hidden_states.dtype)
         cluster_indices = torch.zeros((b, n), dtype=torch.long, device=dev)
         n_clusters = torch.ones((), dtype=torch.long, device=dev)
-        mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
+        banded = cfg.banded_attention and not output_attentions
+        sort = SortedTokens(banded, b, n, dev)
+        mask = None if banded else build_multistate_attention_mask(cluster_indices, n_clusters, c)
 
         collect: Dict[str, list] = {
             "hidden_states": [hidden_states],
@@ -176,27 +213,38 @@ class MultiStateViTEncoderBackbone(nn.Module):
         for i, layer in enumerate(self.layer):
             if i >= cfg.pregeneration_period and i % cfg.generation_period == 0:
                 rng, step_key = rng.split(2)
-                cluster_indices, cluster_tokens, n_clusters, parents_bound = recluster(
-                    cfg, hidden_states, cluster_indices, cluster_tokens, step_key,
+                h_orig = sort.unsort(hidden_states)
+                child, cluster_tokens, n_clusters, parents_bound = recluster(
+                    cfg, h_orig, sort.unsort(cluster_indices), cluster_tokens, step_key,
                     parents_bound)
-                mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
+                if banded:
+                    hidden_states, cluster_indices = sort.resort(child, h_orig)
+                else:
+                    cluster_indices = child
+                    mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
 
             concat = torch.cat([cluster_tokens.reshape(b, 2 * c, -1), hidden_states], 1)
             # probabilities are an output only of the last layer (RX -> TX)
             # or when per-layer attentions are asked for
             need_probs = output_attentions or i == cfg.num_hidden_layers - 1
-            concat, probs = layer(concat, attention_mask=soft_mask(mask, cfg),
-                                  output_attentions=need_probs,
-                                  seed=None if seed is None else fold_in(seed, i))
+            seed_i = None if seed is None else fold_in(seed, i)
+            if banded and not need_probs:
+                concat, probs = layer(concat, seed=seed_i, banded_segments=BandedSegments(
+                    cluster_indices, n_clusters, c, cfg.attention_mask_inf))
+            else:
+                if banded:  # the last layer: dense, the mask over sorted tokens
+                    mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
+                concat, probs = layer(concat, attention_mask=soft_mask(mask, cfg),
+                                      output_attentions=need_probs, seed=seed_i)
             cluster_tokens = concat[:, :2 * c].reshape(b, c, 2, -1)
             hidden_states = concat[:, 2 * c:]
 
             if need_probs:
                 rx_to_tx = probs[:, :, 1:2 * c:2, 0:2 * c:2]
             if output_hidden_states:
-                collect["hidden_states"].append(hidden_states)
+                collect["hidden_states"].append(sort.unsort(hidden_states))
             if output_cluster_indices:
-                collect["cluster_indices"].append(cluster_indices)
+                collect["cluster_indices"].append(sort.unsort(cluster_indices))
             if output_cluster_tokens:
                 collect["cluster_tokens"].append(cluster_tokens)
             if output_attentions:
@@ -208,9 +256,9 @@ class MultiStateViTEncoderBackbone(nn.Module):
                 collect["receiver_to_transmitter_attentions"].append(rx_to_tx)
 
         return {
-            "last_hidden_state": hidden_states,
+            "last_hidden_state": sort.unsort(hidden_states),
             "last_cluster_tokens": cluster_tokens,
-            "last_cluster_indices": cluster_indices,
+            "last_cluster_indices": sort.unsort(cluster_indices),
             "num_clusters": n_clusters,
             "last_receiver_to_transmitter_attentions": rx_to_tx,
             **{k: (v if v else None) for k, v in collect.items()},

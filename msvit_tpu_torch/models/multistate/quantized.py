@@ -6,13 +6,28 @@ The loop of `MultiStateViTEncoderBackbone` with every trunk GEMM int8 x int8
 LayerNorms f32 -> bf16, the residual stream bf16.  Clustering, the mask
 and the TX/RX duplication are the bf16 model's (`recluster`).
 
-Attention, `attn_mode="bf16"` (the default and the only mode ported): the
-bf16 QKV GEMM output goes, on the card, to `multi_head_attention(...,
-inference=True)`, which takes K4 (`fused_attention_inference`) at 512 kv
-tokens and more (the bench shape: 816); with `use_kernels=False`, or on
-the CPU, the plain path.  The last layer runs the plain path with
-probabilities, as in JAX: the pooler needs its RX -> TX block.
-`attn_mode="int8"` (K9) and `"banded"` (K10) raise.
+Attention, by `attn_mode`:
+
+* "bf16" (the default): the bf16 QKV GEMM output goes, with kernels, to
+  `multi_head_attention(..., inference=True)`, whose "auto" takes K4
+  (`fused_attention_inference`) where one head's score tile fits JAX's
+  fused budget (the 224-px bench shape: 816 tokens) and K7
+  (`flash_attention`; JAX's flash route has no shaved variant) beyond it
+  (448 px: 3168 tokens); without kernels (`use_kernels=False`, or by
+  default on the CPU) the plain path.
+* "int8": with kernels and calibrated scales, the QKV GEMM requantizes its
+  output per section (q | k | v at the calibrated `attn_i` scales), K9
+  (`packed_attention_int8_masked`) runs both attention products in int8
+  and emits int8 at the `proj_i` scale, and `int8_matmul_prequant` does
+  the projection.  JAX's VMEM gate `int8_grouped_vmem_ok` is not ported:
+  the port honours the mode at any N.  Otherwise as "bf16".
+* "banded": the tokens are kept sorted by cluster id (as the bf16 model's
+  banded mode), the q third of the QKV output is multiplied by dh^-0.5 in
+  bf16, and `multistate_banded_attention` (K10 for the token rows) runs.
+
+The last layer runs the plain path with probabilities, as in JAX: the
+pooler needs its RX -> TX block.  Calibration (`_record_scales`) always
+runs dense attention (absmax scales do not depend on the token order).
 
 Inference only: every entry point runs under `torch.inference_mode()`.
 """
@@ -28,6 +43,7 @@ from msvit_tpu_torch.models.base.quantized import _layer_norm, quantize_layer_pa
 from msvit_tpu_torch.models.base.vit import check_grid, patchify
 from msvit_tpu_torch.models.multistate.config import MultiStateViTConfig
 from msvit_tpu_torch.models.multistate.model import (
+    SortedTokens,
     as_rng,
     build_multistate_attention_mask,
     initial_cluster_tokens,
@@ -35,16 +51,12 @@ from msvit_tpu_torch.models.multistate.model import (
     soft_mask,
 )
 from msvit_tpu_torch.ops.attention import multi_head_attention, xla_attention
+from msvit_tpu_torch.ops.banded_attention import (
+    BandedSegments, multistate_banded_attention)
 from msvit_tpu_torch.ops.gelu import gelu_erf_tanh
-from msvit_tpu_torch.ops.packed_attention import merge_heads, unpack_qkv
-from msvit_tpu_torch.ops.quant import int8_matmul, quantize_weight
-
-_NOT_PORTED = {
-    "int8": "attn_mode='int8' needs K9 (ops/packed_attention.py "
-            "`_packed_int8_grouped`), not ported yet (ROADMAP.md queue 2)",
-    "banded": "attn_mode='banded' needs K10 (ops/banded_attention.py "
-              "`_token_rows_banded`), not ported yet (ROADMAP.md queue 2)",
-}
+from msvit_tpu_torch.ops.packed_attention import (
+    merge_heads, packed_attention_int8_masked, unpack_qkv)
+from msvit_tpu_torch.ops.quant import int8_matmul, int8_matmul_prequant, quantize_weight
 
 
 @torch.inference_mode()
@@ -92,9 +104,7 @@ def quantized_multistate_apply(
 
     `rng`: an `Rng`, an int seed or None.  `use_kernels=None` means
     kernels iff the pixels are on the card."""
-    if attn_mode in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[attn_mode])
-    if attn_mode != "bf16":
+    if attn_mode not in ("bf16", "int8", "banded"):
         raise ValueError(f"attn_mode must be 'bf16', 'int8' or 'banded'; got {attn_mode}")
     if interpolate_pos_encoding:
         raise NotImplementedError(
@@ -120,42 +130,74 @@ def quantized_multistate_apply(
     hidden = x + emb["position_embeddings"].to(x.dtype)
     n = hidden.shape[1]
     kernels = pixel_values.is_cuda if use_kernels is None else use_kernels
+    int8_attn = (attn_mode == "int8" and kernels and act_scales is not None
+                 and "attn_0" in act_scales and _record_scales is None)
+    banded = attn_mode == "banded" and _record_scales is None
+    sort = SortedTokens(banded, b, n, hidden.device)
 
     bb = qparams["backbone"]
     cluster_tokens = initial_cluster_tokens(
         bb["transmitter_token"], bb["receiver_token"], b, c, hidden.dtype)
     cluster_indices = torch.zeros((b, n), dtype=torch.long, device=hidden.device)
     n_clusters = torch.ones((), dtype=torch.long, device=hidden.device)
-    mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
+    mask = None if banded else build_multistate_attention_mask(cluster_indices, n_clusters, c)
 
     rx_to_tx = None
     parents_bound = 1
     for i in range(cfg.num_hidden_layers):
         if i >= cfg.pregeneration_period and i % cfg.generation_period == 0:
             rng, step_key = rng.split(2)
-            cluster_indices, cluster_tokens, n_clusters, parents_bound = recluster(
-                cfg, hidden, cluster_indices, cluster_tokens, step_key, parents_bound)
-            mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
+            h_orig = sort.unsort(hidden)
+            child, cluster_tokens, n_clusters, parents_bound = recluster(
+                cfg, h_orig, sort.unsort(cluster_indices), cluster_tokens, step_key,
+                parents_bound)
+            if banded:
+                hidden, cluster_indices = sort.resort(child, h_orig)
+            else:
+                cluster_indices = child
+                mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
 
         concat = torch.cat([cluster_tokens.reshape(b, 2 * c, d), hidden], 1)
-        additive = soft_mask(mask, cfg)
+        last = i == cfg.num_hidden_layers - 1
+        if banded and last:  # the last layer: dense, the mask over sorted tokens
+            mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
+        additive = None if mask is None else soft_mask(mask, cfg)
         lp = bb["layers"][f"layer_{i}"]
 
         y = _layer_norm(concat, lp["norm1"], eps)
-        qkv = mm(f"qkv_{i}", y, lp["qkv"])  # [B, 2C+N, 3D] bf16
-        if _record_scales is not None:
-            ys = qkv.float().reshape(-1, 3, d).abs().amax(0)
-            _record_scales[f"attn_{i}"] = ys.amax(-1) / 127.0
-        q, k, v = unpack_qkv(qkv, h)
-        if i == cfg.num_hidden_layers - 1:
-            o, probs = xla_attention(q, k, v, mask=additive)
-            rx_to_tx = probs[:, :, 1:2 * c:2, 0:2 * c:2]
-        elif kernels:
-            o, _ = multi_head_attention(q, k, v, mask=additive, implementation="auto",
-                                        inference=True)
+        if int8_attn and not last:
+            sec = act_scales[f"attn_{i}"]  # [3]: q | k | v
+            s_proj = act_scales[f"proj_{i}"]
+            qkv_q = int8_matmul(y, lp["qkv"]["w"], lp["qkv"]["bias"],
+                                act_scale=act_scales.get(f"qkv_{i}"),
+                                out_inv_scale=(1.0 / sec).repeat_interleave(d))
+            out_q = packed_attention_int8_masked(qkv_q, sec, h, mask=additive,
+                                                 out_inv_scale=1.0 / s_proj, int8_out=True)
+            out = int8_matmul_prequant(out_q, s_proj, lp["proj"]["w"], lp["proj"]["bias"])
         else:
-            o, _ = xla_attention(q, k, v, mask=additive)
-        concat = concat + mm(f"proj_{i}", merge_heads(o), lp["proj"])  # ls1 folded
+            qkv = mm(f"qkv_{i}", y, lp["qkv"])  # [B, 2C+N, 3D] bf16
+            if _record_scales is not None:
+                ys = qkv.float().reshape(-1, 3, d).abs().amax(0)
+                _record_scales[f"attn_{i}"] = ys.amax(-1) / 127.0
+            if banded and not last:
+                dh = d // h
+                qkv_s = torch.cat([qkv[:, :, :d] * torch.tensor(dh**-0.5, dtype=qkv.dtype),
+                                   qkv[:, :, d:]], -1)
+                o = multistate_banded_attention(qkv_s, BandedSegments(
+                    cluster_indices, n_clusters, c, cfg.attention_mask_inf), h)
+            else:
+                q, k, v = unpack_qkv(qkv, h)
+                if last:
+                    o, probs = xla_attention(q, k, v, mask=additive)
+                    rx_to_tx = probs[:, :, 1:2 * c:2, 0:2 * c:2]
+                elif kernels:
+                    o, _ = multi_head_attention(q, k, v, mask=additive,
+                                                implementation="auto", inference=True)
+                else:
+                    o, _ = xla_attention(q, k, v, mask=additive)
+                o = merge_heads(o)
+            out = mm(f"proj_{i}", o, lp["proj"])  # ls1 folded
+        concat = concat + out
 
         y = _layer_norm(concat, lp["norm2"], eps)
         y = gelu_erf_tanh(mm(f"fc1_{i}", y, lp["fc1"]))
@@ -165,10 +207,10 @@ def quantized_multistate_apply(
         hidden = concat[:, 2 * c:]
 
     return {
-        "last_hidden_state": hidden,
+        "last_hidden_state": sort.unsort(hidden),
         "last_cluster_tokens": cluster_tokens,
         "cluster_tokens": cluster_tokens[:, :, 0, :],
-        "last_cluster_indices": cluster_indices,
+        "last_cluster_indices": sort.unsort(cluster_indices),
         "num_clusters": n_clusters,
         "receiver_to_transmitter_attentions": rx_to_tx,
     }

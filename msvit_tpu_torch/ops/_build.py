@@ -64,6 +64,20 @@ _SIGNATURES = {
     "msvit_fused_attention_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, ctypes.POINTER(_LL), _I, _LL, _LL, _F,
                                   _F, _P],
+    # K7 and K7-lse: as msvit_fused_attention and msvit_fused_attention_lse
+    "msvit_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              ctypes.POINTER(_LL), _I, _LL, _LL, _F, _F, _P],
+    "msvit_flash_attention_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, ctypes.POINTER(_LL), _I, _LL, _LL, _F,
+                                  _F, _P],
+    # qkv, cid, band, out, dtype, b, n, pfx, h, dh, image stride, row
+    # stride, stream
+    "msvit_banded_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL,
+                               _LL, _P],
+    # qkv_q, scales[4], mask, out, int8_out, b, n, h, dh, mask_kind, mask_sb,
+    # mask_sh, scale, mask_value, stream
+    "msvit_packed_attention_int8_masked": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                           _I, _LL, _LL, _F, _F, _P],
     # q, k, v, out, g, lse, mask, delta, dq, dk, dv, dtype, b, h, nq, nk, dh,
     # strides[24] (host), mask_kind, mask_sb, mask_sh, scale, mask_value,
     # stream

@@ -8,8 +8,20 @@ K/V by the caller, softmax statistics are float32.
 too, so plain torch here).  ``"fused"`` runs the per-head fused kernels
 (`ops/fused_attention.py`): K5, or K4 with ``inference=True``, and under
 autograd `FusedAttentionFunction` (K5-lse forward, K6 backward from
-`ops/flash_attention.py`).  ``"flash"`` (K7, the online-softmax tiled
-forward) is not ported yet and raises.
+`ops/flash_attention.py`).  ``"flash"`` runs K7, the online-softmax tiled
+forward (`ops/flash_attention.py`), with or without ``inference`` (JAX's
+flash route has no shaved variant), and under autograd
+`FlashAttentionFunction` (K7-lse forward, K6 backward).
+
+"auto" chooses between "fused" and "flash" by JAX's `_fused_eligible`, a
+plain shape rule here: the padded f32 score tile of one head plus its
+mask tile within 12 MiB takes "fused", a larger one "flash".  The port's
+kernels have no such limit; the rule is kept so that one config reaches
+the same kernel in both packages (the 816-token multistate trunk K4/K5,
+its 3168-token 448-px trunk K7).  The packed path's VMEM gates
+(`packed_vmem_ok`, `grouped_vmem_ok`) stay unported: the port's unmasked
+ViT-B/8 at 448 px keeps K1 (`models/base/model.py`) where JAX falls to
+flash.
 """
 
 from __future__ import annotations
@@ -22,11 +34,9 @@ import torch
 # masked rows while being -inf for softmax purposes in f32.
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-_FLASH_NOT_PORTED = (
-    "attention implementation 'flash' needs K7 (ops/flash_attention.py "
-    "`_flash_forward`), not ported yet (ROADMAP.md queue 2; its backward, "
-    "K6, is ported and serves \"fused\")"
-)
+# JAX's budget for one head's f32 scores plus its mask in the single-pass
+# fused kernel (`msvit_tpu/ops/attention.py::_fused_eligible`)
+FUSED_TILE_BYTES = 12 * 1024 * 1024
 
 
 def _apply_mask(
@@ -68,6 +78,20 @@ def _kernel_shapes_ok(q, k, mask) -> bool:
     return q.ndim == 4 and k.ndim == 4 and (mask is None or mask.ndim == 4)
 
 
+def _fused_eligible(q, k, mask) -> bool:
+    """JAX's `_fused_eligible`: the padded (to 128) f32 scores of one head,
+    plus its mask tile (a quarter of that for bool, as much for additive),
+    within `FUSED_TILE_BYTES`."""
+    def pad(n):
+        return -(-n // 128) * 128
+
+    scores = pad(q.shape[-2]) * pad(k.shape[-2]) * 4
+    m_bytes = 0
+    if mask is not None:
+        m_bytes = scores // 4 if mask.dtype == torch.bool else scores
+    return scores + m_bytes <= FUSED_TILE_BYTES
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -83,21 +107,22 @@ def multi_head_attention(
 
     "auto" takes the plain path where JAX leaves its kernels: probabilities
     requested, fewer than 512 kv tokens, or tensors on the CPU (JAX off the
-    TPU).  Otherwise (K/V as long as Q or longer alike) it takes "fused":
-    K5 (K5-lse and K6 under autograd), or K4 with ``inference=True``
-    (serving only, not differentiable).
-    JAX's VMEM gate `_fused_eligible`, which sends larger score tiles to
-    flash (K7), has no counterpart: the port's fused kernels have no tile
-    limit.  "fused" with probabilities requested or other than 4D operands
-    takes the plain path, as in JAX."""
+    TPU).  Otherwise (K/V as long as Q or longer alike) it takes "fused"
+    where `_fused_eligible` admits the shape: K5 (K5-lse and K6 under
+    autograd), or K4 with ``inference=True`` (serving only, not
+    differentiable); and "flash" beyond it: K7 (K7-lse and K6 under
+    autograd), ``inference`` or not.  "fused" or "flash" with
+    probabilities requested or other than 4D operands take the plain path,
+    as in JAX."""
     if implementation == "auto":
         if output_probs or q.device.type == "cpu" or k.shape[-2] < 512:
             implementation = "xla"
-        elif _kernel_shapes_ok(q, k, mask):
-            implementation = "fused"
-        else:
+        elif not _kernel_shapes_ok(q, k, mask):
             implementation = "xla"
-    if implementation == "fused" and not output_probs and _kernel_shapes_ok(q, k, mask):
+        else:
+            implementation = "fused" if _fused_eligible(q, k, mask) else "flash"
+    kernel_ok = not output_probs and _kernel_shapes_ok(q, k, mask)
+    if implementation == "fused" and kernel_ok:
         from msvit_tpu_torch.ops.fused_attention import (
             fused_attention,
             fused_attention_inference,
@@ -105,9 +130,11 @@ def multi_head_attention(
 
         fn = fused_attention_inference if inference else fused_attention
         return fn(q, k, v, mask=mask, scale=scale, mask_value=mask_value), None
-    if implementation == "flash":
-        raise NotImplementedError(_FLASH_NOT_PORTED)
-    if implementation not in ("xla", "packed", "fused"):
+    if implementation == "flash" and kernel_ok:
+        from msvit_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, mask=mask, scale=scale, mask_value=mask_value), None
+    if implementation not in ("xla", "packed", "fused", "flash"):
         raise ValueError(f"unknown attention implementation {implementation!r}")
     out, probs = xla_attention(
         q, k, v, mask=mask, scale=scale, mask_value=mask_value

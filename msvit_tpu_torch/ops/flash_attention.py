@@ -1,19 +1,41 @@
 """Flash attention (counterpart of `msvit_tpu/ops/flash_attention.py`).
 
+* `flash_attention` -- K7, the TPU kernel `_flash_forward` (body
+  `_fwd_kernel`): the exact online-softmax attention that "auto" takes
+  where one head's score tile outgrows the single-pass fused kernel's
+  budget (`ops/attention.py::_fused_eligible`; the multistate trunk at
+  448 px, 3168 tokens).  Kernel: `csrc/flash_attention.cu`.
+* `flash_attention_lse` -- K7-lse, the same kernel's `with_lse` branch:
+  K7 plus a compact lse ``[B, H, Nq]`` f32 (0 where l == 0).  The TPU's
+  lane-replicated ``[B, H, Nq_pad, 128]`` layout, of which its VJP keeps
+  lane 0, does not carry over.
 * `flash_attention_bwd` -- K6, the TPU kernel `flash_attention_bwd` (its
   dQ and dK/dV pallas_calls): dq, dk, dv from the forward's residuals (q,
-  k, v, mask, out and the compact lse ``[B, H, Nq]``) and the cotangent of
-  out.  Kernel: `csrc/flash_attention_bwd.cu`.  As in the JAX package it
-  is the backward of the fused attention's custom VJP
-  (`ops/fused_attention.py::FusedAttentionFunction`).
-* `flash_attention` -- K7, the online-softmax tiled forward: not ported
-  yet, raises.
+  k, v, mask, out and the compact lse) and the cotangent of out.  Kernel:
+  `csrc/flash_attention_bwd.cu`.  As in the JAX package it is the backward
+  of both custom VJPs: `FlashAttentionFunction` here and
+  `ops/fused_attention.py::FusedAttentionFunction`.
 
-The wrapper takes the plain version for a tensor on the CPU, and for a
-tensor on the card launches the kernel or raises: there is no fallback.
-It counts its launches (`.launches`, one per call of both kernels).
+`flash_attention` splits as the JAX `custom_vjp` `_flash` does: under
+autograd (grad enabled and q, k or v requiring grad) it runs
+`FlashAttentionFunction`, K7-lse forward and K6 backward; otherwise K7.
+Operands, masks and strides as `ops/fused_attention.py` (Nq != Nk, bool or
+additive masks ``[B|1, 1|H, Nq, Nk]``, q/k/v read through their strides).
 
-Rounding, as the TPU kernels: p = exp(s - lse) stays f32 into
+The wrappers take the plain version for a tensor on the CPU, and for a
+tensor on the card launch the kernel or raise: there is no fallback.  Each
+counts its launches (`.launches`; K6 one per call of both its kernels).
+
+K7's plain version is K5's: the two TPU kernels compute one function (the
+exact max-subtracted softmax, p rounded to the compute dtype into P.V, l
+summed from the unrounded p) and differ in their tiling only.  The kernel
+keeps p in f32 into P.V (the port's stated deviation, as K5).  Fully masked
+rows: the port gives mean(V) over the Nk real keys; the TPU kernel pads Nk
+to ``nk_pad = ceil(Nk / bk) * bk``, ``bk = min(1024, ceil128(Nk))``, and
+counts the padded keys with p = 1: sum(V) / nk_pad
+(`tests/test_torch_flash.py::test_fully_masked_row_deviation`).
+
+K6's rounding, as the TPU kernels: p = exp(s - lse) stays f32 into
 ds = p (dp - delta); p is rounded to the compute dtype only as the operand
 of dV = p^T g, and ds only as the operand of dq and dk.  (K2, the packed
 backward, rounds p first; its plain version is not this one's.)
@@ -28,15 +50,84 @@ import torch
 from msvit_tpu_torch.ops import _build
 from msvit_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
 from msvit_tpu_torch.ops.fused_attention import (
-    _dims, _kernel_operands, _mask_args, _strides)
+    FusedAttentionFunction, _dims, _kernel_operands, _mask_args, _requires_grad,
+    _run, _strides, fused_attention_lse_plain, fused_attention_plain)
 from msvit_tpu_torch.ops.packed_attention import _DTYPE_CODES, _acc, _ptr, _scores
 
 
-def flash_attention(*args, **kwargs):
-    """K7, `_flash_forward`: not ported yet."""
-    raise NotImplementedError(
-        "flash_attention needs K7 (ops/flash_attention.py `_flash_forward`, "
-        "the online-softmax tiled forward), not ported yet (ROADMAP.md queue 2)")
+# ----------------------------------------------------------------- K7 ----
+
+
+# K7's plain versions are K5's: the two TPU kernels compute one function
+# (f32 scores times `scale`, the mask after the upcast, the max-subtracted
+# softmax, P.V with p rounded to v's dtype, times 1/l, 1 where l == 0;
+# lse = m + log l, 0 where l == 0) and differ in their tiling only.
+flash_attention_lse_plain = fused_attention_lse_plain
+flash_attention_plain = fused_attention_plain
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> torch.Tensor:
+    """Exact softmax attention, the long-sequence kernel.  q [B, H, Nq, dh];
+    k, v [B, H, Nk, dh]; bf16 or f32; mask [B|1, 1|H, Nq, Nk] bool or
+    additive; scale defaults to 1/sqrt(dh).  Returns [B, H, Nq, dh] in q's
+    dtype.
+
+    Under autograd (grad enabled and q, k or v requiring grad) this is
+    `FlashAttentionFunction`: K7-lse forward, K6 backward.  Otherwise K7."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    if _requires_grad(q, k, v):
+        return FlashAttentionFunction.apply(q, k, v, mask, float(scale),
+                                            float(mask_value))
+    return _run(flash_attention, "msvit_flash_attention", flash_attention_plain,
+                q, k, v, mask, scale, mask_value)
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward (K7-lse): K7's output and lse [B, H, Nq] f32.
+    Arguments as `flash_attention`; not differentiable itself
+    (`FlashAttentionFunction` is)."""
+    return _run(flash_attention_lse, "msvit_flash_attention_lse",
+                flash_attention_lse_plain, q, k, v, mask, scale, mask_value,
+                with_lse=True)
+
+
+flash_attention_lse.launches = 0
+
+
+class FlashAttentionFunction(FusedAttentionFunction):
+    """The JAX `_flash` custom VJP: the forward is K7-lse and saves
+    (q, k, v, mask, out, lse), the backward is K6 (inherited from
+    `FusedAttentionFunction`, whose VJP is the same).  On the CPU both run
+    their plain versions.  Nothing flows to the mask, `scale` or
+    `mask_value`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, mask_value):
+        out, lse = flash_attention_lse(q, k, v, mask, scale, mask_value)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.args = (scale, mask_value)
+        return out
+
+
+# ----------------------------------------------------------------- K6 ----
 
 
 def flash_attention_bwd_plain(

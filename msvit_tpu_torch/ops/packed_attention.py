@@ -16,6 +16,12 @@ hand-written CUDA kernel for Hopper with a plain PyTorch version beside it:
   Kernel: `csrc/packed_attention_bwd.cu`.
 * `packed_attention_int8` — K3, the TPU kernel `packed_attention_int8`:
   int8 in, bf16 or int8 out.  Kernel: `csrc/packed_attention_int8.cu`.
+* `packed_attention_int8_masked` — K9, the TPU kernel
+  `_packed_int8_grouped`: K3 with a mask, the pre-scaled exp and the
+  integer row sum (the multistate trunk's `attn_mode="int8"`).  Kernel: a
+  second entry point of `csrc/packed_attention_int8.cu`.  The TPU's
+  head-pair grid and its VMEM gate (`int8_grouped_vmem_ok`) are not
+  ported: the port takes any N.
 
 Each wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches its kernel or raises: there is no fallback.
@@ -90,10 +96,12 @@ def _check_mask_rank(mask: Optional[torch.Tensor]) -> None:
         raise ValueError(f"mask must be [B, 1|H, N, N]; got {tuple(mask.shape)}")
 
 
-def _mask_args(mask, qkv: torch.Tensor, num_heads: int, name: str):
+def _mask_args(mask, qkv: torch.Tensor, num_heads: int, name: str,
+               additive=torch.float32):
     """(kind, mask tensor, image stride, head stride) for the C entry
-    points: kind 0 none, 1 bool (one byte per entry), 2 additive f32;
-    strides in elements, 0 where the mask broadcasts."""
+    points: kind 0 none, 1 bool (one byte per entry), 2 additive (in
+    `additive`, f32 but for K9); strides in elements, 0 where the mask
+    broadcasts."""
     if mask is None:
         return 0, None, 0, 0
     b, n = qkv.shape[:2]
@@ -110,7 +118,7 @@ def _mask_args(mask, qkv: torch.Tensor, num_heads: int, name: str):
     if mask.dtype == torch.bool:
         kind, m = 1, mask.contiguous().view(torch.uint8)
     elif mask.is_floating_point():
-        kind, m = 2, mask.to(torch.float32).contiguous()
+        kind, m = 2, mask.to(additive).contiguous()
     else:
         raise TypeError(f"{name}: mask dtype {mask.dtype}")
     sb = m.stride(0) if m.shape[0] > 1 else 0
@@ -481,3 +489,97 @@ def packed_attention_int8(
 
 
 packed_attention_int8.launches = 0
+
+
+# ---------------------------------------------------------------- K9 ----
+
+# log(127): exp(s - max + _LN127) = 127 p, as the TPU kernel's constant
+_LN127 = 4.8441870864585885
+
+
+def packed_attention_int8_masked_plain(
+    qkv_q: torch.Tensor,
+    section_scales,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    out_inv_scale=None,
+    scale: Optional[float] = None,
+    int8_out: bool = False,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> torch.Tensor:
+    """Plain version of K9, the TPU kernel `_kernel_int8_grouped` step for
+    step: int scores times (scale * s_q) * s_k in f32; a bool mask
+    where-valid with `mask_value`, an additive one rounded to bf16 and
+    added; m = row max; pq = trunc(exp(s - m + ln 127)); l = sum pq floored
+    at 1; o = (pq . v) * (s_v / l), bf16 or int8 out.  The integer product
+    runs in f64, exact at any N."""
+    _, _, _, dh = _dims(qkv_q, num_heads)
+    if scale is None:
+        scale = 1.0 / dh**0.5
+    sc = _int8_scales(section_scales, out_inv_scale, qkv_q.device)
+    s_q, s_k, s_v, inv = sc[0], sc[1], sc[2], sc[3]
+    q, k, v = unpack_qkv(qkv_q, num_heads)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * ((scale * s_q) * s_k)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            s = s.masked_fill(~mask, mask_value)
+        else:
+            s = s + mask.to(torch.bfloat16).float()
+    pq = torch.exp(s - s.amax(-1, keepdim=True) + _LN127).to(torch.int8)  # truncating
+    o = torch.matmul(pq.double(), v.double()).float()
+    l = pq.float().sum(-1, keepdim=True).clamp_min(1.0)
+    o = o * (s_v / l)
+    if int8_out:
+        o = torch.clamp(torch.round(o * inv), -127, 127).to(torch.int8)
+    else:
+        o = o.to(torch.bfloat16)
+    return merge_heads(o)
+
+
+def packed_attention_int8_masked(
+    qkv_q: torch.Tensor,
+    section_scales,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    out_inv_scale=None,
+    scale: Optional[float] = None,
+    int8_out: bool = False,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> torch.Tensor:
+    """Fully-int8 packed self-attention with a mask, for serving (K9).
+
+    qkv_q: [B, N, 3*D] int8 (per-section quantized GEMM output).
+    section_scales: [3] f32 dequant scales of q | k | v.
+    mask: optional [B|1, 1|H, N, N], bool (True = attend) or additive (read
+    as bf16, as on the TPU).
+    out_inv_scale: scalar f32, the inverse output scale for ``int8_out``.
+    Returns [B, N, D] bf16, or int8 when ``int8_out``.  No VJP."""
+    b, n, d, dh = _dims(qkv_q, num_heads)
+    _check_mask_rank(mask)
+    if scale is None:
+        scale = 1.0 / dh**0.5
+    if qkv_q.device.type == "cpu":
+        return packed_attention_int8_masked_plain(
+            qkv_q, section_scales, num_heads, mask, out_inv_scale, scale, int8_out,
+            mask_value)
+    name = "packed_attention_int8_masked"
+    _check_cuda(qkv_q, name, dh, dtypes=(torch.int8,))
+    kind, m, sb, sh = _mask_args(mask, qkv_q, num_heads, name, additive=torch.bfloat16)
+    sc = _int8_scales(section_scales, out_inv_scale, qkv_q.device)
+    out = torch.empty(
+        (b, n, d), dtype=torch.int8 if int8_out else torch.bfloat16,
+        device=qkv_q.device,
+    )
+    lib = _build.library()
+    with torch.cuda.device(qkv_q.device):
+        code = lib.msvit_packed_attention_int8_masked(
+            qkv_q.data_ptr(), sc.data_ptr(), _ptr(m), out.data_ptr(), int(int8_out),
+            b, n, num_heads, dh, kind, sb, sh, float(scale), float(mask_value),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, code, name)
+    packed_attention_int8_masked.launches += 1
+    return out
+
+
+packed_attention_int8_masked.launches = 0

@@ -449,3 +449,205 @@ def test_int8_matmul_on_card_matches_cpu(dev, rows):
     got = int8_matmul(x.to(dev), wd, bias.to(dev), out_dtype=torch.float32)
     assert got.shape == want.shape == (rows, 40)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------------ K7, K7-lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nk,h,dh,mask,packed", [
+    (37, 37, 4, 16, None, False),
+    (70, 70, 2, 32, "bool_per_head", True),
+    (130, 130, 3, 64, "additive", True),
+    (65, 200, 2, 128, "additive_per_head", False),  # K/V longer than Q
+    (5, 9, 3, 8, "bool_per_head", False),
+    (100, 30, 2, 40, "additive", False),  # Q longer than K/V
+    (600, 1100, 2, 64, "additive", True),  # many tiles each way
+    (96, 96, 2, 128, "bool", True),
+])
+def test_k7_and_k7_lse_match_plain(dev, dtype, nq, nk, h, dh, mask, packed):
+    """K7 and K7-lse against their plain versions at odd shapes (N not a
+    multiple of 64, head sizes 8-128, Nq != Nk), every mask kind per head
+    and broadcast (the mask tile staged in shared memory), q/k/v strided
+    views or contiguous; tolerances as K5 (p kept f32 into P.V), lse 1e-5
+    of max(1, |lse|).  A bool mask's row 0 is fully masked: mean(V)."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    q, k, v = _heads(2, nq, nk, h, dh, dtype, dev, seed=50, packed=packed)
+    m = _fused_mask(mask, 2, h, nq, nk, dev, seed=51)
+    n7, nl = fl.flash_attention.launches, fl.flash_attention_lse.launches
+    with torch.inference_mode():
+        got = fl.flash_attention(q, k, v, mask=m)
+        o, lse = fl.flash_attention_lse(q, k, v, mask=m)
+        want, wl = fl.flash_attention_lse_plain(q, k, v, mask=m)
+    torch.cuda.synchronize()
+    assert (fl.flash_attention.launches, fl.flash_attention_lse.launches) == (n7 + 1, nl + 1)
+    assert got.shape == (2, h, nq, dh) and got.dtype == dtype
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+    assert torch.equal(got, o)
+    tol = _TOL[dtype] * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert _lse_err(lse, wl) <= 1e-5
+    if mask is not None and mask.startswith("bool"):
+        assert (got[:, :, 0].float() - v.float().mean(2)).abs().max().item() <= tol
+
+
+def test_k7_large_logits_and_minus_inf_rows(dev):
+    """K7 is exact at any logit scale (q and k x 12); an additive -inf row
+    gives zeros and lse 0, as the TPU kernel's l == 0 guard."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    q, k, v = _heads(2, 70, 90, 2, 64, torch.float32, dev, seed=52, packed=True)
+    m = torch.zeros(2, 1, 70, 90, device=dev)
+    m[1, 0, 3] = -torch.inf
+    with torch.inference_mode():
+        got, lse = fl.flash_attention_lse(q * 12, k * 12, v, mask=m)
+        want, wl = fl.flash_attention_lse_plain(q * 12, k * 12, v, mask=m)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[1, :, 3], torch.zeros_like(got[1, :, 3]))
+    assert torch.equal(lse[1, :, 3], torch.zeros_like(lse[1, :, 3]))
+    assert (got - want).abs().max().item() <= 1e-4
+    assert _lse_err(lse, wl) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_grads_match_plain_function(dev, dtype):
+    """Autograd through `flash_attention` on the card (FlashAttentionFunction:
+    K7-lse, K6; one launch each, no K7) against the same Function on CPU
+    copies, q/k/v views of one QKV output with a soft mask: the QKV output's
+    gradient within K6's bar."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+    from msvit_tpu_torch.ops.packed_attention import unpack_qkv
+
+    b, n, h, dh = 2, 130, 3, 64
+    gen = torch.Generator().manual_seed(53)
+    x = torch.randn(b, n, 3 * h * dh, generator=gen).to(dtype)
+    m = -100.0 * (torch.rand(b, 1, n, n, generator=gen) < 0.3).float()
+    w = torch.randn(b, h, n, dh, generator=gen)
+    n7, nl, nb = (fl.flash_attention.launches, fl.flash_attention_lse.launches,
+                  fl.flash_attention_bwd.launches)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xd = x.to(d).requires_grad_()
+        q, k, v = unpack_qkv(xd, h)
+        (fl.flash_attention(q, k, v, mask=m.to(d)).float() * w.to(d)).sum().backward()
+        grads.append(xd.grad.cpu())
+    torch.cuda.synchronize()
+    assert (fl.flash_attention.launches, fl.flash_attention_lse.launches,
+            fl.flash_attention_bwd.launches) == (n7, nl + 1, nb + 1)
+    tol = _K6_TOL[dtype] * max(1.0, grads[1].float().abs().max().item())
+    assert (grads[0].float() - grads[1].float()).abs().max().item() <= tol
+
+
+def test_k7_refuses_bad_inputs(dev):
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    q, k, v = _heads(1, 37, 37, 2, 16, torch.float32, dev, seed=54, packed=False)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="head size"):
+            fl.flash_attention(q[..., :12], k[..., :12], v[..., :12])
+        with pytest.raises(TypeError):
+            fl.flash_attention(q.half(), k.half(), v.half())
+        with pytest.raises(ValueError, match="mask"):
+            fl.flash_attention(q, k, v, mask=torch.ones(1, 1, 37, 36, dtype=torch.bool,
+                                                        device=dev))
+        with pytest.raises(ValueError, match="no kernel"):
+            fl.flash_attention(q, k.cpu(), v)
+
+
+# ------------------------------------------------------------------- K9
+
+
+@pytest.mark.parametrize("mask", [None, "bool", "additive", "additive_per_head"])
+@pytest.mark.parametrize("n,h,dh", [(40, 4, 64), (197, 12, 64), (37, 2, 16), (70, 2, 128)])
+def test_k9_matches_plain(dev, mask, n, h, dh):
+    """K9 against its plain version, bf16 and int8 out: int8 |delta| <= 1
+    step with >= 99% equal (an exp within an ulp of an integer truncates
+    one step apart, K3's bar), bf16 2% of the output's range.  A bool
+    mask's row 0 is fully masked."""
+    from msvit_tpu_torch.ops.packed_attention import (
+        packed_attention_int8_masked, packed_attention_int8_masked_plain)
+
+    q, sec = _int8(2, n, h * dh, dev, seed=55)
+    m = _fused_mask(mask, 2, h, n, n, dev, seed=56)
+    before = packed_attention_int8_masked.launches
+    with torch.inference_mode():
+        got = packed_attention_int8_masked(q, sec, h, mask=m)
+        want = packed_attention_int8_masked_plain(q, sec, h, mask=m)
+        inv = 127.0 / want.float().abs().amax()
+        got_q = packed_attention_int8_masked(q, sec, h, mask=m, out_inv_scale=inv,
+                                             int8_out=True)
+        want_q = packed_attention_int8_masked_plain(q, sec, h, mask=m, out_inv_scale=inv,
+                                                    int8_out=True)
+    torch.cuda.synchronize()
+    assert packed_attention_int8_masked.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got_q.dtype == torch.int8
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+    delta = (got_q.int() - want_q.int()).abs()
+    assert delta.max().item() <= 1
+    assert (delta == 0).float().mean().item() >= 0.99
+
+
+# ------------------------------------------------------------------ K10
+
+
+def _banded_case(sizes, c, h, dh, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    cid = torch.cat([torch.full((s,), i) for i, s in enumerate(sizes)])[None]
+    n = cid.shape[1]
+    qkv = torch.randn(1, 2 * c + n, 3 * h * dh, generator=g).to(dtype)
+    return qkv.to(dev), cid.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,c,h,dh", [
+    ([10, 2, 12], 4, 2, 8),
+    ([150, 100, 50], 4, 2, 64),  # clusters across 64-row blocks
+    ([500, 400, 200, 100, 3], 8, 3, 32),
+    ([1], 1, 2, 128),
+    ([64, 64, 1, 171], 16, 2, 16),
+    ([70, 0, 58], 4, 12, 64),  # an empty cluster
+])
+def test_k10_matches_plain(dev, dtype, sizes, c, h, dh):
+    """K10 against its plain version (both round p to the compute dtype
+    into l and P.V; f32 sums in another order): bf16 2e-2, f32 5e-5, of
+    max(1, max |plain|)."""
+    from msvit_tpu_torch.ops import banded_attention as ba
+
+    qkv, cid = _banded_case(sizes, c, h, dh, dtype, dev, seed=57)
+    before = ba.token_rows.launches
+    with torch.inference_mode():
+        got = ba.token_rows(qkv, cid, h, c)
+        want = ba.token_rows_plain(qkv, cid, h, c)
+    torch.cuda.synchronize()
+    assert ba.token_rows.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    tol = _TOL[dtype] * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_k10_grad_and_bad_inputs(dev):
+    """Under autograd K10 runs in TokenRowsFunction (one launch), its
+    gradient the plain version's; bad inputs raise."""
+    from msvit_tpu_torch.ops import banded_attention as ba
+
+    qkv, cid = _banded_case([30, 40], 2, 2, 16, torch.float32, dev, seed=58)
+    x = qkv.clone().requires_grad_()
+    w = torch.randn(1, 70, 32, generator=torch.Generator().manual_seed(59)).to(dev)
+    before = ba.token_rows.launches
+    (ba.token_rows(x, cid, 2, 2) * w).sum().backward()
+    torch.cuda.synchronize()
+    assert ba.token_rows.launches == before + 1
+    xp = qkv.clone().requires_grad_()
+    (ba.token_rows_plain(xp, cid, 2, 2) * w).sum().backward()
+    assert (x.grad - xp.grad).abs().max().item() <= 1e-4
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="cid"):
+            ba.token_rows(qkv, cid[:, :50], 2, 2)
+        with pytest.raises(TypeError):
+            ba.token_rows(qkv.half(), cid, 2, 2)
+        with pytest.raises(ValueError, match="head size"):
+            ba.token_rows(qkv[..., :36], cid, 2, 2)
+        with pytest.raises(ValueError, match="another device"):
+            ba.token_rows(qkv, cid.cpu(), 2, 2)

@@ -2,7 +2,7 @@
 
 * the plain versions of K4 (`fused_attention_inference`) and K5
   (`fused_attention`) against the JAX Pallas kernels in interpret mode;
-* the attention dispatch ("auto" / "fused") against JAX's rule;
+* the attention dispatch ("auto" / "fused" / "flash") against JAX's rule;
 * `MultiStateViTEncoderModel` (bf16 trunk in the f32 parity policy) with
   and without clustering events, and the int8 `quantized_multistate_apply`,
   on weights converted by `multistate_params_from_jax`, the clustering
@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 import msvit_tpu.ops.attention as jattn
+import msvit_tpu.ops.flash_attention as jflash
 import msvit_tpu.ops.fused_attention as jfused
 from msvit_tpu.models import multistate as jms
 from msvit_tpu.models.clustering import SpectralClusteringConfig as JSpectral
@@ -26,6 +27,7 @@ from msvit_tpu.ops.kmeans import kmeans as jkmeans
 from msvit_tpu.ops.ncut import ncut as jncut, ncut_shared as jncut_shared
 from msvit_tpu.settings import parity_policy as j_parity
 import msvit_tpu_torch.ops.attention as tattn
+import msvit_tpu_torch.ops.flash_attention as tflash
 import msvit_tpu_torch.ops.fused_attention as tfused
 from msvit_tpu_torch.compat import act_scales_from_jax, multistate_params_from_jax
 from msvit_tpu_torch.models import multistate as tms
@@ -199,6 +201,18 @@ _ROUTES = [  # (nq, nk, output_probs, mask_ndim, inference)
     (16, 100, False, None, False),  # < 512 kv: plain
     (600, 16, False, 4, False),  # Q longer than K/V, < 512 kv: plain
     (600, 600, False, 3, False),  # 3D mask: plain
+    # one head's padded f32 scores plus an additive mask tile of the same
+    # size against JAX's 12 MiB budget (`_fused_eligible`): 1152 fits,
+    # 1153 (padded to 1280) does not
+    (1152, 1152, False, 4, False),  # K5
+    (1153, 1153, False, 4, False),  # K7
+    (1800, 1800, False, 4, False),  # K7
+    (1800, 1800, False, 4, True),  # K7: the flash route has no shaved variant
+    (16, 3168, False, 4, False),  # cross-context K/V of the 448-px trunk: K5
+    (3168, 3168, False, 4, True),  # the 448-px trunk, serving: K7
+    # unmasked: scores alone, 1664 fits, 1665 (padded to 1792) does not
+    (1664, 1664, False, None, False),  # K5
+    (1665, 1665, False, None, False),  # K7
 ]
 
 
@@ -207,12 +221,15 @@ def test_auto_dispatch_matches_jax_rule(monkeypatch, nq, nk, probs, mask_ndim, i
     """The port's "auto" on a tensor that is not on the CPU (meta, standing
     for the card) takes the route JAX's "auto" takes on the TPU (JAX's own
     dispatch code, run with `_on_tpu` forced): K/V longer than Q included,
-    which an earlier version of the port's rule sent to the plain path."""
+    which an earlier version of the port's rule sent to the plain path,
+    and the long shapes beyond `_fused_eligible`'s budget (K7)."""
     jlog, tlog = [], []
     monkeypatch.setattr(jattn, "_on_tpu", lambda: True)
     _record(monkeypatch, jfused, ["fused_attention", "fused_attention_inference"], jlog)
+    _record(monkeypatch, jflash, ["flash_attention"], jlog)
     _record(monkeypatch, jattn, ["xla_attention"], jlog)
     _record(monkeypatch, tfused, ["fused_attention", "fused_attention_inference"], tlog)
+    _record(monkeypatch, tflash, ["flash_attention"], tlog)
     _record(monkeypatch, tattn, ["xla_attention"], tlog)
     shape_m = {None: None, 4: (1, 1, nq, nk), 3: (1, nq, nk)}[mask_ndim]
     jq, jk = jnp.zeros((1, 2, nq, 8)), jnp.zeros((1, 2, nk, 8))
@@ -243,16 +260,15 @@ def test_cpu_dispatch_takes_the_plain_path():
 
 
 def test_off_cpu_tensors_never_fall_back():
-    """A tensor that is not on the CPU goes to a kernel or raises: "auto"
-    and "fused" at 600 kv tokens reach the kernel wrappers, which have no
-    kernel for a meta tensor; "flash" (K7) is not ported."""
+    """A tensor that is not on the CPU goes to a kernel or raises: "auto",
+    "fused" and "flash" at 600 kv tokens reach the kernel wrappers, which
+    have no kernel for a meta tensor."""
     q = torch.empty((1, 2, 16, 8), device="meta")
     k = torch.empty((1, 2, 600, 8), device="meta")
-    for impl, inference in (("auto", False), ("auto", True), ("fused", False)):
+    for impl, inference in (("auto", False), ("auto", True), ("fused", False),
+                            ("flash", False), ("flash", True)):
         with pytest.raises(ValueError, match="no kernel"):
             tattn.multi_head_attention(q, k, k, implementation=impl, inference=inference)
-    with pytest.raises(NotImplementedError, match="K7"):
-        tattn.multi_head_attention(q, k, k, implementation="flash")
 
 
 # --------------------------------------------------------------- slice ----
@@ -463,7 +479,6 @@ def test_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(banded_attention=True), "K10"),
     (dict(clustering=dict(model_type="fps")), "fps"),
     (dict(clustering=dict(model_type="axis")), "axis"),
 ])
@@ -471,15 +486,6 @@ def test_unported_options_raise_at_build(kw, match):
     _, tcfg = _cfgs(**kw)
     with pytest.raises(NotImplementedError, match=match):
         tms.MultiStateViTEncoderModel(tcfg)
-
-
-@pytest.mark.parametrize("mode,match", [("int8", "K9"), ("banded", "K10")])
-def test_unported_attn_modes_raise(mode, match):
-    _, tcfg = _cfgs()
-    tmodel = tms.MultiStateViTEncoderModel(tcfg)
-    with pytest.raises(NotImplementedError, match=match):
-        tms.quantized_multistate_apply(tms.quantize_multistate_params(tmodel), tcfg,
-                                       torch.zeros(1, 64, 64, 3), 0, attn_mode=mode)
 
 
 def test_attention_mask_matches_jax():

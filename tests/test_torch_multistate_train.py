@@ -306,5 +306,10 @@ def test_shared_anchor_cluster_matches_jax(pool_batch, parents, max_parents):
 
 
 def test_flash_forward_not_ported():
-    with pytest.raises(NotImplementedError, match="K7"):
-        flash_attention(torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 8))
+    """The CUDA kernel K7 has no CPU counterpart: on CPU tensors
+    `flash_attention` runs its plain version (no launch), K5's function."""
+    q, k, v = (torch.from_numpy(t) for t in _inputs("square", 1))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == before
+    torch.testing.assert_close(got, tfused.fused_attention_plain(q, k, v), atol=0, rtol=0)
