@@ -73,7 +73,23 @@ fails (non-zero exit, no result line) if any phase fails:
    then timed;
 18. masked int8 kernel: K9 against its plain version at [8,816,2304] with
    the 224 partition's soft mask and a bool mask, bf16 and int8 out, then
-   timed.
+   timed;
+19. grouped kernels: K1, K1-lse and K2 at the shapes of the TPU's
+   head-grouped functions K8a and K8b, which they stand for: bf16
+   [64,785,2304], f32 [16,785,2304], the soft-masked [8,816,2304], masked
+   f32 [64,197,2304], large logits; then timed at [64,785,2304];
+20. dense pretraining: `pretrain_synthetic.pretrain` at `--preset b8`
+   (ViT-B/8 @224, 785 tokens) for 10 steps at bs64 with the clip at 1.0 on
+   256 scenes made in memory, then the held-out eval: falling loss, K1-lse
+   and K2 12 times a step, K1 12 times per eval batch, checkpoint and
+   summary; the step's time fed by `prefetch_to_device`, from resident
+   batches and by blocking copies, peak memory, host syncs;
+21. the same example for 3 steps with `--qk-norm` and with `--dtype f32
+   --preset b16`; the qk-norm model's gradients on the kernel path against
+   the plain attention path; a clipped step's gradients;
+22. bootstrap: the 10-step checkpoint through `train_multistate --preset b8
+   --ckpt` (the trunk bit-equal after the transfer; 3 steps, K5-lse and K6
+   11 times a step).
 
 Every kernel is timed beside the least time the card could take for its
 work (`bound`) and, where one PyTorch call computes the same function,
@@ -82,8 +98,8 @@ calls it).  The second-to-last line is a JSON object with each kernel's
 launches in its path's run (serving for K1 and K3, training for K1-lse and
 K2, the clustered multistate forwards for K4 and K5, multistate training
 for K5-lse and K6, the clustered 448-px bf16 forward for K7, the 224-px
-int8-attention forward for K9, the 448-px banded forward for K10), its
-error, its time beside the plain version's, the library call's and the
+int8-attention forward for K9, the 448-px banded forward for K10, the
+ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows), its error, its time beside the plain version's, the library call's and the
 bound; the last is `{"ok": true, "device": {...}}`.
 """
 
@@ -435,6 +451,37 @@ def slice_phase(dev, smi: str) -> dict:
 
 
 
+def _lse_bwd_case(tag: str, gen, label: str, x, mask=None) -> tuple:
+    """K1-lse (out, lse) and K2 (dqkv from the plain forward's residuals and
+    a random cotangent) against their plain versions on packed qkv `x`;
+    returns (out error, dqkv error, (x, cotangent, plain out, plain lse))."""
+    from msvit_tpu_torch.ops.packed_attention import (
+        packed_attention_bwd, packed_attention_bwd_plain, packed_attention_lse,
+        packed_attention_lse_plain)
+
+    gr = torch.randn(*x.shape[:2], x.shape[2] // 3, generator=gen).to(x.dtype).to(x.device)
+    with torch.no_grad():
+        o, lse = packed_attention_lse(x, 12, mask=mask)
+        wo, wl = packed_attention_lse_plain(x, 12, mask=mask)
+        d = packed_attention_bwd(x, mask, wo, wl, gr, 12)
+        wd = packed_attention_bwd_plain(x, mask, wo, wl, gr, 12)
+    torch.cuda.synchronize()
+    for name, t in (("out", o), ("lse", lse), ("dqkv", d)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+    e_o, e_d = max_err(o, wo), max_err(d, wd)
+    e_l = ((lse - wl).abs() / wl.abs().clamp_min(1.0)).max().item()
+    tol_o = K1_TOL[x.dtype]
+    tol_d = K2_TOL[x.dtype] * max(1.0, wd.float().abs().max().item())
+    ok = e_o <= tol_o and e_l <= LSE_REL_TOL and e_d <= tol_d
+    log(f"[{tag}] {label}: K1-lse out max_abs_err {e_o!r} (tolerance "
+        f"{tol_o!r}), lse rel err {e_l!r} (tolerance {LSE_REL_TOL!r}); K2 "
+        f"dqkv max_abs_err {e_d!r} (tolerance {tol_d!r}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"{label}: K1-lse/K2 disagree with plain")
+    return e_o, e_d, (x, gr, wo, wl)
+
+
 def train_kernel_phase(dev, smi: str) -> dict:
     """K1-lse and K2 against their plain versions, then timed."""
     from msvit_tpu_torch.ops.packed_attention import (
@@ -444,27 +491,7 @@ def train_kernel_phase(dev, smi: str) -> dict:
     g = torch.Generator().manual_seed(2)
 
     def case(label, x, mask=None):
-        gr = torch.randn(*x.shape[:2], x.shape[2] // 3, generator=g).to(x.dtype).to(dev)
-        with torch.no_grad():
-            o, lse = packed_attention_lse(x, 12, mask=mask)
-            wo, wl = packed_attention_lse_plain(x, 12, mask=mask)
-            d = packed_attention_bwd(x, mask, wo, wl, gr, 12)
-            wd = packed_attention_bwd_plain(x, mask, wo, wl, gr, 12)
-        torch.cuda.synchronize()
-        for name, t in (("out", o), ("lse", lse), ("dqkv", d)):
-            if not torch.isfinite(t).all():
-                raise AssertionError(f"{label}: non-finite {name}")
-        e_o, e_d = max_err(o, wo), max_err(d, wd)
-        e_l = ((lse - wl).abs() / wl.abs().clamp_min(1.0)).max().item()
-        tol_o = K1_TOL[x.dtype]
-        tol_d = K2_TOL[x.dtype] * max(1.0, wd.float().abs().max().item())
-        ok = e_o <= tol_o and e_l <= LSE_REL_TOL and e_d <= tol_d
-        log(f"[train-kernels] {label}: K1-lse out max_abs_err {e_o!r} (tolerance "
-            f"{tol_o!r}), lse rel err {e_l!r} (tolerance {LSE_REL_TOL!r}); K2 "
-            f"dqkv max_abs_err {e_d!r} (tolerance {tol_d!r}) {'ok' if ok else 'FAILED'}")
-        if not ok:
-            raise AssertionError(f"{label}: K1-lse/K2 disagree with plain")
-        return e_o, e_d, (x, gr, wo, wl)
+        return _lse_bwd_case("train-kernels", g, label, x, mask)
 
     x = torch.randn(MAIN_SHAPE, generator=g).to(torch.bfloat16).to(dev)
     e_fwd, e_bwd, (x, gr, wo, wl) = case("bf16 [64,197,2304]", x)
@@ -1621,6 +1648,319 @@ def int8_attn_kernel_phase(dev, smi: str, partition) -> dict:
     return {"K9": dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **lim)}
 
 
+GROUPED_SHAPE = (64, 785, 2304)  # ViT-B/8 @224 pretrain: 784 patch tokens + CLS, bs64
+
+
+def _packed_counts() -> dict:
+    from msvit_tpu_torch.ops.packed_attention import packed_attention
+
+    return {"K1": packed_attention.launches, **_training_counts()}
+
+
+def _reset_packed_counts() -> None:
+    from msvit_tpu_torch.ops.packed_attention import packed_attention
+
+    packed_attention.launches = 0
+    _reset_training_counts()
+
+
+def grouped_kernel_phase(dev, smi: str, partition) -> dict:
+    """K1, K1-lse and K2 at the shapes of the TPU's head-grouped functions
+    (K8a `_packed_forward_grouped`, K8b `_packed_backward_grouped`), which
+    they stand for: bf16 [64,785,2304] (the ViT-B/8 pretrain), f32
+    [16,785,2304], bf16 [8,816,2304] with the served partition's soft mask,
+    masked f32 [64,197,2304] (a per-head additive mask), large logits; then
+    each timed at [64,785,2304] beside `scaled_dot_product_attention` (or its
+    backward) and its bound."""
+    from msvit_tpu_torch.ops.packed_attention import (
+        packed_attention, packed_attention_bwd, packed_attention_bwd_plain,
+        packed_attention_lse, packed_attention_lse_plain, packed_attention_plain,
+        unpack_qkv)
+
+    tag = "grouped-kernels"
+    g = torch.Generator().manual_seed(13)
+
+    def case(label, x, mask=None):
+        with torch.inference_mode():
+            e = _check(tag, f"K1 {label}",
+                       max_err(packed_attention(x, 12, mask=mask),
+                               packed_attention_plain(x, 12, mask=mask)), K1_TOL[x.dtype])
+        return (e, *_lse_bwd_case(tag, g, label, x, mask))
+
+    b, n, d3 = GROUPED_SHAPE
+    x = torch.randn(GROUPED_SHAPE, generator=g).to(torch.bfloat16).to(dev)
+    e_k1, e_fwd, e_bwd, (x, gr, wo, wl) = case(f"bf16 {list(GROUPED_SHAPE)}", x)
+    case("f32 [16,785,2304] (tf32 off)", torch.randn(16, n, d3, generator=g).to(dev))
+    case("bf16 [8,816,2304] soft mask of the served partition",
+         torch.randn(8, 816, d3, generator=g).to(torch.bfloat16).to(dev), _soft(*partition))
+    ma = -100.0 * (torch.rand(64, 12, 197, 197, generator=g) < 0.3).float()
+    case("f32 [64,197,2304] additive mask [64,12,197,197] (tf32 off)",
+         torch.randn(MAIN_SHAPE, generator=g).to(dev), ma.to(dev))
+    del ma
+    big = torch.randn(4, n, d3, generator=g).to(dev)
+    big[..., :1536] *= 12.0  # q and k: logits in the hundreds
+    q, k, _ = unpack_qkv(big, 12)
+    s_max = (torch.matmul(q, k.transpose(-1, -2)) * 0.125).abs().max().item()
+    if s_max <= 150:
+        raise AssertionError(f"large-logit case: max |s| {s_max} <= 150")
+    # K1 clamps such logits by contract; the training pair stays exact
+    _lse_bwd_case(tag, g, f"f32 [4,785,2304] large logits (max |s| {s_max:.1f})", big)
+    del big, q, k
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        k_ms, k_plain = race(lambda: packed_attention(x, 12),
+                             lambda: packed_attention_plain(x, 12))
+        f_ms, f_plain = race(lambda: packed_attention_lse(x, 12),
+                             lambda: packed_attention_lse_plain(x, 12))
+        b_ms, b_plain = race(lambda: packed_attention_bwd(x, None, wo, wl, gr, 12),
+                             lambda: packed_attention_bwd_plain(x, None, wo, wl, gr, 12))
+        qkv = unpack_qkv(x, 12)
+        f_lib = library_ms(lambda: sdpa(*qkv))
+        b_lib = library_ms(sdpa_bwd(*qkv, gr.reshape(b, n, 12, -1).transpose(1, 2)))
+    torch.cuda.synchronize()
+    dh = d3 // 36
+    k_bound = bound([x], [wo], attn_ops(b, 12, n, n, dh, 2), torch.bfloat16)
+    f_bound = bound([x], [wo, wl], attn_ops(b, 12, n, n, dh, 2), torch.bfloat16)
+    b_bound = bound([x, wo, wl, gr], [x], attn_ops(b, 12, n, n, dh, 5), torch.bfloat16)
+    shape = list(GROUPED_SHAPE)
+    log(f"[{tag}] K1 (for K8a) bf16 {shape}: kernel {k_ms!r} ms, plain {k_plain!r} ms, "
+        f"library (scaled_dot_product_attention) {f_lib!r} ms, bound {k_bound} "
+        f"(median of 20, CUDA events; {smi})")
+    log(f"[{tag}] K1-lse (for K8a, with_lse) bf16 {shape}: kernel {f_ms!r} ms, plain "
+        f"{f_plain!r} ms, library (scaled_dot_product_attention) {f_lib!r} ms, bound "
+        f"{f_bound} (median of 20, CUDA events; {smi})")
+    log(f"[{tag}] K2 (for K8b) bf16 {shape}: kernel {b_ms!r} ms, plain {b_plain!r} ms, "
+        f"library (its backward) {b_lib!r} ms, bound {b_bound} (median of 20, CUDA "
+        f"events; {smi})")
+    return {"K8a": dict(err=e_k1, ms=k_ms, plain_ms=k_plain, library_ms=f_lib, **k_bound),
+            "K8a-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **f_bound),
+            "K8b": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_bound)}
+
+
+def _pretrain_args(out: str, *extra):
+    from msvit_tpu_torch.examples import pretrain_synthetic
+
+    return pretrain_synthetic.build_parser().parse_args(
+        ["--preset", "b8", "--batch", "64", "--clip", "1.0", "--out", out, *extra])
+
+
+def _metrics(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def pretrain_phase(dev, smi: str, out: str) -> tuple:
+    """`pretrain_synthetic.pretrain` at `--preset b8` (ViT-B/8 @224, 785
+    tokens, full width and depth) for 10 steps at bs64 with the clip at 1.0,
+    on 256 scenes made in memory by `generate_batch`: finite, falling loss,
+    K1-lse and K2 launched 12 times a step and K1 12 times per eval batch,
+    the checkpoint and summary written.  Then the step timed through
+    `Trainer` with the example's loss: fed by `prefetch_to_device`, with the
+    same batches already on the device, and fed by blocking copies; peak
+    memory and host syncs.  Returns (launches, the checkpoint's directory)."""
+    import contextlib
+    import importlib.util
+
+    from msvit_tpu_torch.data.pipeline import prefetch_to_device
+    from msvit_tpu_torch.data.synthetic import corpus_batches, generate_batch
+    from msvit_tpu_torch.examples import pretrain_synthetic as ps
+    from msvit_tpu_torch.models.base import ViTForImageClassification
+    from msvit_tpu_torch.train import Trainer, make_optimizer
+
+    t0 = time.perf_counter()
+    data = generate_batch(range(256), size=224)
+    log(f"[pretrain] 256 scenes at 224 px made in memory by generate_batch in "
+        f"{time.perf_counter() - t0:.1f} s (PIL importable: "
+        f"{importlib.util.find_spec('PIL') is not None}; the JPEG corpus path is not "
+        f"taken here); labels {np.bincount(data['labels'], minlength=5).tolist()}")
+    steps, eval_size = 10, 128
+    args = _pretrain_args(out, "--steps", str(steps), "--eval-size", str(eval_size))
+    _reset_packed_counts()
+    t0 = time.perf_counter()
+    summary = ps.pretrain(args, data, log_every=1)
+    wall = time.perf_counter() - t0
+    launches = _packed_counts()
+    run_dir = os.path.join(out, ps.run_name(args))
+    rec = _metrics(run_dir)
+    losses, norms = [r["loss"] for r in rec], [r["grad_norm"] for r in rec]
+    log(f"[pretrain] ViT-B/8 pretrain, {steps} steps at bs64 + eval of {eval_size} in "
+        f"{wall:.1f} s (model build included): losses {losses}; unclipped grad norms "
+        f"{norms} ({sum(v > args.clip for v in norms)} steps clipped at {args.clip}); "
+        f"held-out top-1 {summary['holdout_top1']!r}; launches {launches} ({smi})")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError("pretrain: a loss or a gradient norm is missing or not finite")
+    if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
+        raise AssertionError("pretrain: the loss did not fall (last 3 steps vs first 3)")
+    if not all(r["grads_finite"] == 1.0 for r in rec):
+        raise AssertionError("pretrain: a step had non-finite gradients")
+    want = {"K1": LAYERS * (eval_size // 64), "K1-lse": steps * LAYERS, "K2": steps * LAYERS}
+    if launches != want:
+        raise AssertionError(f"pretrain launches {launches}, want {want}")
+    ckpt = os.path.join(run_dir, "ckpt")
+    if not (os.path.isfile(os.path.join(run_dir, "summary.json"))
+            and os.path.isfile(os.path.join(ckpt, f"ckpt_{steps}.pt"))):
+        raise AssertionError("pretrain: summary.json or the checkpoint is missing")
+
+    # the step through Trainer with the example's loss, three feeds
+    model = ViTForImageClassification(
+        ps.model_config(args), 5, generator=torch.Generator().manual_seed(0), device=dev)
+    opt = make_optimizer(ps.warmup_cosine(args.lr, 1, 1000), weight_decay=args.weight_decay,
+                         clip_norm=args.clip)
+    tr = Trainer(ps.loss_fn, opt, model.train(), monitor=True, log_every=10**6)
+
+    def host():
+        return corpus_batches(data, 64, seed=1, uint8=True)
+
+    def blocking():
+        for bt in host():
+            yield {k: torch.from_numpy(v).to(dev) for k, v in bt.items()}
+
+    resident = [{k: torch.from_numpy(v).to(dev) for k, v in bt.items()}
+                for bt in itertools.islice(host(), 4)]
+
+    def timed(batches, n=5) -> float:
+        tr.fit(batches, num_steps=tr.step + 2, seed=0)  # warm-up, ends in a loss read
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.fit(batches, num_steps=tr.step + n, seed=0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    t_dev = timed(itertools.cycle(resident))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with contextlib.closing(prefetch_to_device(host(), device=dev)) as fed:
+        t_pre = timed(fed)
+        syncs = _syncs(lambda: tr.fit(fed, num_steps=tr.step + 3, seed=0))
+    t_blk = timed(blocking())
+    hidden = (t_blk - t_pre) / (t_blk - t_dev) if t_blk > t_dev else float("nan")
+    log(f"[pretrain] ViT-B/8 train step bs64 through Trainer (the example's loss, clip "
+        f"{args.clip}, non-finite skip on): batches resident on the device {t_dev!r} "
+        f"ms/step ({64 / t_dev * 1e3!r} img/s), fed by prefetch_to_device {t_pre!r} ms/step "
+        f"({64 / t_pre * 1e3!r} img/s), fed by blocking copies {t_blk!r} ms/step; share of "
+        f"the feed's cost that the prefetch hides {hidden!r}; peak memory {peak!r} GiB; "
+        f"host syncs in 3 steps fed by prefetch {syncs} (the last step's loss read "
+        f"included; 5 steps after 2 of warm-up, host clock; {smi})")
+    return {"K8a": launches["K1"], "K8a-lse": launches["K1-lse"], "K8b": launches["K2"]}, ckpt
+
+
+def pretrain_variants_phase(dev, smi: str, out: str) -> None:
+    """3 steps of the example with `--qk-norm` (b8) and 3 with `--dtype f32
+    --preset b16`; the qk-norm model's loss and gradients on the kernel path
+    against the plain attention path (the example's loss, bs16, the same
+    weights and draws); a clipped step leaves gradients of the clip's norm."""
+    from msvit_tpu_torch.data.synthetic import generate_batch
+    from msvit_tpu_torch.examples import pretrain_synthetic as ps
+    from msvit_tpu_torch.models.base import ViTForImageClassification
+    from msvit_tpu_torch.train import make_optimizer, train_step_fn
+
+    data = generate_batch(range(1000, 1128), size=224)
+    for label, extra in (("--qk-norm", ["--qk-norm"]),
+                         ("--dtype f32 --preset b16", ["--dtype", "f32", "--preset", "b16"])):
+        args = _pretrain_args(os.path.join(out, "variants"), "--steps", "3", "--eval-size",
+                              "64", *extra)
+        _reset_packed_counts()
+        t0 = time.perf_counter()
+        ps.pretrain(args, data, log_every=1)
+        counts = _packed_counts()
+        rec = _metrics(os.path.join(out, "variants", ps.run_name(args)))[-3:]
+        log(f"[pretrain-variants] {label}: 3 steps + eval of 64 in "
+            f"{time.perf_counter() - t0:.1f} s; losses {[r['loss'] for r in rec]}; grad "
+            f"norms {[r['grad_norm'] for r in rec]}; launches {counts} ({smi})")
+        if not all(math.isfinite(r["loss"]) and r["grads_finite"] == 1.0 for r in rec):
+            raise AssertionError(f"pretrain {label}: non-finite loss or gradients")
+        if counts != {"K1": LAYERS, "K1-lse": 3 * LAYERS, "K2": 3 * LAYERS}:
+            raise AssertionError(f"pretrain {label}: launches {counts}")
+        torch.cuda.empty_cache()
+
+    args = _pretrain_args(out, "--qk-norm")
+    cfg = ps.model_config(args)
+    batch = {"pixel_values": torch.from_numpy(data["images"][:16]).to(dev),
+             "labels": torch.from_numpy(data["labels"][:16]).to(dev)}
+    runs = {}
+    for path in ("kernel", "plain"):
+        c = cfg if path == "kernel" else dataclasses.replace(cfg, attn_implementation="xla")
+        model = ViTForImageClassification(
+            c, 5, generator=torch.Generator().manual_seed(0), device=dev).train()
+        _reset_packed_counts()
+        loss, _ = ps.loss_fn(model, batch, torch.Generator().manual_seed(7))
+        loss.backward()
+        runs[path] = (loss.item(), _packed_counts(),
+                      torch.cat([p.grad.float().flatten() for p in model.parameters()]))
+        if path == "plain":
+            del model
+    (lk, nk, gk), (lp, np_, gp) = runs["kernel"], runs["plain"]
+    rel, c = abs(lk - lp) / abs(lp), cos(gk, gp)
+    log(f"[pretrain-variants] ViT-B/8 --qk-norm classifier bs16, the example's loss: "
+        f"kernel path {lk!r}, plain attention path {lp!r}, relative difference {rel!r} "
+        f"(tolerance {GRAD_LOSS_REL_TOL!r}); cosine of the gradients {c!r} (tolerance >= "
+        f"{GRAD_COS_TOL!r}); launches kernel path {nk}, plain path {np_}")
+    if nk != {"K1": 0, "K1-lse": LAYERS, "K2": LAYERS} or any(np_.values()):
+        raise AssertionError(f"launches kernel path {nk}, plain path {np_}")
+    if not (rel <= GRAD_LOSS_REL_TOL and c >= GRAD_COS_TOL):
+        raise AssertionError("qk-norm kernel-path gradients disagree with the plain path")
+    del runs, gk, gp
+    torch.cuda.empty_cache()
+
+    # a clipped step: the gradients left on the parameters have the clip's norm
+    model = ViTForImageClassification(
+        cfg, 5, generator=torch.Generator().manual_seed(0), device=dev).train()
+    opt = make_optimizer(1e-4, clip_norm=0.05)
+    _, aux = train_step_fn(ps.loss_fn, opt, monitor=True)(
+        model, opt.init(model), batch, torch.Generator().manual_seed(7))
+    left = torch.linalg.vector_norm(torch.stack(
+        [p.grad.float().norm() for p in model.parameters()])).item()
+    norm = aux["grad_norm"].item()
+    log(f"[pretrain-variants] clipped step: unclipped norm {norm!r}, clip 0.05, norm of "
+        f"the gradients the update saw {left!r} (tolerance 1e-4 relative)")
+    if not (norm > 0.05 and abs(left - 0.05) <= 0.05 * 1e-4):
+        raise AssertionError("the clip did not bring the gradients to its norm")
+
+
+def bootstrap_phase(dev, smi: str, ckpt: str) -> None:
+    """The pretrain's checkpoint through `train_multistate --preset b8
+    --ckpt`: the trunk's tensors bit-equal to the checkpoint's after the
+    transfer, then 3 fine-tune steps (816 tokens, soft-masked: K5-lse and
+    K6, 11 a step)."""
+    from msvit_tpu_torch.examples import train_multistate as tm
+    from msvit_tpu_torch.models.multistate import MultiStateViTForImageClassification
+    from msvit_tpu_torch.train import restore_checkpoint
+
+    params = restore_checkpoint(ckpt)["params"]
+    cfg = tm.default_config(256, "b8")
+    model = MultiStateViTForImageClassification(cfg, 10, device=dev)
+    tm.load_pretrained_trunk(model, ckpt)
+    got = {k: v.cpu() for k, v in model.encoder.state_dict().items()}
+    trunk = [k for k in params if k.startswith("vit.encoder.layer.")]
+    same = all(torch.equal(got["backbone." + k[len("vit.encoder."):]], params[k])
+               for k in trunk)
+    same &= torch.equal(got["embeddings.position_embeddings"],
+                        params["vit.embeddings.position_embeddings"][:, 1:])
+    same &= torch.equal(got["embeddings.patch_projection.weight"],
+                        params["vit.embeddings.patch_projection.weight"])
+    same &= all(torch.equal(got[f"backbone.{t}_token"], params["vit.embeddings.cls_token"][0, 0])
+                for t in ("transmitter", "receiver"))
+    log(f"[bootstrap] transfer_base_to_multistate: {len(trunk)} trunk tensors, the patch "
+        f"projection, the position table without its CLS row and TX/RX from the CLS "
+        f"token bit-equal to the checkpoint's: {same}")
+    if not same or len(trunk) != LAYERS * 14:
+        raise AssertionError("the transferred trunk differs from the checkpoint")
+    del model, got
+    _reset_ms_train_counts()
+    t0 = time.perf_counter()
+    losses = tm.main(["--steps", "3", "--preset", "b8", "--ckpt", ckpt])
+    torch.cuda.synchronize()
+    counts = _ms_train_counts()
+    log(f"[bootstrap] train_multistate --preset b8 --ckpt: 3 steps in "
+        f"{time.perf_counter() - t0:.1f} s (model build included); losses {losses}; "
+        f"launches {counts} ({smi})")
+    if len(losses) != 3 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"bootstrap losses {losses}")
+    want = {"K5-lse": 3 * (LAYERS - 1), "K6": 3 * (LAYERS - 1), "K4": 0, "K5": 0}
+    if counts != want:
+        raise AssertionError(f"bootstrap launches {counts}, want {want}")
+
 
 def ptxas_lines() -> list:
     """Registers and spills of the training, the fused, the flash, the
@@ -1713,6 +2053,16 @@ def main() -> None:
     kernels.update(banded_kernel_phase(dev, smi, part448, partition))
     torch.cuda.empty_cache()
     kernels.update(int8_attn_kernel_phase(dev, smi, partition))
+    torch.cuda.empty_cache()
+    kernels.update(grouped_kernel_phase(dev, smi, partition))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pretrain_") as out:
+        pre_launches, ckpt = pretrain_phase(dev, smi, out)
+        launches.update(pre_launches)
+        torch.cuda.empty_cache()
+        pretrain_variants_phase(dev, smi, out)
+        torch.cuda.empty_cache()
+        bootstrap_phase(dev, smi, ckpt)
     src = "msvit_tpu_torch/csrc/"
     packed, fused = "msvit_tpu/ops/packed_attention.py:", "msvit_tpu/ops/fused_attention.py:"
     flash = "msvit_tpu/ops/flash_attention.py:"
@@ -1735,6 +2085,11 @@ def main() -> None:
             ("K9", "packed_attention_int8_masked", "packed_attention_int8.cu", packed + "1082"),
             ("K10", "token_rows", "banded_attention.cu",
              "msvit_tpu/ops/banded_attention.py:282"),
+            # the TPU's head-grouped functions, computed by K1, K1-lse and K2
+            ("K8a", "packed_attention (K8a)", "packed_attention.cu", packed + "288"),
+            ("K8a-lse", "packed_attention_lse (K8a, with_lse)", "packed_attention_lse.cu",
+             packed + "288"),
+            ("K8b", "packed_attention_bwd (K8b)", "packed_attention_bwd.cu", packed + "641"),
         )
     ]
     print(json.dumps({"kernels": rows}))

@@ -11,7 +11,9 @@ Takes the JAX package's `ViTModel` params as nested dicts of numpy arrays
 * ``qkv_kernel [D, 3, H, dh]`` is reshaped to ``[D, 3*H*dh]`` in
   (t, h, e) order, the packed q | k | v column order, then transposed;
   ``qkv_bias [3, H, dh]`` becomes ``[3*H*dh]``;
-* LayerNorm ``scale`` / ``bias`` become ``weight`` / ``bias``.
+* LayerNorm ``scale`` / ``bias`` become ``weight`` / ``bias``; the qk-norm
+  ``q_norm/scale`` and ``k_norm/scale`` of a layer (``config.qk_norm``)
+  become ``attention.q_norm.weight`` and ``attention.k_norm.weight``.
 
 Scanned trunks (``encoder/layers``) are not taken: unstack them first
 with `msvit_tpu.models.base.scan.unstack_layer_params`.
@@ -42,8 +44,9 @@ def _norm(out: Dict[str, torch.Tensor], key: str, p: Mapping) -> None:
 
 def _layer(out: Dict[str, torch.Tensor], key: str, p: Mapping) -> None:
     attn = p["attention"]
-    if "q_norm" in attn or "k_norm" in attn:
-        raise NotImplementedError("qk_norm is not ported yet")
+    for name in ("q_norm", "k_norm"):  # config.qk_norm: a scale, no bias
+        if name in attn:
+            out[f"{key}.attention.{name}.weight"] = _t(attn[name]["scale"])
     w = np.asarray(attn["qkv_kernel"], np.float32)  # [D, 3, H, dh]
     out[key + ".attention.qkv.weight"] = _t(w.reshape(w.shape[0], -1)).T.contiguous()
     if "qkv_bias" in attn:

@@ -21,11 +21,22 @@ Self-attention takes the packed path (`ops/packed_attention.py`: K1 for
 inference, K1-lse and K2 under autograd) when the JAX package would on its
 kernel device: plain self-attention, no probabilities requested, no mask
 or a [B, 1|H, N, N] one, and not the masked >= 512-token regime that JAX
-sends to its fused/flash kernels.  The JAX package's VMEM fit gates
-(`packed_vmem_ok`, `grouped_vmem_ok`) are not ported: the unmasked ViT-B/8
-at 448 px keeps the packed path here where JAX falls to flash.  Unlike
-JAX, which takes the packed path only on a TPU, the port takes it on every
-device: on the CPU the wrappers run the plain versions.
+sends to its fused/flash kernels.  The three kernels stand for the TPU's
+all-heads functions (`_packed_forward`, `_packed_backward`) and for its
+head-grouped ones (K8a `_packed_forward_grouped`, K8b
+`_packed_backward_grouped`, the 512-1100-token regime: the unmasked ViT-B/8
+at 785 tokens), which compute the same function on another grid.  The JAX
+package's VMEM fit gates (`packed_vmem_ok`, `grouped_vmem_ok`) are TPU
+tiling and are not ported: the unmasked ViT-B/8 at 448 px keeps the packed
+path here where JAX falls to flash.  Unlike JAX, which takes the packed
+path only on a TPU, the port takes it on every device: on the CPU the
+wrappers run the plain versions.
+
+``config.qk_norm``: a per-head LayerNorm over dh (learnable scale, no
+bias, f32 statistics) on the queries and on every key, context keys
+included.  On the packed path it is a row operation on the QKV GEMM output,
+and the 1/sqrt(dh) scale multiplies the normed queries: folded into the
+projection it would be erased by the normalisation.
 
 With ``banded_segments`` (the multistate trunk's banded mode) the same
 q-prescaled QKV projection goes to `ops/banded_attention.py::
@@ -116,6 +127,12 @@ class BaseViTSelfAttention(nn.Module):
         qscale = torch.ones(3 * h * dh)
         qscale[: h * dh] = dh**-0.5
         self.register_buffer("qscale", qscale, persistent=False)
+        if config.qk_norm:
+            policy = config.policy
+            self.q_norm = LayerNorm(dh, config.layer_norm_eps, policy.compute,
+                                    policy.param, bias=False)
+            self.k_norm = LayerNorm(dh, config.layer_norm_eps, policy.compute,
+                                    policy.param, bias=False)
 
     def _use_packed(self, x, context_states, attention_mask, output_attentions):
         cfg = self.config
@@ -157,10 +174,19 @@ class BaseViTSelfAttention(nn.Module):
 
         if banded_segments is not None or self._use_packed(
                 x, context_states, attention_mask, output_attentions):
-            qs = self.qscale.to(compute)
-            w = self.qkv.weight.to(compute) * qs[:, None]
-            b = None if self.qkv.bias is None else self.qkv.bias.to(compute) * qs
-            qkvp = F.linear(x, w, b)
+            if cfg.qk_norm:
+                # the norm is scale-invariant: 1/sqrt(dh) goes on the normed
+                # queries, not into the projection (`qscale` unused here)
+                qkvp = self.qkv(x)
+                q, k, v = qkvp.unflatten(-1, (3, h, dh)).unbind(-3)
+                qkvp = torch.stack(
+                    [self.q_norm(q) * dh**-0.5, self.k_norm(k), v], dim=-3
+                ).reshape(qkvp.shape)
+            else:
+                qs = self.qscale.to(compute)
+                w = self.qkv.weight.to(compute) * qs[:, None]
+                b = None if self.qkv.bias is None else self.qkv.bias.to(compute) * qs
+                qkvp = F.linear(x, w, b)
             if banded_segments is not None:
                 out = multistate_banded_attention(qkvp, banded_segments, h)
             else:
@@ -179,6 +205,8 @@ class BaseViTSelfAttention(nn.Module):
             ckv = F.linear(c, wkv, bkv).unflatten(-1, (2, h, dh))
             k = torch.cat([k, ckv.select(-3, 0).transpose(-3, -2)], dim=-2)
             v = torch.cat([v, ckv.select(-3, 1).transpose(-3, -2)], dim=-2)
+        if cfg.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
 
         out, probs = multi_head_attention(
             q, k, v, mask=attention_mask,

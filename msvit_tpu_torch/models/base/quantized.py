@@ -64,6 +64,11 @@ def quantize_layer_params(sd: Mapping[str, torch.Tensor], prefix: str):
     if prefix + "mlp.fc1.weight" not in sd:
         raise ValueError("quantize_layer_params: the int8 path needs the GELU "
                          "MLP (fc1/fc2), not SwiGLU")
+    if prefix + "attention.q_norm.weight" in sd:
+        # the int8 apply loops run no q/k norm: serving a qk_norm trunk
+        # through them would compute another attention
+        raise ValueError("quantize_layer_params: a qk_norm trunk (q_norm / "
+                         "k_norm weights) has no int8 apply path")
     g = lambda k: sd[prefix + k]  # noqa: E731
     return {
         "qkv": {"w": quantize_weight(g("attention.qkv.weight")),

@@ -23,6 +23,17 @@ hand-written CUDA kernel for Hopper with a plain PyTorch version beside it:
   head-pair grid and its VMEM gate (`int8_grouped_vmem_ok`) are not
   ported: the port takes any N.
 
+K1, K1-lse and K2 also stand for the TPU's head-grouped functions, which
+compute the same thing on a (B, H/2) grid for 512 to ~1100 tokens (the
+unmasked ViT-B/8 at 785): K8a `_packed_forward_grouped` (its inference
+branch is K1, its `with_lse` branch K1-lse) and K8b
+`_packed_backward_grouped` (K2 with the dp panel through a VMEM scratch).
+The head-pair grid, the scratch and the four `*_vmem_ok` gates are TPU
+tiling: the port's kernels tile over N and take any length.  One deviation:
+K8b reads an additive mask rounded to bf16 (exact for the model's 0 / -100
+masks); K2 and its plain version read it in f32 at every N, as the TPU's
+K2 and both forwards do.
+
 Each wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches its kernel or raises: there is no fallback.
 Each counts its kernel launches in a plain int attribute (`.launches`).

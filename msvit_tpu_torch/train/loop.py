@@ -16,6 +16,13 @@ step count untouched, unless more than `max_nonfinite` consecutive steps
 were bad, in which case it is applied.  The decision stays on the device:
 the flag is handed to the fused AdamW as its `found_inf` tensor (the
 protocol `torch.amp.GradScaler` uses), so no step waits on the host.
+Gradient clipping (`Optimizer.clip_norm`, the counterpart of
+``optax.chain(optax.clip_by_global_norm(c), optax.adamw(...))``): before
+the update every gradient is multiplied by ``c / max(norm, c)``, norm the
+global L2 norm of the unclipped gradients, formed on the device from the
+per-tensor norms (no host sync).  Under `apply_if_finite` the finiteness is
+judged on the unclipped gradients, as optax judges the chain's input.
+
 Deviation from optax: a learning-rate schedule is read at the host's
 count of steps taken, which also advances on a skipped step (optax's
 schedule count does not); reading the device count would cost a sync.
@@ -42,12 +49,15 @@ class Optimizer:
     learning_rate: a float or a `step -> lr` schedule (step counts from 0).
     trainable: `name_tuple -> bool` over the model's parameter names split
       at "."; the others get no update and no decay (optax `set_to_zero`).
-    max_nonfinite: set by `apply_if_finite`."""
+    max_nonfinite: set by `apply_if_finite`.
+    clip_norm: global-norm clip of the gradients ahead of AdamW
+      (`optax.clip_by_global_norm`); None or 0 disables it."""
 
     learning_rate: Schedule = 1e-3
     weight_decay: float = 1e-2
     trainable: Optional[Callable[[Tuple[str, ...]], bool]] = None
     max_nonfinite: Optional[int] = None
+    clip_norm: Optional[float] = None
 
     def init(self, model: nn.Module) -> "OptState":
         return OptState(self, model)
@@ -58,14 +68,17 @@ def make_optimizer(
     weight_decay: float = 1e-2,
     trainable: Optional[Callable[[Tuple[str, ...]], bool]] = None,
     mu_dtype=None,
+    clip_norm: Optional[float] = None,
 ) -> Optimizer:
-    """AdamW, optionally masked to a trainable subset by parameter name."""
+    """AdamW, optionally masked to a trainable subset by parameter name,
+    optionally behind a global-norm clip of the gradients."""
     if mu_dtype is not None:
         raise NotImplementedError(
             "mu_dtype (a bf16 first moment) is not ported yet "
             "(ROADMAP.md queue 1, item 4: mu_dtype)"
         )
-    return Optimizer(learning_rate, weight_decay, trainable)
+    return Optimizer(learning_rate, weight_decay, trainable,
+                     clip_norm=clip_norm or None)
 
 
 def apply_if_finite(optimizer: Optimizer, max_nonfinite: int) -> Optimizer:
@@ -208,16 +221,21 @@ def train_step_fn(
             loss = loss.detach()
         grads = [p.grad for p in params if p.grad is not None]
         finite = None
-        if monitor or opt_state.spec.max_nonfinite is not None:
+        clip = opt_state.spec.clip_norm
+        if monitor or clip or opt_state.spec.max_nonfinite is not None:
             # per-tensor L2 norms: one foreach pass gives both the global
             # norm and the finiteness (a NaN or Inf makes its norm
             # non-finite; an f32 sum of squares past 3e38 counts as bad)
             norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
             finite = torch.isfinite(norms).all()
+            norm = torch.linalg.vector_norm(norms)
             if monitor:
                 aux = dict(aux or {})
-                aux["grad_norm"] = torch.linalg.vector_norm(norms)
+                aux["grad_norm"] = norm  # of the unclipped gradients
                 aux["grads_finite"] = finite & torch.isfinite(loss.float()).all()
+            if clip:
+                # optax: g where norm < clip, else g / norm * clip
+                torch._foreach_mul_(grads, clip / norm.clamp_min(clip))
         opt_state.update(finite)
         if ema_decay is not None:
             named = dict(model.named_parameters())

@@ -651,3 +651,100 @@ def test_k10_grad_and_bad_inputs(dev):
             ba.token_rows(qkv[..., :36], cid, 2, 2)
         with pytest.raises(ValueError, match="another device"):
             ba.token_rows(qkv, cid.cpu(), 2, 2)
+
+
+# ------------------------------------- the grouped regime (K8a, K8b) ----
+# K1, K1-lse and K2 at the shapes of the TPU's head-grouped functions
+# (`_packed_forward_grouped`, `_packed_backward_grouped`), which they stand
+# for: 785 tokens unmasked, the soft-masked 816, masked f32 at 197, odd N.
+
+
+def _grouped_mask(kind, b, h, n, dev, seed):
+    r = torch.rand(b, h, n, n, generator=torch.Generator().manual_seed(seed))
+    if kind == "bool":
+        m = r < 0.7
+        m[:, :, 0, :] = False
+        return m.to(dev)
+    if kind == "additive":
+        return (-100.0 * (r < 0.3).float()).to(dev)
+    return None
+
+
+@pytest.mark.parametrize("b,n,dtype,mask,mask_heads", [
+    (4, 785, torch.bfloat16, None, 1),
+    (4, 785, torch.float32, None, 1),
+    (2, 816, torch.bfloat16, "additive", 1),
+    (2, 816, torch.bfloat16, "bool", 1),
+    (4, 197, torch.float32, "additive", 12),
+    (2, 1025, torch.bfloat16, None, 1),
+    (2, 531, torch.bfloat16, "additive", 12),
+])
+def test_grouped_regime_k1_k1_lse_k2_match_plain(dev, b, n, dtype, mask, mask_heads):
+    m = _grouped_mask(mask, b, mask_heads, n, dev, seed=40)
+    _train_case(b, n, 12, 64, dtype, dev, seed=41, mask=m)
+    x = _qkv(b, n, 768, dtype, dev, seed=42)
+    with torch.inference_mode():
+        got = packed_attention(x, 12, mask=m)
+        want = packed_attention_plain(x, 12, mask=m)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _TOL[dtype]
+
+
+def test_k2_reads_the_additive_mask_in_f32(dev):
+    """The TPU's grouped backward rounds an additive mask to bf16; the
+    port's K2 reads it in f32, as its plain version does: with -3.3 (bf16:
+    -3.296875) the kernel equals the plain version on the f32 mask."""
+    b, n, h, dh = 2, 197, 12, 64
+    r = torch.rand(b, h, n, n, generator=torch.Generator().manual_seed(43))
+    _train_case(b, n, h, dh, torch.float32, dev, seed=44,
+                mask=(-3.3 * (r < 0.5).float()).to(dev))
+
+
+def test_clip_on_the_card(dev):
+    """The clip is formed on the device: the clipped gradients' global norm
+    is min(norm, clip), with no host synchronization in the step."""
+    from msvit_tpu_torch.train import make_optimizer, train_step_fn
+
+    model = torch.nn.Linear(16, 4).to(dev)
+    x = torch.randn(8, 16, generator=torch.Generator().manual_seed(45)).to(dev)
+
+    def loss_fn(m, batch, gen):
+        return (m(batch) ** 2).sum() * 50.0, {}
+
+    opt = make_optimizer(1e-3, clip_norm=0.25)
+    state = opt.init(model)
+    step = train_step_fn(loss_fn, opt, monitor=True)
+    step(model, state, x, None)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, aux = step(model, state, x, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    left = torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in model.parameters()]))
+    assert float(aux["grad_norm"]) > 0.25
+    assert abs(float(left) - 0.25) <= 1e-5
+
+
+def test_prefetch_on_the_card(dev):
+    """Pinned staging and a side-stream copy: order and values kept, the
+    ring's buffers reused, tensors on the card, the worker stopped."""
+    import threading
+
+    import numpy as np
+
+    from msvit_tpu_torch.data.pipeline import prefetch_to_device
+
+    items = [{"pixel_values": np.full((4, 8, 8, 3), i, np.uint8),
+              "labels": np.arange(4, dtype=np.int32) + i} for i in range(9)]
+    it = prefetch_to_device(
+        iter(items), buffer_size=2, device=dev,
+        transform=lambda d: {**d, "pixel_values": d["pixel_values"].float() / 127.5 - 1.0})
+    for i, batch in enumerate(it):
+        assert batch["pixel_values"].is_cuda and batch["labels"].is_cuda
+        want = i / 127.5 - 1.0
+        assert (batch["pixel_values"].mean().item() - want) ** 2 < 1e-10
+        assert batch["labels"].tolist() == list(range(i, i + 4))
+    assert i == 8
+    assert not any(t.name == "prefetch_to_device" and t.is_alive()
+                   for t in threading.enumerate())

@@ -67,8 +67,8 @@ def test_config_fields_match_jax():
             assert jd == td, n
 
 
-@pytest.mark.parametrize("field,value", [("qk_norm", True), ("num_experts", 2),
-                                         ("scan_layers", True), ("remat_policy", "dots"),
+@pytest.mark.parametrize("field,value", [("num_experts", 2), ("scan_layers", True),
+                                         ("remat_policy", "dots"),
                                          ("sequence_sharding", True)])
 def test_unported_fields_raise_at_build(field, value):
     with pytest.raises(NotImplementedError, match=field):
