@@ -9,12 +9,14 @@ fails (non-zero exit, no result line) if any phase fails:
    card's name and power limit as nvidia-smi reports them;
 2. build: compiles the hand-written kernels from `msvit_tpu_torch/csrc`
    (one nvcc per source, in parallel) and prints ptxas's registers and
-   spills for the training and the fused kernels;
+   spills for the training (the bf16 pair on the tensor cores), the fused,
+   flash, banded and int8 kernels;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (max abs error against a stated tolerance), then
    both timed with CUDA events in turns (plain, kernel, kernel, plain):
-   K1 and K3 (serving), K1-lse and K2 (training; masked, f32 and
-   large-logit cases too);
+   K1 and K3 (serving), K1-lse and K2 (training; masked, f32, large-logit
+   in f32 and bf16 and dh-128 cases too; their achieved TFLOP/s and share
+   of the bound);
 4. serving: ViT-B/16 @224 with seeded random weights, int8-quantized and
    calibrated, served by `BatchingServer` (int8 buckets > 2, bf16 buckets
    of 1 and 2, uint8 requests, CLS features out); checks every response,
@@ -253,6 +255,13 @@ def attn_ops(b: int, h: int, nq: int, nk: int, dh: int, products: int) -> float:
     return 2.0 * products * b * h * nq * nk * dh
 
 
+def rate(ops: float, ms: float, lim: dict) -> str:
+    """Achieved rate of a call of `ops` operations in `ms`, and its share of
+    the bound."""
+    return (f"{ops / ms / 1e9!r} TFLOP/s achieved, {lim['bound_ms'] / ms!r} of its "
+            f"bound")
+
+
 def sdpa(q, k, v, mask=None):
     """The library yardstick: one `scaled_dot_product_attention` call; a
     bool mask as is, an additive one cast to q's dtype."""
@@ -451,7 +460,7 @@ def slice_phase(dev, smi: str) -> dict:
 
 
 
-def _lse_bwd_case(tag: str, gen, label: str, x, mask=None) -> tuple:
+def _lse_bwd_case(tag: str, gen, label: str, x, mask=None, heads: int = 12) -> tuple:
     """K1-lse (out, lse) and K2 (dqkv from the plain forward's residuals and
     a random cotangent) against their plain versions on packed qkv `x`;
     returns (out error, dqkv error, (x, cotangent, plain out, plain lse))."""
@@ -461,10 +470,10 @@ def _lse_bwd_case(tag: str, gen, label: str, x, mask=None) -> tuple:
 
     gr = torch.randn(*x.shape[:2], x.shape[2] // 3, generator=gen).to(x.dtype).to(x.device)
     with torch.no_grad():
-        o, lse = packed_attention_lse(x, 12, mask=mask)
-        wo, wl = packed_attention_lse_plain(x, 12, mask=mask)
-        d = packed_attention_bwd(x, mask, wo, wl, gr, 12)
-        wd = packed_attention_bwd_plain(x, mask, wo, wl, gr, 12)
+        o, lse = packed_attention_lse(x, heads, mask=mask)
+        wo, wl = packed_attention_lse_plain(x, heads, mask=mask)
+        d = packed_attention_bwd(x, mask, wo, wl, gr, heads)
+        wd = packed_attention_bwd_plain(x, mask, wo, wl, gr, heads)
     torch.cuda.synchronize()
     for name, t in (("out", o), ("lse", lse), ("dqkv", d)):
         if not torch.isfinite(t).all():
@@ -511,6 +520,12 @@ def train_kernel_phase(dev, smi: str) -> dict:
     if s_max <= 150:
         raise AssertionError(f"large-logit case: max |s| {s_max} <= 150")
     case(f"f32 [4,197,2304] large logits (max |s| {s_max:.1f})", big)
+    case(f"bf16 [4,197,2304] large logits (max |s| {s_max:.1f} before the cast)",
+         big.to(torch.bfloat16))
+    # dh 128 (the tensor-core kernels' largest bucket, tiles in dynamic
+    # shared memory) on a ragged N
+    _lse_bwd_case("train-kernels", g, "bf16 [4,197,2304] 6 heads (dh 128)",
+                  xs.to(torch.bfloat16), heads=6)
 
     with torch.no_grad():
         f_ms, f_plain = race(lambda: packed_attention_lse(x, 12),
@@ -523,15 +538,16 @@ def train_kernel_phase(dev, smi: str) -> dict:
                                     .transpose(1, 2)))
     torch.cuda.synchronize()
     b, n, d3 = MAIN_SHAPE
-    f_bound = bound([x], [wo, wl], attn_ops(b, 12, n, n, d3 // 36, 2), torch.bfloat16)
+    f_ops, b_ops = (attn_ops(b, 12, n, n, d3 // 36, k) for k in (2, 5))
+    f_bound = bound([x], [wo, wl], f_ops, torch.bfloat16)
     # K2 writes dqkv, x's shape and dtype
-    b_bound = bound([x, wo, wl, gr], [x], attn_ops(b, 12, n, n, d3 // 36, 5), torch.bfloat16)
+    b_bound = bound([x, wo, wl, gr], [x], b_ops, torch.bfloat16)
     log(f"[train-kernels] K1-lse bf16 [64,197,2304]: kernel {f_ms!r} ms, plain "
         f"{f_plain!r} ms, library (scaled_dot_product_attention) {f_lib!r} ms, bound "
-        f"{f_bound} (median of 20, CUDA events; {smi})")
+        f"{f_bound}; {rate(f_ops, f_ms, f_bound)} (median of 20, CUDA events; {smi})")
     log(f"[train-kernels] K2 bf16 [64,197,2304]: kernel {b_ms!r} ms, plain "
-        f"{b_plain!r} ms, library (its backward) {b_lib!r} ms, bound {b_bound} "
-        f"(median of 20, CUDA events; {smi})")
+        f"{b_plain!r} ms, library (its backward) {b_lib!r} ms, bound {b_bound}; "
+        f"{rate(b_ops, b_ms, b_bound)} (median of 20, CUDA events; {smi})")
     return {"K1-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **f_bound),
             "K2": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_bound)}
 
@@ -1720,19 +1736,20 @@ def grouped_kernel_phase(dev, smi: str, partition) -> dict:
         b_lib = library_ms(sdpa_bwd(*qkv, gr.reshape(b, n, 12, -1).transpose(1, 2)))
     torch.cuda.synchronize()
     dh = d3 // 36
-    k_bound = bound([x], [wo], attn_ops(b, 12, n, n, dh, 2), torch.bfloat16)
-    f_bound = bound([x], [wo, wl], attn_ops(b, 12, n, n, dh, 2), torch.bfloat16)
-    b_bound = bound([x, wo, wl, gr], [x], attn_ops(b, 12, n, n, dh, 5), torch.bfloat16)
+    f_ops, b_ops = (attn_ops(b, 12, n, n, dh, k) for k in (2, 5))
+    k_bound = bound([x], [wo], f_ops, torch.bfloat16)
+    f_bound = bound([x], [wo, wl], f_ops, torch.bfloat16)
+    b_bound = bound([x, wo, wl, gr], [x], b_ops, torch.bfloat16)
     shape = list(GROUPED_SHAPE)
     log(f"[{tag}] K1 (for K8a) bf16 {shape}: kernel {k_ms!r} ms, plain {k_plain!r} ms, "
         f"library (scaled_dot_product_attention) {f_lib!r} ms, bound {k_bound} "
         f"(median of 20, CUDA events; {smi})")
     log(f"[{tag}] K1-lse (for K8a, with_lse) bf16 {shape}: kernel {f_ms!r} ms, plain "
         f"{f_plain!r} ms, library (scaled_dot_product_attention) {f_lib!r} ms, bound "
-        f"{f_bound} (median of 20, CUDA events; {smi})")
+        f"{f_bound}; {rate(f_ops, f_ms, f_bound)} (median of 20, CUDA events; {smi})")
     log(f"[{tag}] K2 (for K8b) bf16 {shape}: kernel {b_ms!r} ms, plain {b_plain!r} ms, "
-        f"library (its backward) {b_lib!r} ms, bound {b_bound} (median of 20, CUDA "
-        f"events; {smi})")
+        f"library (its backward) {b_lib!r} ms, bound {b_bound}; "
+        f"{rate(b_ops, b_ms, b_bound)} (median of 20, CUDA events; {smi})")
     return {"K8a": dict(err=e_k1, ms=k_ms, plain_ms=k_plain, library_ms=f_lib, **k_bound),
             "K8a-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **f_bound),
             "K8b": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_bound)}
@@ -1963,14 +1980,18 @@ def bootstrap_phase(dev, smi: str, ckpt: str) -> None:
 
 
 def ptxas_lines() -> list:
-    """Registers and spills of the training, the fused, the flash, the
-    banded and the int8 kernels from ptxas's report."""
+    """Registers and spills of the training (the bf16 pair on the tensor
+    cores, f32 on the CUDA cores), the fused, the flash, the banded and the
+    int8 kernels from ptxas's report."""
     from msvit_tpu_torch.ops import _build
 
-    kernels = (r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8)_kernel|"
+    kernels = (r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8|lse)(?:_mma)?_kernel|"
                r"fused_attention_kernel|flash_bwd_(?:dq|dkv)_kernel|"
                r"flash_forward_kernel|banded_kernel")
-    tags = {"fused_attention_kernel": None, "flash_bwd_dq_kernel": "K6",
+    # the bf16 training pair on the tensor cores (templated on the head size only)
+    tags = {"packed_lse_mma_kernel": "K1-lse", "packed_bwd_dq_mma_kernel": "K2",
+            "packed_bwd_dkv_mma_kernel": "K2",
+            "fused_attention_kernel": None, "flash_bwd_dq_kernel": "K6",
             "flash_bwd_dkv_kernel": "K6", "flash_forward_kernel": "K7/K7-lse",
             "banded_kernel": "K10", "packed_attention_int8_kernel": None}
     out, name = [], None
@@ -1995,7 +2016,8 @@ def ptxas_lines() -> list:
             if tag:
                 kern = f"{tag} {kern}"
             dh = re.search(r"Li(\d+)E", name).group(1)
-            dt = ("int8" if "int8" in kern else "bf16" if "bfloat16" in name else "f32")
+            dt = ("int8" if "int8" in kern
+                  else "bf16" if "bfloat16" in name or "_mma_" in kern else "f32")
             out.append(f"{kern} {dt} dh{dh}: {m.group(1)} registers, {spill}")
     return out
 

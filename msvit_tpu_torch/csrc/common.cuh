@@ -207,4 +207,249 @@ __device__ __forceinline__ void stage_tile(char* dst, const char* img,
   }
 }
 
+// ------------------------------------------------------------------------
+// Tensor-core building blocks (bf16): warp-level mma.sync m16n8k16 with f32
+// accumulators, operands from shared memory through ldmatrix, shared memory
+// filled by 16-byte cp.async copies.  Fragment layouts (PTX ISA, "Matrix
+// fragments for mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
+//   A 16x16 (4 regs of 2 bf16): a0 (row g, cols 2t, 2t+1), a1 (row g+8, same
+//     cols), a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8, 2t+9);
+//   B 16x8 (2 regs): b0 (rows 2t, 2t+1, col g), b1 (rows 2t+8, 2t+9, col g);
+//   C 16x8 (4 f32): c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, same).
+// So the C fragments of two neighbouring n-tiles are, once rounded to bf16
+// and paired, the A fragment of the next product over those 16 columns: no
+// trip through shared memory.
+
+using bf16 = __nv_bfloat16;
+
+// Rows per block of the mma kernels (16 per warp, 4 warps) and rows per
+// staged tile of the other operand.
+constexpr int kMmaRows = 64;
+constexpr int kMmaThreads = 128;
+constexpr int kMmaTile = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Elements per shared-memory row of a head tile: the head bucket plus 16
+// bytes, so that the 8 row addresses of one ldmatrix fall in distinct banks.
+template <int DHT>
+__host__ __device__ constexpr int mma_ld() {
+  return DHT + 8;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !valid (src is
+// then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronous; zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lanes 8m..8m+7 give the row
+// addresses of matrix m, register m receives it (transposed with _t).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a . b on the tensor cores (bf16 operands, f32 accumulators).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (nearest even) in one register, lo in the low
+// half: the element of the lower column index.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragment over columns 16c..16c+15 from C fragments of n-tiles 2c
+// and 2c+1 (rounded to bf16).
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                       const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// The A fragment of rows 0-15, columns 16*kk.. of a [rows][LD] tile (row
+// major, e.g. q rows by head elements): non-transposed ldmatrix.
+template <int LD>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* tile,
+                                       int kk, int lane) {
+  ldsm_x4(a, tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 +
+                 (lane >> 4) * 8);
+}
+
+// B fragments of two n-tiles (rows 16*np.., 8 each) at k-step kk of
+// x . tile^T, tile [rows][LD] row major (k or q rows by head elements):
+// (b[0], b[1]) for tile rows 16np..16np+7, (b[2], b[3]) for the next 8.
+template <int LD>
+__device__ __forceinline__ void bt_frag(uint32_t (&b)[4], const bf16* tile,
+                                        int np, int kk, int lane) {
+  ldsm_x4(b, tile + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                 ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two n-tiles (head elements 16*dp..) at k-step kk of
+// p . tile, tile [rows][LD] row major (v rows by head elements): the
+// transposed ldmatrix; (b[0], b[1]) for elements 16dp..16dp+7, (b[2], b[3])
+// for the next 8.
+template <int LD>
+__device__ __forceinline__ void b_frag(uint32_t (&b)[4], const bf16* tile,
+                                       int kk, int dp, int lane) {
+  ldsm_x4_t(b, tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                   dp * 16 + (lane >> 4) * 8);
+}
+
+// Asynchronous copy of rows [row0, row0 + rows) of one head's dh-wide column
+// slice (`src` at the slice's first element of row 0, `stride` elements
+// between rows) into a [rows][LD] shared tile; rows past n are zero-filled,
+// columns past dh are not touched.  All threads of the block take part.
+template <int LD>
+__device__ __forceinline__ void async_tile(bf16* dst, const bf16* src,
+                                           long long stride, int row0,
+                                           int rows, int n, int dh) {
+  const int chunks = dh / 8;
+  for (int c = threadIdx.x; c < rows * chunks; c += blockDim.x) {
+    const int r = c / chunks;
+    const int cc = c - r * chunks;
+    const bool ok = row0 + r < n;
+    cp_async16(dst + r * LD + cc * 8,
+               src + (ok ? row0 + r : 0) * stride + cc * 8, ok);
+  }
+}
+
+// Zero `bytes` (a multiple of 16) of shared memory; all threads take part.
+__device__ __forceinline__ void zero_smem(void* p, int bytes) {
+  uint4* q = static_cast<uint4*>(p);
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    q[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Max over the 4 lanes of a quad (the threads that share an accumulator
+// row; row_sum<4> sums over them).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return v;
+}
+
+// A-operand fragments of a warp's 16 resident rows (q in the forward; q
+// and g in the dQ kernel, k and v in the dK/dV kernel): held in registers
+// up to dh 64, read from the staged tile at each use at dh 128, where they
+// would not fit the registers beside the accumulators.
+template <int DHT>
+struct Resident {
+  static constexpr int kSteps = DHT / 16;
+  static constexpr bool kInRegs = DHT <= 64;
+  uint32_t f[kInRegs ? kSteps : 1][4];
+  const bf16* tile;  // the warp's 16 rows
+
+  __device__ __forceinline__ void load(const bf16* warp_rows, int lane) {
+    tile = warp_rows;
+    if constexpr (kInRegs) {
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) a_frag<mma_ld<DHT>()>(f[kk], tile, kk, lane);
+    }
+  }
+  __device__ __forceinline__ void get(uint32_t (&a)[4], int kk, int lane) const {
+    if constexpr (kInRegs) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = f[kk][e];
+    } else {
+      a_frag<mma_ld<DHT>()>(a, tile, kk, lane);
+    }
+  }
+};
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&c)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+
+// c[16 rows][TILE cols] = A . tile^T: A resident (16 x DHT), tile [TILE][LD].
+template <int DHT, int TILE>
+__device__ __forceinline__ void product_t(float (&c)[TILE / 8][4],
+                                          const Resident<DHT>& a,
+                                          const bf16* tile, int lane) {
+  zero_acc(c);
+#pragma unroll
+  for (int kk = 0; kk < DHT / 16; ++kk) {
+    uint32_t af[4];
+    a.get(af, kk, lane);
+#pragma unroll
+    for (int np = 0; np < TILE / 16; ++np) {
+      uint32_t bf[4];
+      bt_frag<mma_ld<DHT>()>(bf, tile, np, kk, lane);
+      mma_bf16(c[2 * np], af, bf[0], bf[1]);
+      mma_bf16(c[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[16 rows][DHT] += P . tile: P as TILE/8 C fragments (bf16 values),
+// tile [TILE][LD].
+template <int DHT, int TILE>
+__device__ __forceinline__ void product_acc(float (&acc)[DHT / 8][4],
+                                            const float (&p)[TILE / 8][4],
+                                            const bf16* tile, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk) {
+    uint32_t pa[4];
+    c_to_a(pa, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+    for (int dp = 0; dp < DHT / 16; ++dp) {
+      uint32_t bf[4];
+      b_frag<mma_ld<DHT>()>(bf, tile, kk, dp, lane);
+      mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
+      mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
+    }
+  }
+}
+
 }  // namespace msvit

@@ -37,9 +37,10 @@ def _qkv(b, n, d, dtype, dev, seed=0, scale=1.0):
     return (torch.randn(b, n, 3 * d, generator=g) * scale).to(dtype).to(dev)
 
 
-# bf16: the kernel keeps p in f32 where the plain version rounds it to
-# bf16 before P.V (the allowed deviation), so 2e-2 as in the CPU tests;
-# f32: summation order and expf ulps only.
+# bf16: K1 keeps p in f32 where the plain version rounds it to bf16 before
+# P.V (the allowed deviation); K1-lse rounds p against the running max where
+# the plain version rounds it against the row's max: 2e-2 as in the CPU
+# tests; f32: summation order and expf ulps only.
 _TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
 
 
@@ -121,8 +122,8 @@ def test_k1_refuses_grad_and_bad_inputs(dev):
                              xb[..., :64].contiguous(), 4)
 
 
-# K1-lse: out as K1 (p stays f32 into P.V in the kernel); lse is f32 from
-# f32 scores in another summation order: 1e-5 of its size.
+# K1-lse: out as K1; lse is f32 from f32 scores in another summation order
+# (bf16: the tensor cores' f32 accumulators): 1e-5 of its size.
 def _lse_err(got, want):
     return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
 
@@ -184,6 +185,62 @@ def test_k1_lse_and_k2_large_logits(dev):
     the plain versions."""
     _train_case(2, 37, 4, 16, torch.float32, dev, seed=24, scale=12.0)
     _train_case(2, 197, 12, 64, torch.float32, dev, seed=25, scale=12.0)
+
+
+# ------------------------------ K1-lse and K2 on the tensor cores (bf16) ----
+# bf16 runs mma.sync tiles of 64 rows by 64 keys (or queries), the head
+# zero-padded to 16/32/64/128 in shared memory: the cases below sit on and
+# around the tile edges and the padded head sizes.
+
+
+@pytest.mark.parametrize("dh", [8, 24, 40, 64, 128])
+@pytest.mark.parametrize("n", [5, 63, 64, 65, 197])
+def test_k1_lse_and_k2_bf16_tile_edges(dev, dh, n):
+    _train_case(2, n, 2, dh, torch.bfloat16, dev, seed=26 + dh + n)
+
+
+def test_k1_lse_and_k2_bf16_pretrain_shape(dev):
+    """Two images of the ViT-B/8 pretrain's [B, 785, 2304]."""
+    _train_case(2, 785, 12, 64, torch.bfloat16, dev, seed=27)
+
+
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+@pytest.mark.parametrize("heads_in_mask", [1, 2])
+def test_k1_lse_and_k2_bf16_masks_at_tile_edges(dev, kind, heads_in_mask):
+    """Masks at N = 130 (a partial third tile), dh 40 (padded to 64): a
+    fully masked bool row, additive per head and broadcast."""
+    b, n, h, dh = 2, 130, 2, 40
+    r = torch.rand(b, heads_in_mask, n, n, generator=torch.Generator().manual_seed(28))
+    if kind == "bool":
+        m = r < 0.7
+        m[:, :, 0, :] = False  # fully masked rows: mean(V), lse = mask_value + log N
+        m[:, :, 129, :] = False
+    else:
+        m = -100.0 * (r < 0.3).float()
+    _train_case(b, n, h, dh, torch.bfloat16, dev, seed=29, mask=m.to(dev))
+    _train_case(b, n, h, dh, torch.bfloat16, dev, seed=30, mask=m[:1].to(dev))
+
+
+@pytest.mark.parametrize("n,h,dh", [(37, 4, 16), (197, 12, 64), (70, 2, 128)])
+def test_k1_lse_and_k2_bf16_large_logits(dev, n, h, dh):
+    """q and k scaled by 12 (|s| in the hundreds) in bf16: exact, finite,
+    equal to the plain versions."""
+    _train_case(2, n, h, dh, torch.bfloat16, dev, seed=31, scale=12.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_k1_lse_and_k2_deterministic(dev, dtype, masked):
+    """No atomics: two calls of each kernel give the same bits."""
+    b, n, h, dh = 2, 197, 12, 64
+    x = _qkv(b, n, h * dh, dtype, dev, seed=32)
+    g = _qkv(b, n, h * dh, dtype, dev, seed=33)[..., : h * dh].contiguous()
+    m = _grouped_mask("additive" if masked else None, b, h, n, dev, seed=34)
+    with torch.no_grad():
+        (o1, l1), (o2, l2) = (packed_attention_lse(x, h, mask=m) for _ in range(2))
+        d1, d2 = (packed_attention_bwd(x, m, o1, l1, g, h) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2) and torch.equal(d1, d2)
 
 
 def _int8(b, n, d, dev, seed):

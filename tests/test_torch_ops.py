@@ -28,8 +28,10 @@ from msvit_tpu_torch.ops import quant as tquant
 from msvit_tpu_torch.ops.packed_attention import (
     packed_attention,
     packed_attention_bwd,
+    packed_attention_bwd_plain,
     packed_attention_int8,
     packed_attention_lse,
+    packed_attention_lse_plain,
     packed_attention_plain,
 )
 
@@ -181,6 +183,38 @@ def test_packed_attention_bwd_plain_matches_jax(dtype, mask_kind, scale):
     assert packed_attention_bwd.launches == before
     assert got.dtype == tdt and got.shape == (B, N, 3 * D)
     _close_scaled(got, want, _BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,dh", [(65, 8), (65, 24), (65, 40), (130, 40)])
+def test_packed_training_plain_matches_jax_at_tile_edges(dtype, n, dh):
+    """The contract the card's bf16 tensor-core kernels are held to, pinned
+    with the JAX package as the answer where their tiling has its edges: N
+    one past a 64-row tile (and a partial third tile at 130), head sizes
+    that the kernels zero-pad to 16, 32 and 64.  K1-lse and K2 plain vs
+    JAX `_packed_forward(with_lse=True)` and `_packed_backward`
+    (interpret), 2 images, 2 heads, no mask.  Tolerances as the two tests
+    above: out f32 1e-5, bf16 2e-2; lse f32 1e-5, bf16 1e-4 (rtol 1e-6);
+    dqkv f32 1e-5, bf16 3e-2, each times max(1, max |dqkv|)."""
+    h = 2
+    x = _qkv(40 + n + dh, shape=(2, n, 3 * h * dh))
+    g = _qkv(41 + n + dh, shape=(2, n, h * dh))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    sc = 1.0 / dh**0.5
+    jx = jnp.asarray(x, jdt)
+    want_o, want_l = j_packed_forward(jx, None, h, sc, DEFAULT_MASK_VALUE, with_lse=True)
+    want_d = j_packed_backward(jx, None, want_o, want_l, jnp.asarray(g, jdt), h, sc,
+                               DEFAULT_MASK_VALUE)
+    tx = torch.from_numpy(x).to(tdt)
+    got_o, got_l = packed_attention_lse_plain(tx, h)
+    np.testing.assert_allclose(_np(got_o), _np(want_o), atol=_TOL[dtype], rtol=0)
+    np.testing.assert_allclose(_np(got_l), _np(want_l),
+                               atol=1e-4 if dtype == "bfloat16" else 1e-5, rtol=1e-6)
+    got_d = packed_attention_bwd_plain(
+        tx, None, torch.tensor(_np(want_o)).to(tdt), torch.tensor(_np(want_l)),
+        torch.from_numpy(g).to(tdt), h)
+    assert got_d.dtype == tdt and got_d.shape == (2, n, 3 * h * dh)
+    _close_scaled(got_d, want_d, _BWD_TOL[dtype])
 
 
 def _jax_value_and_grad(x, m, g, dtype, scale=None):
