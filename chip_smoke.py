@@ -141,8 +141,8 @@ GRAD_LOSS_REL_TOL = 1e-2
 GRAD_COS_TOL = 0.99
 LAYERS = 12
 # multistate serving at the bench config: ViT-B/8 @224, 784 patch tokens
-# + 2 x 16 TX/RX slots, batch 8.  K4/K5 take K1's tolerances (they too keep
-# p in f32 into P.V where the plain versions round it), each of max(1, max
+# + 2 x 16 TX/RX slots, batch 8.  K4/K5 take K1's tolerances (they keep p
+# in f32 into P.V where the plain versions round it), each of max(1, max
 # |plain|): under a real partition a row may attend a few keys only, its
 # output near a single value of V, where one bf16 step is 2^-8 of it
 MS_BATCH = 8
@@ -343,8 +343,8 @@ def kernel_phase(dev, smi: str) -> dict:
         k3_bound = bound([q, sec], [gq], ops, torch.int8)
     torch.cuda.synchronize()
     log(f"[kernels] K1 bf16 [64,197,2304]: kernel {k1_ms!r} ms, plain {k1_plain!r} ms, "
-        f"library (scaled_dot_product_attention) {k1_lib!r} ms, bound {k1_bound} "
-        f"(median of 20, CUDA events; {smi})")
+        f"library (scaled_dot_product_attention) {k1_lib!r} ms, bound {k1_bound}; "
+        f"{rate(ops, k1_ms, k1_bound)} (median of 20, CUDA events; {smi})")
     log(f"[kernels] K3 int8-out [64,197,2304]: kernel {k3_ms!r} ms, plain {k3_plain!r} ms, "
         f"no library call, bound {k3_bound} (median of 20, CUDA events; {smi})")
     res["K1"] = dict(err=e_k1, ms=k1_ms, plain_ms=k1_plain, library_ms=k1_lib, **k1_bound)
@@ -1537,10 +1537,11 @@ def flash_kernel_phase(dev, smi: str, partition) -> dict:
     _check("flash-kernels", "FlashAttentionFunction bf16 [2,12,3168,64] soft mask: dq, dk, "
            "dv vs the plain K7-lse and K6", e_g, tol_g)
     del xd, g, wo, wl, want, got
-    lim = bound([q, k, v, soft], [q], attn_ops(b, h, n, n, dh, 2), torch.bfloat16)
+    ops = attn_ops(b, h, n, n, dh, 2)
+    lim = bound([q, k, v, soft], [q], ops, torch.bfloat16)
     log(f"[flash-kernels] K7 bf16 {shape} soft mask: kernel {ms!r} ms, plain {plain_ms!r} "
         f"ms, library (scaled_dot_product_attention, the mask in bf16) {lib!r} ms, bound "
-        f"{lim} (median of 20, CUDA events; {smi})")
+        f"{lim}; {rate(ops, ms, lim)} (median of 20, CUDA events; {smi})")
     return {"K7": dict(err=errs[0], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)}
 
 
@@ -1742,8 +1743,8 @@ def grouped_kernel_phase(dev, smi: str, partition) -> dict:
     b_bound = bound([x, wo, wl, gr], [x], b_ops, torch.bfloat16)
     shape = list(GROUPED_SHAPE)
     log(f"[{tag}] K1 (for K8a) bf16 {shape}: kernel {k_ms!r} ms, plain {k_plain!r} ms, "
-        f"library (scaled_dot_product_attention) {f_lib!r} ms, bound {k_bound} "
-        f"(median of 20, CUDA events; {smi})")
+        f"library (scaled_dot_product_attention) {f_lib!r} ms, bound {k_bound}; "
+        f"{rate(f_ops, k_ms, k_bound)} (median of 20, CUDA events; {smi})")
     log(f"[{tag}] K1-lse (for K8a, with_lse) bf16 {shape}: kernel {f_ms!r} ms, plain "
         f"{f_plain!r} ms, library (scaled_dot_product_attention) {f_lib!r} ms, bound "
         f"{f_bound}; {rate(f_ops, f_ms, f_bound)} (median of 20, CUDA events; {smi})")
@@ -1980,17 +1981,19 @@ def bootstrap_phase(dev, smi: str, ckpt: str) -> None:
 
 
 def ptxas_lines() -> list:
-    """Registers and spills of the training (the bf16 pair on the tensor
-    cores, f32 on the CUDA cores), the fused, the flash, the banded and the
-    int8 kernels from ptxas's report."""
+    """Registers and spills of the packed (bf16 K1, K1-lse and K2 on the
+    tensor cores, f32 on the CUDA cores), the fused, the flash (bf16 K7 on
+    the tensor cores), the banded and the int8 kernels from ptxas's
+    report."""
     from msvit_tpu_torch.ops import _build
 
     kernels = (r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8|lse)(?:_mma)?_kernel|"
-               r"fused_attention_kernel|flash_bwd_(?:dq|dkv)_kernel|"
-               r"flash_forward_kernel|banded_kernel")
-    # the bf16 training pair on the tensor cores (templated on the head size only)
-    tags = {"packed_lse_mma_kernel": "K1-lse", "packed_bwd_dq_mma_kernel": "K2",
-            "packed_bwd_dkv_mma_kernel": "K2",
+               r"packed_mma_kernel|fused_attention_kernel|flash_bwd_(?:dq|dkv)_kernel|"
+               r"flash_(?:forward|mma)_kernel|banded_kernel")
+    # the bf16 kernels on the tensor cores (templated on the head size only)
+    tags = {"packed_mma_kernel": "K1", "packed_lse_mma_kernel": "K1-lse",
+            "packed_bwd_dq_mma_kernel": "K2", "packed_bwd_dkv_mma_kernel": "K2",
+            "flash_mma_kernel": "K7/K7-lse",
             "fused_attention_kernel": None, "flash_bwd_dq_kernel": "K6",
             "flash_bwd_dkv_kernel": "K6", "flash_forward_kernel": "K7/K7-lse",
             "banded_kernel": "K10", "packed_attention_int8_kernel": None}

@@ -412,11 +412,14 @@ __device__ __forceinline__ void zero_acc(float (&c)[NT][4]) {
     for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
 }
 
-// c[16 rows][TILE cols] = A . tile^T: A resident (16 x DHT), tile [TILE][LD].
+// c[16 rows][TILE cols] = A . tile^T: A resident (16 x DHT), tile [TILE][LD];
+// only the first n16 blocks of 16 columns are computed (a ragged last tile),
+// the others stay 0.
 template <int DHT, int TILE>
 __device__ __forceinline__ void product_t(float (&c)[TILE / 8][4],
                                           const Resident<DHT>& a,
-                                          const bf16* tile, int lane) {
+                                          const bf16* tile, int lane,
+                                          int n16 = TILE / 16) {
   zero_acc(c);
 #pragma unroll
   for (int kk = 0; kk < DHT / 16; ++kk) {
@@ -424,11 +427,27 @@ __device__ __forceinline__ void product_t(float (&c)[TILE / 8][4],
     a.get(af, kk, lane);
 #pragma unroll
     for (int np = 0; np < TILE / 16; ++np) {
+      if (np >= n16) break;
       uint32_t bf[4];
       bt_frag<mma_ld<DHT>()>(bf, tile, np, kk, lane);
       mma_bf16(c[2 * np], af, bf[0], bf[1]);
       mma_bf16(c[2 * np + 1], af, bf[2], bf[3]);
     }
+  }
+}
+
+// acc[16 rows][DHT] += P[:, 16kk..16kk+15] . tile[16kk..16kk+15, :]: P's
+// A fragment over those 16 columns, tile [rows][LD].
+template <int DHT>
+__device__ __forceinline__ void pv_step(float (&acc)[DHT / 8][4],
+                                        const uint32_t (&pa)[4],
+                                        const bf16* tile, int kk, int lane) {
+#pragma unroll
+  for (int dp = 0; dp < DHT / 16; ++dp) {
+    uint32_t bf[4];
+    b_frag<mma_ld<DHT>()>(bf, tile, kk, dp, lane);
+    mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
+    mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
   }
 }
 
@@ -442,14 +461,16 @@ __device__ __forceinline__ void product_acc(float (&acc)[DHT / 8][4],
   for (int kk = 0; kk < TILE / 16; ++kk) {
     uint32_t pa[4];
     c_to_a(pa, p[2 * kk], p[2 * kk + 1]);
-#pragma unroll
-    for (int dp = 0; dp < DHT / 16; ++dp) {
-      uint32_t bf[4];
-      b_frag<mma_ld<DHT>()>(bf, tile, kk, dp, lane);
-      mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
-      mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
-    }
+    pv_step<DHT>(acc, pa, tile, kk, lane);
   }
 }
+
+// A compile-time flag for a tile loop's body written as a generic lambda:
+// body(Edge<false>{}) for a full tile, body(Edge<true>{}) for the ragged
+// last one, each compiled on its own.
+template <bool B>
+struct Edge {
+  static constexpr bool value = B;
+};
 
 }  // namespace msvit

@@ -4,7 +4,8 @@
   `_fwd_kernel`): the exact online-softmax attention that "auto" takes
   where one head's score tile outgrows the single-pass fused kernel's
   budget (`ops/attention.py::_fused_eligible`; the multistate trunk at
-  448 px, 3168 tokens).  Kernel: `csrc/flash_attention.cu`.
+  448 px, 3168 tokens).  Kernel: `csrc/flash_attention.cu` (bf16 on the
+  tensor cores, f32 on the CUDA cores).
 * `flash_attention_lse` -- K7-lse, the same kernel's `with_lse` branch:
   K7 plus a compact lse ``[B, H, Nq]`` f32 (0 where l == 0).  The TPU's
   lane-replicated ``[B, H, Nq_pad, 128]`` layout, of which its VJP keeps
@@ -29,7 +30,10 @@ counts its launches (`.launches`; K6 one per call of both its kernels).
 K7's plain version is K5's: the two TPU kernels compute one function (the
 exact max-subtracted softmax, p rounded to the compute dtype into P.V, l
 summed from the unrounded p) and differ in their tiling only.  The kernel
-keeps p in f32 into P.V (the port's stated deviation, as K5).  Fully masked
+runs bf16 on the tensor cores and rounds p to bf16 into P.V as the TPU
+kernel does (against the running max, where the plain version takes the
+row's max: a p can round one bf16 step apart); f32 runs on the CUDA cores,
+where the rounding is the identity.  Fully masked
 rows: the port gives mean(V) over the Nk real keys; the TPU kernel pads Nk
 to ``nk_pad = ceil(Nk / bk) * bk``, ``bk = min(1024, ceil128(Nk))``, and
 counts the padded keys with p = 1: sum(V) / nk_pad

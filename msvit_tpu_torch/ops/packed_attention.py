@@ -7,10 +7,13 @@ hand-written CUDA kernel for Hopper with a plain PyTorch version beside it:
 
 * `packed_attention` — K1, the TPU kernel `_packed_forward` (inference
   branch): the shaved softmax exp(clip(s, +-80)), bf16 or f32, optional
-  bool/additive mask.  Kernel: `csrc/packed_attention.cu`.
+  bool/additive mask.  Kernel: `csrc/packed_attention.cu`; bf16 on the
+  tensor cores, rounding p to bf16 into P.V and summing the rounded p as
+  the TPU kernel does, f32 on the CUDA cores.
 * `packed_attention_lse` — K1-lse, the same TPU kernel's `with_lse`
   branch, the training forward: the max-subtracted softmax plus a per-head
-  lse [B, H, N] f32.  Kernel: `csrc/packed_attention_lse.cu`.
+  lse [B, H, N] f32.  Kernel: `csrc/packed_attention_lse.cu` (bf16 on the
+  tensor cores, f32 on the CUDA cores).
 * `packed_attention_bwd` — K2, the TPU kernel `_packed_backward`: dqkv
   [B, N, 3D] from the saved (qkv, out, lse) and the output cotangent.
   Kernel: `csrc/packed_attention_bwd.cu`.

@@ -37,10 +37,11 @@ def _qkv(b, n, d, dtype, dev, seed=0, scale=1.0):
     return (torch.randn(b, n, 3 * d, generator=g) * scale).to(dtype).to(dev)
 
 
-# bf16: K1 keeps p in f32 where the plain version rounds it to bf16 before
-# P.V (the allowed deviation); K1-lse rounds p against the running max where
-# the plain version rounds it against the row's max: 2e-2 as in the CPU
-# tests; f32: summation order and expf ulps only.
+# bf16: K1 rounds p to bf16 before P.V as the plain version does, but its
+# exp2 and its f32 sums differ by ulps and can move a rounding by one bf16
+# step; K1-lse rounds p against the running max where the plain version
+# rounds it against the row's max: 2e-2 as in the CPU tests; f32: summation
+# order and expf ulps only.
 _TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
 
 
@@ -86,6 +87,69 @@ def test_k1_large_logits_flatten_like_plain(dev):
         got = packed_attention(x, 4)
         want = packed_attention_plain(x, 4)
     assert (got - want).abs().max().item() <= 12 * 5e-5
+
+
+def _k1_case(x, h, mask=None):
+    """K1 against its plain version (one launch); returns (got, want)."""
+    before = packed_attention.launches
+    with torch.inference_mode():
+        got = packed_attention(x, h, mask=mask)
+        want = packed_attention_plain(x, h, mask=mask)
+    torch.cuda.synchronize()
+    assert packed_attention.launches == before + 1
+    assert got.shape == want.shape and got.dtype == x.dtype
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= _TOL[x.dtype]
+    return got, want
+
+
+@pytest.mark.parametrize("dh", [8, 24, 40, 64, 128])
+@pytest.mark.parametrize("n", [63, 64, 65, 129, 785])
+def test_k1_bf16_tile_edges(dev, dh, n):
+    """The tensor-core K1 where its tiles have edges: N about a 64-row tile
+    (and the pretrain's 785), head sizes zero-padded to 16, 32 and 64."""
+    _k1_case(_qkv(2, n, 2 * dh, torch.bfloat16, dev, seed=60 + dh + n), 2)
+
+
+def test_k1_bf16_fully_masked_row_is_mean_v(dev):
+    """A fully masked bool row at N = 130 (a partial third tile): every real
+    score clips to -80, the keys past N weigh exactly 0, so the row is
+    mean(V) over the 130 real keys (not 130/192 of it)."""
+    b, n, h, dh = 2, 130, 2, 40
+    x = _qkv(b, n, h * dh, torch.bfloat16, dev, seed=61)
+    m = torch.rand(b, 1, n, n, generator=torch.Generator().manual_seed(62)) < 0.7
+    m[:, :, 7, :] = False
+    m[:, :, 129, :] = False
+    got, _ = _k1_case(x, h, m.to(dev))
+    mean_v = x[..., 2 * h * dh:].float().mean(1)  # [B, D]
+    for row in (7, 129):
+        assert (got[:, row].float() - mean_v).abs().max().item() <= _TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("n,h,dh", [(37, 4, 16), (197, 12, 64), (130, 2, 128)])
+def test_k1_bf16_large_logits_flatten_like_plain(dev, n, h, dh):
+    """q and k x 12 in bf16 (|s| in the hundreds): the clip at +-80 flattens
+    the rows, in the kernel as in the plain version."""
+    x = _qkv(2, n, h * dh, torch.bfloat16, dev, seed=63).float()
+    x[..., : 2 * h * dh] *= 12.0
+    x = x.to(torch.bfloat16)
+    q, k = x[..., : h * dh].float(), x[..., h * dh : 2 * h * dh].float()
+    s = torch.einsum("bnhd,bmhd->bhnm", q.reshape(2, n, h, dh), k.reshape(2, n, h, dh))
+    assert (s * dh**-0.5).abs().max().item() > 150
+    _k1_case(x, h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_k1_deterministic(dev, dtype, masked):
+    """No atomics: two calls of K1 give the same bits."""
+    b, n, h, dh = 2, 197, 12, 64
+    x = _qkv(b, n, h * dh, dtype, dev, seed=64)
+    m = _grouped_mask("additive" if masked else None, b, h, n, dev, seed=65)
+    with torch.inference_mode():
+        o1, o2 = (packed_attention(x, h, mask=m) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
 
 
 def test_k1_refuses_grad_and_bad_inputs(dev):
@@ -526,8 +590,10 @@ def test_k7_and_k7_lse_match_plain(dev, dtype, nq, nk, h, dh, mask, packed):
     """K7 and K7-lse against their plain versions at odd shapes (N not a
     multiple of 64, head sizes 8-128, Nq != Nk), every mask kind per head
     and broadcast (the mask tile staged in shared memory), q/k/v strided
-    views or contiguous; tolerances as K5 (p kept f32 into P.V), lse 1e-5
-    of max(1, |lse|).  A bool mask's row 0 is fully masked: mean(V)."""
+    views or contiguous; tolerances as K5 (bf16: p rounded against the
+    running max where the plain version rounds it against the row's max),
+    lse 1e-5 of max(1, |lse|).  A bool mask's row 0 is fully masked:
+    mean(V)."""
     from msvit_tpu_torch.ops import flash_attention as fl
 
     q, k, v = _heads(2, nq, nk, h, dh, dtype, dev, seed=50, packed=packed)
@@ -565,6 +631,74 @@ def test_k7_large_logits_and_minus_inf_rows(dev):
     assert torch.equal(lse[1, :, 3], torch.zeros_like(lse[1, :, 3]))
     assert (got - want).abs().max().item() <= 1e-4
     assert _lse_err(lse, wl) <= 1e-5
+
+
+def test_k7_bf16_minus_inf_row_gives_zeros(dev):
+    """bf16 on the tensor cores: an additive -inf row gives zeros and lse 0
+    (the TPU kernel's l == 0 guard), the other rows as the plain version,
+    out equal with and without the lse."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    q, k, v = _heads(2, 70, 130, 2, 64, torch.bfloat16, dev, seed=66, packed=True)
+    m = -100.0 * (torch.rand(2, 1, 70, 130, generator=torch.Generator().manual_seed(67))
+                  < 0.3).float()
+    m[1, 0, 3] = -torch.inf
+    m = m.to(dev)
+    with torch.inference_mode():
+        got, lse = fl.flash_attention_lse(q, k, v, mask=m)
+        out = fl.flash_attention(q, k, v, mask=m)
+        want, wl = fl.flash_attention_lse_plain(q, k, v, mask=m)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+    assert torch.equal(got, out)
+    assert torch.equal(got[1, :, 3], torch.zeros_like(got[1, :, 3]))
+    assert torch.equal(lse[1, :, 3], torch.zeros_like(lse[1, :, 3]))
+    tol = _TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert _lse_err(lse, wl) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,nk", [("bool", 1100), ("bool", 1101), ("bool", 9),
+                                     ("additive", 1101), ("additive_per_head", 1101)])
+def test_k7_unaligned_mask_rows(dev, dtype, kind, nk):
+    """Mask rows that are not 16-byte aligned (bool Nk % 16 != 0, f32
+    Nk % 4 != 0), across several key tiles and a partial last one: the
+    kernel copies them at the granularity the alignment allows.  A bool
+    mask's row 0 is fully masked: mean(V) over the Nk real keys."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    nq, h, dh = 100, 2, 64
+    q, k, v = _heads(2, nq, nk, h, dh, dtype, dev, seed=68, packed=True)
+    m = _fused_mask(kind, 2, h, nq, nk, dev, seed=69)
+    with torch.inference_mode():
+        got, lse = fl.flash_attention_lse(q, k, v, mask=m)
+        out = fl.flash_attention(q, k, v, mask=m)
+        want, wl = fl.flash_attention_lse_plain(q, k, v, mask=m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
+    tol = _TOL[dtype] * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert _lse_err(lse, wl) <= 1e-5
+    if kind == "bool":
+        assert (got[:, :, 0].float() - v.float().mean(2)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [None, "additive", "bool"])
+def test_k7_deterministic(dev, dtype, mask):
+    """No atomics: two calls of K7 and of K7-lse give the same bits, and
+    K7's out is K7-lse's."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    q, k, v = _heads(2, 197, 300, 3, 64, dtype, dev, seed=70, packed=True)
+    m = _fused_mask(mask, 2, 3, 197, 300, dev, seed=71)
+    with torch.inference_mode():
+        o1, o2 = (fl.flash_attention(q, k, v, mask=m) for _ in range(2))
+        (a1, l1), (a2, l2) = (fl.flash_attention_lse(q, k, v, mask=m) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(a1, a2) and torch.equal(l1, l2)
+    assert torch.equal(o1, a1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -88,6 +88,35 @@ def test_flash_plain_matches_jax(jax_flash, kind, with_lse):
     np.testing.assert_allclose(_np(out), want_out, atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk,dh", [(65, 129, 40), (130, 70, 128)])
+def test_flash_plain_matches_jax_at_tile_edges(dtype, nq, nk, dh):
+    """The contract the card's bf16 tensor-core K7 is held to, where its
+    64-row tiles have edges: Nq and Nk one past a tile or a partial third
+    one, Nq != Nk both ways, dh 40 (zero-padded to 64) and 128.  K7 and
+    K7-lse plain vs `_flash_forward` (interpret mode) with an additive
+    per-head mask, 2 heads: out f32 1e-3 max abs as above, bf16 2e-2 (p
+    rounded to bf16 on both sides, against the row's max here and the
+    running max of a 512-row, 1024-key tile there); lse 1e-3 (f32 in
+    both)."""
+    h = 2
+    rng = np.random.default_rng(nq + nk + dh)
+    q, k, v = (rng.standard_normal((B, h, n, dh)).astype(np.float32) for n in (nq, nk, nk))
+    m = np.where(rng.random((B, h, nq, nk)) < 0.3, -100.0, 0.0).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want, want_l = jflash._flash_forward(
+        *(jnp.asarray(t, jdt) for t in (q, k, v)), jnp.asarray(m), scale=dh**-0.5,
+        mask_value=tflash.DEFAULT_MASK_VALUE, with_lse=True)
+    tq, tk, tv = (torch.from_numpy(t).to(tdt) for t in (q, k, v))
+    out, lse = tflash.flash_attention_lse_plain(tq, tk, tv, mask=torch.from_numpy(m))
+    got = tflash.flash_attention_plain(tq, tk, tv, mask=torch.from_numpy(m))
+    assert torch.equal(got, out) and got.dtype == tdt and got.shape == (B, h, nq, dh)
+    atol = 2e-2 if dtype == "bfloat16" else 1e-3
+    np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_l)[:, :, :nq, 0], atol=1e-3,
+                               rtol=0)
+
+
 def test_fully_masked_row_deviation():
     """A bool row with every key masked, at Nk = 1100: the TPU kernel pads
     Nk to nk_pad = 2048 (bk = 1024) and counts the padded keys (zero V rows)

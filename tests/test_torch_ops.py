@@ -112,6 +112,29 @@ def test_packed_attention_raises_off_cpu_without_kernel():
         packed_attention_int8(x.to(torch.int8), torch.ones(3), H)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n,dh", [(65, 8), (65, 24), (65, 40), (130, 40), (129, 128)])
+def test_packed_attention_plain_matches_jax_at_tile_edges(dtype, masked, n, dh):
+    """The contract the card's bf16 tensor-core K1 is held to, pinned with
+    the JAX package as the answer where its tiling has its edges: N one past
+    a 64-row tile (a partial third tile at 129 and 130), head sizes that the
+    kernel zero-pads to 16, 32 and 64.  K1 plain vs JAX `_packed_forward`
+    (interpret, the inference branch: p = exp(clip(s, +-80)) rounded to the
+    compute dtype, the row sum of that p), 2 images, 2 heads, unmasked or a
+    bool mask with a fully masked row (mean(V) on both).  Tolerance as
+    above: f32 1e-5, bf16 2e-2."""
+    h = 2
+    x = _qkv(50 + n + dh, shape=(2, n, 3 * h * dh))
+    m = _mask("bool", 51 + n, b=2, n=n) if masked else None
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    sc = 1.0 / dh**0.5
+    want = j_packed_forward(jnp.asarray(x, jdt), _j_mask(m), h, sc, DEFAULT_MASK_VALUE)
+    got = packed_attention_plain(torch.from_numpy(x).to(tdt), h, mask=_t_mask(m))
+    assert got.dtype == tdt and got.shape == (2, n, h * dh)
+    np.testing.assert_allclose(_np(got), _np(want), atol=_TOL[dtype], rtol=0)
+
+
 # ------------------------------------------------ K1-lse, K2, autograd ----
 
 _BWD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
