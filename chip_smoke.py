@@ -43,8 +43,9 @@ fails (non-zero exit, no result line) if any phase fails:
    fully masked row, f32, and cross-context K/V), then timed;
 10. multistate training kernels: K5-lse and K6 against their plain versions
    at [8,12,816,64] (the served partition's soft mask in bf16 and f32, a
-   bool mask with a fully masked row, cross-context K/V, large logits),
-   then timed;
+   bool mask with a fully masked row, cross-context K/V, large logits, 6
+   heads of 128, mask rows that are not 16-byte aligned: Nk 813 bool and
+   814 f32), then timed;
 11. multistate gradient: `MultiStateViTForImageClassification` at
    `benchmarks/bench_multistate_train_r3.py`'s config (shared-anchor NCut,
    bs8) on the kernel path against the plain attention path, the loss and
@@ -69,10 +70,11 @@ fails (non-zero exit, no result line) if any phase fails:
 16. flash kernels: K7 and K7-lse against their plain versions at
    [8,12,3168,64] with the 448 partition's soft mask (also f32, a bool mask
    with a fully masked row, Nq 197 x Nk 3168), `FlashAttentionFunction`'s
-   gradients (K7-lse + K6) against the plain versions, then K7 timed;
+   gradients (K7-lse + K6) against the plain versions, then K7 timed; K6
+   against its plain version at [8,12,3168,64], timed;
 17. banded kernel: K10 against its plain version on the token rows of the
-   448 partition ([8, 32+3136, 2304]) and the 224 one ([8, 32+784, 2304]),
-   then timed;
+   448 partition ([8, 32+3136, 2304]; also one cluster, the layers before
+   the first event) and the 224 one ([8, 32+784, 2304]), then timed;
 18. masked int8 kernel: K9 against its plain version at [8,816,2304] with
    the 224 partition's soft mask and a bool mask, bf16 and int8 out, then
    timed;
@@ -102,7 +104,8 @@ K2, the clustered multistate forwards for K4 and K5, multistate training
 for K5-lse and K6, the clustered 448-px bf16 forward for K7, the 224-px
 int8-attention forward for K9, the 448-px banded forward for K10, the
 ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows), its error, its time beside the plain version's, the library call's and the
-bound; the last is `{"ok": true, "device": {...}}`.
+bound, and its share of the bound (K6 and K10 also at their other timed
+shapes); the last is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -226,6 +229,22 @@ def race(kernel, plain) -> tuple:
     k2 = time_ms(kernel)
     p2 = time_ms(plain)
     return statistics.median(k1 + k2), statistics.median(p1 + p2)
+
+
+def device_ms(fn, pattern: str, runs: int = 10) -> float:
+    """Device time (ms) per call of the kernels whose names match `pattern`
+    (`torch.profiler`, `runs` calls after one of warm-up): a kernel alone,
+    without the host work and launches around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if re.search(pattern, e.key))
+    return us / runs / 1e3
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -942,6 +961,10 @@ def fused_kernel_phase(dev, smi: str, partition) -> dict:
                 if err > tol:
                     raise AssertionError(f"{name} {label}: error {err} > {tol}")
                 errs.append(err)
+            same = (fn(q, k, v, mask=soft) == plain(q, k, v, mask=soft)).float().mean().item()
+            log(f"[fused-kernels] {name} bf16 {list(MS_SHAPE)} soft mask: out bit-equal to "
+                f"the plain version's on {same!r} of the elements (p rounded to bf16 into "
+                f"P.V on both sides)")
             ms, plain_ms = race(lambda: fn(q, k, v, mask=soft),
                                 lambda: plain(q, k, v, mask=soft))
             lib = library_ms(lambda: sdpa(q, k, v, soft))
@@ -1002,6 +1025,9 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
     big = x.clone()
     big[..., :2 * h * dh] *= 12.0  # q and k: logits in the hundreds
     qb, kb, vb = unpack_qkv(big, h)
+    # the same width as 6 heads of 128
+    q6, k6, v6 = unpack_qkv(x.to(torch.bfloat16), 6)
+    g6 = g.transpose(1, 2).reshape(b, n, 6, 128).transpose(1, 2)
     cases = [
         (f"bf16 {list(MS_SHAPE)} soft mask of the served partition", (q, k, v), soft, g),
         (f"f32 {list(MS_SHAPE)} soft mask (tf32 off)", (qf, kf, vf), soft, g),
@@ -1010,6 +1036,12 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
         ("bf16 cross-context Nq 197, Nk 816, soft mask", (q[:, :, :197], k, v),
          soft[:, :, :197], g[:, :, :197]),
         (f"f32 {list(MS_SHAPE)} large logits, soft mask", (qb, kb, vb), soft, g),
+        ("bf16 [8,6,816,128] soft mask", (q6, k6, v6), soft, g6),
+        # mask rows not 16-byte aligned: bool copied a byte, f32 4 bytes a time
+        ("bf16 Nq 816, Nk 813, bool mask, one row fully masked",
+         (q, k[:, :, :813], v[:, :, :813]), mb[..., :813], g),
+        ("bf16 Nq 816, Nk 814, soft mask", (q, k[:, :, :814], v[:, :, :814]),
+         soft[..., :814], g),
     ]
     errs = []
     with torch.no_grad():
@@ -1034,6 +1066,10 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
                 raise AssertionError(f"{label}: K5-lse/K6 disagree with plain")
             errs.append((e_o, e_d))
         wo, wl = fused_attention_lse_plain(q, k, v, mask=soft)
+        same = (fused_attention_lse(q, k, v, mask=soft)[0] == wo).float().mean().item()
+        log(f"[ms-train-kernels] K5-lse bf16 {list(MS_SHAPE)} soft mask: out bit-equal to "
+            f"the plain version's on {same!r} of the elements (p rounded to bf16 into P.V "
+            f"on both sides, against the running max here, the row's max there)")
         gb = g.to(torch.bfloat16)
         f_ms, f_plain = race(lambda: fused_attention_lse(q, k, v, mask=soft),
                              lambda: fused_attention_lse_plain(q, k, v, mask=soft))
@@ -1041,6 +1077,8 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
                              lambda: flash_attention_bwd_plain(q, k, v, wo, gb, wl, soft))
         f_lib = library_ms(lambda: sdpa(q, k, v, soft))
         b_lib = library_ms(sdpa_bwd(q, k, v, gb, soft))
+        b_alone = device_ms(lambda: flash_attention_bwd(q, k, v, wo, gb, wl, soft),
+                            "flash_bwd_d(?:q|kv)_mma_kernel")
     torch.cuda.synchronize()
     f_bound = bound([q, k, v, soft], [wo, wl], attn_ops(b, h, n, n, dh, 2), torch.bfloat16)
     # K6 writes dq, dk, dv: the shapes of q, k, v
@@ -1049,13 +1087,16 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
     log(f"[ms-train-kernels] K5-lse bf16 {list(MS_SHAPE)} soft mask: kernel {f_ms!r} ms, "
         f"plain {f_plain!r} ms, library (scaled_dot_product_attention, the mask in bf16) "
         f"{f_lib!r} ms, bound {f_bound} (median of 20, CUDA events; {smi})")
+    b_ops = attn_ops(b, h, n, n, dh, 5)
     log(f"[ms-train-kernels] K6 bf16 {list(MS_SHAPE)} soft mask: kernel {b_ms!r} ms, "
         f"plain {b_plain!r} ms, library (the backward of that call) {b_lib!r} ms, bound "
-        f"{b_bound} (median of 20, CUDA events; {smi})")
+        f"{b_bound}; {rate(b_ops, b_ms, b_bound)} (5 products; median of 20, CUDA "
+        f"events; {smi}); its two kernels alone {b_alone!r} ms (device time, "
+        f"torch.profiler)")
     return {"K5-lse": dict(err=errs[0][0], ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
                            **f_bound),
             "K6": dict(err=errs[0][1], ms=b_ms, plain_ms=b_plain, library_ms=b_lib,
-                       **b_bound)}
+                       kernel_alone_ms=b_alone, **b_bound)}
 
 
 def ms_train_config(**overrides):
@@ -1483,8 +1524,9 @@ def flash_kernel_phase(dev, smi: str, partition) -> dict:
     (K7-lse + K6 vs plain, [2,12,3168,64]); then K7 timed."""
     from msvit_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
     from msvit_tpu_torch.ops.flash_attention import (
-        FlashAttentionFunction, flash_attention, flash_attention_bwd_plain,
-        flash_attention_lse, flash_attention_lse_plain, flash_attention_plain)
+        FlashAttentionFunction, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_lse, flash_attention_lse_plain,
+        flash_attention_plain)
     from msvit_tpu_torch.ops.packed_attention import unpack_qkv
 
     b, h, n, dh = MS448_SHAPE
@@ -1542,7 +1584,33 @@ def flash_kernel_phase(dev, smi: str, partition) -> dict:
     log(f"[flash-kernels] K7 bf16 {shape} soft mask: kernel {ms!r} ms, plain {plain_ms!r} "
         f"ms, library (scaled_dot_product_attention, the mask in bf16) {lib!r} ms, bound "
         f"{lim}; {rate(ops, ms, lim)} (median of 20, CUDA events; {smi})")
-    return {"K7": dict(err=errs[0], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)}
+    res = {"K7": dict(err=errs[0], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)}
+    # K6 at this shape, FlashAttentionFunction's backward: against plain, timed
+    g = torch.randn(b, n, h, dh, generator=gen).to(dev).to(torch.bfloat16).transpose(1, 2)
+    with torch.no_grad():
+        wo, wl = flash_attention_lse_plain(q, k, v, mask=soft)
+        got = flash_attention_bwd(q, k, v, wo, g, wl, soft)
+        want = flash_attention_bwd_plain(q, k, v, wo, g, wl, soft)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in got):
+            raise AssertionError("K6 at 3168: non-finite output")
+        tol = K6_TOL[torch.bfloat16] * max(1.0, max(w.float().abs().max().item() for w in want))
+        e6 = _check("flash-kernels", f"K6 bf16 {shape} soft mask: dq, dk, dv",
+                    max(max_err(a, w) for a, w in zip(got, want)), tol)
+        del got, want
+        torch.cuda.empty_cache()
+        b_ms, b_plain = race(lambda: flash_attention_bwd(q, k, v, wo, g, wl, soft),
+                             lambda: flash_attention_bwd_plain(q, k, v, wo, g, wl, soft))
+        b_lib = library_ms(sdpa_bwd(q, k, v, g, soft))
+    torch.cuda.synchronize()
+    b_ops = attn_ops(b, h, n, n, dh, 5)
+    b_lim = bound([q, k, v, wo, g, wl, soft], [q, k, v], b_ops, torch.bfloat16)
+    log(f"[flash-kernels] K6 bf16 {shape} soft mask: kernel {b_ms!r} ms, plain {b_plain!r} "
+        f"ms, library (the backward of scaled_dot_product_attention) {b_lib!r} ms, bound "
+        f"{b_lim}; {rate(b_ops, b_ms, b_lim)} (5 products; median of 20, CUDA events; "
+        f"{smi})")
+    res["K6@3168"] = dict(err=e6, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_lim)
+    return res
 
 
 def banded_kernel_phase(dev, smi: str, part448, part224) -> dict:
@@ -1587,6 +1655,7 @@ def banded_kernel_phase(dev, smi: str, part448, part224) -> dict:
             torch.cuda.empty_cache()
             ms, plain_ms = race(lambda: token_rows(xb, cid, h, MS_CLUSTERS),
                                 lambda: token_rows_plain(xb, cid, h, MS_CLUSTERS))
+            alone = device_ms(lambda: token_rows(xb, cid, h, MS_CLUSTERS), "banded_mma_kernel")
             # the library yardstick: SDPA over the token rows' queries and
             # every key, the equivalent mask (own cluster, own RX) in bf16
             cols = torch.arange(pfx + n, device=dev)
@@ -1607,11 +1676,14 @@ def banded_kernel_phase(dev, smi: str, part448, part224) -> dict:
         log(f"[banded-kernels] K10 bf16 {shape} ({tag} partition, cluster sizes "
             f"{sizes.sum(0).long().tolist()}): kernel {ms!r} ms, plain {plain_ms!r} ms, "
             f"library (scaled_dot_product_attention, the equivalent mask in bf16) {lib!r} ms, "
-            f"bound {lim} for the {pairs:.0f} query-key pairs this partition needs; upper "
-            f"bounds: the band's tiles {walked:.0f} pairs, dense {b * n * (pfx + n)} "
-            f"(median of 20, CUDA events; {smi})")
+            f"bound {lim} for the {pairs:.0f} query-key pairs this partition needs; "
+            f"{rate(4.0 * h * dh * pairs, ms, lim)}; upper bounds: the band's tiles "
+            f"{walked:.0f} pairs, dense {b * n * (pfx + n)} (median of 20, CUDA events; "
+            f"{smi}); the kernel alone {alone!r} ms ({rate(4.0 * h * dh * pairs, alone, lim)}; "
+            f"device time, torch.profiler), the rest the wrapper's band table and launch")
         res["K10" if tag == "448" else f"K10@{tag}"] = dict(
-            err=e_bf16, ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)
+            err=e_bf16, ms=ms, plain_ms=plain_ms, library_ms=lib, kernel_alone_ms=alone,
+            **lim)
     return res
 
 
@@ -1980,23 +2052,34 @@ def bootstrap_phase(dev, smi: str, ckpt: str) -> None:
         raise AssertionError(f"bootstrap launches {counts}, want {want}")
 
 
+def _summary(r: dict) -> dict:
+    """A timed call's numbers for the kernels line (the kernel alone too,
+    where its phase took it)."""
+    return dict(max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                share_of_bound=r["bound_ms"] / r["ms"],
+                **{k: r[k] for k in ("kernel_alone_ms",) if k in r})
+
+
 def ptxas_lines() -> list:
     """Registers and spills of the packed (bf16 K1, K1-lse and K2 on the
-    tensor cores, f32 on the CUDA cores), the fused, the flash (bf16 K7 on
-    the tensor cores), the banded and the int8 kernels from ptxas's
-    report."""
+    tensor cores, f32 on the CUDA cores), the fused, the flash (bf16 K7 and
+    K6 on the tensor cores), the banded (bf16 K10 on the tensor cores) and
+    the int8 kernels from ptxas's report."""
     from msvit_tpu_torch.ops import _build
 
     kernels = (r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8|lse)(?:_mma)?_kernel|"
-               r"packed_mma_kernel|fused_attention_kernel|flash_bwd_(?:dq|dkv)_kernel|"
-               r"flash_(?:forward|mma)_kernel|banded_kernel")
+               r"packed_mma_kernel|fused_attention_kernel|flash_bwd_(?:dq|dkv)(?:_mma)?_kernel|"
+               r"flash_(?:forward|mma)_kernel|banded(?:_mma)?_kernel")
     # the bf16 kernels on the tensor cores (templated on the head size only)
     tags = {"packed_mma_kernel": "K1", "packed_lse_mma_kernel": "K1-lse",
             "packed_bwd_dq_mma_kernel": "K2", "packed_bwd_dkv_mma_kernel": "K2",
             "flash_mma_kernel": "K7/K7-lse",
             "fused_attention_kernel": None, "flash_bwd_dq_kernel": "K6",
             "flash_bwd_dkv_kernel": "K6", "flash_forward_kernel": "K7/K7-lse",
-            "banded_kernel": "K10", "packed_attention_int8_kernel": None}
+            "flash_bwd_dq_mma_kernel": "K6", "flash_bwd_dkv_mma_kernel": "K6",
+            "banded_kernel": "K10", "banded_mma_kernel": "K10",
+            "packed_attention_int8_kernel": None}
     out, name = [], None
     for line in _build.ptxas_report().read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -2089,14 +2172,17 @@ def main() -> None:
         torch.cuda.empty_cache()
         bootstrap_phase(dev, smi, ckpt)
     src = "msvit_tpu_torch/csrc/"
+    # K6 and K10 at the other shapes their phases timed
+    extra = {"K6": [("[8,12,3168,64] soft mask of the 448 partition", "K6@3168")],
+             "K10": [("[8,32+3136,2304] one cluster", "K10@448 one-cluster"),
+                     ("[8,32+784,2304] the 224 partition", "K10@224")]}
     packed, fused = "msvit_tpu/ops/packed_attention.py:", "msvit_tpu/ops/fused_attention.py:"
     flash = "msvit_tpu/ops/flash_attention.py:"
     rows = [
         dict(name=name, route="cuda", source=src + cu, replaces=tpu,
-             launches=launches[k], max_abs_err=kernels[k]["err"],
-             ms=kernels[k]["ms"], plain_ms=kernels[k]["plain_ms"],
-             bound_ms=kernels[k]["bound_ms"], bound_by=kernels[k]["bound_by"],
-             library_ms=kernels[k]["library_ms"])
+             launches=launches[k], **_summary(kernels[k]),
+             **({"other_shapes": [dict(shape=tag, **_summary(kernels[key]))
+                                  for tag, key in extra[k]]} if k in extra else {}))
         for k, name, cu, tpu in (
             ("K1", "packed_attention", "packed_attention.cu", packed + "118"),
             ("K3", "packed_attention_int8", "packed_attention_int8.cu", packed + "883"),

@@ -465,6 +465,119 @@ __device__ __forceinline__ void product_acc(float (&acc)[DHT / 8][4],
   }
 }
 
+// bf16 1.0 in both halves: the B fragment of a column of ones, so that
+// mma_bf16(c, a, kOnes2, kOnes2) adds the row sums of a's 16 columns to
+// every column of c (c[0] row g, c[2] row g + 8), as the TPU sums its
+// rounded probabilities, through the matrix unit.
+constexpr uint32_t kOnes2 = 0x3f803f80u;
+
+// Rows r0 and r0 + 8 of a 16-row accumulator, times `scale`, as bf16 pairs
+// into `dst` (row i at dst + i * stride) for rows below n and columns below
+// dh.
+template <int DHT>
+__device__ __forceinline__ void store_rows(bf16* dst, long long stride,
+                                           const float (&acc)[DHT / 8][4],
+                                           int r0, int n, int dh, int tq,
+                                           float scale) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + 8 * r;
+    if (i >= n) continue;
+#pragma unroll
+    for (int j = 0; j < DHT / 8; ++j) {
+      const int col = j * 8 + 2 * tq;
+      if (col < dh)
+        *reinterpret_cast<uint32_t*>(dst + i * stride + col) =
+            pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+    }
+  }
+}
+
+// Bytes of one row of a staged [64 x 64] mask tile (rows: queries,
+// columns: keys), 16-byte multiples.  Read at the accumulator fragments'
+// positions with queries as rows (K7, the dQ kernel): KT f32 words plus 8
+// (float2 reads, 8 rows x 4 lanes in distinct banks per half warp), or KT
+// bytes plus 16 (bool).  Read transposed, keys as rows (the dK/dV kernel:
+// lanes g on 8 neighbouring columns, lanes t on rows 2t apart): KT words
+// plus 4, so that row 2t starts 8t banks on; bool as before.
+__host__ __device__ constexpr int mask_row_bytes(int kind, bool transposed = false) {
+  return kind == kAddMask ? (kMmaTile + (transposed ? 4 : 8)) * 4
+         : kind == kBoolMask ? kMmaTile + 16
+                             : 0;
+}
+
+// The mask entries of columns c, c + 1 of row `row` of a staged mask tile
+// (rows of `mrow` bytes) at an accumulator fragment's position: the
+// additive values (0 without) and whether the two keys are attended.
+__device__ __forceinline__ void mask_pair(const unsigned char* mt, int mrow,
+                                          int row, int c, int kind,
+                                          float (&add)[2], bool (&keep)[2]) {
+  const unsigned char* mr = mt + row * mrow;
+  add[0] = add[1] = 0.f;
+  keep[0] = keep[1] = true;
+  if (kind == kAddMask) {
+    const float2 a = *reinterpret_cast<const float2*>(mr + c * 4);
+    add[0] = a.x;
+    add[1] = a.y;
+  } else if (kind == kBoolMask) {
+    const unsigned w = *reinterpret_cast<const uint16_t*>(mr + c);
+    keep[0] = (w & 0xffu) != 0;
+    keep[1] = (w >> 8) != 0;
+  }
+}
+
+// One (image, head)'s [Nq, Nk] panel of a mask [B|1, 1|H, Nq, Nk] (bool,
+// one byte per entry, or additive f32; last two dims contiguous), staged a
+// [64 x 64] tile at a time by cp.async: 16 bytes a copy where every row is
+// 16-byte aligned (f32 with Nk % 4 == 0, bool with Nk % 16 == 0), else 4
+// (f32; bool with Nk % 4 == 0), else a byte at a time (bool): never a
+// misaligned 16-byte cp.async.
+struct MaskStage {
+  const unsigned char* img;
+  long long grow;  // bytes per panel row
+  int esize;       // bytes per entry
+  int chunk;       // bytes per copy; 0 without a mask
+
+  __device__ MaskStage(const void* mask, int kind, int nk, long long sb,
+                       long long sh, int b, int h)
+      : img(static_cast<const unsigned char*>(mask)),
+        grow(static_cast<long long>(nk) * (kind == kAddMask ? 4 : 1)),
+        esize(kind == kAddMask ? 4 : 1),
+        chunk(0) {
+    img += (b * sb + h * sh) * esize;
+    auto aligned = [&](int a) {
+      return reinterpret_cast<uintptr_t>(mask) % a == 0 && grow % a == 0 &&
+             (sb * esize) % a == 0 && (sh * esize) % a == 0;
+    };
+    if (kind != kNoMask) chunk = aligned(16) ? 16 : aligned(4) ? 4 : 1;
+  }
+
+  // Rows [r0, r0 + 64) x columns [k0, k0 + 64) of the panel into `dst`
+  // (rows of `row_bytes`); rows past nq and columns past Nk are
+  // zero-filled.  All threads of the block take part.
+  __device__ __forceinline__ void stage(unsigned char* dst, int row_bytes,
+                                        int r0, int nq, int k0) const {
+    if (chunk == 0) return;
+    const long long c0 = static_cast<long long>(k0) * esize;
+    const int per_row = kMmaTile * esize / chunk;
+    for (int c = threadIdx.x; c < kMmaRows * per_row; c += blockDim.x) {
+      const int r = c / per_row;
+      const int off = (c - r * per_row) * chunk;
+      const bool ok = r0 + r < nq && c0 + off < grow;
+      const unsigned char* src =
+          img + (ok ? static_cast<long long>(r0 + r) * grow + c0 + off : 0);
+      unsigned char* to = dst + r * row_bytes + off;
+      if (chunk == 16) {
+        cp_async16(to, src, ok);
+      } else if (chunk == 4) {
+        cp_async4(to, src, ok);
+      } else {
+        *to = ok ? *src : 0;
+      }
+    }
+  }
+};
+
 // A compile-time flag for a tile loop's body written as a generic lambda:
 // body(Edge<false>{}) for a full tile, body(Edge<true>{}) for the ragged
 // last one, each compiled on its own.

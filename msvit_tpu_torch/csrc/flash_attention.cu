@@ -259,13 +259,6 @@ void dispatch(const void* q, const void* k, const void* v, const void* mask,
 
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Bytes of one row of a staged mask tile: KT f32 words plus 8, or KT bytes
-// plus 16 (bool): 16-byte multiples, and a warp's fragment reads (8 rows x
-// 4 lanes) fall in distinct banks.
-__host__ __device__ constexpr int mask_row_bytes(int kind) {
-  return kind == kAddMask ? (kMmaTile + 8) * 4 : kind == kBoolMask ? kMmaTile + 16 : 0;
-}
-
 // The scores of one 64-key tile in log2 units, x = s * scale * log2e with
 // the staged mask tile `mt` (rows of `mrow` bytes; the additive mask times
 // log2e, a masked bool entry at `masked`), read at the fragments'
@@ -282,18 +275,9 @@ __device__ __forceinline__ void flash_scores(float (&s)[NT][4], float (&mx)[2],
     const int c = j * 8 + 2 * tq;  // this lane's two columns: c, c + 1
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const unsigned char* mr = mt + (r_lo + 8 * r) * mrow;
-      float add[2] = {0.f, 0.f};
-      bool keep[2] = {true, true};
-      if (mask_kind == kAddMask) {
-        const float2 a = *reinterpret_cast<const float2*>(mr + c * 4);
-        add[0] = a.x;
-        add[1] = a.y;
-      } else if (mask_kind == kBoolMask) {
-        const unsigned w = *reinterpret_cast<const uint16_t*>(mr + c);
-        keep[0] = (w & 0xffu) != 0;
-        keep[1] = (w >> 8) != 0;
-      }
+      float add[2];
+      bool keep[2];
+      mask_pair(mt, mrow, r_lo + 8 * r, c, mask_kind, add, keep);
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         float x = fmaf(add[u], kLog2e, s[j][2 * r + u] * c2);
@@ -338,17 +322,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kimg = k + b * st.kb + h * st.kh;
   const bf16* vimg = v + b * st.vb + h * st.vh;
 
-  // the mask: global rows of nk entries, staged rows of mrow bytes
-  const int esize = mask_kind == kAddMask ? 4 : 1;
+  // the mask: staged rows of mrow bytes
   const int mrow = mask_row_bytes(mask_kind);
-  const long long grow = static_cast<long long>(nk) * esize;
-  const unsigned char* mimg = static_cast<const unsigned char*>(mask) +
-                              (b * mask_sb + h * mask_sh) * esize;
-  auto aligned = [&](int a) {
-    return reinterpret_cast<uintptr_t>(mask) % a == 0 && grow % a == 0 &&
-           (mask_sb * esize) % a == 0 && (mask_sh * esize) % a == 0;
-  };
-  const int chunk = mask_kind == kNoMask ? 0 : aligned(16) ? 16 : aligned(4) ? 4 : 1;
+  const MaskStage mstage(mask, mask_kind, nk, mask_sb, mask_sh, b, h);
 
   if (dh < DHT) {  // pad columns of every head tile: zero once
     zero_smem(smem, (4 * KT + (kShareQ ? 0 : kMmaRows)) * LD *
@@ -360,27 +336,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* ks = ring + (t & 1) * 2 * KT * LD;
     async_tile<LD>(ks, kimg, st.kn, t * KT, KT, nk, dh);
     async_tile<LD>(ks + KT * LD, vimg, st.vn, t * KT, KT, nk, dh);
-    if (chunk == 0) return;
-    // rows [row0, row0 + 64) x bytes [c0, c0 + KT * esize) of the mask;
-    // rows past nq and columns past nk are zero-filled (never used)
-    unsigned char* dst = mring + (t & 1) * kMmaRows * mrow;
-    const long long c0 = static_cast<long long>(t) * KT * esize;
-    const int per_row = KT * esize / chunk;
-    for (int c = threadIdx.x; c < kMmaRows * per_row; c += kMmaThreads) {
-      const int r = c / per_row;
-      const int off = (c - r * per_row) * chunk;
-      const bool ok = row0 + r < nq && c0 + off < grow;
-      const unsigned char* src =
-          mimg + (ok ? static_cast<long long>(row0 + r) * grow + c0 + off : 0);
-      unsigned char* to = dst + r * mrow + off;
-      if (chunk == 16) {
-        cp_async16(to, src, ok);
-      } else if (chunk == 4) {
-        cp_async4(to, src, ok);
-      } else {
-        *to = ok ? *src : 0;
-      }
-    }
+    // rows [row0, row0 + 64) x keys [t * KT, t * KT + KT) of the mask; rows
+    // past nq and keys past nk are zero-filled (never used)
+    mstage.stage(mring + (t & 1) * kMmaRows * mrow, mrow, row0, nq, t * KT);
   };
   async_tile<LD>(qs, q + b * st.qb + h * st.qh, st.qn, row0, kMmaRows, nq, dh);
   load_tile(0);

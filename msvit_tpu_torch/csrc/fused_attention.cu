@@ -45,9 +45,11 @@
 // (zero rows of V), so they give sum(V) / (ceil(Nk / 128) * 128) there: a
 // padding artifact the port does not copy.
 //
-// Deviation allowed by the port's contract: p stays f32 into the P.V sum,
-// where the TPU kernels round it to the compute dtype first (l is summed
-// from the unrounded p on both).
+// Rounding, as the TPU kernels: p is rounded to the compute dtype into the
+// P.V sum (`p.astype(v.dtype)`, `_pv_transposed`) and l is summed from the
+// unrounded p (the identity in f32).  K5 and K5-lse round p against the
+// running max, where the plain version rounds it against the row's max: a
+// product can land one bf16 step apart.
 
 #include "common.cuh"
 
@@ -148,7 +150,8 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         // s == m == -inf only for -inf scores: they weigh nothing
         p = s == -INFINITY ? 0.f : expf(s - m);
       }
-      l += p;
+      l += p;  // unrounded; P.V takes p rounded to the compute dtype
+      const float pr = round_to<T>(p);
       const T* vr = vs + j * dh;
 #pragma unroll
       for (int e = 0; e < DHT; e += 8) {
@@ -156,7 +159,7 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           float vf[8];
           Vec8<T>::load(vr + e, vf);
 #pragma unroll
-          for (int t = 0; t < 8; ++t) acc[e + t] = fmaf(p, vf[t], acc[e + t]);
+          for (int t = 0; t < 8; ++t) acc[e + t] = fmaf(pr, vf[t], acc[e + t]);
         }
       }
     }

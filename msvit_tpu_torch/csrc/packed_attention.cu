@@ -160,12 +160,6 @@ void launch(const void* qkv, const void* mask, void* out, int b, int n, int h,
       mask_kind, sb, sh, scale, mask_value);
 }
 
-// bf16 1.0 in both halves: the B fragment of a column of ones, so that
-// mma_bf16(c, a, kOnes2, kOnes2) adds the row sums of a's 16 columns to
-// every column of c (c[0] row g, c[2] row g + 8), as the TPU sums its
-// rounded probabilities, through the matrix unit.
-constexpr uint32_t kOnes2 = 0x3f803f80u;
-
 // The shaved probabilities of one 64-key tile, p = exp(clip(s * scale with
 // the mask, +-80)) rounded to bf16, as the A fragments of P.V (k-step kk:
 // n-tiles 2kk and 2kk + 1).  Computed in log2 units: x = s * scale * log2e

@@ -264,28 +264,6 @@ int dispatch(const void* qkv, const void* mask, const void* out,
   return launch<T, 128>(qkv, mask, out, lse, g, delta, dqkv, b, n, h, dh, mask_kind, sb, sh, scale, mask_value, stream);
 }
 
-// Rows r0 and r0 + 8 of a 16-row accumulator, times `scale`, as bf16 pairs
-// into `dst` (row i at dst + i * stride) for rows below n and columns below
-// dh.
-template <int DHT>
-__device__ __forceinline__ void store_rows(bf16* dst, long long stride,
-                                           const float (&acc)[DHT / 8][4],
-                                           int r0, int n, int dh, int tq,
-                                           float scale) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = r0 + 8 * r;
-    if (i >= n) continue;
-#pragma unroll
-    for (int j = 0; j < DHT / 8; ++j) {
-      const int col = j * 8 + 2 * tq;
-      if (col < dh)
-        *reinterpret_cast<uint32_t*>(dst + i * stride + col) =
-            pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
-    }
-  }
-}
-
 template <int DHT>
 __host__ __device__ constexpr int dq_smem_bytes() {
   // q, g; the k/v ring; delta of the block's rows

@@ -12,9 +12,10 @@ prefix, then the sorted tokens; the q third pre-scaled) and never builds an
   rows, walking only the key tiles of each row block's band (the band
   table `band_limits`, torch `searchsorted`), the shaved softmax
   exp(clip(s, +-80)) with no row max, o / max(l, 1e-30).  Kernel:
-  `csrc/banded_attention.cu`.  Under autograd it is `TokenRowsFunction`,
-  whose backward differentiates the plain version, as the JAX VJP
-  differentiates `_token_rows_xla`.
+  `csrc/banded_attention.cu` (bf16 on the tensor cores, skipping the
+  16-key blocks of other clusters; f32 on the CUDA cores).  Under
+  autograd it is `TokenRowsFunction`, whose backward differentiates the
+  plain version, as the JAX VJP differentiates `_token_rows_xla`.
 * `prefix_rows` -- the 2C TX/RX rows, dense over every key with the exact
   soft additive mask (plain torch, as the JAX package leaves them to XLA),
   and optionally the RX -> TX probabilities.
@@ -63,20 +64,17 @@ def band_limits(cid: torch.Tensor, max_clusters: int, rows: int = BAND_ROWS,
     """[B, 2, ceil(N / rows)] int32: the inclusive range [kmin, kmax] of
     `keys`-key tiles that holds the live keys of each `rows`-row query block:
     the tokens of clusters cid[first row] .. cid[last row], contiguous in
-    the sorted layout (JAX's `_band_limits` at its own block sizes)."""
-    b, n = cid.shape
-    nqb = -(-n // rows)
+    the sorted layout (JAX's `_band_limits` at its own block sizes, with
+    one searchsorted per block edge where JAX takes one per cluster id, so
+    `max_clusters` is not needed: fewer launches per call)."""
+    n = cid.shape[1]
     cid = cid.contiguous()
-    ids = torch.arange(max_clusters, device=cid.device, dtype=cid.dtype)
-    ids = ids.expand(b, max_clusters).contiguous()
-    starts = torch.searchsorted(cid, ids, right=False)
-    ends = torch.searchsorted(cid, ids, right=True)
-    qb = torch.arange(nqb, device=cid.device)
-    lo = (qb * rows).clamp_max(n - 1)
-    hi = ((qb + 1) * rows - 1).clamp_max(n - 1)
-    kmin = torch.gather(starts, 1, cid[:, lo].long()) // keys
-    kmax = torch.maximum((torch.gather(ends, 1, cid[:, hi].long()) - 1) // keys, kmin)
-    return torch.stack([kmin, kmax], 1).to(torch.int32)
+    first = torch.arange(0, n, rows, device=cid.device)  # each block's first row
+    # the first token of the first row's cluster, one past the last row's
+    start = torch.searchsorted(cid, cid[:, first])
+    end = torch.searchsorted(cid, cid[:, (first + rows - 1).clamp_max(n - 1)], right=True)
+    kmin = start // keys
+    return torch.stack([kmin, torch.maximum((end - 1) // keys, kmin)], 1).to(torch.int32)
 
 
 def token_rows_plain(qkv: torch.Tensor, cid: torch.Tensor, num_heads: int,

@@ -13,7 +13,8 @@
 * `flash_attention_bwd` -- K6, the TPU kernel `flash_attention_bwd` (its
   dQ and dK/dV pallas_calls): dq, dk, dv from the forward's residuals (q,
   k, v, mask, out and the compact lse) and the cotangent of out.  Kernel:
-  `csrc/flash_attention_bwd.cu`.  As in the JAX package it is the backward
+  `csrc/flash_attention_bwd.cu` (bf16 on the tensor cores, f32 on the CUDA
+  cores; two kernels, no atomics).  As in the JAX package it is the backward
   of both custom VJPs: `FlashAttentionFunction` here and
   `ops/fused_attention.py::FusedAttentionFunction`.
 

@@ -25,6 +25,9 @@ raises.
 The kernels read q, k, v through their strides (the last dim contiguous),
 so views of the QKV GEMM output need no copy, and write the output
 ``[B, Nq, H, dh]`` in memory, returned as the ``[B, H, Nq, dh]`` view.
+As the TPU kernels, they round p to the compute dtype into P.V and sum the
+unrounded p into l; K5 and K5-lse round p against the running max, their
+plain versions against the row's max (a p can round one bf16 step apart).
 
 Each wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches its kernel or raises: there is no fallback.

@@ -5,7 +5,8 @@ package (CPU):
   port's own;
 * the token rows' plain version against the Pallas `_token_rows_banded`
   (interpret mode) and `_token_rows_xla`, one block, several blocks and
-  several 1024-key chunks;
+  several 1024-key chunks, and where the card's 64-row blocks, 64-key
+  tiles and 16-key blocks have edges;
 * `multistate_banded_attention` (prefix rows and RX -> TX included) and the
   token rows' gradient against JAX;
 * the banded multistate model against JAX's banded model with JAX's draws,
@@ -120,6 +121,40 @@ def test_token_rows_plain_takes_the_kernels_rounding(jax_rows, name):
     err = np.abs(got - kernel).max()
     assert err <= 2e-2
     assert np.abs(got - kernel).mean() <= np.abs(xla - kernel).mean()
+
+
+# cluster sizes of one image: N 63, 65 and 129; boundaries on a 16-key
+# block (16, 32), on a 64-key tile (64) and inside both, one-token
+# clusters, one cluster holding every token
+_EDGES = {"one-cluster-63": [63], "65": [16, 1, 48], "129": [64, 17, 1, 47],
+          "129-blocks": [5, 11, 16, 33, 64], "one-cluster-129": [129]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(_EDGES))
+def test_token_rows_plain_matches_jax_at_tile_edges(dtype, name):
+    """The contract the card's bf16 tensor-core K10 is held to, where its
+    64-row blocks, 64-key tiles and 16-key blocks have edges: the plain
+    version against the Pallas `_token_rows_banded` (interpret mode) and
+    `_token_rows_xla`, C = 8 slots, 2 heads of 16, the q third pre-scaled.
+    f32 <= 1e-5 against both; bf16 within one bf16 step of the output
+    (2e-2) of the Pallas kernel, whose rounding it takes (p rounded, l
+    summed from the rounded p)."""
+    cid = _sorted_cid(_EDGES[name])[None]
+    n, c, heads, dh = cid.shape[1], 8, 2, 16
+    qkv = np.random.default_rng(n + len(_EDGES[name])).standard_normal(
+        (1, 2 * c + n, 3 * heads * dh)).astype(np.float32)
+    qkv[..., :heads * dh] *= dh**-0.5
+    x = jnp.asarray(qkv, getattr(jnp, dtype))
+    kernel = _np(jband._token_rows_banded(x, jnp.asarray(cid), heads, c))
+    got = _np(tband.token_rows(torch.from_numpy(qkv).to(getattr(torch, dtype)),
+                               torch.from_numpy(cid), heads, c))
+    if dtype == "float32":
+        xla = _np(jband._token_rows_xla(x, jnp.asarray(cid), heads, c))
+        np.testing.assert_allclose(got, kernel, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got, xla, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(got, kernel, atol=2e-2, rtol=0)
 
 
 @pytest.mark.parametrize("rx_tx", [False, True])

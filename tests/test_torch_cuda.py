@@ -384,9 +384,10 @@ def test_k4_k5_match_plain(dev, kernel, dtype, nq, nk, h, dh, mask, packed):
     """K4 and K5 against their plain versions at odd shapes (N not a
     multiple of 64, head sizes 8-128, Nq != Nk), every mask kind, q/k/v
     strided views of the QKV GEMM output or contiguous.  Tolerances as K1
-    (the kernels keep p in f32 into P.V where the plain versions round it),
-    of max(1, max |plain|): a row attending few keys has an output near a
-    single value of V, where one bf16 step is 2^-8 of it."""
+    (both round p to bf16 into P.V; K5 against the running max, its plain
+    version against the row's max), of max(1, max |plain|): a row attending
+    few keys has an output near a single value of V, where one bf16 step is
+    2^-8 of it."""
     fn, plain = _fused_fns(kernel)
     q, k, v = _heads(2, nq, nk, h, dh, dtype, dev, seed=30, packed=packed)
     m = _fused_mask(mask, 2, h, nq, nk, dev, seed=31)
@@ -450,6 +451,40 @@ def test_fused_kernels_refuse_grad_and_bad_inputs(dev):
             fn4(q, k, v, mask=torch.ones(1, 1, 37, 36, dtype=torch.bool, device=dev))
         with pytest.raises(ValueError, match="lse"):
             flash_attention_bwd(q, k, v, q, q, torch.zeros(1, 2, 36, device=dev))
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K5-lse"])
+def test_k4_k5_round_p_like_plain(dev, kernel):
+    """K4, K5 and K5-lse round p to bf16 into P.V, as the TPU kernels and
+    the plain versions do (l from the unrounded p).  The scores come from an
+    additive mask (q = 0) with key 0 the row's max, so that K5's running max
+    is the row's max from the first key on and both sides round the same p:
+    the kernel's bf16 output equals the plain version's on >= 99% of the
+    elements, and the same arithmetic with p kept in f32 equals it on at
+    most 90% (about 68% at these inputs); errors within the K1 bar."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    b, h, nq, nk, dh = 2, 2, 64, 9, 64
+    gen = torch.Generator().manual_seed(74)
+    q = torch.zeros(b, h, nq, dh)
+    k, v = (torch.randn(b, h, nk, dh, generator=gen) for _ in range(2))
+    m = -(torch.rand(b, 1, nq, nk, generator=gen) * 3 + 0.01)
+    m[..., 0] = 0.0
+    q, k, v = (t.to(torch.bfloat16).to(dev) for t in (q, k, v))
+    m = m.to(dev)
+    fn = {"K4": fa.fused_attention_inference, "K5": fa.fused_attention,
+          "K5-lse": lambda *a, **kw: fa.fused_attention_lse(*a, **kw)[0]}[kernel]
+    plain = fa.fused_attention_inference_plain if kernel == "K4" else fa.fused_attention_plain
+    with torch.inference_mode():
+        got = fn(q, k, v, mask=m)
+        want = plain(q, k, v, mask=m)
+    torch.cuda.synchronize()
+    p = torch.exp(m.expand(b, h, nq, nk))  # s = the mask; its max is 0
+    unrounded = (torch.matmul(p, v.float()) / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+    tol = _TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert (got == want).float().mean().item() >= 0.99
+    assert (got == unrounded).float().mean().item() <= 0.9
 
 
 # K5-lse: out as K5; lse 1e-5 of max(1, |lse|) (f32 sums in another order).
@@ -527,6 +562,84 @@ def test_k5_lse_and_k6_large_logits_and_minus_inf_rows(dev):
     assert torch.equal(o[1, :, 3], torch.zeros_like(o[1, :, 3]))
     assert torch.equal(lse[1, :, 3], torch.zeros_like(lse[1, :, 3]))
     assert torch.equal(dq[1, :, 3], torch.zeros_like(dq[1, :, 3]))
+
+
+@pytest.mark.parametrize("nq,nk,h,dh,mask,packed", [
+    (65, 129, 2, 40, "bool_per_head", True),  # Nq != Nk, one past a tile
+    (129, 63, 3, 72, "additive", False),
+    (64, 64, 2, 16, "additive_per_head", True),
+    (63, 65, 2, 128, "bool", False),
+    (100, 1100, 2, 64, "bool", True),  # bool rows not 16-byte aligned
+    (100, 1100, 2, 64, "additive_per_head", False),
+    (70, 37, 2, 64, "bool_per_head", True),  # nor 4-byte aligned: byte copies
+    (70, 37, 2, 32, "additive", False),  # f32 rows not 16-byte aligned
+])
+def test_k6_bf16_tile_edges(dev, nq, nk, h, dh, mask, packed):
+    """bf16 K6 on the tensor cores where its 64-row tiles and its staged
+    mask tile have edges: Nq != Nk both ways, head sizes 16-128 (40 and 72
+    zero-padded), mask rows copied 16, 4 or 1 bytes at a time (Nk = 1100,
+    37), every mask kind per head and broadcast.  Against the plain version
+    on the same residuals and strided cotangent, K6's bar.  A bool mask's
+    row 0 is fully masked (p = 1 on every key)."""
+    q, k, v = _heads(2, nq, nk, h, dh, torch.bfloat16, dev, seed=75, packed=packed)
+    m = _fused_mask(mask, 2, h, nq, nk, dev, seed=76)
+    _ms_train_case(q, k, v, m, torch.bfloat16, dev, 77)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_fully_masked_row_gives_p_one(dev, dtype):
+    """A bool row with every key masked has lse = mask_value + log Nk, which
+    rounds to mask_value, so its p = exp(s - lse) is 1 on every key (the
+    TPU's and the plain version's): with the cotangent zero on every other
+    row, dv of each key is that row's g, exactly, on the kernel and the
+    plain version alike."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    b, h, nq, nk, dh = 2, 2, 70, 90, 64
+    q, k, v = _heads(b, nq, nk, h, dh, dtype, dev, seed=78, packed=True)
+    m = _fused_mask("bool", b, h, nq, nk, dev, seed=79)  # row 0 fully masked
+    g = torch.zeros(b, h, nq, dh, dtype=dtype, device=dev)
+    g[:, :, 0] = torch.randn(b, h, dh, generator=torch.Generator().manual_seed(80)).to(dtype).to(dev)
+    with torch.no_grad():
+        out, lse = fa.fused_attention_lse_plain(q, k, v, mask=m)
+        got = fl.flash_attention_bwd(q, k, v, out, g, lse, m)
+        want = fl.flash_attention_bwd_plain(q, k, v, out, g, lse, m)
+    torch.cuda.synchronize()
+    row = g[:, :, :1].expand(b, h, nk, dh)
+    assert torch.equal(got[2], row) and torch.equal(want[2], row)
+    _k6_check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_minus_inf_row_gives_zeros(dev, dtype):
+    """An additive -inf row: the forward writes zeros and lse 0, so p = 0 on
+    the row (not NaN): its dq is zeros, every gradient finite, and the rest
+    within K6's bar of the plain version."""
+    q, k, v = _heads(2, 70, 130, 2, 64, dtype, dev, seed=81, packed=True)
+    m = -100.0 * (torch.rand(2, 1, 70, 130, generator=torch.Generator().manual_seed(82))
+                  < 0.3).float()
+    m[1, 0, 3] = -torch.inf
+    dq, dk, dv = _ms_train_case(q, k, v, m.to(dev), dtype, dev, 83)
+    assert torch.equal(dq[1, :, 3], torch.zeros_like(dq[1, :, 3]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [None, "additive", "bool"])
+def test_k6_deterministic(dev, dtype, mask):
+    """No atomics: two calls of K6 give the same bits."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    q, k, v = _heads(2, 197, 300, 3, 64, dtype, dev, seed=84, packed=True)
+    m = _fused_mask(mask, 2, 3, 197, 300, dev, seed=85)
+    g = torch.randn(2, 197, 3, 64, generator=torch.Generator().manual_seed(86))
+    g = g.to(dtype).to(dev).transpose(1, 2)
+    with torch.no_grad():
+        out, lse = fa.fused_attention_lse(q, k, v, mask=m)
+        a, b = (fl.flash_attention_bwd(q, k, v, out, g, lse, m) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -816,6 +929,80 @@ def test_k10_matches_plain(dev, dtype, sizes, c, h, dh):
     assert torch.isfinite(got).all()
     tol = _TOL[dtype] * max(1.0, want.float().abs().max().item())
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _banded_images(partitions, c, h, dh, dtype, dev, seed):
+    """qkv [B, 2C + N, 3D] (the q third pre-scaled) and cid [B, N] from one
+    partition (cluster sizes) per image, each of N tokens."""
+    g = torch.Generator().manual_seed(seed)
+    cid = torch.stack([torch.cat([torch.full((s,), i) for i, s in enumerate(sizes)])
+                       for sizes in partitions])
+    b, n = cid.shape
+    qkv = torch.randn(b, 2 * c + n, 3 * h * dh, generator=g)
+    qkv[..., :h * dh] *= dh**-0.5
+    return qkv.to(dtype).to(dev), cid.to(dev)
+
+
+# (partition of each image, clusters C, heads): N 63, 65 and 129; cluster
+# boundaries inside and on 16- and 64-key blocks, one-token clusters, one
+# cluster holding every token; the 448-px trunk at one cluster
+_K10_EDGES = [
+    ([[63], [20, 1, 42]], 16, 2),
+    ([[16, 1, 48], [64, 1]], 16, 2),
+    ([[64, 17, 1, 47], [5, 11, 16, 33, 64]], 16, 2),
+    ([[129], [1] * 15 + [114]], 16, 2),
+]
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", range(len(_K10_EDGES)))
+def test_k10_bf16_tile_edges(dev, case, dh):
+    """bf16 K10 on the tensor cores where its tiles have edges (rows and
+    keys past N, the band's first and last tiles, 16-key blocks that a warp
+    skips or takes, the RX tile of C = 16 keys), at head sizes 16-128,
+    against its plain version: K1's bar of max(1, max |plain|)."""
+    from msvit_tpu_torch.ops import banded_attention as ba
+
+    partitions, c, h = _K10_EDGES[case]
+    qkv, cid = _banded_images(partitions, c, h, dh, torch.bfloat16, dev, seed=87 + case)
+    before = ba.token_rows.launches
+    with torch.inference_mode():
+        got = ba.token_rows(qkv, cid, h, c)
+        want = ba.token_rows_plain(qkv, cid, h, c)
+    torch.cuda.synchronize()
+    assert ba.token_rows.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    tol = _TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_k10_bf16_one_cluster_at_448(dev):
+    """bf16 K10 at the 448-px trunk's width before its first clustering
+    event, [2, 32+3136, 2304] with every token in one cluster (the band is
+    every key): against its plain version at K1's bar."""
+    from msvit_tpu_torch.ops import banded_attention as ba
+
+    qkv, cid = _banded_images([[3136]] * 2, 16, 12, 64, torch.bfloat16, dev, seed=91)
+    with torch.inference_mode():
+        got = ba.token_rows(qkv, cid, 12, 16)
+        want = ba.token_rows_plain(qkv, cid, 12, 16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    tol = _TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k10_deterministic(dev, dtype):
+    """No atomics: two calls of K10 give the same bits."""
+    from msvit_tpu_torch.ops import banded_attention as ba
+
+    qkv, cid = _banded_images([[64, 17, 1, 47, 200], [329]], 8, 3, 64, dtype, dev, seed=92)
+    with torch.inference_mode():
+        a, b = (ba.token_rows(qkv, cid, 3, 8) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_k10_grad_and_bad_inputs(dev):

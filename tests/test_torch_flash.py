@@ -1,8 +1,10 @@
-"""PyTorch port, K7 (flash attention) against the JAX package (CPU):
+"""PyTorch port, K7 (flash attention) and K6 (its backward) against the
+JAX package (CPU):
 
 * the plain versions of K7 and K7-lse against the Pallas `_flash_forward`
   in interpret mode, at a shape that crosses its 512-row and 1024-key
-  tiles, with every kind of mask;
+  tiles, with every kind of mask; K6's plain version against the Pallas
+  `flash_attention_bwd` where the card's 64-row tiles have edges;
 * the fully masked row: the TPU kernel's padded keys against the port's
   mean(V);
 * `FlashAttentionFunction` against `jax.grad` of JAX's `flash_attention`,
@@ -115,6 +117,60 @@ def test_flash_plain_matches_jax_at_tile_edges(dtype, nq, nk, dh):
     np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=0)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_l)[:, :, :nq, 0], atol=1e-3,
                                rtol=0)
+
+
+# (Nq, Nk, dh, mask): Nq and Nk one short of, on and one past a 64-row
+# tile, and two tiles plus one, Nq != Nk both ways; dh 8, 24, 40 and 72
+# (zero-padded to 16/32/64/128 on the card); bool (row 0 fully masked),
+# additive per head and broadcast
+_BWD_EDGES = [(63, 65, 8, "bool"), (64, 129, 24, "additive_per_head"),
+              (65, 64, 40, "additive"), (129, 63, 72, "bool"),
+              (129, 129, 40, "additive_per_head")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk,dh,kind", _BWD_EDGES)
+def test_flash_bwd_plain_matches_jax_at_tile_edges(dtype, nq, nk, dh, kind):
+    """The contract the card's bf16 tensor-core K6 is held to, where its
+    64-row tiles have edges: `flash_attention_bwd_plain` against the Pallas
+    `flash_attention_bwd` (interpret mode) on the same residuals (the plain
+    forward's out and compact lse) and cotangent, 2 heads: dq, dk, dv f32
+    1e-5 and bf16 2e-2 of max(1, max |JAX|) (both round p and ds to bf16
+    at the same places; f32 sums in another order).  A bool mask's row 0
+    is fully masked: its lse rounds to mask_value and p = 1 on every key,
+    so with the cotangent on that row alone dv of every key is that row's
+    g, exactly, on both sides."""
+    h = 2
+    rng = np.random.default_rng(nq * 7 + nk + dh)
+    q, k, v = (rng.standard_normal((B, h, n, dh)).astype(np.float32) for n in (nq, nk, nk))
+    g = rng.standard_normal((B, h, nq, dh)).astype(np.float32)
+    if kind == "bool":
+        m = rng.random((B, 1, nq, nk)) < 0.7
+        m[:, :, 0] = False
+    else:
+        hm = h if kind == "additive_per_head" else 1
+        m = np.where(rng.random((B, hm, nq, nk)) < 0.3, -100.0, 0.0).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tq, tk, tv, tg = (torch.from_numpy(t).to(tdt) for t in (q, k, v, g))
+    tm = torch.from_numpy(m)
+    out, lse = tflash.flash_attention_lse_plain(tq, tk, tv, mask=tm)
+    before = tflash.flash_attention_bwd.launches
+    g_only0 = torch.zeros_like(tg)
+    g_only0[:, :, 0] = tg[:, :, 0]
+    for cot in (tg, g_only0) if kind == "bool" else (tg,):
+        want = jflash.flash_attention_bwd(
+            *(jnp.asarray(_np(t), jdt) for t in (tq, tk, tv, out, cot)), jnp.asarray(_np(lse)),
+            jnp.asarray(m), scale=dh**-0.5, mask_value=tflash.DEFAULT_MASK_VALUE)
+        got = tflash.flash_attention_bwd(tq, tk, tv, out, cot, lse, mask=tm)
+        for a, b in zip(got, want):
+            assert a.dtype == tdt and tuple(a.shape) == b.shape
+            tol = (1e-5 if dtype == "float32" else 2e-2) * max(1.0, float(np.abs(_np(b)).max()))
+            np.testing.assert_allclose(_np(a), _np(b), atol=tol, rtol=0)
+    assert tflash.flash_attention_bwd.launches == before
+    if kind == "bool":  # p = 1 on the fully masked row
+        row = np.broadcast_to(_np(g_only0)[:, :, :1], (B, h, nk, dh))
+        np.testing.assert_array_equal(_np(got[2]), row)
+        np.testing.assert_array_equal(_np(want[2]), row)
 
 
 def test_fully_masked_row_deviation():
