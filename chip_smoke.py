@@ -37,22 +37,26 @@ fails (non-zero exit, no result line) if any phase fails:
    bf16 (K5) forwards against the plain attention path and int8 against
    bf16; with them, valid outputs, K4 and K5 launched 11 times per forward
    of their own, the partition's agreement with the plain path, ms/batch,
-   img/s, clustering's share, peak memory and host syncs;
+   img/s, clustering's share, peak memory and host syncs; each forward's
+   device time and K4's or K5's share of it (`torch.profiler`);
 9. fused kernels: K4 and K5 against their plain versions at [8,12,816,64]
    with the soft mask of the served partition (also a bool mask with a
-   fully masked row, f32, and cross-context K/V), then timed;
+   fully masked row, f32, and cross-context K/V), the share of elements
+   bit-equal to plain, then timed through the wrapper and alone, with the
+   achieved TFLOP/s and share of the bound; the kernel's blocks per SM;
 10. multistate training kernels: K5-lse and K6 against their plain versions
    at [8,12,816,64] (the served partition's soft mask in bf16 and f32, a
    bool mask with a fully masked row, cross-context K/V, large logits, 6
    heads of 128, mask rows that are not 16-byte aligned: Nk 813 bool and
-   814 f32), then timed;
+   814 f32), then timed (each also alone, with its TFLOP/s);
 11. multistate gradient: `MultiStateViTForImageClassification` at
    `benchmarks/bench_multistate_train_r3.py`'s config (shared-anchor NCut,
    bs8) on the kernel path against the plain attention path, the loss and
    the TX/RX/classifier gradients, without and with clustering events;
 12. multistate training: `Trainer` takes 10 steps of the TX/RX tokens and
    the classifier; the loss falls, frozen weights stay bit-equal, K5-lse
-   and K6 run 11 times a step; ms/step, memory, host syncs;
+   and K6 run 11 times a step; ms/step, memory, host syncs, the step's
+   device time and K5-lse and K6's share of it (`torch.profiler`);
 13. the fine-tune example (`python -m msvit_tpu_torch.examples.train_multistate
    --steps 3`, patch 16: K1-lse and K2 with the soft mask);
 14. the int8 apply's other attention modes at `bench.py`'s 224-px config:
@@ -144,10 +148,12 @@ GRAD_LOSS_REL_TOL = 1e-2
 GRAD_COS_TOL = 0.99
 LAYERS = 12
 # multistate serving at the bench config: ViT-B/8 @224, 784 patch tokens
-# + 2 x 16 TX/RX slots, batch 8.  K4/K5 take K1's tolerances (they keep p
-# in f32 into P.V where the plain versions round it), each of max(1, max
-# |plain|): under a real partition a row may attend a few keys only, its
-# output near a single value of V, where one bf16 step is 2^-8 of it
+# + 2 x 16 TX/RX slots, batch 8.  K4/K5 take K1's tolerances (both sides
+# round p to bf16 into P.V, K5 against the running max where its plain
+# version rounds against the row's max, and f32 sums in another order can
+# move a rounding by one bf16 step), each of max(1, max |plain|): under a
+# real partition a row may attend a few keys only, its output near a single
+# value of V, where one bf16 step is 2^-8 of it
 MS_BATCH = 8
 MS_CLUSTERS = 16
 MS_SHAPE = (MS_BATCH, 12, 816, 64)  # the attention's [B, H, N, dh]
@@ -235,6 +241,15 @@ def device_ms(fn, pattern: str, runs: int = 10) -> float:
     """Device time (ms) per call of the kernels whose names match `pattern`
     (`torch.profiler`, `runs` calls after one of warm-up): a kernel alone,
     without the host work and launches around it."""
+    return device_profile(fn, pattern, runs)[1]
+
+
+def device_profile(fn, pattern: str, runs: int = 3) -> tuple:
+    """Device time (ms) per call of `fn`, summed over every kernel, copy and
+    set it ran on the card, and the part of it in the kernels whose names
+    match `pattern` (`torch.profiler`, `runs` calls after one of
+    warm-up)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -243,8 +258,10 @@ def device_ms(fn, pattern: str, runs: int = 10) -> float:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages() if re.search(pattern, e.key))
-    return us / runs / 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.device_time_total for e in events)
+    part = sum(e.device_time_total for e in events if re.search(pattern, e.name))
+    return total / runs / 1e3, part / runs / 1e3
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -914,6 +931,15 @@ def multistate_phase(dev, smi: str) -> tuple:
         f"peak memory {peak!r} GiB during an int8 forward (bf16 and int8 weights "
         f"resident); host syncs per forward {syncs} (10 runs after 2 of warm-up, "
         f"host clock; {smi})")
+    # K4's and K5's kernel (and the CUDA-core kernel, which ran them in bf16
+    # before the tensor-core one, so that an older tree reads the same way)
+    attn = "flash_mma_kernel|fused_attention_kernel"
+    d_int8, k4 = device_profile(lambda: int8(cfg), attn)
+    d_bf16, k5 = device_profile(lambda: bf16(model), attn)
+    log(f"[multistate] device time per forward with clustering (every kernel, copy and "
+        f"set summed, torch.profiler, 3 forwards after 1 of warm-up): int8 {d_int8!r} "
+        f"ms, K4 {k4 / d_int8!r} of it; bf16 {d_bf16!r} ms, K5 {k5 / d_bf16!r} of it "
+        f"({smi})")
     return launches, (ci["last_cluster_indices"], ci["num_clusters"])
 
 
@@ -968,13 +994,43 @@ def fused_kernel_phase(dev, smi: str, partition) -> dict:
             ms, plain_ms = race(lambda: fn(q, k, v, mask=soft),
                                 lambda: plain(q, k, v, mask=soft))
             lib = library_ms(lambda: sdpa(q, k, v, soft))
-            lim = bound([q, k, v, soft], [q], attn_ops(b, h, n, n, dh, 2), torch.bfloat16)
+            alone = device_ms(lambda: fn(q, k, v, mask=soft), "flash_mma_kernel")
+            ops = attn_ops(b, h, n, n, dh, 2)
+            lim = bound([q, k, v, soft], [q], ops, torch.bfloat16)
             torch.cuda.synchronize()
             log(f"[fused-kernels] {name} bf16 {list(MS_SHAPE)} soft mask: kernel {ms!r} ms, "
                 f"plain {plain_ms!r} ms, library (scaled_dot_product_attention, the mask "
-                f"in bf16) {lib!r} ms, bound {lim} (median of 20, CUDA events; {smi})")
-            res[name] = dict(err=errs[0], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)
+                f"in bf16) {lib!r} ms, bound {lim}; {rate(ops, ms, lim)} (median of 20, "
+                f"CUDA events; {smi}); the kernel alone {alone!r} ms (device time, "
+                f"torch.profiler; {rate(ops, alone, lim)})")
+            res[name] = dict(err=errs[0], ms=ms, plain_ms=plain_ms, library_ms=lib,
+                             kernel_alone_ms=alone, bit_equal=same, **lim)
+    log(f"[fused-kernels] {occupancy(dh, (b, h, n))} ({smi})")
     return res
+
+
+def occupancy(dh: int, shape: tuple) -> str:
+    """Blocks per SM of the bf16 K4 and K5 kernel with an f32, a bool and no
+    mask (the runtime's occupancy calculator), and the waves of a
+    [B, H, N, dh] call's (H, N / 64, B) grid with an f32 mask."""
+    import ctypes
+
+    from msvit_tpu_torch.ops import _build
+
+    lib = _build.library()
+    per_sm = {}
+    for name, shaved in (("K4", 1), ("K5", 0)):
+        for mask, kind in (("f32", 2), ("bool", 1), ("none", 0)):
+            n = ctypes.c_int(0)
+            _build.check(lib, lib.msvit_fused_attention_occupancy(dh, kind, shaved,
+                                                                  ctypes.byref(n)),
+                         "msvit_fused_attention_occupancy")
+            per_sm[f"{name} {mask} mask"] = n.value
+    b, h, n = shape
+    blocks = b * h * -(-n // 64)
+    slots = torch.cuda.get_device_properties(0).multi_processor_count * per_sm["K5 f32 mask"]
+    return (f"blocks per SM at dh {dh}: {per_sm}; {blocks} blocks of [{b},{h},{n},{dh}] "
+            f"over {slots} slots with the f32 mask: {blocks / slots!r} waves")
 
 
 def _ms_train_counts() -> dict:
@@ -1079,14 +1135,18 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
         b_lib = library_ms(sdpa_bwd(q, k, v, gb, soft))
         b_alone = device_ms(lambda: flash_attention_bwd(q, k, v, wo, gb, wl, soft),
                             "flash_bwd_d(?:q|kv)_mma_kernel")
+        f_alone = device_ms(lambda: fused_attention_lse(q, k, v, mask=soft), "flash_mma_kernel")
     torch.cuda.synchronize()
-    f_bound = bound([q, k, v, soft], [wo, wl], attn_ops(b, h, n, n, dh, 2), torch.bfloat16)
+    f_ops = attn_ops(b, h, n, n, dh, 2)
+    f_bound = bound([q, k, v, soft], [wo, wl], f_ops, torch.bfloat16)
     # K6 writes dq, dk, dv: the shapes of q, k, v
     b_bound = bound([q, k, v, wo, gb, wl, soft], [q, k, v], attn_ops(b, h, n, n, dh, 5),
                     torch.bfloat16)
     log(f"[ms-train-kernels] K5-lse bf16 {list(MS_SHAPE)} soft mask: kernel {f_ms!r} ms, "
         f"plain {f_plain!r} ms, library (scaled_dot_product_attention, the mask in bf16) "
-        f"{f_lib!r} ms, bound {f_bound} (median of 20, CUDA events; {smi})")
+        f"{f_lib!r} ms, bound {f_bound}; {rate(f_ops, f_ms, f_bound)} (median of 20, "
+        f"CUDA events; {smi}); the kernel alone {f_alone!r} ms (device time, "
+        f"torch.profiler; {rate(f_ops, f_alone, f_bound)})")
     b_ops = attn_ops(b, h, n, n, dh, 5)
     log(f"[ms-train-kernels] K6 bf16 {list(MS_SHAPE)} soft mask: kernel {b_ms!r} ms, "
         f"plain {b_plain!r} ms, library (the backward of that call) {b_lib!r} ms, bound "
@@ -1094,7 +1154,7 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
         f"events; {smi}); its two kernels alone {b_alone!r} ms (device time, "
         f"torch.profiler)")
     return {"K5-lse": dict(err=errs[0][0], ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
-                           **f_bound),
+                           kernel_alone_ms=f_alone, bit_equal=same, **f_bound),
             "K6": dict(err=errs[0][1], ms=b_ms, plain_ms=b_plain, library_ms=b_lib,
                        kernel_alone_ms=b_alone, **b_bound)}
 
@@ -1176,7 +1236,8 @@ def ms_train_phase(dev, smi: str) -> dict:
     """`Trainer` takes 10 steps of the TX/RX tokens and the classifier at
     the bench config on a fixed batch, step s drawing from a generator
     seeded with `fold_in(seed, s)` (dropout and the clustering `Rng`):
-    losses, frozen weights, launches, ms/step, memory, host syncs."""
+    losses, frozen weights, launches, ms/step, memory, host syncs, device
+    time per step."""
     from msvit_tpu_torch.examples.train_multistate import loss_fn, trainable
     from msvit_tpu_torch.train import Trainer, make_optimizer
 
@@ -1197,13 +1258,25 @@ def ms_train_phase(dev, smi: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     syncs = _syncs(lambda: tr.fit(itertools.repeat(batch), num_steps=11, seed=0))
     ms = statistics.median(times[1:])
+    step = [11]
+
+    def one_step():
+        step[0] += 1
+        tr.fit(itertools.repeat(batch), num_steps=step[0], seed=0)
+
+    # K5-lse's and K6's kernels (and the CUDA-core kernels that ran K5-lse in
+    # bf16 before the tensor-core one, so that an older tree reads the same)
+    d_step, attn = device_profile(
+        one_step, "flash_mma_kernel|fused_attention_kernel|flash_bwd_d(?:q|kv)")
     unchanged = all(torch.equal(p.detach(), frozen[n]) for n, p in model.named_parameters()
                     if n in frozen)
     log(f"[ms-train] 10 Trainer steps bs{MS_BATCH} (TX/RX + classifier trainable, "
         f"{len(frozen)} frozen tensors): losses {losses}; median {ms!r} ms/step "
         f"({MS_BATCH / ms * 1e3!r} img/s, steps 2-10, host clock, each ending in the "
         f"loss read); peak memory {peak!r} GiB; host syncs per step {syncs}; frozen "
-        f"weights bit-equal {unchanged}; launches {launches} ({smi})")
+        f"weights bit-equal {unchanged}; launches {launches}; device time per step "
+        f"{d_step!r} ms (every kernel, copy and set summed, torch.profiler, 3 steps "
+        f"after 1), K5-lse and K6 {attn / d_step!r} of it ({smi})")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError("multistate training: a loss is not finite or did not fall")
     if not unchanged:
@@ -2053,19 +2126,21 @@ def bootstrap_phase(dev, smi: str, ckpt: str) -> None:
 
 
 def _summary(r: dict) -> dict:
-    """A timed call's numbers for the kernels line (the kernel alone too,
-    where its phase took it)."""
+    """A timed call's numbers for the kernels line (the kernel alone and the
+    share of elements bit-equal to plain too, where its phase took them)."""
     return dict(max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 share_of_bound=r["bound_ms"] / r["ms"],
-                **{k: r[k] for k in ("kernel_alone_ms",) if k in r})
+                **{k: r[k] for k in ("kernel_alone_ms", "bit_equal") if k in r})
 
 
 def ptxas_lines() -> list:
     """Registers and spills of the packed (bf16 K1, K1-lse and K2 on the
-    tensor cores, f32 on the CUDA cores), the fused, the flash (bf16 K7 and
-    K6 on the tensor cores), the banded (bf16 K10 on the tensor cores) and
-    the int8 kernels from ptxas's report."""
+    tensor cores, f32 on the CUDA cores), the fused and flash (bf16 K4, K5,
+    K7 and K6 on the tensor cores: K4, K5 and K7 are instantiations of one
+    tile body, told apart by their source and the SHAVED flag), the banded
+    (bf16 K10 on the tensor cores) and the int8 kernels from ptxas's
+    report."""
     from msvit_tpu_torch.ops import _build
 
     kernels = (r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8|lse)(?:_mma)?_kernel|"
@@ -2080,8 +2155,11 @@ def ptxas_lines() -> list:
             "flash_bwd_dq_mma_kernel": "K6", "flash_bwd_dkv_mma_kernel": "K6",
             "banded_kernel": "K10", "banded_mma_kernel": "K10",
             "packed_attention_int8_kernel": None}
-    out, name = [], None
+    out, name, unit = [], None, None
     for line in _build.ptxas_report().read_text().splitlines():
+        if line.startswith("$ "):  # the nvcc command of the next source
+            unit = re.search(r"(\w+)\.cu$", line).group(1)
+            continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name, spill = m.group(1), "spills not reported"
@@ -2093,7 +2171,9 @@ def ptxas_lines() -> list:
         found = re.search(kernels, name) if m and name else None
         if found:
             kern = found.group(0)
-            if kern == "fused_attention_kernel":  # K5-lse is K5 with an lse pointer
+            if kern == "fused_attention_kernel" or (
+                    kern == "flash_mma_kernel" and unit == "fused_attention"):
+                # K5-lse is K5 with an lse pointer; K4 is the SHAVED one
                 tag = "K4" if "Lb1E" in name else "K5/K5-lse"
             elif kern == "packed_attention_int8_kernel":
                 tag = "K9" if "Lb1E" in name else "K3"

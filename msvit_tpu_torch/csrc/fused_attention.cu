@@ -24,20 +24,37 @@
 // add the additive mask, then where-valid with mask_value, then (K4) clip.
 //
 // What bounds it on the card: 4*Nq*Nk*dh FLOP per head against
-// 2*(Nq + 2*Nk)*dh bytes of q/k/v/out (bf16) plus the mask's Nq*Nk entries;
-// at the multistate trunk (Nq = Nk = 816, dh = 64) it is compute bound.
-// This first version does the products on the CUDA cores in f32 FMAs (no
-// tensor cores), as the packed kernels do.  What the design does about it:
-// the [Nq, Nk] scores never leave registers (one pass over the kv tiles),
-// k/v tiles are staged once per block in shared memory with coalesced
-// 16-byte loads and read by all 64 query rows as broadcasts.  The TPU
-// tiling (128-padding of N, the heads-per-program VMEM budget, the
-// transposed P.V that fills the MXU's lanes) does not carry over.
+// 2*(Nq + 2*Nk)*dh bytes of q/k/v/out plus the mask's Nq*Nk entries; at the
+// multistate trunk ([8, 12, 816, 64] bf16 with the served partition's
+// [8, 1, 816, 816] f32 soft mask) 0.0165 ms of operations against 0.0183 ms
+// of bytes, with the mask read once: the tensor cores' rate and the mask's
+// reads, shared by 12 heads, both count.
+//
+// bf16, on the tensor cores: `flash_mma_kernel` of `attention_mma.cuh`, the
+// tile body K7 runs, instantiated here with SHAVED = false for K5 and K5-lse
+// (the exact online softmax: at one head's whole score row it computes the
+// TPU's single-pass softmax; the lse a pointer that may be null) and
+// SHAVED = true for K4 (no max, x clamped to +-80 log2e, o / l).  What the
+// design does about the bounds: mma.sync tiles of 64 query rows, k/v and
+// mask tiles streamed through a cp.async ring, the scores never leave
+// registers, p rounded into P.V's A fragments; the grid is (H, q tiles, B),
+// head fastest, so that the 12 heads of a query tile meet their broadcast
+// mask panel in L2 (the header has the details).  At 816 tokens: 13 query
+// tiles (the last with 3 active warps of 4) and 13 key tiles (the last 48
+// keys, three 16-key blocks).
+//
+// f32, on the CUDA cores (fused_attention_kernel; TF32 would break the f32
+// bars): one thread per query row holding q and the output accumulator in
+// f32 registers, k/v tiles staged once per block in shared memory with
+// coalesced 16-byte loads and read by all 64 query rows as broadcasts; the
+// [Nq, Nk] scores never leave registers.
 //
 // K5 runs an online softmax from m = -inf: a new running max rescales l and
 // the accumulator by exp(m_old - m_new) (0 at the first score), and a -inf
 // score weighs 0, so there is no N limit and -inf - -inf never forms; a row
 // with l == 0 (every score -inf) gives zeros, the TPU kernel's l == 0 guard.
+// K4 has no max: an additive -inf entry clamps to -80, as a masked one, so
+// its all -inf row is mean(V), as the TPU's and the plain version's.
 //
 // Fully masked rows: a bool row with every entry false has every score at
 // mask_value; both kernels then give mean(V) over the Nk real keys.  The
@@ -51,15 +68,10 @@
 // running max, where the plain version rounds it against the row's max: a
 // product can land one bf16 step apart.
 
-#include "common.cuh"
+#include "attention_mma.cuh"
 
 namespace msvit {
 namespace {
-
-// Element strides of q, k, v and out: image, head, row.
-struct Strides {
-  long long qb, qh, qn, kb, kh, kn, vb, vh, vn, ob, oh, on;
-};
 
 // One block = (64 query rows, head, image); one thread = one query row,
 // holding q and the output accumulator in f32 registers.  DHT is the head
@@ -219,7 +231,7 @@ int run(const void* q, const void* k, const void* v, const void* mask,
         long long mask_sh, float scale, float mask_value, void* stream) {
   if (dh <= 0 || dh > 128 || dh % 8 != 0 || nq <= 0 || nk <= 0 || b <= 0 ||
       h <= 0 || b > 65535 || h > 65535 || mask_kind < 0 || mask_kind > 2 ||
-      strides == nullptr)
+      (mask_kind != kNoMask && mask == nullptr) || strides == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
@@ -229,9 +241,10 @@ int run(const void* q, const void* k, const void* v, const void* mask,
     dispatch<float, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh,
                             mask_kind, mask_sb, mask_sh, scale, mask_value, s);
   } else if (dtype == 1) {
-    dispatch<__nv_bfloat16, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh,
-                                    mask_kind, mask_sb, mask_sh, scale,
-                                    mask_value, s);
+    return static_cast<int>(dispatch_mma<SHAVED>(q, k, v, mask, out, lse, st,
+                                                 b, h, nq, nk, dh, mask_kind,
+                                                 mask_sb, mask_sh, scale,
+                                                 mask_value, s));
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -243,13 +256,13 @@ int run(const void* q, const void* k, const void* v, const void* mask,
 
 extern "C" {
 
-// K5's forward.  dtype: 0 = float32, 1 = bfloat16.  strides: 12 element
-// strides (host memory) of q, k, v, out, each (image, head, row); every
-// row's dh elements contiguous and 16-byte aligned.  mask_kind: 0 none,
-// 1 bool (one byte per entry), 2 additive float32; mask_sb / mask_sh the
-// mask's image and head strides in elements (0 where broadcast), its last
-// two dims contiguous [Nq, Nk].  Returns cudaGetLastError() after the
-// launch.
+// K5's forward.  dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
+// cores).  strides: 12 element strides (host memory) of q, k, v, out, each
+// (image, head, row); every row's dh elements contiguous and 16-byte
+// aligned.  mask_kind: 0 none, 1 bool (one byte per entry), 2 additive
+// float32; mask_sb / mask_sh the mask's image and head strides in elements
+// (0 where broadcast), its last two dims contiguous [Nq, Nk].  Returns
+// cudaGetLastError() after the launch.
 int msvit_fused_attention(const void* q, const void* k, const void* v,
                           const void* mask, void* out, int dtype, int b,
                           int h, int nq, int nk, int dh,
@@ -287,6 +300,19 @@ int msvit_fused_attention_lse(const void* q, const void* k, const void* v,
   return msvit::run<false>(q, k, v, mask, out, static_cast<float*>(lse),
                            dtype, b, h, nq, nk, dh, strides, mask_kind,
                            mask_sb, mask_sh, scale, mask_value, stream);
+}
+
+// Blocks of the bf16 tensor-core kernel of K4 (shaved = 1) or K5/K5-lse
+// (shaved = 0) resident on one SM at head size dh (a multiple of 8, <= 128)
+// and mask_kind, by the runtime's occupancy calculator, into *blocks.
+int msvit_fused_attention_occupancy(int dh, int mask_kind, int shaved,
+                                    int* blocks) {
+  if (dh <= 0 || dh > 128 || dh % 8 != 0 || mask_kind < 0 || mask_kind > 2 ||
+      blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      shaved ? msvit::occupancy_mma<true>(dh, mask_kind, blocks)
+             : msvit::occupancy_mma<false>(dh, mask_kind, blocks));
 }
 
 }  // extern "C"

@@ -64,6 +64,8 @@ _SIGNATURES = {
     "msvit_fused_attention_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, ctypes.POINTER(_LL), _I, _LL, _LL, _F,
                                   _F, _P],
+    # dh, mask_kind, shaved, blocks (out): K4's or K5's blocks per SM
+    "msvit_fused_attention_occupancy": [_I, _I, _I, ctypes.POINTER(_I)],
     # K7 and K7-lse: as msvit_fused_attention and msvit_fused_attention_lse
     "msvit_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               ctypes.POINTER(_LL), _I, _LL, _LL, _F, _F, _P],

@@ -4,7 +4,12 @@ Attention on ``q [B, H, Nq, dh]`` and ``k, v [B, H, Nk, dh]`` (Nq != Nk
 allowed: cross-context K/V), bool (True = attend) or additive f32 masks
 ``[B|1, 1|H, Nq, Nk]`` applied after the f32 upcast.  Three kernels, one
 hand-written CUDA source for Hopper (`csrc/fused_attention.cu`) with three
-entry points, each with a plain PyTorch version beside it:
+entry points, each with a plain PyTorch version beside it.  In bf16 all
+three run on the tensor cores in the tile body K7 runs
+(`csrc/attention_mma.cuh`: `mma.sync` tiles fed by a `cp.async` ring of k/v
+and mask tiles), K5 and K5-lse with its exact online softmax and K4 with
+the shaved one; f32 runs a kernel on the CUDA cores (TF32 would not keep
+the f32 bars):
 
 * `fused_attention` -- K5, the TPU kernel `_fused_forward` without its lse
   branch: the exact, max-subtracted softmax (the bf16 eval forward of the
@@ -26,8 +31,10 @@ The kernels read q, k, v through their strides (the last dim contiguous),
 so views of the QKV GEMM output need no copy, and write the output
 ``[B, Nq, H, dh]`` in memory, returned as the ``[B, H, Nq, dh]`` view.
 As the TPU kernels, they round p to the compute dtype into P.V and sum the
-unrounded p into l; K5 and K5-lse round p against the running max, their
-plain versions against the row's max (a p can round one bf16 step apart).
+unrounded p into l; K5 and K5-lse round p against the running max of 64-key
+tiles, their plain versions against the row's max (a p can round one bf16
+step apart).  K4 has no max: an additive -inf entry clamps to -80 as a
+masked one does, so a row of them is mean(V), not zeros as in K5.
 
 Each wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches its kernel or raises: there is no fallback.

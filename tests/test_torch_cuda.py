@@ -487,6 +487,144 @@ def test_k4_k5_round_p_like_plain(dev, kernel):
     assert (got == unrounded).float().mean().item() <= 0.9
 
 
+def _fused_case(kernel, q, k, v, m):
+    """One call of K4, K5 or K5-lse (one launch) against its plain version:
+    out within the K1 bar of max(1, max |plain|), K5-lse's lse within 1e-5
+    of max(1, |lse|) and its out K5's bits.  Returns the kernel's out and
+    the bar."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    fn = {"K4": fa.fused_attention_inference, "K5": fa.fused_attention,
+          "K5-lse": fa.fused_attention_lse}[kernel]
+    before = fn.launches
+    with torch.inference_mode():
+        if kernel == "K5-lse":
+            got, lse = fn(q, k, v, mask=m)
+            want, wl = fa.fused_attention_lse_plain(q, k, v, mask=m)
+            out5 = fa.fused_attention(q, k, v, mask=m)
+        else:
+            got = fn(q, k, v, mask=m)
+            plain = (fa.fused_attention_inference_plain if kernel == "K4"
+                     else fa.fused_attention_plain)
+            want = plain(q, k, v, mask=m)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert torch.isfinite(got).all()
+    tol = _TOL[q.dtype] * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if kernel == "K5-lse":
+        assert torch.isfinite(lse).all() and _lse_err(lse, wl) <= 1e-5
+        assert torch.equal(got, out5)
+    return got, tol
+
+
+_EDGE_NS = [63, 64, 65, 127, 816]
+_EDGE_DHS = [8, 16, 40, 64, 128]
+# the other side of each N's cross case: Nq != Nk both ways
+_EDGE_NK = {63: 129, 64: 65, 65: 64, 127: 63, 816: 197}
+_EDGE_MASKS = ["bool", "bool_per_head", "additive", "additive_per_head"]
+
+
+@pytest.mark.parametrize("dh", _EDGE_DHS)
+@pytest.mark.parametrize("n", _EDGE_NS)
+def test_k4_k5_k5_lse_bf16_tile_edges(dev, n, dh):
+    """bf16 K4, K5 and K5-lse on the tensor cores where their 64-row tiles
+    have edges: N one short of, on and one past a tile, and 816 (12 tiles
+    and 48 keys), square and against a K/V length on the other side of a
+    tile edge (Nq != Nk both ways), head sizes 8-128 (8 and 40 zero-padded
+    in shared memory), bool and additive masks broadcast and per head,
+    q/k/v strided views of the QKV GEMM output or contiguous.  Against the
+    plain versions at the K1 bar; a bool mask's row 0 is fully masked:
+    mean(V) over the Nk real keys in both kernels."""
+    i = _EDGE_NS.index(n) + _EDGE_DHS.index(dh)
+    for j, (nq, nk) in enumerate(((n, n), (n, _EDGE_NK[n]))):
+        kind = _EDGE_MASKS[(i + j) % 4]
+        packed = (i // 2 + j) % 2 == 0
+        q, k, v = _heads(2, nq, nk, 2, dh, torch.bfloat16, dev, seed=90 + i, packed=packed)
+        m = _fused_mask(kind, 2, 2, nq, nk, dev, seed=91 + i)
+        for kernel in ("K4", "K5", "K5-lse"):
+            got, tol = _fused_case(kernel, q, k, v, m)
+            if kind.startswith("bool"):
+                assert (got[:, :, 0].float() - v.float().mean(2)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K5-lse"])
+@pytest.mark.parametrize("kind,nk", [("bool", 813), ("additive", 814),
+                                     ("additive_per_head", 814)])
+def test_k4_k5_unaligned_mask_rows(dev, kernel, kind, nk):
+    """bf16 mask rows that are not 16-byte aligned (bool Nk = 813: byte
+    copies; f32 Nk = 814: 4-byte copies), over 13 key tiles and a partial
+    last one, as the multistate trunk's 816 keys cut short.  A bool mask's
+    row 0 is fully masked: mean(V) over the Nk real keys."""
+    nq, h, dh = 100, 2, 64
+    q, k, v = _heads(2, nq, nk, h, dh, torch.bfloat16, dev, seed=92, packed=True)
+    m = _fused_mask(kind, 2, h, nq, nk, dev, seed=93)
+    got, tol = _fused_case(kernel, q, k, v, m)
+    if kind == "bool":
+        assert (got[:, :, 0].float() - v.float().mean(2)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("nk", [65, 70, 129])
+def test_k4_bf16_masked_and_minus_inf_rows_are_mean_v(dev, nk):
+    """K4 has no max: a fully masked bool row and an additive -inf row both
+    clamp every key to e^-80, so each is mean(V) over the Nk real keys, as
+    `fused_attention_inference_plain` gives.  Keys past Nk in the ragged
+    last tile weigh exactly 0 (never e^-80): with V shifted to a mean near
+    3, counting the 15 zero-filled keys of the last 16-key block would give
+    3 * Nk / (Nk + 15), far outside the bar."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    q, k, v = _heads(2, 70, nk, 2, 64, torch.bfloat16, dev, seed=94, packed=False)
+    v = v + 3.0
+    mean_v = v.float().mean(2)
+    mb = _fused_mask("bool", 2, 2, 70, nk, dev, seed=95)  # row 0 fully masked
+    ma = torch.zeros(2, 1, 70, nk, device=dev)
+    ma[:, :, 3] = -torch.inf
+    for m, row in ((mb, 0), (ma, 3)):
+        got, tol = _fused_case("K4", q, k, v, m)
+        with torch.inference_mode():
+            want = fa.fused_attention_inference_plain(q, k, v, mask=m)
+        assert (got[:, :, row].float() - mean_v).abs().max().item() <= tol
+        assert (want[:, :, row].float() - mean_v).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K5-lse"])
+def test_k5_bf16_minus_inf_row_gives_zeros(dev, kernel):
+    """bf16 K5 and K5-lse on the tensor cores: an additive -inf row gives
+    zeros and lse 0 (the TPU kernel's l == 0 guard), the other rows as the
+    plain version."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    q, k, v = _heads(2, 70, 130, 2, 64, torch.bfloat16, dev, seed=96, packed=True)
+    m = -100.0 * (torch.rand(2, 1, 70, 130, generator=torch.Generator().manual_seed(97))
+                  < 0.3).float()
+    m[1, 0, 3] = -torch.inf
+    m = m.to(dev)
+    got, _ = _fused_case(kernel, q, k, v, m)
+    assert torch.equal(got[1, :, 3], torch.zeros_like(got[1, :, 3]))
+    if kernel == "K5-lse":
+        with torch.inference_mode():
+            _, lse = fa.fused_attention_lse(q, k, v, mask=m)
+        assert torch.equal(lse[1, :, 3], torch.zeros_like(lse[1, :, 3]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [None, "additive", "bool"])
+def test_k4_k5_k5_lse_deterministic(dev, dtype, mask):
+    """No atomics: two calls of K4, of K5 and of K5-lse give the same bits."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    q, k, v = _heads(2, 197, 816, 3, 64, dtype, dev, seed=98, packed=True)
+    m = _fused_mask(mask, 2, 3, 197, 816, dev, seed=99)
+    with torch.inference_mode():
+        for fn in (fa.fused_attention_inference, fa.fused_attention):
+            a, b = (fn(q, k, v, mask=m) for _ in range(2))
+            assert torch.equal(a, b)
+        (a, la), (b, lb) = (fa.fused_attention_lse(q, k, v, mask=m) for _ in range(2))
+        assert torch.equal(a, b) and torch.equal(la, lb)
+
+
 # K5-lse: out as K5; lse 1e-5 of max(1, |lse|) (f32 sums in another order).
 # K6: the kernel rounds p (into dV) and ds (into dQ, dK) to the compute dtype
 # as the plain version does, but its f32 sums run in another order and can

@@ -131,6 +131,45 @@ def test_fused_plain_matches_jax(jax_fused, kernel, case, dtype):
     np.testing.assert_allclose(got, want, atol=_TOL[dtype], rtol=0)
 
 
+# (Nq, Nk, dh, mask): Nq and Nk one short of and one past a 64-row tile and
+# two tiles plus one, Nq != Nk both ways; dh 16, 64 and 128; bool (every row
+# keeps key 0) and additive soft masks, broadcast and per head
+_TILE_EDGES = [(63, 65, 16, "bool"), (65, 129, 64, "additive_per_head"),
+               (129, 63, 128, "additive"), (129, 129, 64, "bool_per_head")]
+
+
+def _edge_mask(kind, rng, nq, nk):
+    hm = H if kind.endswith("per_head") else 1
+    if kind.startswith("bool"):
+        m = rng.random((B, hm, nq, nk)) < 0.7
+        m[..., 0] = True
+        return m
+    return np.where(rng.random((B, hm, nq, nk)) < 0.3, -100.0, 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk,dh,kind", _TILE_EDGES)
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_fused_plain_matches_jax_at_tile_edges(kernel, nq, nk, dh, kind, dtype):
+    """The contract the card's bf16 tensor-core K4 and K5 are held to,
+    where their 64-row tiles have edges: K5 plain vs `fused_attention` and
+    K4 plain vs `fused_attention_inference` (JAX, interpret mode), 4 heads.
+    Tolerance: f32 1e-5, bf16 2e-2 max abs (both sides round p to bf16
+    into P.V; f32 sums in another order).  No row is fully masked: JAX's
+    keys padded to 128 weigh e^-80 in K4's l beside an attended key's ~1,
+    nothing in K5's."""
+    rng = np.random.default_rng(nq * 3 + nk + dh)
+    q, k, v = (rng.standard_normal((B, H, n, dh)).astype(np.float32) for n in (nq, nk, nk))
+    m = _edge_mask(kind, rng, nq, nk)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jfn = jfused.fused_attention if kernel == "K5" else jfused.fused_attention_inference
+    tfn = tfused.fused_attention if kernel == "K5" else tfused.fused_attention_inference
+    want = jfn(*(jnp.asarray(t, jdt) for t in (q, k, v)), mask=jnp.asarray(m))
+    got = tfn(*(torch.from_numpy(t).to(tdt) for t in (q, k, v)), mask=torch.from_numpy(m))
+    assert got.dtype == tdt and got.shape == (B, H, nq, dh)
+    np.testing.assert_allclose(_np(got), _np(want), atol=_TOL[dtype], rtol=0)
+
+
 def _flat_rows(q, k, m):
     """[B, H, Nq] bool: rows whose scaled, masked logits are all < -80."""
     s = np.einsum("bhqd,bhkd->bhqk", q, k) / DH**0.5

@@ -122,6 +122,40 @@ def test_k5_lse_plain_matches_jax(jax_fwd, shape, mask, dtype):
                                atol=1e-5 * max(1.0, float(np.abs(_np(want_lse)).max())), rtol=0)
 
 
+# (Nq, Nk, heads, dh, mask): Nq and Nk one short of and one past a 64-row
+# tile and two tiles plus one, Nq != Nk both ways; dh 16, 64 and 128
+_TILE_EDGES = [(63, 65, 2, 16, "bool_per_head"), (65, 129, 2, 64, "soft"),
+               (129, 63, 2, 128, "bool_broadcast"), (129, 129, 2, 64, "soft")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk,h,dh,mask", _TILE_EDGES)
+def test_k5_lse_plain_matches_jax_at_tile_edges(nq, nk, h, dh, mask, dtype):
+    """The contract the card's bf16 tensor-core K5-lse is held to, where
+    its 64-row tiles have edges: the plain version vs `_fused_forward(
+    with_lse=True)` (interpret mode), out within the dtype's bar (f32 1e-5,
+    bf16 2e-2, of max(1, max |JAX|)), the compact lse within 1e-5 of
+    max(1, |lse|).  No row is fully masked."""
+    rng = np.random.default_rng(nq * 5 + nk + dh)
+    q, k, v = (rng.standard_normal((B, h, n, dh)).astype(np.float32) for n in (nq, nk, nk))
+    if mask == "soft":
+        m = np.where(rng.random((B, 1, nq, nk)) < 0.3, -100.0, 0.0).astype(np.float32)
+    else:
+        m = rng.random((B, h if mask == "bool_per_head" else 1, nq, nk)) < 0.7
+        m[..., 0] = True
+    jdt = getattr(jnp, dtype)
+    want_out, want_lse = jfused._fused_forward(
+        *(jnp.asarray(t, jdt) for t in (q, k, v)), jnp.asarray(m), scale=dh**-0.5,
+        mask_value=DEFAULT_MASK_VALUE, with_lse=True)
+    tq, tk, tv = _torch((q, k, v), dtype)
+    out, lse = tfused.fused_attention_lse(tq, tk, tv, mask=torch.from_numpy(m))
+    assert out.dtype == tq.dtype and out.shape == (B, h, nq, dh)
+    _close(out, want_out, dtype)
+    want_lse = _np(want_lse)[:, :, :nq, 0]
+    np.testing.assert_allclose(_np(lse), want_lse,
+                               atol=1e-5 * max(1.0, float(np.abs(want_lse).max())), rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mask", _MASKS)
 @pytest.mark.parametrize("shape", list(_SHAPES))
