@@ -14,14 +14,17 @@ fails (non-zero exit, no result line) if any phase fails:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (max abs error against a stated tolerance), then
    both timed with CUDA events in turns (plain, kernel, kernel, plain):
-   K1 and K3 (serving), K1-lse and K2 (training; masked, f32, large-logit
-   in f32 and bf16 and dh-128 cases too; their achieved TFLOP/s and share
-   of the bound);
+   K1 and K3 (serving; K3 on the int8 tensor cores also alone by
+   `torch.profiler`, with its share bit-equal to plain, its rate, its
+   blocks per SM and K1 beside it as the bf16 yardstick), K1-lse and K2
+   (training; masked, f32, large-logit in f32 and bf16 and dh-128 cases
+   too; their achieved TFLOP/s and share of the bound);
 4. serving: ViT-B/16 @224 with seeded random weights, int8-quantized and
    calibrated, served by `BatchingServer` (int8 buckets > 2, bf16 buckets
    of 1 and 2, uint8 requests, CLS features out); checks every response,
    bf16 against the plain attention path, int8 against bf16, and that K1
-   and K3 were launched by the served requests;
+   and K3 were launched by the served requests; the int8 bs64 forward's
+   device time and K3's share of it (`torch.profiler`);
 5. gradient: `ViTForImageClassification` (ViT-B/16, 1000 labels) loss and
    gradients on the kernel path against the plain attention path, same
    weights, bs64;
@@ -62,7 +65,8 @@ fails (non-zero exit, no result line) if any phase fails:
 14. the int8 apply's other attention modes at `bench.py`'s 224-px config:
    `attn_mode="int8"` (K9, calibrated scales) and `"banded"` (K10), each
    against `"bf16"` without clustering events, and with them valid outputs,
-   11 launches per forward, the partition's agreement, ms/batch;
+   11 launches per forward, the partition's agreement, ms/batch; the int8
+   forward's device time and K9's share of it;
 15. multistate serving at 448 px (`benchmarks/bench_multistate.py`'s
    `i448:shared1024/256`: 3168 tokens, shared-anchor NCut), the seeded
    scene at 448: the bf16 and int8 forwards (K7 in 11 layers, K4 and K5 in
@@ -80,8 +84,10 @@ fails (non-zero exit, no result line) if any phase fails:
    448 partition ([8, 32+3136, 2304]; also one cluster, the layers before
    the first event) and the 224 one ([8, 32+784, 2304]), then timed;
 18. masked int8 kernel: K9 against its plain version at [8,816,2304] with
-   the 224 partition's soft mask and a bool mask, bf16 and int8 out, then
-   timed;
+   the 224 partition's soft mask and a bool mask (its fully masked row
+   mean(V)), bf16 and int8 out, the share bit-equal to plain, then timed
+   through the wrapper and alone, beside bf16 K4 at the same shape and
+   mask; its blocks per SM;
 19. grouped kernels: K1, K1-lse and K2 at the shapes of the TPU's
    head-grouped functions K8a and K8b, which they stand for: bf16
    [64,785,2304], f32 [16,785,2304], the soft-masked [8,816,2304], masked
@@ -237,30 +243,70 @@ def race(kernel, plain) -> tuple:
     return statistics.median(k1 + k2), statistics.median(p1 + p2)
 
 
-def device_ms(fn, pattern: str, runs: int = 10) -> float:
+def device_ms(fn, pattern: str, kernels: int = 1, runs: int = 10) -> float:
     """Device time (ms) per call of the kernels whose names match `pattern`
-    (`torch.profiler`, `runs` calls after one of warm-up): a kernel alone,
-    without the host work and launches around it."""
-    return device_profile(fn, pattern, runs)[1]
+    (`kernels` launches of them a call; `runs` calls): a kernel alone,
+    without the host work and launches around it.  Per kernel name, the
+    median of its launches' times in a whole profile (`device_profile`)."""
+    return device_profile(fn, pattern, kernels, runs, median=True)[1]
 
 
-def device_profile(fn, pattern: str, runs: int = 3) -> tuple:
+def device_profile(fn, pattern: str, kernels: int, runs: int = 3,
+                   median: bool = False) -> tuple:
     """Device time (ms) per call of `fn`, summed over every kernel, copy and
     set it ran on the card, and the part of it in the kernels whose names
-    match `pattern` (`torch.profiler`, `runs` calls after one of
-    warm-up)."""
+    match `pattern` (`torch.profiler`, `runs` calls after one of warm-up;
+    `median`: per name, the median launch times its launches per call).
+    A call launches `kernels` of those.  The profiler can lose the first
+    few launches after it starts (on the H100: 3 of 10 calls of K4; a
+    mark after 2 calls of K4, or first, even 50 ms in), so the counted
+    calls sit between two marks (`torch.cuda._sleep`'s spin kernel), each
+    behind or before 64 one-element adds: a profile without both marks, or
+    with another count than runs x kernels between them, is taken again,
+    at most twice, and then the readout fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    pad = torch.zeros(1, device="cuda")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(64):
+                pad.add_(1)
+            torch.cuda._sleep(1)
+            for _ in range(runs):
+                fn()
+            torch.cuda._sleep(1)
+            for _ in range(64):
+                pad.add_(1)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if len(marks) == 2:
+            events = events[marks[0] + 1:marks[1]]
+            matched = [e for e in events if re.search(pattern, e.name)]
+            if len(matched) == runs * kernels:
+                break
+            log(f"[profile] {len(matched)} of {runs * kernels} launches matching "
+                f"{pattern!r} between the marks: taken again")
+        else:
+            adds = [i for i, e in enumerate(events) if "spin_kernel" not in e.name
+                    and not re.search(pattern, e.name)]
+            log(f"[profile] {len(marks)} of 2 marks in the profile (at {marks} of "
+                f"{len(events)} events; other kernels at {adds[:3]}..{adds[-3:]}): taken again")
+    else:
+        raise AssertionError(f"torch.profiler lost launches matching {pattern!r} in three "
+                             f"profiles of {runs} calls")
     total = sum(e.device_time_total for e in events)
-    part = sum(e.device_time_total for e in events if re.search(pattern, e.name))
+    if median:
+        times = {}
+        for e in matched:
+            times.setdefault(e.name, []).append(e.device_time_total)
+        part = sum(statistics.median(t) * len(t) for t in times.values())
+    else:
+        part = sum(e.device_time_total for e in matched)
     return total / runs / 1e3, part / runs / 1e3
 
 
@@ -335,6 +381,7 @@ def kernel_phase(dev, smi: str) -> dict:
         k1_ms, k1_plain = race(lambda: packed_attention(x, 12),
                                lambda: packed_attention_plain(x, 12))
         k1_lib = library_ms(lambda: sdpa(*unpack_qkv(x, 12)))
+        k1_alone = device_ms(lambda: packed_attention(x, 12), "packed_mma_kernel")
         b, n, d3 = MAIN_SHAPE
         ops = attn_ops(b, 12, n, n, d3 // 36, 2)
         k1_bound = bound([x], [out], ops, torch.bfloat16)
@@ -356,9 +403,7 @@ def kernel_phase(dev, smi: str) -> dict:
               K1_TOL[torch.float32])
 
         # K3, main path shape: per-section quantized qkv
-        xf = torch.randn(MAIN_SHAPE, generator=g).to(dev) * 0.5
-        sec = xf.reshape(-1, 3, 768).abs().amax(dim=(0, 2)) / 127.0
-        q = torch.clamp(torch.round(xf / sec.repeat_interleave(768)), -127, 127).to(torch.int8)
+        _, q, sec = int8_qkv(g, MAIN_SHAPE, dev, scale=0.5)
         got, want = packed_attention_int8(q, sec, 12), packed_attention_int8_plain(q, sec, 12)
         e_k3 = check("K3 int8 [64,197,2304] bf16 out", max_err(got, want),
                      K3_BF16_REL_TOL * want.float().abs().max().item())
@@ -367,25 +412,71 @@ def kernel_phase(dev, smi: str) -> dict:
         wq = packed_attention_int8_plain(q, sec, 12, out_inv_scale=inv, int8_out=True)
         delta = (gq.int() - wq.int()).abs()
         same = (delta == 0).float().mean().item()
+        same_bf16 = (got == want).float().mean().item()
         log(f"[kernels] K3 int8 [64,197,2304] int8 out: max |delta| "
             f"{delta.max().item()} (tolerance 1), exactly equal {same!r} "
-            f"(tolerance >= 0.99)")
+            f"(tolerance >= 0.99); bf16 out bit-equal to plain on {same_bf16!r} "
+            f"of the elements")
         if delta.max().item() > 1 or same < 0.99:
             raise AssertionError("K3 int8 out disagrees with its plain version")
         k3_ms, k3_plain = race(
             lambda: packed_attention_int8(q, sec, 12, out_inv_scale=inv, int8_out=True),
             lambda: packed_attention_int8_plain(q, sec, 12, out_inv_scale=inv,
                                                 int8_out=True))
+        k3_alone = device_ms(
+            lambda: packed_attention_int8(q, sec, 12, out_inv_scale=inv, int8_out=True),
+            "packed_attention_int8_kernel")
         k3_bound = bound([q, sec], [gq], ops, torch.int8)
     torch.cuda.synchronize()
     log(f"[kernels] K1 bf16 [64,197,2304]: kernel {k1_ms!r} ms, plain {k1_plain!r} ms, "
         f"library (scaled_dot_product_attention) {k1_lib!r} ms, bound {k1_bound}; "
         f"{rate(ops, k1_ms, k1_bound)} (median of 20, CUDA events; {smi})")
     log(f"[kernels] K3 int8-out [64,197,2304]: kernel {k3_ms!r} ms, plain {k3_plain!r} ms, "
-        f"no library call, bound {k3_bound} (median of 20, CUDA events; {smi})")
-    res["K1"] = dict(err=e_k1, ms=k1_ms, plain_ms=k1_plain, library_ms=k1_lib, **k1_bound)
-    res["K3"] = dict(err=e_k3, ms=k3_ms, plain_ms=k3_plain, library_ms=None, **k3_bound)
+        f"no library call, bound {k3_bound}; {rate(ops, k3_ms, k3_bound)} (median of 20, "
+        f"CUDA events; {smi}); the kernel alone {k3_alone!r} ms (device time, "
+        f"torch.profiler; {rate(ops, k3_alone, k3_bound)}; the kernel runs q.k twice: "
+        f"{1.5 * ops / k3_alone / 1e9!r} TOP/s executed); yardstick K1 bf16 at the same "
+        f"shape {k1_ms!r} ms, alone {k1_alone!r} ms")
+    log(f"[kernels] {int8_occupancy(64, (b, 12, n), masked=False)} ({smi})")
+    res["K1"] = dict(err=e_k1, ms=k1_ms, plain_ms=k1_plain, library_ms=k1_lib,
+                     kernel_alone_ms=k1_alone, **k1_bound)
+    res["K3"] = dict(err=e_k3, ms=k3_ms, plain_ms=k3_plain, library_ms=None,
+                     kernel_alone_ms=k3_alone, bit_equal=same, **k3_bound)
     return res
+
+
+def int8_qkv(gen, shape: tuple, dev, scale: float = 1.0) -> tuple:
+    """Per-section quantized qkv [B, N, 3D] (K3's and K9's input): the f32
+    draw times `scale`, its int8 codes and the q, k, v sections' scales."""
+    xf = torch.randn(shape, generator=gen).to(dev) * scale
+    d = shape[-1] // 3
+    sec = xf.reshape(-1, 3, d).abs().amax(dim=(0, 2)) / 127.0
+    q = torch.clamp(torch.round(xf / sec.repeat_interleave(d)), -127, 127).to(torch.int8)
+    return xf, q, sec
+
+
+def int8_occupancy(dh: int, shape: tuple, masked: bool) -> str:
+    """Blocks per SM of the int8 kernel (K3, or K9 with a bf16, a bool and
+    no mask; the runtime's occupancy calculator), and the waves of a
+    [B, H, N] call's (H, N / 64, B) grid."""
+    import ctypes
+
+    from msvit_tpu_torch.ops import _build
+
+    lib = _build.library()
+    per_sm = {}
+    for mask, kind in ((("bf16", 2), ("bool", 1), ("none", 0)) if masked else (("none", 0),)):
+        got = ctypes.c_int(0)
+        _build.check(lib, lib.msvit_packed_attention_int8_occupancy(
+            dh, int(masked), kind, ctypes.byref(got)), "msvit_packed_attention_int8_occupancy")
+        per_sm[f"{'K9' if masked else 'K3'} {mask} mask"] = got.value
+    b, h, n = shape
+    tiles = -(-n // 64)
+    blocks = b * h * tiles
+    slots = torch.cuda.get_device_properties(0).multi_processor_count * list(per_sm.values())[0]
+    return (f"int8 kernel blocks per SM at dh {dh}: {per_sm}; {blocks} blocks of "
+            f"[{b},{h},{n},{dh}] over {slots} slots: {blocks / slots!r} waves; "
+            f"{-(-n // 16)} of {4 * tiles} warps of a head's blocks hold rows")
 
 
 def cos(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -394,25 +485,20 @@ def cos(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def slice_phase(dev, smi: str) -> dict:
-    from msvit_tpu_torch.models.base import BaseViTConfig, ViTModel
-    from msvit_tpu_torch.models.base.quantized import (
-        calibrate_act_scales, quantize_vit_params, quantized_vit_apply)
+    from msvit_tpu_torch.models.base import ViTModel
+    from msvit_tpu_torch.models.base.quantized import quantized_vit_apply
     from msvit_tpu_torch.ops.packed_attention import (
         packed_attention, packed_attention_int8)
     from msvit_tpu_torch.serve import BatchingServer
 
     t0 = time.perf_counter()
-    cfg = BaseViTConfig()  # ViT-B/16 @224, bf16 compute, f32 params
-    model = ViTModel(cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
-    qparams = quantize_vit_params(model)
-    calib = torch.randn(64, 224, 224, 3, generator=torch.Generator().manual_seed(1)).to(dev)
-    scales = calibrate_act_scales(qparams, cfg, calib)
+    cfg, model, qparams, scales = vit_int8(dev)
     torch.cuda.synchronize()
     log(f"[slice] ViT-B/16 built, quantized, calibrated on 64 images in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def normalize(u8):  # uint8 wire -> f32 on the device
-        return torch.from_numpy(u8).to(dev).float() / 127.5 - 1.0
+    def normalize(u8):
+        return wire_pixels(u8, dev)
 
     def int8_fn(u8):
         with torch.inference_mode():
@@ -424,7 +510,7 @@ def slice_phase(dev, smi: str) -> dict:
             f = model(normalize(u8))["last_hidden_state"]
             return f[:, 0].float(), torch.zeros(len(u8), device=dev)
 
-    images = np.random.default_rng(0).integers(0, 256, (32, 224, 224, 3), dtype=np.uint8)
+    images = serving_images()
     responses = []  # (image index, (features, route))
     with BatchingServer(int8_fn, images[0], max_batch=64, max_wait_ms=5.0,
                         small_apply_fn=bf16_fn, small_bucket_max=2) as srv:
@@ -492,7 +578,47 @@ def slice_phase(dev, smi: str) -> dict:
         raise AssertionError("bf16 features disagree with the plain path")
     if c_int8 < 0.98:
         raise AssertionError("int8 features disagree with bf16")
+    total, k3 = int8_forward_profile(qparams, cfg, scales, normalize(np.concatenate([images] * 2)))
+    log(f"[slice] device time per int8 bs64 forward (every kernel, copy and set summed, "
+        f"torch.profiler, 3 forwards after 1 of warm-up): {total!r} ms, K3 {k3!r} ms, "
+        f"{k3 / total!r} of it ({smi})")
     return launches
+
+
+def vit_int8(dev) -> tuple:
+    """ViT-B/16 @224 (bf16 compute, f32 params) drawn from seed 0, its int8
+    weights and the activation scales calibrated on 64 seeded images:
+    (cfg, model, qparams, scales)."""
+    from msvit_tpu_torch.models.base import BaseViTConfig, ViTModel
+    from msvit_tpu_torch.models.base.quantized import calibrate_act_scales, quantize_vit_params
+
+    cfg = BaseViTConfig()
+    model = ViTModel(cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
+    qparams = quantize_vit_params(model)
+    calib = torch.randn(64, 224, 224, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    return cfg, model, qparams, calibrate_act_scales(qparams, cfg, calib)
+
+
+def serving_images() -> np.ndarray:
+    """The 32 seeded uint8 images the slice serves."""
+    return np.random.default_rng(0).integers(0, 256, (32, 224, 224, 3), dtype=np.uint8)
+
+
+def wire_pixels(u8: np.ndarray, dev) -> torch.Tensor:
+    """uint8 wire images -> f32 in [-1, 1] on the device."""
+    return torch.from_numpy(u8).to(dev).float() / 127.5 - 1.0
+
+
+def int8_forward_profile(qparams, cfg, scales, pix) -> tuple:
+    """Device time per int8 forward of ViT-B/16 on `pix` and the part of it
+    in K3 (`device_profile`)."""
+    from msvit_tpu_torch.models.base.quantized import quantized_vit_apply
+
+    def fwd():
+        with torch.inference_mode():
+            quantized_vit_apply(qparams, cfg, pix, act_scales=scales)
+
+    return device_profile(fwd, "packed_attention_int8_kernel", cfg.num_hidden_layers)
 
 
 
@@ -654,11 +780,12 @@ def gradient_phase(dev, smi: str) -> None:
 
 
 def warmup_cosine(peak: float, warmup: int, total: int):
-    def lr(step: int) -> float:
-        if step < warmup:
-            return peak * (step + 1) / warmup
-        t = (step - warmup) / max(1, total - warmup)
-        return 0.5 * peak * (1.0 + math.cos(math.pi * min(1.0, t)))
+    """The schedule takes the optimizer's device count (a 0-d int32 tensor):
+    torch ops only, no host read."""
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        t = torch.clamp((step - warmup).float() / max(1, total - warmup), max=1.0)
+        return torch.where(step < warmup, peak * (step + 1).float() / warmup,
+                           0.5 * peak * (1.0 + torch.cos(math.pi * t)))
 
     return lr
 
@@ -934,8 +1061,8 @@ def multistate_phase(dev, smi: str) -> tuple:
     # K4's and K5's kernel (and the CUDA-core kernel, which ran them in bf16
     # before the tensor-core one, so that an older tree reads the same way)
     attn = "flash_mma_kernel|fused_attention_kernel"
-    d_int8, k4 = device_profile(lambda: int8(cfg), attn)
-    d_bf16, k5 = device_profile(lambda: bf16(model), attn)
+    d_int8, k4 = device_profile(lambda: int8(cfg), attn, LAYERS - 1)
+    d_bf16, k5 = device_profile(lambda: bf16(model), attn, LAYERS - 1)
     log(f"[multistate] device time per forward with clustering (every kernel, copy and "
         f"set summed, torch.profiler, 3 forwards after 1 of warm-up): int8 {d_int8!r} "
         f"ms, K4 {k4 / d_int8!r} of it; bf16 {d_bf16!r} ms, K5 {k5 / d_bf16!r} of it "
@@ -1134,7 +1261,7 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
         f_lib = library_ms(lambda: sdpa(q, k, v, soft))
         b_lib = library_ms(sdpa_bwd(q, k, v, gb, soft))
         b_alone = device_ms(lambda: flash_attention_bwd(q, k, v, wo, gb, wl, soft),
-                            "flash_bwd_d(?:q|kv)_mma_kernel")
+                            "flash_bwd_d(?:q|kv)_mma_kernel", kernels=2)
         f_alone = device_ms(lambda: fused_attention_lse(q, k, v, mask=soft), "flash_mma_kernel")
     torch.cuda.synchronize()
     f_ops = attn_ops(b, h, n, n, dh, 2)
@@ -1265,9 +1392,11 @@ def ms_train_phase(dev, smi: str) -> dict:
         tr.fit(itertools.repeat(batch), num_steps=step[0], seed=0)
 
     # K5-lse's and K6's kernels (and the CUDA-core kernels that ran K5-lse in
-    # bf16 before the tensor-core one, so that an older tree reads the same)
+    # bf16 before the tensor-core one, so that an older tree reads the same):
+    # a step launches K5-lse and K6's two kernels once a layer
     d_step, attn = device_profile(
-        one_step, "flash_mma_kernel|fused_attention_kernel|flash_bwd_d(?:q|kv)")
+        one_step, "flash_mma_kernel|fused_attention_kernel|flash_bwd_d(?:q|kv)",
+        3 * (LAYERS - 1))
     unchanged = all(torch.equal(p.detach(), frozen[n]) for n, p in model.named_parameters()
                     if n in frozen)
     log(f"[ms-train] 10 Trainer steps bs{MS_BATCH} (TX/RX + classifier trainable, "
@@ -1532,23 +1661,8 @@ def ms224_attn_modes_phase(dev, smi: str) -> dict:
     `attn_mode="bf16"` (K4) with the same weights and draws: without
     clustering events the outputs' cosine; with them valid outputs, 11
     launches per forward, the partition's agreement, ms/batch."""
-    from msvit_tpu_torch.models.multistate import (
-        MultiStateViTEncoderModel, calibrate_multistate_act_scales,
-        quantize_multistate_params, quantized_multistate_apply)
-    from msvit_tpu_torch.utils.rng import Rng
-
-    cfg = multistate_config()
+    cfg, run = ms224_int8(dev)
     flat = multistate_config(pregeneration_period=LAYERS)
-    model = MultiStateViTEncoderModel(
-        cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
-    qparams = quantize_multistate_params(model)
-    scales = calibrate_multistate_act_scales(qparams, cfg, scene_pixels(1).to(dev), Rng(0))
-    pix = scene_pixels(2).to(dev)
-
-    def run(c, mode):
-        return quantized_multistate_apply(qparams, c, pix, Rng(3), act_scales=scales,
-                                          attn_mode=mode)
-
     ref_flat, ref = run(flat, "bf16"), run(cfg, "bf16")
     launches = {}
     for mode, k in (("int8", "K9"), ("banded", "K10")):
@@ -1571,7 +1685,42 @@ def ms224_attn_modes_phase(dev, smi: str) -> dict:
             f"({MS_BATCH / ms * 1e3!r} img/s; 5 runs after 2 of warm-up, host clock; {smi})")
         if c_flat < tol:
             raise AssertionError(f"attn_mode={mode!r} disagrees with 'bf16'")
+    total, k9 = ms224_int8_profile(cfg, run)
+    log(f"[ms224] device time per attn_mode='int8' forward with clustering (every kernel, "
+        f"copy and set summed, torch.profiler, 3 forwards after 1 of warm-up): {total!r} ms, "
+        f"K9 {k9!r} ms, {k9 / total!r} of it ({smi})")
     return launches
+
+
+def ms224_int8(dev) -> tuple:
+    """The multistate encoder at `bench.py`'s 224-px config drawn from seed
+    0 (multistate_phase's weights), its int8 weights and scales calibrated
+    on scene 1: (cfg, run), run(c, mode) the int8 apply on scene 2 under
+    config c and `attn_mode` mode, clustering draws from Rng(3)."""
+    from msvit_tpu_torch.models.multistate import (
+        MultiStateViTEncoderModel, calibrate_multistate_act_scales,
+        quantize_multistate_params, quantized_multistate_apply)
+    from msvit_tpu_torch.utils.rng import Rng
+
+    cfg = multistate_config()
+    model = MultiStateViTEncoderModel(
+        cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
+    qparams = quantize_multistate_params(model)
+    scales = calibrate_multistate_act_scales(qparams, cfg, scene_pixels(1).to(dev), Rng(0))
+    pix = scene_pixels(2).to(dev)
+
+    def run(c, mode):
+        return quantized_multistate_apply(qparams, c, pix, Rng(3), act_scales=scales,
+                                          attn_mode=mode)
+
+    return cfg, run
+
+
+def ms224_int8_profile(cfg, run) -> tuple:
+    """Device time per attn_mode="int8" forward with clustering and the
+    part of it in K9 (`device_profile`)."""
+    return device_profile(lambda: run(cfg, "int8"), "packed_attention_int8_kernel",
+                          LAYERS - 1)
 
 
 def _soft(ids, n_clusters):
@@ -1763,17 +1912,18 @@ def banded_kernel_phase(dev, smi: str, part448, part224) -> dict:
 def int8_attn_kernel_phase(dev, smi: str, partition) -> dict:
     """K9 against its plain version at [8,816,2304] (per-section quantized
     qkv) with the 224 partition's soft mask, bf16 and int8 out, also a bool
-    mask with a fully masked row; then the int8-out call timed."""
+    mask with a fully masked row (mean(V)); the share bit-equal to plain;
+    then the int8-out call timed, through the wrapper and alone, beside
+    bf16 K4 at the same shape and mask; the kernel's blocks per SM."""
+    from msvit_tpu_torch.ops.fused_attention import fused_attention_inference
     from msvit_tpu_torch.ops.packed_attention import (
-        packed_attention_int8_masked, packed_attention_int8_masked_plain)
+        packed_attention_int8_masked, packed_attention_int8_masked_plain, unpack_qkv)
 
     b, h, n, dh = MS_SHAPE
     d = h * dh
     gen = torch.Generator().manual_seed(12)
     soft = _soft(*partition)
-    xf = torch.randn(b, n, 3 * d, generator=gen).to(dev)
-    sec = xf.reshape(-1, 3, d).abs().amax(dim=(0, 2)) / 127.0
-    q = torch.clamp(torch.round(xf / sec.repeat_interleave(d)), -127, 127).to(torch.int8)
+    xf, q, sec = int8_qkv(gen, (b, n, 3 * d), dev)
     mb = torch.rand(b, 1, n, n, generator=gen) < 0.7
     mb[0, 0, 5, :] = False
     mb = mb.to(dev)
@@ -1790,24 +1940,45 @@ def int8_attn_kernel_phase(dev, smi: str, partition) -> dict:
                                                     int8_out=True)
             delta = (gq.int() - wq.int()).abs()
             same = (delta == 0).float().mean().item()
+            same_bf16 = (got == want).float().mean().item()
             log(f"[int8-attn-kernels] K9 int8 [8,816,2304] {label}, int8 out: max |delta| "
-                f"{delta.max().item()} (tolerance 1), exactly equal {same!r} (tolerance >= 0.99)")
+                f"{delta.max().item()} (tolerance 1), exactly equal {same!r} (tolerance >= "
+                f"0.99); bf16 out bit-equal to plain on {same_bf16!r} of the elements")
             if delta.max().item() > 1 or same < 0.99:
                 raise AssertionError("K9 int8 out disagrees with its plain version")
             if m is soft:
-                err, args = e_b, (inv, gq)
-        inv, gq = args
+                err, args = e_b, (inv, gq, same)
+            else:  # the fully masked row is mean(V): s_v times the mean of v
+                mean = q[0, :, 2 * d:].float().mean(0) * sec[2]
+                _check("int8-attn-kernels", "K9 bool mask: the fully masked row vs mean(V)",
+                       max_err(got[0, 5], mean), K3_BF16_REL_TOL * want.float().abs().max().item())
+        inv, gq, same = args
         ms, plain_ms = race(
             lambda: packed_attention_int8_masked(q, sec, h, mask=soft, out_inv_scale=inv,
                                                  int8_out=True),
             lambda: packed_attention_int8_masked_plain(q, sec, h, mask=soft,
                                                        out_inv_scale=inv, int8_out=True))
+        alone = device_ms(lambda: packed_attention_int8_masked(
+            q, sec, h, mask=soft, out_inv_scale=inv, int8_out=True), "packed_attention_int8_kernel")
+        # the yardstick: bf16 K4 on the same shape and mask, from this run
+        qb, kb, vb = unpack_qkv(xf.to(torch.bfloat16), h)
+        k4_ms = statistics.median(time_ms(
+            lambda: fused_attention_inference(qb, kb, vb, mask=soft), runs=20))
+        k4_alone = device_ms(lambda: fused_attention_inference(qb, kb, vb, mask=soft),
+                             "flash_mma_kernel")
     torch.cuda.synchronize()
     # the additive mask rides bf16, as the kernel reads it
-    lim = bound([q, sec, soft.to(torch.bfloat16)], [gq], attn_ops(b, h, n, n, dh, 2), torch.int8)
+    ops = attn_ops(b, h, n, n, dh, 2)
+    lim = bound([q, sec, soft.to(torch.bfloat16)], [gq], ops, torch.int8)
     log(f"[int8-attn-kernels] K9 int8-out [8,816,2304] soft mask: kernel {ms!r} ms, plain "
-        f"{plain_ms!r} ms, no library call, bound {lim} (median of 20, CUDA events; {smi})")
-    return {"K9": dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **lim)}
+        f"{plain_ms!r} ms, no library call, bound {lim}; {rate(ops, ms, lim)} (median of 20, "
+        f"CUDA events; {smi}); the kernel alone {alone!r} ms (device time, torch.profiler; "
+        f"{rate(ops, alone, lim)}; q.k twice: {1.5 * ops / alone / 1e9!r} TOP/s executed); "
+        f"yardstick K4 bf16 [8,12,816,64] with the same mask {k4_ms!r} ms, alone "
+        f"{k4_alone!r} ms")
+    log(f"[int8-attn-kernels] {int8_occupancy(dh, (b, h, n), masked=True)} ({smi})")
+    return {"K9": dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                       kernel_alone_ms=alone, bit_equal=same, **lim)}
 
 
 GROUPED_SHAPE = (64, 785, 2304)  # ViT-B/8 @224 pretrain: 784 patch tokens + CLS, bs64
@@ -2123,6 +2294,52 @@ def bootstrap_phase(dev, smi: str, ckpt: str) -> None:
     want = {"K5-lse": 3 * (LAYERS - 1), "K6": 3 * (LAYERS - 1), "K4": 0, "K5": 0}
     if counts != want:
         raise AssertionError(f"bootstrap launches {counts}, want {want}")
+
+
+def int8_ab(tag: str) -> dict:
+    """The int8 serving attention on the package beside this file, for an
+    A/B of two trees in one call, each run from its root in turns (parent,
+    change, change, parent):
+
+        python3 -c "import chip_smoke as c; c.int8_ab('change')"
+
+    The phases' own inputs and readouts: K3 on kernel_phase's input and K9
+    on int8_attn_kernel_phase's with the soft mask of the served partition
+    (the same weights, scene and draws as multistate_phase's), int8 out,
+    through the wrapper (median of 20, CUDA events) and alone
+    (`device_ms`); the device time of ms224_attn_modes_phase's int8
+    forward and of slice_phase's int8 ViT-B/16 bs64 forward, and K9's and
+    K3's part of each.  Prints one line, "AB " and a JSON object."""
+    smi = card()
+    sys.path.insert(0, ROOT)
+    from msvit_tpu_torch.ops import packed_attention as pa
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main()
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"tag": tag, "card": smi}
+    cfg, run = ms224_int8(dev)
+    out = run(cfg, "bf16")
+    soft = _soft(out["last_cluster_indices"], out["num_clusters"])
+    _, q, sec = int8_qkv(torch.Generator().manual_seed(0), MAIN_SHAPE, dev, scale=0.5)
+    _, q9, sec9 = int8_qkv(torch.Generator().manual_seed(12), (MS_BATCH, 816, 2304), dev)
+    inv = torch.tensor(20.0, device=dev)
+    calls = {"K3": lambda: pa.packed_attention_int8(q, sec, 12, out_inv_scale=inv,
+                                                    int8_out=True),
+             "K9": lambda: pa.packed_attention_int8_masked(q9, sec9, 12, mask=soft,
+                                                           out_inv_scale=inv, int8_out=True)}
+    with torch.inference_mode():
+        for k, fn in calls.items():
+            res[f"{k}_ms"] = statistics.median(time_ms(fn, runs=20))
+            res[f"{k}_alone_ms"] = device_ms(fn, "packed_attention_int8_kernel")
+    res["ms224_int8_attn_device_ms"], res["ms224_K9_ms"] = ms224_int8_profile(cfg, run)
+    del run
+    vcfg, _, qparams, scales = vit_int8(dev)
+    pix = wire_pixels(np.concatenate([serving_images()] * 2), dev)
+    res["vit_int8_bs64_device_ms"], res["vit_K3_ms"] = int8_forward_profile(
+        qparams, vcfg, scales, pix)
+    print("AB " + json.dumps(res), flush=True)
+    return res
 
 
 def _summary(r: dict) -> dict:

@@ -250,6 +250,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 8 bytes global -> shared, asynchronous; zero-filled when !valid.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
 // 4 bytes global -> shared, asynchronous; zero-filled when !valid.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
@@ -269,16 +278,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8x8 bf16 matrices from shared memory; lanes 8m..8m+7 give the row
-// addresses of matrix m, register m receives it (transposed with _t).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// Four 8x8 matrices of 16-bit elements (8 rows of 16 bytes: bf16, or 16
+// int8) from shared memory; lanes 8m..8m+7 give the row addresses of matrix
+// m, register m receives it (transposed with _t).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -313,23 +323,41 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-// The A fragment of rows 0-15, columns 16*kk.. of a [rows][LD] tile (row
-// major, e.g. q rows by head elements): non-transposed ldmatrix.
+// The A fragment of rows 0-15 at k-step kk (bytes 32kk..32kk+31 of each
+// row: 16 bf16 or 32 int8 columns) of a tile of LDB-byte rows (row major,
+// e.g. q rows by head elements): non-transposed ldmatrix.
+template <int LDB>
+__device__ __forceinline__ void a_frag_bytes(uint32_t (&a)[4], const void* tile,
+                                             int kk, int lane) {
+  ldsm_x4(a, static_cast<const unsigned char*>(tile) +
+                 ((lane & 7) + ((lane >> 3) & 1) * 8) * LDB + kk * 32 +
+                 (lane >> 4) * 16);
+}
+
+// The bf16 A fragment of rows 0-15, columns 16*kk.. of a [rows][LD] tile.
 template <int LD>
 __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* tile,
                                        int kk, int lane) {
-  ldsm_x4(a, tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 +
-                 (lane >> 4) * 8);
+  a_frag_bytes<LD * 2>(a, tile, kk, lane);
 }
 
-// B fragments of two n-tiles (rows 16*np.., 8 each) at k-step kk of
-// x . tile^T, tile [rows][LD] row major (k or q rows by head elements):
-// (b[0], b[1]) for tile rows 16np..16np+7, (b[2], b[3]) for the next 8.
+// B fragments of two n-tiles (rows 16*np.., 8 each) at k-step kk (32
+// bytes) of x . tile^T, tile of LDB-byte rows, row major (k or q rows by
+// head elements): (b[0], b[1]) for tile rows 16np..16np+7, (b[2], b[3]) for
+// the next 8.
+template <int LDB>
+__device__ __forceinline__ void bt_frag_bytes(uint32_t (&b)[4], const void* tile,
+                                              int np, int kk, int lane) {
+  ldsm_x4(b, static_cast<const unsigned char*>(tile) +
+                 (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDB + kk * 32 +
+                 ((lane >> 3) & 1) * 16);
+}
+
+// The same for a bf16 tile [rows][LD].
 template <int LD>
 __device__ __forceinline__ void bt_frag(uint32_t (&b)[4], const bf16* tile,
                                         int np, int kk, int lane) {
-  ldsm_x4(b, tile + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                 ((lane >> 3) & 1) * 8);
+  bt_frag_bytes<LD * 2>(b, tile, np, kk, lane);
 }
 
 // B fragments of two n-tiles (head elements 16*dp..) at k-step kk of
@@ -495,27 +523,36 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long stride,
 
 // Bytes of one row of a staged [64 x 64] mask tile (rows: queries,
 // columns: keys), 16-byte multiples.  Read at the accumulator fragments'
-// positions with queries as rows (K7, the dQ kernel): KT f32 words plus 8
-// (float2 reads, 8 rows x 4 lanes in distinct banks per half warp), or KT
-// bytes plus 16 (bool).  Read transposed, keys as rows (the dK/dV kernel:
-// lanes g on 8 neighbouring columns, lanes t on rows 2t apart): KT words
-// plus 4, so that row 2t starts 8t banks on; bool as before.
-__host__ __device__ constexpr int mask_row_bytes(int kind, bool transposed = false) {
-  return kind == kAddMask ? (kMmaTile + (transposed ? 4 : 8)) * 4
+// positions with queries as rows (K7, the dQ kernel, K9): KT f32 words plus
+// 8 (float2 reads, 8 rows x 4 lanes in distinct banks per half warp), KT
+// bf16 plus 8 (K9's additive mask: one word a pair, rows 36 words apart,
+// so the 32 lanes hit 32 banks), or KT bytes plus 16 (bool).  Read
+// transposed, keys as rows (the dK/dV kernel: lanes g on 8 neighbouring
+// columns, lanes t on rows 2t apart): KT words plus 4, so that row 2t
+// starts 8t banks on; bool as before.  add_bytes: 4 (f32) or 2 (bf16).
+__host__ __device__ constexpr int mask_row_bytes(int kind, bool transposed = false,
+                                                 int add_bytes = 4) {
+  return kind == kAddMask ? (kMmaTile + (transposed ? 4 : 8)) * add_bytes
          : kind == kBoolMask ? kMmaTile + 16
                              : 0;
 }
 
 // The mask entries of columns c, c + 1 of row `row` of a staged mask tile
 // (rows of `mrow` bytes) at an accumulator fragment's position: the
-// additive values (0 without) and whether the two keys are attended.
+// additive values (0 without; f32 entries, or bf16 with add_bytes 2) and
+// whether the two keys are attended.
 __device__ __forceinline__ void mask_pair(const unsigned char* mt, int mrow,
                                           int row, int c, int kind,
-                                          float (&add)[2], bool (&keep)[2]) {
+                                          float (&add)[2], bool (&keep)[2],
+                                          int add_bytes = 4) {
   const unsigned char* mr = mt + row * mrow;
   add[0] = add[1] = 0.f;
   keep[0] = keep[1] = true;
-  if (kind == kAddMask) {
+  if (kind == kAddMask && add_bytes == 2) {  // bf16 -> f32: the high half
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(mr + c * 2);
+    add[0] = __uint_as_float(w << 16);
+    add[1] = __uint_as_float(w & 0xffff0000u);
+  } else if (kind == kAddMask) {
     const float2 a = *reinterpret_cast<const float2*>(mr + c * 4);
     add[0] = a.x;
     add[1] = a.y;
@@ -527,11 +564,12 @@ __device__ __forceinline__ void mask_pair(const unsigned char* mt, int mrow,
 }
 
 // One (image, head)'s [Nq, Nk] panel of a mask [B|1, 1|H, Nq, Nk] (bool,
-// one byte per entry, or additive f32; last two dims contiguous), staged a
-// [64 x 64] tile at a time by cp.async: 16 bytes a copy where every row is
-// 16-byte aligned (f32 with Nk % 4 == 0, bool with Nk % 16 == 0), else 4
-// (f32; bool with Nk % 4 == 0), else a byte at a time (bool): never a
-// misaligned 16-byte cp.async.
+// one byte per entry, or additive f32, or additive bf16 with add_bytes 2;
+// last two dims contiguous), staged a [64 x 64] tile at a time by cp.async:
+// 16 bytes a copy where every row is 16-byte aligned (f32 with Nk % 4 == 0,
+// bf16 with Nk % 8 == 0, bool with Nk % 16 == 0), else 4 (f32; bf16 with
+// Nk % 2 == 0; bool with Nk % 4 == 0), else an entry at a time by plain
+// loads (bf16 two bytes, bool one): never a misaligned cp.async.
 struct MaskStage {
   const unsigned char* img;
   long long grow;  // bytes per panel row
@@ -539,17 +577,18 @@ struct MaskStage {
   int chunk;       // bytes per copy; 0 without a mask
 
   __device__ MaskStage(const void* mask, int kind, int nk, long long sb,
-                       long long sh, int b, int h)
+                       long long sh, int b, int h, int add_bytes = 4)
       : img(static_cast<const unsigned char*>(mask)),
-        grow(static_cast<long long>(nk) * (kind == kAddMask ? 4 : 1)),
-        esize(kind == kAddMask ? 4 : 1),
+        grow(static_cast<long long>(nk) * (kind == kAddMask ? add_bytes : 1)),
+        esize(kind == kAddMask ? add_bytes : 1),
         chunk(0) {
     img += (b * sb + h * sh) * esize;
     auto aligned = [&](int a) {
       return reinterpret_cast<uintptr_t>(mask) % a == 0 && grow % a == 0 &&
              (sb * esize) % a == 0 && (sh * esize) % a == 0;
     };
-    if (kind != kNoMask) chunk = aligned(16) ? 16 : aligned(4) ? 4 : 1;
+    if (kind != kNoMask)
+      chunk = aligned(16) ? 16 : aligned(4) ? 4 : esize == 2 && aligned(2) ? 2 : 1;
   }
 
   // Rows [r0, r0 + 64) x columns [k0, k0 + 64) of the panel into `dst`
@@ -571,12 +610,112 @@ struct MaskStage {
         cp_async16(to, src, ok);
       } else if (chunk == 4) {
         cp_async4(to, src, ok);
+      } else if (chunk == 2) {
+        *reinterpret_cast<uint16_t*>(to) =
+            ok ? *reinterpret_cast<const uint16_t*>(src) : uint16_t{0};
       } else {
         *to = ok ? *src : 0;
       }
     }
   }
 };
+
+// ------------------------------------------------------------------------
+// Tensor-core building blocks (int8): warp-level mma.sync m16n8k32 with s8
+// operands and s32 accumulators, so every integer product and sum is exact.
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k32", .s8),
+// with g = lane / 4 and t = lane % 4:
+//   A 16x32 (4 regs of 4 s8): a0 (row g, cols 4t..4t+3), a1 (row g+8, same
+//     cols), a2 (row g, cols 16+4t..16+4t+3), a3 (row g+8, cols 16+4t..);
+//   B 32x8 (2 regs): b0 (rows 4t..4t+3, col g), b1 (rows 16+4t.., col g);
+//   C 16x8 (4 s32): as m16n8k16's, c0, c1 (row g, cols 2t, 2t+1), c2, c3
+//     (row g+8).
+// A k-step is 32 bytes, as bf16's, and the non-transposed ldmatrix gives
+// lane (g, t) bytes 4t..4t+3 of row g of each 8 x 16-byte matrix: so
+// a_frag_bytes and bt_frag_bytes on int8 tiles yield these A and B
+// fragments as they yield bf16's.  The transposed ldmatrix moves byte
+// pairs, not bytes (see v_frags_s8), and the C fragment is not the next A
+// fragment (lane (g, t) holds keys 8j+2t, 8j+2t+1; A wants 4t..4t+3): see
+// pack_s8_a.
+
+// c += a . b on the tensor cores (s8 operands, s32 accumulators).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four values in [-128, 127] as the bytes of one register, x0 lowest.
+__device__ __forceinline__ uint32_t pack_s8(int x0, int x1, int x2, int x3) {
+  return __byte_perm(__byte_perm(x0, x1, 0x0040), __byte_perm(x2, x3, 0x0040),
+                     0x5410);
+}
+
+// The A fragment of one 32-key k-step from the s32 C fragments of its four
+// 8-key n-tiles c[0..3] (values in [-128, 127]), keys in a permuted order:
+// register a0 holds row g's keys 2t, 2t+1, 8+2t, 9+2t (its own c0, c1 of
+// n-tiles 0 and 1), a2 keys 16+2t, 17+2t, 24+2t, 25+2t (n-tiles 2 and 3),
+// a1 and a3 the same keys of row g+8.  No shuffle: the product's other
+// operand takes its keys in the same order (v_frags_s8), and a sum over
+// keys does not depend on their order.
+__device__ __forceinline__ void pack_s8_a(uint32_t (&a)[4], const int (&c0)[4],
+                                          const int (&c1)[4], const int (&c2)[4],
+                                          const int (&c3)[4]) {
+  a[0] = pack_s8(c0[0], c0[1], c1[0], c1[1]);
+  a[1] = pack_s8(c0[2], c0[3], c1[2], c1[3]);
+  a[2] = pack_s8(c2[0], c2[1], c3[0], c3[1]);
+  a[3] = pack_s8(c2[2], c2[3], c3[2], c3[3]);
+}
+
+// P.V's B fragments at k-step kk (keys 32kk..32kk+31) for head bytes
+// 16dp..16dp+15, straight from v rows (row major [key][head byte], LDB-byte
+// rows): int8 mma wants v^T, and ldmatrix.trans transposes 16-bit
+// elements, so it hands lane (g, t) byte pairs (2g, 2g+1) of keys 8m+2t
+// and 8m+2t+1 from each 8-key matrix m; prmt then gathers head byte 2g
+// (`even`) and 2g+1 (`odd`) of keys 2t, 2t+1, 8+2t, 9+2t into b0, and of
+// those keys plus 16 into b1: pack_s8_a's key order.  So the n-tile of
+// `even` is head columns 16dp + 2c (c its C column), that of `odd`
+// 16dp + 2c + 1, and lane (g, t) accumulates head columns 16dp + 4t ..
+// 16dp + 4t + 3 of its rows: even c0, odd c0, even c1, odd c1.
+template <int LDB>
+__device__ __forceinline__ void v_frags_s8(uint32_t (&even)[2], uint32_t (&odd)[2],
+                                           const int8_t* vs, int kk, int dp,
+                                           int lane) {
+  uint32_t m[4];
+  ldsm_x4_t(m, vs + (32 * kk + lane) * LDB + 16 * dp);
+  even[0] = __byte_perm(m[0], m[1], 0x6420);
+  odd[0] = __byte_perm(m[0], m[1], 0x7531);
+  even[1] = __byte_perm(m[2], m[3], 0x6420);
+  odd[1] = __byte_perm(m[2], m[3], 0x7531);
+}
+
+// Asynchronous copy of rows [row0, row0 + rows) of one head's dh-byte int8
+// column slice (`src` at the slice's first byte of row 0, `stride` bytes
+// between rows) into a [rows][LDB] shared tile: 16 bytes a copy where the
+// slices are 16-byte aligned (`wide`: dh % 16 == 0), else 8 (a head slice
+// at h * dh is 8-byte aligned at dh 8, 24, 40, ...); rows past n are
+// zero-filled, columns past dh are not touched.  All threads take part.
+template <int LDB>
+__device__ __forceinline__ void async_tile_s8(int8_t* dst, const int8_t* src,
+                                              long long stride, int row0, int rows,
+                                              int n, int dh, bool wide) {
+  const int chunk = wide ? 16 : 8;
+  const int chunks = dh / chunk;
+  for (int c = threadIdx.x; c < rows * chunks; c += blockDim.x) {
+    const int r = c / chunks;
+    const int off = (c - r * chunks) * chunk;
+    const bool ok = row0 + r < n;
+    const int8_t* from = src + (ok ? row0 + r : 0) * stride + off;
+    if (wide) {
+      cp_async16(dst + r * LDB + off, from, ok);
+    } else {
+      cp_async8(dst + r * LDB + off, from, ok);
+    }
+  }
+}
 
 // A compile-time flag for a tile loop's body written as a generic lambda:
 // body(Edge<false>{}) for a full tile, body(Edge<true>{}) for the ragged

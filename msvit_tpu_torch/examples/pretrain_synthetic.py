@@ -98,15 +98,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def warmup_cosine(peak: float, warmup_steps: int, decay_steps: int) -> Callable[[int], float]:
+def warmup_cosine(peak: float, warmup_steps: int,
+                  decay_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
     """`optax.warmup_cosine_decay_schedule(0.0, peak, warmup_steps,
     decay_steps)`: linear from 0 to `peak` over `warmup_steps`, then a cosine
-    to 0 at `decay_steps`."""
-    def lr(step: int) -> float:
-        if step < warmup_steps:
-            return peak * step / warmup_steps
-        t = min(1.0, (step - warmup_steps) / max(1, decay_steps - warmup_steps))
-        return 0.5 * peak * (1.0 + math.cos(math.pi * t))
+    to 0 at `decay_steps`.  The step is a 0-d tensor (the optimizer's device
+    count) or an int; the lr a 0-d f32 tensor on its device, computed in
+    optax's order of f32 operations with torch ops only (no host sync)."""
+    span = float(max(1, decay_steps - warmup_steps))
+
+    def lr(step) -> torch.Tensor:
+        step = torch.as_tensor(step)
+        warm = torch.clamp(step, 0, warmup_steps).float()
+        frac = 1.0 - warm / warmup_steps
+        rise = (0.0 - peak) * frac + peak
+        t = torch.clamp((step - warmup_steps).float(), max=span)
+        # the cosine rounded from f64: torch's f32 cos can miss the nearest
+        # f32 by an ulp, which 1 + cos magnifies near the end of the decay
+        cos = torch.cos((math.pi * t / span).double()).float()
+        decay = peak * (0.5 * (1.0 + cos))
+        return torch.where(step < warmup_steps, rise, decay)
 
     return lr
 

@@ -80,6 +80,8 @@ _SIGNATURES = {
     # mask_sh, scale, mask_value, stream
     "msvit_packed_attention_int8_masked": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                            _I, _LL, _LL, _F, _F, _P],
+    # dh, masked, mask_kind, blocks (out): K3's or K9's blocks per SM
+    "msvit_packed_attention_int8_occupancy": [_I, _I, _I, ctypes.POINTER(_I)],
     # q, k, v, out, g, lse, mask, delta, dq, dk, dv, dtype, b, h, nq, nk, dh,
     # strides[24] (host), mask_kind, mask_sb, mask_sh, scale, mask_value,
     # stream

@@ -18,13 +18,16 @@ hand-written CUDA kernel for Hopper with a plain PyTorch version beside it:
   [B, N, 3D] from the saved (qkv, out, lse) and the output cotangent.
   Kernel: `csrc/packed_attention_bwd.cu`.
 * `packed_attention_int8` — K3, the TPU kernel `packed_attention_int8`:
-  int8 in, bf16 or int8 out.  Kernel: `csrc/packed_attention_int8.cu`.
+  int8 in, bf16 or int8 out.  Kernel: `csrc/packed_attention_int8.cu`, on
+  the int8 tensor cores (s8 operands, s32 accumulators: both products
+  exact), two passes over the keys (the exact row max, then the truncated
+  probabilities into P.V).
 * `packed_attention_int8_masked` — K9, the TPU kernel
   `_packed_int8_grouped`: K3 with a mask, the pre-scaled exp and the
   integer row sum (the multistate trunk's `attn_mode="int8"`).  Kernel: a
-  second entry point of `csrc/packed_attention_int8.cu`.  The TPU's
-  head-pair grid and its VMEM gate (`int8_grouped_vmem_ok`) are not
-  ported: the port takes any N.
+  second entry point of `csrc/packed_attention_int8.cu` (K3's kernel with
+  the mask staged as a tile).  The TPU's head-pair grid and its VMEM gate
+  (`int8_grouped_vmem_ok`) are not ported: the port takes any N.
 
 K1, K1-lse and K2 also stand for the TPU's head-grouped functions, which
 compute the same thing on a (B, H/2) grid for 512 to ~1100 tokens (the

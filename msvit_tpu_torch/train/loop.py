@@ -23,9 +23,10 @@ global L2 norm of the unclipped gradients, formed on the device from the
 per-tensor norms (no host sync).  Under `apply_if_finite` the finiteness is
 judged on the unclipped gradients, as optax judges the chain's input.
 
-Deviation from optax: a learning-rate schedule is read at the host's
-count of steps taken, which also advances on a skipped step (optax's
-schedule count does not); reading the device count would cost a sync.
+A learning-rate schedule is read at the count of applied steps, a device
+tensor that a skipped step leaves alone, as optax's inner count: the
+schedule takes that 0-d int32 tensor and returns a 0-d f32 tensor, which
+the fused AdamW takes as its lr (no host sync).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from torch import nn
 
 from msvit_tpu_torch.utils.rng import draw_seed
 
-Schedule = Union[float, Callable[[int], float]]
+Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 LossFn = Callable[[nn.Module, Any, torch.Generator], Tuple[torch.Tensor, Any]]
 
 
@@ -46,7 +47,9 @@ LossFn = Callable[[nn.Module, Any, torch.Generator], Tuple[torch.Tensor, Any]]
 class Optimizer:
     """An AdamW recipe, the counterpart of an optax transformation.
 
-    learning_rate: a float or a `step -> lr` schedule (step counts from 0).
+    learning_rate: a float or a `step -> lr` schedule: step a 0-d int32
+      tensor counting the applied steps from 0, lr a 0-d tensor on its
+      device (torch ops only: a host read would sync every step).
     trainable: `name_tuple -> bool` over the model's parameter names split
       at "."; the others get no update and no decay (optax `set_to_zero`).
     max_nonfinite: set by `apply_if_finite`.
@@ -88,8 +91,9 @@ def apply_if_finite(optimizer: Optimizer, max_nonfinite: int) -> Optimizer:
 
 class OptState:
     """An `Optimizer`'s state for one model: a fused `torch.optim.AdamW`
-    over the trainable parameters, the schedule's step count, and
-    apply_if_finite's counters (device tensors)."""
+    over the trainable parameters, the count of applied steps (the
+    schedule's argument), and apply_if_finite's counters (device
+    tensors)."""
 
     def __init__(self, spec: Optimizer, model: nn.Module):
         self.spec = spec
@@ -100,25 +104,29 @@ class OptState:
         ]
         if not named:
             raise ValueError("no trainable parameters")
+        lr = spec.learning_rate
         self.adamw = torch.optim.AdamW(
-            [p for _, p in named], lr=self._lr(0), betas=(0.9, 0.999),
-            eps=1e-8, weight_decay=spec.weight_decay, fused=True,
+            [p for _, p in named], lr=0.0 if callable(lr) else float(lr),
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=spec.weight_decay,
+            fused=True,
         )
         dev = named[0][1].device
-        self.count = 0  # steps taken, the schedule's argument
+        # applied steps, the schedule's argument (optax's inner count)
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
         self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
-
-    def _lr(self, step: int) -> float:
-        lr = self.spec.learning_rate
-        return float(lr(step)) if callable(lr) else float(lr)
 
     def update(self, grads_finite: Optional[torch.Tensor]) -> None:
         """One AdamW step from the parameters' `.grad`.  Under
         apply_if_finite `grads_finite` (a device bool) decides, on the
-        device, whether the step is taken."""
-        for group in self.adamw.param_groups:
-            group["lr"] = self._lr(self.count)
+        device, whether the step is taken; the count of applied steps
+        advances with it."""
+        lr = self.spec.learning_rate
+        if callable(lr):
+            lr_now = lr(self.count)
+            for group in self.adamw.param_groups:
+                group["lr"] = lr_now
+        applied = 1
         if self.spec.max_nonfinite is not None:
             bad = ~grads_finite
             self.notfinite_count = torch.where(
@@ -126,8 +134,9 @@ class OptState:
             self.total_notfinite = self.total_notfinite + bad.int()
             skip = bad & (self.notfinite_count <= self.spec.max_nonfinite)
             self.adamw.found_inf = skip.float()
+            applied = (~skip).int()
         self.adamw.step()
-        self.count += 1
+        self.count = self.count + applied
 
     def state_dict(self) -> Dict[str, Any]:
         return {
@@ -138,8 +147,12 @@ class OptState:
         }
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """`state` from `state_dict`.  An older checkpoint whose "count"
+        is a host int (steps taken, skipped ones included) loads with that
+        count taken as the applied steps."""
         self.adamw.load_state_dict(state["adamw"])
-        self.count = int(state["count"])
+        self.count = torch.as_tensor(
+            state["count"], dtype=torch.int32, device=self.count.device).clone()
         self.notfinite_count.copy_(state["notfinite_count"])
         self.total_notfinite.copy_(state["total_notfinite"])
 

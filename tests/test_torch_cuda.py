@@ -314,9 +314,34 @@ def _int8(b, n, d, dev, seed):
     return q.to(torch.int8), sec
 
 
-@pytest.mark.parametrize("n,h,dh", [(37, 4, 16), (197, 12, 64), (70, 2, 128)])
+# the int8 kernels' tile edges: N around the 16-row warp tiles and the
+# 32-key k-steps and 64-key tiles, 197 (ViT-B/16) and 257; head sizes that
+# pad to the 32-byte k-depth (8, 16, 24, 40) and whose slices are only
+# 8-byte aligned (8, 24, 40)
+_INT8_EDGE_NS = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 197, 257]
+_INT8_EDGE_DHS = [8, 16, 24, 40, 64, 128]
+_INT8_SHAPES = [(37, 4, 16), (197, 12, 64), (70, 2, 128)] + [
+    (n, 2, dh) for n in _INT8_EDGE_NS for dh in _INT8_EDGE_DHS]
+
+
+def _int8_bars(got, want, got_q, want_q):
+    """bf16 out: 2% of the output's range (a probability truncated one step
+    apart moves o by s_v/l); int8 out: |delta| <= 1 step with >= 99% equal
+    (an exp within an ulp of an integer truncates one step apart)."""
+    assert got.dtype == torch.bfloat16 and got_q.dtype == torch.int8
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item()
+    delta = (got_q.int() - want_q.int()).abs()
+    assert delta.max().item() <= 1
+    assert (delta == 0).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("n,h,dh", _INT8_SHAPES)
 def test_k3_matches_plain(dev, n, h, dh):
+    """K3 on the int8 tensor cores against its plain version, bf16 and int8
+    out, at the tile edges too."""
     q, sec = _int8(3, n, h * dh, dev, seed=4)
+    before = packed_attention_int8.launches
     with torch.inference_mode():
         got = packed_attention_int8(q, sec, h)
         want = packed_attention_int8_plain(q, sec, h)
@@ -324,14 +349,9 @@ def test_k3_matches_plain(dev, n, h, dh):
         got_q = packed_attention_int8(q, sec, h, out_inv_scale=inv, int8_out=True)
         want_q = packed_attention_int8_plain(q, sec, h, out_inv_scale=inv,
                                              int8_out=True)
-    assert got.dtype == torch.bfloat16 and got_q.dtype == torch.int8
-    # bf16 out: 2% of the output's range (a probability truncated one step
-    # apart moves o by s_v/l)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= 2e-2 * want.float().abs().max().item()
-    delta = (got_q.int() - want_q.int()).abs()
-    assert delta.max().item() <= 1
-    assert (delta == 0).float().mean().item() >= 0.99
+    torch.cuda.synchronize()
+    assert packed_attention_int8.launches == before + 2
+    _int8_bars(got, want, got_q, want_q)
 
 
 def _fused_fns(kernel):
@@ -1000,18 +1020,22 @@ def test_k7_refuses_bad_inputs(dev):
 # ------------------------------------------------------------------- K9
 
 
-@pytest.mark.parametrize("mask", [None, "bool", "additive", "additive_per_head"])
-@pytest.mark.parametrize("n,h,dh", [(40, 4, 64), (197, 12, 64), (37, 2, 16), (70, 2, 128)])
-def test_k9_matches_plain(dev, mask, n, h, dh):
-    """K9 against its plain version, bf16 and int8 out: int8 |delta| <= 1
-    step with >= 99% equal (an exp within an ulp of an integer truncates
-    one step apart, K3's bar), bf16 2% of the output's range.  A bool
-    mask's row 0 is fully masked."""
+_K9_MASKS = [None, "bool", "additive", "additive_per_head", "bool_batch",
+             "additive_batch"]
+
+
+def _k9_mask(kind, b, h, n, dev, seed):
+    """`_fused_mask`'s kinds, and "*_batch": one [1, 1, N, N] panel
+    broadcast over the batch and the heads."""
+    if kind is not None and kind.endswith("_batch"):
+        return _fused_mask(kind[:-len("_batch")], 1, h, n, n, dev, seed)
+    return _fused_mask(kind, b, h, n, n, dev, seed)
+
+
+def _k9_case(q, sec, h, m):
     from msvit_tpu_torch.ops.packed_attention import (
         packed_attention_int8_masked, packed_attention_int8_masked_plain)
 
-    q, sec = _int8(2, n, h * dh, dev, seed=55)
-    m = _fused_mask(mask, 2, h, n, n, dev, seed=56)
     before = packed_attention_int8_masked.launches
     with torch.inference_mode():
         got = packed_attention_int8_masked(q, sec, h, mask=m)
@@ -1023,11 +1047,77 @@ def test_k9_matches_plain(dev, mask, n, h, dh):
                                                     int8_out=True)
     torch.cuda.synchronize()
     assert packed_attention_int8_masked.launches == before + 2
-    assert got.dtype == torch.bfloat16 and got_q.dtype == torch.int8
+    return got, want, got_q, want_q
+
+
+def _mean_v(q, sec):
+    """s_v times the mean over the keys of v, [B, D]: the output of a fully
+    masked row (pq = 127 on every key)."""
+    return q[..., 2 * q.shape[-1] // 3:].float().mean(1) * sec[2]
+
+
+@pytest.mark.parametrize("mask", _K9_MASKS)
+@pytest.mark.parametrize("n,h,dh", [(40, 4, 64), (197, 12, 64), (37, 2, 16), (70, 2, 128)]
+                         + _INT8_SHAPES[3:])
+def test_k9_matches_plain(dev, mask, n, h, dh):
+    """K9 on the int8 tensor cores against its plain version, bf16 and int8
+    out (`_int8_bars`), with every mask kind: none, bool (row 0 fully
+    masked: mean(V) over the N real keys), the bf16 additive soft mask,
+    per head, one panel broadcast over the batch; at the tile edges too
+    (odd N: mask rows that are not 16-byte aligned)."""
+    q, sec = _int8(2, n, h * dh, dev, seed=55)
+    m = _k9_mask(mask, 2, h, n, dev, seed=56)
+    got, want, got_q, want_q = _k9_case(q, sec, h, m)
+    _int8_bars(got, want, got_q, want_q)
+    if mask is not None and mask.startswith("bool"):
+        mean = _mean_v(q, sec)
+        assert (got[:, 0].float() - mean).abs().max().item() <= (
+            2e-2 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("mask,n", [("bool", 813), ("additive", 813), ("additive", 814),
+                                    ("bool_batch", 815), ("additive_per_head", 817)])
+def test_k9_unaligned_mask_rows(dev, mask, n):
+    """Mask rows that are not 16-byte aligned over 13 key tiles and a partial
+    last one: bool N 813/815 (byte copies), bf16 N 813/817 (2-byte copies)
+    and 814 (4-byte copies)."""
+    q, sec = _int8(2, n, 2 * 64, dev, seed=57)
+    m = _k9_mask(mask, 2, 2, n, dev, seed=58)
+    _int8_bars(*_k9_case(q, sec, 2, m))
+
+
+def test_k9_long_rows_at_the_bf16_bar(dev):
+    """K9 at the 448-px token count (3168, 50 key tiles) with the soft mask:
+    bf16 out within 2% of the range, int8 out |delta| <= 1."""
+    q, sec = _int8(1, 3168, 2 * 64, dev, seed=59)
+    m = _k9_mask("additive", 1, 2, 3168, dev, seed=60)
+    got, want, got_q, want_q = _k9_case(q, sec, 2, m)
+    assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
-    delta = (got_q.int() - want_q.int()).abs()
-    assert delta.max().item() <= 1
-    assert (delta == 0).float().mean().item() >= 0.99
+    assert (got_q.int() - want_q.int()).abs().max().item() <= 1
+
+
+@pytest.mark.parametrize("mask", [None, "bool", "additive"])
+def test_k3_k9_deterministic(dev, mask):
+    """Two calls give bit-equal outputs (no atomics, a fixed order of
+    sums), bf16 and int8 out."""
+    from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked
+
+    q, sec = _int8(2, 197, 12 * 64, dev, seed=61)
+    m = _k9_mask(mask, 2, 12, 197, dev, seed=62)
+    with torch.inference_mode():
+        for out8 in (False, True):
+            inv = torch.tensor(3.0, device=dev) if out8 else None
+            a = packed_attention_int8_masked(q, sec, 12, mask=m, out_inv_scale=inv,
+                                             int8_out=out8)
+            b = packed_attention_int8_masked(q, sec, 12, mask=m, out_inv_scale=inv,
+                                             int8_out=out8)
+            assert torch.equal(a, b)
+            if mask is None:
+                a = packed_attention_int8(q, sec, 12, out_inv_scale=inv, int8_out=out8)
+                b = packed_attention_int8(q, sec, 12, out_inv_scale=inv, int8_out=out8)
+                assert torch.equal(a, b)
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------------------------------ K10

@@ -15,6 +15,8 @@ import jax
 import jax.numpy as jnp
 
 from msvit_tpu.models import multistate as jms
+from msvit_tpu.ops.attention import DEFAULT_MASK_VALUE
+from msvit_tpu.ops.packed_attention import _packed_int8_grouped as j_int8_grouped
 from msvit_tpu.ops.packed_attention import packed_attention_int8_masked as j_int8_masked
 from msvit_tpu_torch.compat import act_scales_from_jax
 from msvit_tpu_torch.models import multistate as tms
@@ -64,6 +66,47 @@ def test_k9_plain_matches_jax(mask_kind, int8_out):
     assert tpa.packed_attention_int8_masked.launches == before
     assert got.dtype == (torch.int8 if int8_out else torch.bfloat16)
     assert got.shape == (B, N, H * DH)
+    got = _np(got)
+    if int8_out:
+        delta = np.abs(got - want)
+        assert delta.max() <= 1 and (delta == 0).mean() >= 0.99
+    else:
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("int8_out", [False, True])
+@pytest.mark.parametrize("mask_kind", ["bool", "additive"])
+@pytest.mark.parametrize("n", [31, 33, 65, 129])
+@pytest.mark.parametrize("dh", [16, 40, 64, 128])
+def test_k9_plain_matches_jax_at_tile_edges(dh, n, mask_kind, int8_out):
+    """The contract the card's int8 tensor-core K9 is held to, pinned with
+    the JAX package as the answer where the kernel's tiles have edges: N
+    one short of and one past its 32-key k-steps and 64-key tiles, head
+    sizes it pads to its 32-byte k-depth (16, 40).  K9 plain vs the Pallas
+    kernel `_packed_int8_grouped` in interpret mode (called below its
+    wrapper, whose VMEM gate admits only dh 64 and 128), 2 images, 2 heads,
+    a bool mask with a fully masked row or the 0 / -100 soft mask per head.
+    The bars of `test_k9_plain_matches_jax`."""
+    h = 2
+    d = h * dh
+    rng = np.random.default_rng(70 + n + dh)
+    x = rng.standard_normal((2, n, 3 * d)).astype(np.float32)
+    sec = (np.abs(x.reshape(-1, 3, d)).max((0, 2)) / 127.0).astype(np.float32)
+    q = np.clip(np.round(x / np.repeat(sec, d)), -127, 127).astype(np.int8)
+    if mask_kind == "bool":
+        m = rng.random((2, 1, n, n)) < 0.7
+        m[0, 0, 2, :] = False  # a fully masked row: mean(V) on both
+    else:
+        m = np.where(rng.random((2, h, n, n)) < 0.3, -100.0, 0.0).astype(np.float32)
+    inv = np.float32(5.0) if int8_out else None
+    sc = np.concatenate([sec, [0.0 if inv is None else inv]]).astype(np.float32)[None]
+    want = _np(j_int8_grouped(jnp.asarray(q), jnp.asarray(sc), jnp.asarray(m), h,
+                              1.0 / dh**0.5, int8_out, mask_value=DEFAULT_MASK_VALUE))
+    got = tpa.packed_attention_int8_masked(
+        torch.from_numpy(q), torch.from_numpy(sec), h, mask=torch.from_numpy(m),
+        out_inv_scale=None if inv is None else torch.tensor(inv), int8_out=int8_out)
+    assert got.dtype == (torch.int8 if int8_out else torch.bfloat16)
+    assert got.shape == (2, n, d)
     got = _np(got)
     if int8_out:
         delta = np.abs(got - want)

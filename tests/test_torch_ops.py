@@ -351,6 +351,48 @@ def test_packed_attention_int8_int8_out_matches_jax():
     assert (delta == 0).mean() >= 0.99
 
 
+def _int8_close(got, want, int8_out):
+    """int8 out: |delta| <= 1 step with >= 99% equal (an exp within an ulp
+    of an integer truncates one step apart in the two frameworks); bf16
+    out: 2% of the output's range (one probability step moves o by
+    s_v / l)."""
+    got, want = _np(got), _np(want)
+    if int8_out:
+        delta = np.abs(got - want)
+        assert delta.max() <= 1 and (delta == 0).mean() >= 0.99
+    else:
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("int8_out", [False, True])
+@pytest.mark.parametrize("n", [31, 33, 65, 129])
+@pytest.mark.parametrize("dh", [16, 40, 64, 128])
+def test_packed_attention_int8_plain_matches_jax_at_tile_edges(dh, n, int8_out):
+    """The contract the card's int8 tensor-core K3 is held to, pinned with
+    the JAX package as the answer where the kernel's tiles have edges: N
+    one short of and one past its 32-key k-steps and 64-key tiles, head
+    sizes it pads to its 32-byte k-depth (16, 40).  K3 plain vs JAX
+    `packed_attention_int8` (the Pallas kernel in interpret mode), 2 images,
+    2 heads, per-section quantized qkv."""
+    h = 2
+    d = h * dh
+    x = _qkv(60 + n + dh, shape=(2, n, 3 * d), scale=0.5)
+    sec = (np.abs(x.reshape(-1, 3, d)).max(axis=(0, 2)) / 127.0).astype(np.float32)
+    q = np.clip(np.round(x / np.repeat(sec, d)), -127, 127).astype(np.int8)
+    inv = None
+    if int8_out:
+        ref = _np(j_packed_int8(jnp.asarray(q), jnp.asarray(sec), h))
+        inv = np.float32(127.0 / np.abs(ref).max())
+    want = j_packed_int8(jnp.asarray(q), jnp.asarray(sec), h, out_inv_scale=inv,
+                         int8_out=int8_out)
+    got = packed_attention_int8(torch.from_numpy(q), torch.from_numpy(sec), h,
+                                out_inv_scale=None if inv is None else torch.tensor(inv),
+                                int8_out=int8_out)
+    assert got.dtype == (torch.int8 if int8_out else torch.bfloat16)
+    assert got.shape == (2, n, d)
+    _int8_close(got, want, int8_out)
+
+
 # --------------------------------------------------------- elementwise ----
 
 _GRID = np.linspace(-10.0, 10.0, 4001, dtype=np.float32)

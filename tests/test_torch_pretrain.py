@@ -348,6 +348,24 @@ def test_warmup_cosine_matches_optax():
         np.testing.assert_allclose(got(s), float(want(s)), rtol=1e-5, atol=1e-12)
 
 
+@pytest.mark.parametrize("peak, warmup, decay", [(3e-4, 3, 20), (1e-3, 50, 1000)])
+def test_warmup_cosine_takes_the_device_count(peak, warmup, decay):
+    """The schedule on an int32 0-d tensor (the optimizer's count of applied
+    steps) against optax's, steps 0 to 10 past decay: a 0-d f32 tensor
+    within 1e-7 relative.  Beside it an absolute peak * 2^-24, one f32 ulp
+    of the cosine factor near 1: XLA's and torch's f32 cos differ in the
+    last bit at a few steps (the port rounds an f64 cos)."""
+    want = optax.warmup_cosine_decay_schedule(0.0, peak, warmup_steps=warmup,
+                                              decay_steps=decay)
+    got = ps.warmup_cosine(peak, warmup, decay)
+    steps = np.arange(decay + 11)
+    out = [got(torch.tensor(int(s), dtype=torch.int32)) for s in steps]
+    assert all(o.dtype == torch.float32 and o.ndim == 0 for o in out)
+    np.testing.assert_allclose(np.array([float(o) for o in out]),
+                               np.asarray(want(steps)), rtol=1e-7,
+                               atol=peak * 2.0**-24)
+
+
 def test_trainer_steps_of_the_examples_loss_match_jax(tmp_path, monkeypatch):
     """Three `Trainer` steps of the example's loss at `--preset small` (f32,
     dropout off, the clip at 1.0, warmup-cosine AdamW, non-finite skip on)

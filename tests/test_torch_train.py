@@ -297,16 +297,32 @@ def test_monitor_skips_nonfinite_and_reports_grad_norm(tmp_path):
     assert any("grad_norm" in line for line in lines)
 
 
-@pytest.mark.parametrize("max_nonfinite", [1, 3])
-def test_nonfinite_skip_matches_optax_apply_if_finite(max_nonfinite):
-    """good, bad, bad, good through both Trainers with monitor: params as
-    in JAX (optax.apply_if_finite) after every step, 1e-5 (the AdamW bar).  At
-    max_nonfinite=1 the second bad step is applied (NaN params), as optax
-    does."""
-    seq = [np.ones((4, 3), np.float32) * s for s in (0.5, -1.0, -1.0, 0.5)]
-    jt = JTrainer(_nan_loss_j, optax.adamw(0.1, weight_decay=0.01), {"w": jnp.ones(3)},
+def _ramp(step):
+    """lr = 0.1 (1 + step): a float or jnp count, or the port's device count."""
+    return 0.1 * (1 + step)
+
+
+_GOOD_BAD_BAD_GOOD = (0.5, -1.0, -1.0, 0.5)
+_GOOD_BAD_GOOD_GOOD = (0.5, -1.0, 0.5, 0.5)
+
+
+@pytest.mark.parametrize("max_nonfinite, lr, signs", [
+    pytest.param(1, 0.1, _GOOD_BAD_BAD_GOOD, id="1"),
+    pytest.param(3, 0.1, _GOOD_BAD_BAD_GOOD, id="3"),
+    pytest.param(1, _ramp, _GOOD_BAD_GOOD_GOOD, id="schedule-1"),
+    pytest.param(3, _ramp, _GOOD_BAD_GOOD_GOOD, id="schedule-3"),
+])
+def test_nonfinite_skip_matches_optax_apply_if_finite(max_nonfinite, lr, signs):
+    """Batches of the given signs (negative: NaN loss) through both Trainers
+    with monitor: params as in JAX (optax.apply_if_finite) after every step,
+    1e-5 (the AdamW bar).  At max_nonfinite=1, good, bad, bad, good applies
+    the second bad step (NaN params), as optax does.  With the schedule
+    lr = 0.1 (1 + step) a skipped step must not advance the schedule's
+    count: optax reads it at the inner count of applied steps."""
+    seq = [np.ones((4, 3), np.float32) * s for s in signs]
+    jt = JTrainer(_nan_loss_j, optax.adamw(lr, weight_decay=0.01), {"w": jnp.ones(3)},
                   monitor=True, max_nonfinite=max_nonfinite, donate=False)
-    tt = Trainer(_nan_loss_t, make_optimizer(0.1, weight_decay=0.01),
+    tt = Trainer(_nan_loss_t, make_optimizer(lr, weight_decay=0.01),
                  _Toy([1.0, 1.0, 1.0]), monitor=True, max_nonfinite=max_nonfinite)
     for i, b in enumerate(seq):
         jt.fit(iter([jnp.asarray(b)]), i + 1, jax.random.PRNGKey(0))
@@ -314,7 +330,45 @@ def test_nonfinite_skip_matches_optax_apply_if_finite(max_nonfinite):
         want = np.asarray(jt.params["w"])
         np.testing.assert_allclose(_np(tt.model.w), want, atol=1e-5, rtol=0,
                                    err_msg=f"step {i}")
-    assert np.isnan(_np(tt.model.w)).any() == (max_nonfinite == 1)
+    nan_run = max_nonfinite == 1 and signs == _GOOD_BAD_BAD_GOOD
+    assert np.isnan(_np(tt.model.w)).any() == nan_run
+    applied = sum(s > 0 for s in signs) + nan_run
+    assert tt.opt_state.count.dtype == torch.int32
+    assert int(tt.opt_state.count) == applied
+
+
+def test_schedule_count_survives_resume(tmp_path):
+    """Good, bad (skipped), good under lr = 0.1 (1 + step), checkpointed;
+    a new Trainer restores the count of applied steps (2, not the 3 steps
+    taken), and its next step equals the uninterrupted run's.  A state
+    dict of the older format, whose "count" is a host int, loads with that
+    int as the applied count."""
+    good, bad = torch.ones(4, 3) * 0.5, -torch.ones(4, 3)
+    ckpt = str(tmp_path / "ckpt")
+
+    def trainer(**kw):
+        return Trainer(_nan_loss_t, make_optimizer(_ramp, weight_decay=0.01),
+                       _Toy([1.0, 1.0, 1.0]), monitor=True, max_nonfinite=3, **kw)
+
+    ref = trainer()
+    ref.fit(iter([good, bad, good, good]), 4, seed=0)
+    tr = trainer(checkpoint_dir=ckpt, save_every=3)
+    tr.fit(iter([good, bad, good]), 3, seed=0)
+    assert int(tr.opt_state.count) == 2
+    tr2 = trainer(checkpoint_dir=ckpt)
+    assert tr2.restore() == 3
+    assert isinstance(tr2.opt_state.count, torch.Tensor)
+    assert int(tr2.opt_state.count) == 2
+    assert int(tr2.opt_state.total_notfinite) == 1
+    tr2.fit(iter([good]), 4, seed=0)
+    assert int(tr2.opt_state.count) == 3
+    assert torch.equal(tr2.model.w, ref.model.w)
+
+    state = tr2.opt_state.state_dict()
+    state["count"] = 7
+    tr2.opt_state.load_state_dict(state)
+    assert tr2.opt_state.count.dtype == torch.int32
+    assert int(tr2.opt_state.count) == 7
 
 
 def test_trainer_ema_tracks_params(tmp_path):
