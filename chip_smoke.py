@@ -103,7 +103,29 @@ fails (non-zero exit, no result line) if any phase fails:
    the plain attention path; a clipped step's gradients;
 22. bootstrap: the 10-step checkpoint through `train_multistate --preset b8
    --ckpt` (the trunk bit-equal after the transfer; 3 steps, K5-lse and K6
-   11 times a step).
+   11 times a step);
+23. the same checkpoint (a 784-row position table) into the 448-px
+   multistate config (3136 rows): the table equals `interpolate_pos_embed`
+   of the source's, and a clustered bf16 forward runs K7 in 11 layers;
+24. interpolation: ViT-B/16 from its 224-px table at 384 px (577 tokens,
+   bs16), bf16 (K1) and int8 (K3, calibrated at 384) against the plain
+   attention path, ms/batch;
+25. remat: the ViT-B/16 bs256 step with remat off, "" (every block
+   recomputed), "dots" and "dots_no_batch": the gradients against remat
+   off, K1-lse and K2 launches, ms/step, peak memory;
+26. mu_dtype: 10 `Trainer` steps at bs64 with a bf16 first moment: the loss
+   falls, mu is bf16, the state's bytes against the fused AdamW's, a resume
+   bit for bit;
+27. FPS and axis-align clustering at `bench.py`'s multistate config: int8
+   (K4) and bf16 (K5) forwards, valid partitions, 11 launches per forward,
+   ms/batch, host syncs, device time; `kway_ncut` and the TX compression
+   on the card against the CPU;
+28. predictive training: `examples.train_predictive_synthetic` at the
+   sandbox config (ViT-B trunk, bs64, 64-px glimpses) for 10 steps, no
+   kernel launched (its 8-token key-masked attention is the plain path,
+   as in JAX), falling loss; the step's ms, img/s, peak memory and device
+   time; 3 steps of `--losses all7`; one batch's loss and gradients in f32
+   on the card against the CPU.
 
 Every kernel is timed beside the least time the card could take for its
 work (`bound`) and, where one PyTorch call computes the same function,
@@ -2296,6 +2318,412 @@ def bootstrap_phase(dev, smi: str, ckpt: str) -> None:
         raise AssertionError(f"bootstrap launches {counts}, want {want}")
 
 
+# ------------------------------------------------------------ PR 12 phases
+
+
+def interp_phase(dev, smi: str) -> None:
+    """ViT-B/16 from its 224-px table served at 384 px (24 x 24 patches, 577
+    tokens: the table resampled by `interpolate_pos_embed` in every
+    forward): the bf16 forward (K1 in 12 layers) and the int8 apply
+    (calibrated at 384: K3 in 12 layers), each against the plain attention
+    path on the same weights; ms/batch at bs16."""
+    from msvit_tpu_torch.models.base import ViTModel
+    from msvit_tpu_torch.models.base.quantized import calibrate_act_scales, quantized_vit_apply
+    from msvit_tpu_torch.ops.packed_attention import packed_attention, packed_attention_int8
+
+    cfg, model, qparams, _ = vit_int8(dev)
+    pix = torch.randn(16, 384, 384, 3, generator=torch.Generator().manual_seed(7)).to(dev)
+    scales = calibrate_act_scales(qparams, cfg, pix)
+    plain = ViTModel(dataclasses.replace(cfg, attn_implementation="xla"), device=dev).eval()
+    plain.load_state_dict(model.state_dict())
+
+    def bf16(m):
+        with torch.inference_mode():
+            return m(pix)["last_hidden_state"]
+
+    def int8(use_kernels=None):
+        return quantized_vit_apply(qparams, cfg, pix, act_scales=scales, use_kernels=use_kernels)
+
+    packed_attention.launches = packed_attention_int8.launches = 0
+    bk = bf16(model)
+    ik = int8()
+    counts = {"K1": packed_attention.launches, "K3": packed_attention_int8.launches}
+    bp, ip = bf16(plain), int8(use_kernels=False)
+    n = 1 + (384 // cfg.patch_size) ** 2  # 577
+    if not all(tuple(t.shape) == (16, n, cfg.hidden_size) and torch.isfinite(t).all()
+               for t in (bk, ik, bp, ip)):
+        raise AssertionError("384-px outputs: shapes or non-finite values")
+    c_bf16, c_int8, c_mixed = min_cos(bk, bp), min_cos(ik, ip), min_cos(ik, bk)
+    t_bf16, t_int8 = wall_ms(lambda: bf16(model)), wall_ms(int8)
+    log(f"[interp] ViT-B/16 (224-px table, 196 rows) at 384 px, 577 tokens, bs16: launches "
+        f"{counts}; min per-image cosine bf16 kernel vs plain path {c_bf16!r} (tolerance >= "
+        f"{MS_BF16_COS!r}), int8 kernel vs plain path {c_int8!r} (tolerance >= "
+        f"{MS_INT8_COS!r}), int8 vs bf16 {c_mixed!r} (tolerance >= 0.98); bf16 {t_bf16!r} "
+        f"ms/batch, int8 {t_int8!r} ms/batch (10 runs after 2 of warm-up, host clock; {smi})")
+    if counts != {"K1": LAYERS, "K3": LAYERS}:
+        raise AssertionError(f"384-px launches {counts}, want {LAYERS} each")
+    if c_bf16 < MS_BF16_COS or c_int8 < MS_INT8_COS or c_mixed < 0.98:
+        raise AssertionError("384-px kernel path disagrees with the plain path")
+
+
+def b8_to_448_phase(dev, smi: str, ckpt: str) -> None:
+    """The ViT-B/8 pretrain checkpoint (a 784-row position table) through
+    `transfer_base_to_multistate` into the 448-px multistate config (3136
+    rows): the table equals `interpolate_pos_embed` of the source's, and a
+    clustered bf16 forward at bs8 runs K7 in 11 layers."""
+    from msvit_tpu_torch.compat.family import transfer_base_to_multistate
+    from msvit_tpu_torch.models.base.vit import interpolate_pos_embed
+    from msvit_tpu_torch.models.multistate import MultiStateViTEncoderModel
+    from msvit_tpu_torch.train import restore_checkpoint
+    from msvit_tpu_torch.utils.rng import Rng
+
+    params = restore_checkpoint(ckpt)["params"]
+    base = {k[len("vit."):]: v for k, v in params.items() if k.startswith("vit.")}
+    cfg = ms448_config()
+    model = MultiStateViTEncoderModel(cfg, device=dev).eval()
+    state = transfer_base_to_multistate(base, model.state_dict(), LAYERS)
+    src = base["embeddings.position_embeddings"][:, 1:]
+    want = interpolate_pos_embed(src, 3136, (56, 56), has_cls=False)
+    got = state["embeddings.position_embeddings"]
+    same = torch.equal(got.float().cpu(), want.float().cpu())
+    log(f"[b8->448] the b8 checkpoint's table {tuple(src.shape)} resampled into "
+        f"{tuple(got.shape)}: equal to interpolate_pos_embed of the source {same}")
+    if not same or tuple(got.shape) != (1, 3136, cfg.hidden_size):
+        raise AssertionError("the transferred 448-px table is not the resampled source")
+    model.load_state_dict(state)
+    _reset_attn_counts()
+    with torch.inference_mode():
+        out = model(scene_pixels(5, size=448).to(dev), rng=Rng(3))
+    _launched("b8->448 bf16 forward with clustering", {"K7": LAYERS - 1})
+    _check_multistate_out("b8->448", out, cfg)
+    log(f"[b8->448] num_clusters {int(out['num_clusters'])}, cluster sizes {_sizes(out)} "
+        f"({smi})")
+
+
+def remat_phase(dev, smi: str) -> None:
+    """The ViT-B/16 bs256 train step with remat off, "" (every block
+    recomputed), "dots" and "dots_no_batch" (the matrix products saved):
+    the first step's gradients against remat off, K1-lse and K2 launches,
+    ms/step and peak memory."""
+    from msvit_tpu_torch.train import make_optimizer, train_step_fn
+
+    batch = _batch(dev, 256, 6)
+    ref, rows = None, []
+    for label, kw in (("off", {}), ('""', dict(remat=True)),
+                      ('"dots"', dict(remat=True, remat_policy="dots")),
+                      ('"dots_no_batch"', dict(remat=True, remat_policy="dots_no_batch"))):
+        model = _classifier(dev, 0, **kw)
+        _reset_training_counts()
+        _, g = _grads(model, batch)
+        counts = _training_counts()
+        want = {"K1-lse": LAYERS * (2 if kw else 1), "K2": LAYERS}
+        if counts != want:
+            raise AssertionError(f"remat {label}: launches {counts}, want {want}")
+        if ref is None:
+            ref = g
+            agree = "the reference"
+        else:
+            c, d = cos(g, ref), (g - ref).abs().max().item() / ref.abs().max().item()
+            agree = f"gradient cosine {c!r}, max |difference| {d!r} of max |grad|"
+            if c < 0.999:
+                raise AssertionError(f"remat {label}: gradients disagree with remat off")
+        del g
+        opt = make_optimizer(1e-4)
+        state = opt.init(model)
+        step = train_step_fn(_ce_loss, opt)
+        for _ in range(2):  # warm-up
+            step(model, state, batch, None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            loss, _ = step(model, state, batch, None)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 5
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not math.isfinite(loss.item()):
+            raise AssertionError(f"remat {label}: non-finite loss")
+        rows.append(f"{label}: {dt * 1e3!r} ms/step, peak {peak!r} GiB, launches {counts}, "
+                    f"{agree}")
+        del model, state, step
+        torch.cuda.empty_cache()
+    log(f"[remat] ViT-B/16 train step bs256 (5 steps after 2 of warm-up, host clock; peak "
+        f"memory over the timed steps, weights and AdamW state included; {smi}): "
+        + "; ".join(rows))
+
+
+def mu_dtype_phase(dev, smi: str) -> None:
+    """`Trainer` for 10 steps at bs64 with `make_optimizer(mu_dtype=
+    torch.bfloat16)`: the loss falls, mu is stored in bf16, the state's
+    bytes against the fused AdamW's f32 moments, K1-lse and K2 launched,
+    and a fresh Trainer restores step 10 and takes step 11 bit for bit."""
+    from msvit_tpu_torch.train import Trainer, make_optimizer, train_step_fn
+
+    batch = _batch(dev, 64, 4)
+    sched = warmup_cosine(5e-4, 3, 10)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mu_") as tmp:
+        def trainer(model):
+            return Trainer(_ce_loss, make_optimizer(sched, weight_decay=0.05,
+                                                    mu_dtype=torch.bfloat16), model,
+                           checkpoint_dir=os.path.join(tmp, "ckpt"), save_every=5,
+                           metrics_path=os.path.join(tmp, "metrics.jsonl"), log_every=1,
+                           monitor=True)
+
+        tr = trainer(_classifier(dev, 0))
+        _reset_training_counts()
+        t0 = time.perf_counter()
+        tr.fit(itertools.repeat(batch), num_steps=10, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _training_counts()
+        losses = [r["loss"] for r in _metrics(tmp)]
+        st = tr.opt_state
+        dtypes = {str(t.dtype) for t in st.mu} | {str(t.dtype) for t in st.nu}
+        bf16_bytes = sum(t.numel() * t.element_size() for t in st.mu + st.nu)
+        fused = _classifier(dev, 0)
+        opt = make_optimizer(1e-4)
+        fstate = opt.init(fused)
+        train_step_fn(_ce_loss, opt)(fused, fstate, batch, None)
+        f32_bytes = sum(t.numel() * t.element_size() for s in fstate.adamw.state.values()
+                        for t in s.values() if t.dim() > 0)
+        del fused, fstate
+        log(f"[mu_dtype] 10 Trainer steps at bs64 with a bf16 first moment in {wall:.2f} s "
+            f"(checkpoints at 5 and 10, host reads every step); losses {losses}; launches "
+            f"{launches}; moment dtypes {sorted(dtypes)}; optimizer state {bf16_bytes} bytes "
+            f"(bf16 mu + f32 nu) against {f32_bytes} (the fused AdamW's f32 moments), "
+            f"{bf16_bytes / f32_bytes!r} of it ({smi})")
+        if len(losses) != 10 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError("a mu_dtype training loss is missing or not finite")
+        if not losses[-1] < losses[0]:
+            raise AssertionError("the mu_dtype loss did not fall over 10 steps")
+        if launches != {"K1-lse": 10 * LAYERS, "K2": 10 * LAYERS}:
+            raise AssertionError(f"mu_dtype launches {launches}")
+        if not all(t.dtype == torch.bfloat16 for t in st.mu) or bf16_bytes >= f32_bytes:
+            raise AssertionError(f"mu_dtype state: dtypes {dtypes}, {bf16_bytes} bytes")
+        fresh = trainer(_classifier(dev, 1))
+        step = fresh.restore()
+        same = all(torch.equal(a, b) for a, b in zip(fresh.model.state_dict().values(),
+                                                     tr.model.state_dict().values()))
+        same &= all(torch.equal(a, b) for a, b in zip(fresh.opt_state.mu + fresh.opt_state.nu,
+                                                      st.mu + st.nu))
+        for t in (tr, fresh):
+            t.ckpt = t.metrics = None
+            t.fit(itertools.repeat(batch), num_steps=11, seed=0)
+        same11 = all(torch.equal(a, b) for a, b in zip(fresh.model.state_dict().values(),
+                                                       tr.model.state_dict().values()))
+        log(f"[mu_dtype] fresh Trainer restored step {step}: params, mu and nu equal {same}; "
+            f"step 11 from both equal {same11}")
+        if step != 10 or not (same and same11):
+            raise AssertionError("the mu_dtype resume is not bit for bit")
+        del tr, fresh
+
+
+def _check_global_partition(label: str, out: dict, cfg) -> None:
+    """The outputs of a clustering whose child ids are not compacted (FPS,
+    axis-align: ids are center or axis numbers): shapes, finite values,
+    ids in [0, C), and num_clusters the count of distinct ids."""
+    lh, tx, ids, nc = (out[k] for k in ("last_hidden_state", "cluster_tokens",
+                                       "last_cluster_indices", "num_clusters"))
+    b, c, d, n = MS_BATCH, cfg.max_clusters, cfg.hidden_size, cfg.num_patches
+    if (tuple(lh.shape), tuple(tx.shape), tuple(ids.shape)) != ((b, n, d), (b, c, d), (b, n)):
+        raise AssertionError(f"{label}: output shapes")
+    if not (torch.isfinite(lh).all() and torch.isfinite(tx).all()):
+        raise AssertionError(f"{label}: non-finite outputs")
+    distinct = int(torch.unique(ids).numel())
+    if int(ids.min()) < 0 or int(ids.max()) >= c or nc.numel() != 1 or int(nc) != distinct:
+        raise AssertionError(f"{label}: ids in [{int(ids.min())}, {int(ids.max())}], "
+                             f"num_clusters {nc.tolist()}, {distinct} distinct ids")
+
+
+def clustering_phase(dev, smi: str) -> None:
+    """Multistate serving at `bench.py`'s config with FPS and with
+    axis-align clustering (ncut_dim 8, num_sample 1024, max_clusters 16):
+    the int8 (K4) and bf16 (K5) forwards, valid partitions, 11 launches per
+    forward, ms/batch, host syncs, device time; then `kway_ncut` and
+    `compress_tokens_with_cluster_indices` at a small shape against the
+    same call on the CPU."""
+    from msvit_tpu_torch.models.clustering import (
+        AxisAlignClusteringConfig, FPSClusteringConfig)
+    from msvit_tpu_torch.models.multistate import (
+        MultiStateViTEncoderModel, calibrate_multistate_act_scales,
+        quantize_multistate_params, quantized_multistate_apply)
+    from msvit_tpu_torch.models.multistate.model import compress_tokens_with_cluster_indices
+    from msvit_tpu_torch.ops.ncut import kway_ncut
+    from msvit_tpu_torch.utils.rng import Rng
+
+    pix = scene_pixels(2).to(dev)
+    state = None
+    for name, cc in (("fps", FPSClusteringConfig(ncut_dim=8, num_sample=1024,
+                                                 max_clusters=MS_CLUSTERS)),
+                     ("axis", AxisAlignClusteringConfig(ncut_dim=8, num_sample=1024,
+                                                        max_clusters=MS_CLUSTERS))):
+        cfg = multistate_config(clustering=cc)
+        model = MultiStateViTEncoderModel(
+            cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state)
+        qparams = quantize_multistate_params(model)
+        scales = calibrate_multistate_act_scales(qparams, cfg, scene_pixels(1).to(dev), Rng(0))
+
+        def int8():
+            return quantized_multistate_apply(qparams, cfg, pix, Rng(3), act_scales=scales)
+
+        def bf16():
+            with torch.inference_mode():
+                return model(pix, rng=Rng(3))
+
+        _reset_attn_counts()
+        oi = int8()
+        _launched(f"clustering {name} int8", {"K4": LAYERS - 1})
+        _reset_attn_counts()
+        ob = bf16()
+        _launched(f"clustering {name} bf16", {"K5": LAYERS - 1})
+        _check_global_partition(f"{name} int8", oi, cfg)
+        _check_global_partition(f"{name} bf16", ob, cfg)
+        syncs = _syncs(int8)
+        t_int8, t_bf16 = wall_ms(int8), wall_ms(bf16)
+        attn = "flash_mma_kernel|fused_attention_kernel"
+        d_int8, k4 = device_profile(int8, attn, LAYERS - 1)
+        d_bf16, k5 = device_profile(bf16, attn, LAYERS - 1)
+        log(f"[clustering] {name}: num_clusters int8 {int(oi['num_clusters'])}, bf16 "
+            f"{int(ob['num_clusters'])}; cluster sizes int8 {_sizes(oi)}; int8 {t_int8!r} "
+            f"ms/batch, bf16 {t_bf16!r} ms/batch (bs8, 10 runs after 2 of warm-up, host "
+            f"clock), host syncs per int8 forward {syncs}; device time per forward int8 "
+            f"{d_int8!r} ms (K4 {k4 / d_int8!r} of it), bf16 {d_bf16!r} ms (K5 "
+            f"{k5 / d_bf16!r} of it; torch.profiler) ({smi})")
+        del model, qparams, scales, oi, ob
+        torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(2)
+    basis = torch.linalg.qr(torch.randn(5, 5, generator=g))[0]
+    x = basis[torch.randint(0, 5, (200,), generator=g)] + 0.2 * torch.randn(200, 5, generator=g)
+    oh_c, r_c = kway_ncut(x)
+    oh_d, r_d = kway_ncut(x.to(dev))
+    q, wk, bk = (torch.randn(s, generator=g) for s in ((2, 2, 6, 4), (8, 2, 4), (2, 4)))
+    probs = torch.softmax(torch.randn(2, 2, 6, 6, generator=g), -1)
+    ci = torch.stack([torch.randperm(6, generator=g) % 3 for _ in range(2)])
+    t_c = compress_tokens_with_cluster_indices(q, wk, bk, probs, ci, 3, 4)
+    t_d = compress_tokens_with_cluster_indices(*(t.to(dev) for t in (q, wk, bk, probs, ci)),
+                                               3, 4)
+    e_r, e_t = max_err(r_d.cpu(), r_c), max_err(t_d.cpu(), t_c)
+    log(f"[clustering] kway_ncut [200, 5] on the card vs the CPU: one-hot equal "
+        f"{torch.equal(oh_d.cpu(), oh_c)}, rotation max abs err {e_r!r} (tolerance 1e-4); "
+        f"compress_tokens_with_cluster_indices [2,2,6,4] -> [2,3,8]: max abs err {e_t!r} "
+        f"(tolerance 1e-4)")
+    if not torch.equal(oh_d.cpu(), oh_c) or e_r > 1e-4 or e_t > 1e-4:
+        raise AssertionError("kway_ncut or the TX compression disagrees with the CPU")
+
+
+def _all_counts() -> dict:
+    from msvit_tpu_torch.ops.packed_attention import packed_attention, packed_attention_int8
+
+    return {**_attn_counts(), **_training_counts(), **_ms_train_counts(),
+            "K1": packed_attention.launches, "K3": packed_attention_int8.launches}
+
+
+def _reset_all_counts() -> None:
+    from msvit_tpu_torch.ops.packed_attention import packed_attention, packed_attention_int8
+
+    _reset_attn_counts()
+    _reset_training_counts()
+    _reset_ms_train_counts()
+    packed_attention.launches = packed_attention_int8.launches = 0
+
+
+def predictive_phase(dev, smi: str) -> None:
+    """`examples.train_predictive_synthetic` at the sandbox config (ViT-B
+    trunk at full width and depth, bs64, 224 px, 64-px glimpses) for 10
+    steps on 256 scenes made in memory: finite, falling loss, and no
+    hand-written kernel launched (N = 8 tokens under a key mask: the plain
+    attention, as in JAX); the step timed, img/s, peak memory; 3 steps of
+    `--losses all7`; then one batch's loss and gradients on the card
+    against the same model on the CPU in f32."""
+    from msvit_tpu_torch.data.synthetic import generate_batch
+    from msvit_tpu_torch.examples import train_predictive_synthetic as ex
+    from msvit_tpu_torch.models.predictive import PredictiveViTModel, training_loss
+    from msvit_tpu_torch.settings import parity_policy
+    from msvit_tpu_torch.utils.rng import Rng
+
+    data = generate_batch(range(256), size=224)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pred_") as tmp:
+        args = ex.build_parser().parse_args(["--steps", "10", "--log-every", "1", "--out", tmp])
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        summary = ex.train(args, data)
+        wall = time.perf_counter() - t0
+        counts = _all_counts()
+        totals = [h["total"] for h in summary["history"]]
+        log(f"[predictive] train_predictive_synthetic, the sandbox config, 10 steps at bs64 "
+            f"in {wall:.1f} s (model build, first-step warm-up, host reads every step and "
+            f"the mean bars included); totals {totals}; mean bars {summary['mean_bars']}; "
+            f"kernel launches {counts}")
+        if len(totals) != 10 or not all(math.isfinite(v) for v in totals):
+            raise AssertionError("a predictive loss is missing or not finite")
+        if not np.mean(totals[-3:]) < np.mean(totals[:3]):
+            raise AssertionError("the predictive loss did not fall over 10 steps")
+        if any(counts.values()):
+            raise AssertionError(f"the predictive path launched a kernel: {counts}")
+
+        model, _, step, state = ex.build(args)
+        pix = torch.from_numpy(data["images"][:64]).to(dev).float() / 127.5 - 1.0
+        gens = [torch.Generator().manual_seed(i) for i in range(7)]
+        for gen in gens[:2]:  # warm-up
+            step(model, state, pix, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for gen in gens[2:]:
+            loss, _ = step(model, state, pix, gen)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 5
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not math.isfinite(loss.item()):
+            raise AssertionError("predictive step-time run: non-finite loss")
+        # no kernel of the port's on this path: the pattern matches none
+        busy, _ = device_profile(lambda: step(model, state, pix, gens[0]), r"^$", 0)
+        log(f"[predictive] train step bs64 (sandbox losses, AdamW): {dt * 1e3!r} ms/step, "
+            f"{64 / dt!r} img/s, peak memory {peak!r} GiB (5 steps after 2 of warm-up, host "
+            f"clock); device time per step {busy!r} ms (every kernel, copy and set summed, "
+            f"torch.profiler, 3 steps after 1), {1 - busy / (dt * 1e3)!r} of the step idle "
+            f"({smi})")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+        args7 = ex.build_parser().parse_args(["--steps", "3", "--losses", "all7",
+                                              "--log-every", "1", "--out", tmp])
+        s7 = ex.train(args7, data)
+        rows = s7["history"]
+        log(f"[predictive] --losses all7, 3 steps: {rows}")
+        if len(rows) != 3 or len(rows[0]) != 8 or not all(
+                math.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError("the all7 run's losses are missing or not finite")
+
+    # one batch in f32 on the card and on the CPU, the same weights and
+    # glimpses (drawn on the CPU: a seed draws other numbers on the card)
+    cfg = ex.sandbox_config(policy=parity_policy())
+    tc = ex.training_config("all7")
+    pix = torch.from_numpy(data["images"][:8]).float() / 127.5 - 1.0
+    res, draws = {}, {}
+    for d in (torch.device("cpu"), dev):
+        m = PredictiveViTModel(cfg, generator=torch.Generator().manual_seed(ex.SEED), device=d)
+        out = m(pix.to(d), rng=Rng(5), output_inputs=True,
+                **{k: v.to(d) for k, v in draws.items()})
+        draws = {"context_lengths": out["context_lengths"], "patch_config": out["input_position"]}
+        err, _, _ = training_loss(m, pix.to(d), out, tc)
+        err.mean().backward()
+        res[d.type] = (err.mean().item(),
+                       torch.cat([p.grad.flatten().cpu() for p in m.parameters()]))
+        del m, out, err
+    (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+    rel_l, rel_g = abs(lg - lc) / abs(lc), ((gg - gc).norm() / gc.norm()).item()
+    log(f"[predictive] one batch (bs8, all7 losses, f32, tf32 off) on the card vs the CPU: "
+        f"loss {lg!r} vs {lc!r}, relative {rel_l!r} (tolerance 1e-4); gradients' relative "
+        f"L2 difference {rel_g!r} (tolerance 1e-3), cosine {cos(gg, gc)!r}")
+    if rel_l > 1e-4 or rel_g > 1e-3:
+        raise AssertionError("the predictive loss or gradients on the card disagree with the CPU")
+
+
 def int8_ab(tag: str) -> dict:
     """The int8 serving attention on the package beside this file, for an
     A/B of two trees in one call, each run from its root in turns (parent,
@@ -2468,6 +2896,18 @@ def main() -> None:
         pretrain_variants_phase(dev, smi, out)
         torch.cuda.empty_cache()
         bootstrap_phase(dev, smi, ckpt)
+        torch.cuda.empty_cache()
+        b8_to_448_phase(dev, smi, ckpt)
+    torch.cuda.empty_cache()
+    interp_phase(dev, smi)
+    torch.cuda.empty_cache()
+    remat_phase(dev, smi)
+    torch.cuda.empty_cache()
+    mu_dtype_phase(dev, smi)
+    torch.cuda.empty_cache()
+    clustering_phase(dev, smi)
+    torch.cuda.empty_cache()
+    predictive_phase(dev, smi)
     src = "msvit_tpu_torch/csrc/"
     # K6 and K10 at the other shapes their phases timed
     extra = {"K6": [("[8,12,3168,64] soft mask of the 448 partition", "K6@3168")],

@@ -12,6 +12,8 @@ from typing import Dict, Mapping
 
 import torch
 
+from msvit_tpu_torch.models.base.vit import interpolate_pos_embed
+
 
 def transfer_base_to_multistate(
     base_state: Mapping[str, torch.Tensor],
@@ -23,14 +25,11 @@ def transfer_base_to_multistate(
     by the caller) into a copy of a `MultiStateViTEncoderModel`'s `state`.
 
     As the JAX function: the patch projection; the position table minus its
-    CLS row; every trunk layer's tensors (the two models must agree on
-    `qk_norm`, or the layers' key sets differ and this raises); the TX and
-    RX tokens both from the CLS token.  Whatever else `state` holds is
-    kept.  Every tensor of the result is a copy.
-
-    Deviation: a position table of another length raises; the JAX function
-    resamples it bicubically (position-embedding interpolation is not
-    ported)."""
+    CLS row, resampled bicubically to the target's square grid where the
+    lengths differ (`interpolate_pos_embed`); every trunk layer's tensors
+    (the two models must agree on `qk_norm`, or the layers' key sets differ
+    and this raises); the TX and RX tokens both from the CLS token.  Whatever else `state` holds is
+    kept.  Every tensor of the result is a copy."""
     out = {k: v.clone() for k, v in state.items()}
 
     def put(key: str, value: torch.Tensor) -> None:
@@ -47,11 +46,10 @@ def transfer_base_to_multistate(
         if k.startswith("embeddings.patch_projection."):
             put(k, v)
     pos = base_state["embeddings.position_embeddings"][:, 1:]  # drop the CLS row
-    if pos.shape[1] != out["embeddings.position_embeddings"].shape[1]:
-        raise NotImplementedError(
-            f"position table of {pos.shape[1]} patches into one of "
-            f"{out['embeddings.position_embeddings'].shape[1]}: position-"
-            "embedding interpolation is not ported")
+    want = out["embeddings.position_embeddings"].shape[1]
+    if pos.shape[1] != want:
+        g = int(round(want**0.5))
+        pos = interpolate_pos_embed(pos, want, (g, g), has_cls=False)
     put("embeddings.position_embeddings", pos)
 
     for i in range(num_layers):

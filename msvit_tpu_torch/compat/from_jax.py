@@ -1,8 +1,9 @@
 """Flax param tree -> state dict of the port's `ViTModel` (and of
 `ViTForImageClassification`, `classifier_params_from_jax`, of
-`MultiStateViTEncoderModel`, `multistate_params_from_jax`, and of
+`MultiStateViTEncoderModel`, `multistate_params_from_jax`, of
 `MultiStateViTForImageClassification`,
-`multistate_classifier_params_from_jax`).
+`multistate_classifier_params_from_jax`, and of `PredictiveViTModel`,
+`predictive_params_from_jax`).
 
 Takes the JAX package's `ViTModel` params as nested dicts of numpy arrays
 (with or without the top-level "params" collection) and never imports JAX.
@@ -11,6 +12,10 @@ Takes the JAX package's `ViTModel` params as nested dicts of numpy arrays
 * ``qkv_kernel [D, 3, H, dh]`` is reshaped to ``[D, 3*H*dh]`` in
   (t, h, e) order, the packed q | k | v column order, then transposed;
   ``qkv_bias [3, H, dh]`` becomes ``[3*H*dh]``;
+* flax `Conv` kernels ``[k, k, in, out]`` become ``[out, in, k, k]``;
+  `ConvTranspose` kernels ``[k, k, in, out]`` become torch's
+  `conv_transpose2d` layout ``[in, out, k, k]``, flipped in both spatial
+  axes (lax does not flip the kernel, torch's transposed conv does);
 * LayerNorm ``scale`` / ``bias`` become ``weight`` / ``bias``; the qk-norm
   ``q_norm/scale`` and ``k_norm/scale`` of a layer (``config.qk_norm``)
   become ``attention.q_norm.weight`` and ``attention.k_norm.weight``.
@@ -130,6 +135,38 @@ def multistate_classifier_params_from_jax(
     out = {f"encoder.{k}": v
            for k, v in multistate_params_from_jax(params["encoder"], cfg).items()}
     _dense(out, "classifier", params["classifier"])
+    return out
+
+
+def predictive_params_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX `PredictiveViTModel` params -> state dict for the port's
+    `PredictiveViTModel`."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    pe = params["patch_embeddings"]
+    for i in range(5):
+        k = _t(pe[f"enc{i}"]["kernel"])  # [k, k, in, out]
+        out[f"patch_embeddings.enc_convs.{i}.weight"] = k.permute(3, 2, 0, 1).contiguous()
+        out[f"patch_embeddings.enc_convs.{i}.bias"] = _t(pe[f"enc{i}"]["bias"])
+        k = _t(pe[f"dec{i}"]["kernel"])
+        out[f"patch_embeddings.dec_convs.{i}.weight"] = (
+            k.flip(0, 1).permute(2, 3, 0, 1).contiguous())
+        out[f"patch_embeddings.dec_convs.{i}.bias"] = _t(pe[f"dec{i}"]["bias"])
+    _dense(out, "patch_embeddings.enc_dense", pe["enc_dense"])
+    _dense(out, "patch_embeddings.dec_dense", pe["dec_dense"])
+    _dense(out, "position_encoder", params["position_encoder"])
+    out["position_decoder_kernel"] = _t(params["position_decoder_kernel"])
+    if "position_decoder_bias" in params:
+        out["position_decoder_bias"] = _t(params["position_decoder_bias"])
+    out["cls_token"] = _t(params["cls_token"])
+    out["prd_token"] = _t(params["prd_token"])
+    enc = params["encoder"]
+    n_layers = len([k for k in enc if k.startswith("layer_")])
+    if cfg is not None and n_layers != cfg.num_hidden_layers:
+        raise ValueError(f"tree has {n_layers} layers, config {cfg.num_hidden_layers}")
+    for i in range(n_layers):
+        _layer(out, f"encoder.layer.{i}", enc[f"layer_{i}"])
     return out
 
 

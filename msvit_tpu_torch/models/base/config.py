@@ -18,9 +18,6 @@ _NOT_PORTED = {
     "num_experts": "ROADMAP.md queue 1, item 9 (base extras: moe.py)",
     "scan_layers": "ROADMAP.md 'Not ported, by decision' (scan_layers)",
     "sequence_sharding": "ROADMAP.md queue 1, item 11 (parallel)",
-    # remat="" (full recompute of each block) is ported; the JAX package's
-    # "dots" / "dots_no_batch" save-the-matmuls policies are not
-    "remat_policy": "ROADMAP.md queue 1, item 4 (remat policies)",
 }
 
 

@@ -46,12 +46,14 @@ kernel; context states or requested probabilities then raise, as in JAX.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from msvit_tpu_torch.models.base.config import BaseViTConfig
 from msvit_tpu_torch.models.base.norm import LayerNorm
@@ -334,11 +336,39 @@ class BaseViTLayer(nn.Module):
         return hidden_states, probs
 
 
+_aten = torch.ops.aten
+# the matrix products of a forward as they reach the dispatcher: F.linear
+# comes as mm / addmm, einsum and matmul over batch dimensions as bmm
+_NO_BATCH_DOTS = frozenset({_aten.mm.default, _aten.addmm.default,
+                            _aten._int_mm.default})
+_DOTS = _NO_BATCH_DOTS | {_aten.bmm.default, _aten.baddbmm.default}
+_REMAT_SAVED = {"dots": _DOTS, "dots_no_batch": _NO_BATCH_DOTS}
+
+
+def _save_products(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context(policy: str):
+    """`context_fn` of `torch.utils.checkpoint` for a remat policy: ""
+    recomputes everything; "dots" (`jax.checkpoint_policies.checkpoint_dots`)
+    saves the output of every matrix product; "dots_no_batch"
+    (`dots_with_no_batch_dims_saveable`) only those without a batch
+    dimension, the `F.linear` GEMMs (flax `Dense`'s `dot_general`).  The
+    rest is recomputed, the attention kernels' `autograd.Function`s too:
+    a kernel launched through ctypes is no aten product."""
+    if not policy:
+        return torch.utils.checkpoint.noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_save_products, _REMAT_SAVED[policy]))
+
+
 class BaseViTEncoder(nn.Module):
     """Stack of blocks, with optional per-layer context states.  Under
     ``config.remat`` each block is recomputed in the backward
     (`torch.utils.checkpoint`, non-reentrant), the counterpart of JAX's
-    `nn.remat` with no policy (full recompute)."""
+    `nn.remat`, with what ``config.remat_policy`` saves (`remat_context`)."""
 
     def __init__(self, config: BaseViTConfig, generator: torch.Generator):
         super().__init__()
@@ -375,7 +405,8 @@ class BaseViTEncoder(nn.Module):
                 # the block's masks come from its seed, not from the global
                 # RNG, so the RNG state need not be saved for the recompute
                 hidden_states, probs = torch.utils.checkpoint.checkpoint(
-                    layer, *args, use_reentrant=False, preserve_rng_state=False)
+                    layer, *args, use_reentrant=False, preserve_rng_state=False,
+                    context_fn=remat_context(cfg.remat_policy))
             else:
                 hidden_states, probs = layer(*args)
             if output_attentions:

@@ -28,7 +28,7 @@ from torch import nn
 
 from msvit_tpu_torch.models.base.config import BaseViTConfig
 from msvit_tpu_torch.models.base.norm import layer_norm
-from msvit_tpu_torch.models.base.vit import check_grid, patchify
+from msvit_tpu_torch.models.base.vit import grid_position_table, patchify
 from msvit_tpu_torch.ops.attention import multi_head_attention
 from msvit_tpu_torch.ops.gelu import gelu_erf_tanh
 from msvit_tpu_torch.ops.packed_attention import (
@@ -130,7 +130,6 @@ def quantized_vit_apply(
     True on the CPU runs the kernels' plain versions along the same
     int8 data path (the counterpart of JAX's interpret mode)."""
     cfg = config
-    check_grid(cfg, pixel_values)
     b = pixel_values.shape[0]
     d, h = cfg.hidden_size, cfg.num_attention_heads
     eps = cfg.layer_norm_eps
@@ -146,7 +145,8 @@ def quantized_vit_apply(
            emb["patch_projection"])
     cls = emb["cls_token"].expand(b, 1, d)
     x = torch.cat([cls.to(x.dtype), x], dim=1)
-    x = x + emb["position_embeddings"].to(x.dtype)
+    pos = grid_position_table(emb["position_embeddings"], cfg, pixel_values, True)
+    x = x + pos.to(x.dtype)
 
     kernels = pixel_values.is_cuda if use_kernels is None else use_kernels
     # the fully-int8 attention data path needs calibrated per-section scales

@@ -9,15 +9,15 @@ the embeddings' dropout takes `fold_in(seed, 0)`, the trunk
 `fold_in(seed, 1)`.
 
 Pixels are NHWC at the public functions, as in the JAX package.  Patchify
-is a reshape in (p1, p2, c) order plus one Linear.  Position-embedding
-interpolation (a resolution other than the config's) is not ported yet:
-JAX uses `jax.image.resize` bicubic, a different kernel from torch's, and
-it needs its own parity test (ROADMAP.md queue 1, item 2).
+is a reshape in (p1, p2, c) order plus one Linear.  At a resolution other
+than the config's the position table is resampled to the patch grid
+(`interpolate_pos_embed`, the JAX package's `jax.image.resize` bicubic,
+which is not `F.interpolate`'s bicubic).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -38,21 +38,75 @@ def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, p * p * c)
 
 
-def check_grid(config: BaseViTConfig, pixel_values: torch.Tensor) -> None:
-    """Raise for channels-first input and for a patch grid that would need
-    position-embedding interpolation."""
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """The Keys cubic kernel with a = -0.5 at distances x >= 0 (JAX's
+    `_fill_keys_cubic_kernel`; torch's bicubic uses a = -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def resize_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """[n_in, n_out] f32 weights of JAX's bicubic `jax.image.resize` along
+    one axis (`compute_weight_mat` with antialias): half-pixel centres,
+    the kernel widened by the scale when shrinking, each output's weights
+    normalised to sum 1, outputs whose centre falls outside the input
+    zero."""
+    inv_scale = n_in / n_out
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
+        * inv_scale - 0.5
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = _keys_cubic((sample[None, :] - src[:, None]).abs() / max(inv_scale, 1.0))
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, num_patches: int,
+                          grid_hw: Tuple[int, int],
+                          has_cls: bool = True) -> torch.Tensor:
+    """Bicubic-resample a [1, N(+1), D] position table to the patch grid
+    `grid_hw` (the JAX package's `interpolate_pos_embed`): the table's
+    square grid goes through `resize_weights` along each axis whose length
+    changes (two einsums in f32); the CLS row is kept.  A table that
+    already holds `num_patches` rows is returned as it is."""
+    n_table = pos_embed.shape[1] - (1 if has_cls else 0)
+    if n_table == num_patches:
+        return pos_embed
+    grid = (pos_embed[:, 1:] if has_cls else pos_embed).float()
+    d = grid.shape[-1]
+    old = int(round(n_table**0.5))
+    gh, gw = grid_hw
+    grid = grid.reshape(old, old, d)
+    if gh != old:
+        grid = torch.einsum("hwd,hy->ywd", grid, resize_weights(old, gh, grid.device))
+    if gw != old:
+        grid = torch.einsum("ywd,wx->yxd", grid, resize_weights(old, gw, grid.device))
+    grid = grid.reshape(1, gh * gw, d).to(pos_embed.dtype)
+    return torch.cat([pos_embed[:, :1], grid], dim=1) if has_cls else grid
+
+
+def check_grid(config: BaseViTConfig, pixel_values: torch.Tensor) -> Tuple[int, int]:
+    """The patch grid (gh, gw) of NHWC `pixel_values`; raises for
+    channels-first input."""
     _, img_h, img_w, c = pixel_values.shape
     if c != config.num_channels and img_h == config.num_channels:
         raise ValueError(
             f"pixel_values look channels-first {tuple(pixel_values.shape)}; "
             "this framework is NHWC — permute(0, 2, 3, 1) NCHW inputs"
         )
-    p = config.patch_size
-    if (img_h // p) * (img_w // p) != config.num_patches:
-        raise NotImplementedError(
-            f"{img_h}x{img_w} px needs position-embedding interpolation "
-            "(bicubic), not ported yet (ROADMAP.md queue 1, item 2)"
-        )
+    return img_h // config.patch_size, img_w // config.patch_size
+
+
+def grid_position_table(pos_embed: torch.Tensor, config: BaseViTConfig,
+                        pixel_values: torch.Tensor, has_cls: bool) -> torch.Tensor:
+    """`pos_embed` for the patch grid of `pixel_values` (checked by
+    `check_grid`): resampled where its rows differ from the grid's
+    patches, as JAX's embeddings do."""
+    gh, gw = check_grid(config, pixel_values)
+    return interpolate_pos_embed(pos_embed, gh * gw, (gh, gw), has_cls)
 
 
 class ViTEmbeddings(nn.Module):
@@ -77,12 +131,13 @@ class ViTEmbeddings(nn.Module):
     def forward(self, pixel_values: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
-        check_grid(cfg, pixel_values)
+        pos = grid_position_table(self.position_embeddings, cfg, pixel_values,
+                                  self.add_cls_token)
         x = self.patch_projection(patchify(pixel_values, cfg.patch_size))
         if self.add_cls_token:
             cls = self.cls_token.expand(x.shape[0], 1, cfg.hidden_size)
             x = torch.cat([cls.to(x.dtype), x], dim=1)
-        x = x + self.position_embeddings.to(x.dtype)
+        x = x + pos.to(x.dtype)
         p = cfg.hidden_dropout_prob
         return dropout(x, p, generator) if p > 0 and self.training else x
 

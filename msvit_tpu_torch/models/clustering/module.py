@@ -12,9 +12,19 @@ package takes a key and split it in JAX's order, so a stream that draws
 JAX's numbers reproduces JAX's partition.
 
 The config classes are ported field for field.  `shared_anchors=True`
-takes `ncut_shared` (one Nystrom anchor pool shared across parents).  The
-FPS and axis-align variants raise `NotImplementedError` when a model is
-built (`check_supported`).
+takes `ncut_shared` (one Nystrom anchor pool shared across parents).
+
+The FPS variant (`fps_cluster`): NCut-embed all tokens, PCA, blocked FPS of
+`fps_sample1` candidates, their cosine-similarity profiles standardised
+and PCA-ed, blocked FPS of `fps_supersample2` of them, the `fps_sample2`
+that most tokens resemble become centers, each token takes its most
+similar center.  The axis-align variant (`axis_align_cluster`): the
+Gumbel-perturbed argmax over the NCut axes of the demeaned tokens.  Both
+cluster globally (parents are ignored, then each child is credited to the
+parent holding most of its tokens); per image (`pool_batch=False`) they run
+the pooled function on one image at a time, image i on `key.split(B)[i]`.
+Their outputs depend on the eigensolver's column signs (the PCA's sort
+axis, the NCut axes), which LAPACK may pick otherwise than JAX's solver.
 """
 
 from __future__ import annotations
@@ -24,10 +34,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from msvit_tpu_torch.ops.kmeans import kmeans
+from msvit_tpu_torch.ops.fps import farthest_point_sampling_blocked
+from msvit_tpu_torch.ops.kmeans import kmeans, top_k_indices
+from msvit_tpu_torch.ops.linalg import pca_lowrank
 from msvit_tpu_torch.ops.ncut import ncut, ncut_shared
-
-_ROADMAP = "ROADMAP.md queue 1, item 5 (multistate: FPS, axis-align)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,11 +95,10 @@ class AxisAlignClusteringConfig(ClusteringConfig):
 
 
 def check_supported(config: ClusteringConfig) -> None:
-    """Raise `NotImplementedError` for a clustering this port cannot run."""
-    if config.model_type != "spectral":
-        raise NotImplementedError(
-            f"clustering model_type={config.model_type!r} is not ported yet "
-            f"({_ROADMAP})")
+    """Raise `ValueError` for a `model_type` with no clustering."""
+    if config.model_type not in CLUSTERING_CLASSES:
+        raise ValueError(f"clustering model_type={config.model_type!r}: one of "
+                         f"{sorted(CLUSTERING_CLASSES)}")
 
 
 def _ncut_matmul_dtype(config: ClusteringConfig) -> str:
@@ -184,6 +193,99 @@ def spectral_cluster(
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
+def _parent_majority(child_indices: torch.Tensor, parent_indices: torch.Tensor,
+                     c_max: int) -> torch.Tensor:
+    """n_children [C_max] for the variants that ignore parents: each
+    occupied child cluster is credited to the parent owning most of its
+    tokens (the lower id among equals)."""
+    ids = torch.arange(c_max, device=child_indices.device)
+
+    def one_hot(i):  # an id >= c_max gives a zero row, as jax.nn.one_hot
+        return (i.reshape(-1, 1) == ids).float()
+
+    child_oh = one_hot(child_indices)  # [BN, C]
+    votes = child_oh.T @ one_hot(parent_indices)  # [C_child, C_parent]
+    occupied = (child_oh.sum(0) > 0).float()
+    return (one_hot(votes.argmax(-1)).T @ occupied).long()
+
+
+def _per_image(fn, config, parent_indices, x, key):
+    """Per-image mode of a variant written against pooled flat tokens: the
+    pooled function on each image alone, image i on `key.split(B)[i]`."""
+    pooled = dataclasses.replace(config, pool_batch=True)
+    outs = [fn(pooled, pi[None], xi[None], ki)
+            for pi, xi, ki in zip(parent_indices, x, key.split(parent_indices.shape[0]))]
+    return torch.cat([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-8)
+
+
+def fps_cluster(
+    config: FPSClusteringConfig,
+    parent_indices: torch.Tensor,  # [B, N] int
+    x: torch.Tensor,  # [B, N, D]
+    key,
+    max_parents: Optional[int] = None,  # unused: FPS clusters globally
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FPS variant (module docstring).  Returns (child_indices [B, N],
+    n_children [C_max], or [B, C_max] per image)."""
+    b, n = parent_indices.shape
+    if not config.pool_batch:
+        return _per_image(fps_cluster, config, parent_indices, x, key)
+    flat_x = x.reshape(b * n, -1).float()
+    _, k_ncut, k_f1, k_f2 = key.split(4)
+    ncut_x, _ = ncut(flat_x, num_eig=config.ncut_dim, key=k_ncut,
+                     num_sample=config.num_sample, distance=config.ncut_dist,
+                     gamma=config.affinity_focal_gamma, eig_method=config.eig_method,
+                     eig_iters=config.eig_iters, matmul_dtype=_ncut_matmul_dtype(config))
+    pca_x, _, _ = pca_lowrank(ncut_x, config.fps_dim)
+    s1 = ncut_x[farthest_point_sampling_blocked(pca_x, config.fps_sample1, key=k_f1)]
+    sim = _unit(s1) @ _unit(ncut_x).T  # [s1, BN]
+    sim_std = (sim - sim.mean(-1, keepdim=True)) / (
+        sim.std(-1, keepdim=True, correction=0) + 1e-8)
+    s1_pca, _, _ = pca_lowrank(sim_std, config.fps_dim)
+    ss2 = s1[farthest_point_sampling_blocked(s1_pca, config.fps_supersample2, key=k_f2)]
+    sim2 = _unit(ss2) @ _unit(ncut_x).T  # [ss2, BN]
+    score = (sim2 > config.cosine_similarity_threshold).sum(-1)
+    centers = top_k_indices(score, config.fps_sample2)
+    child = sim2[centers].argmax(0).reshape(b, n)
+    return child, _parent_majority(child, parent_indices, config.max_clusters)
+
+
+def axis_align_cluster(
+    config: AxisAlignClusteringConfig,
+    parent_indices: torch.Tensor,  # [B, N] int
+    x: torch.Tensor,  # [B, N, D]
+    key,
+    max_parents: Optional[int] = None,  # unused: axis-align is global
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The axis-align variant (module docstring): NCut (its defaults:
+    `eigh`, bf16 affinity products) of the demeaned tokens, then
+    argmax(ncut_x / temperature + Gumbel noise) over the axes, the noise
+    drawn as JAX's `random.gumbel`: -log(-log(uniform(tiny, 1)))."""
+    b, n = parent_indices.shape
+    if not config.pool_batch:
+        return _per_image(axis_align_cluster, config, parent_indices, x, key)
+    flat_x = x.reshape(b * n, -1).float()
+    _, k_ncut, k_g = key.split(3)
+    ncut_x, _ = ncut(flat_x - flat_x.mean(0, keepdim=True), num_eig=config.ncut_dim,
+                     key=k_ncut, num_sample=config.num_sample, distance=config.ncut_dist,
+                     gamma=config.affinity_focal_gamma)
+    u = k_g.uniform(ncut_x.shape, torch.finfo(torch.float32).tiny, 1.0, ncut_x.device)
+    child = (ncut_x / config.temperature - torch.log(-torch.log(u))).argmax(-1)
+    child = child.reshape(b, n)
+    return child, _parent_majority(child, parent_indices, config.max_clusters)
+
+
+CLUSTERING_CLASSES = {
+    "spectral": spectral_cluster,
+    "fps": fps_cluster,
+    "axis": axis_align_cluster,
+}
+
+
 def max_children_bound(config: ClusteringConfig, max_parents: int) -> int:
     """Static upper bound on the child clusters one call can produce when
     at most `max_parents` distinct parent ids are present."""
@@ -204,6 +306,7 @@ def cluster(
     key,
     max_parents: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch by `config.model_type` (the spectral variant only)."""
+    """Dispatch by `config.model_type` (`CLUSTERING_CLASSES`)."""
     check_supported(config)
-    return spectral_cluster(config, parent_indices, x, key, max_parents=max_parents)
+    return CLUSTERING_CLASSES[config.model_type](
+        config, parent_indices, x, key, max_parents=max_parents)

@@ -38,7 +38,8 @@ the device.  Dropout and drop-path (``self.training`` stands for JAX's
 ``deterministic=False``) draw from seeded generators, never the global
 RNG: a forward draws one seed from its `generator`; the embeddings take
 `fold_in(seed, 0)` and block i `fold_in(fold_in(seed, 1), i)`, as
-`ViTModel` does.  Not ported: `compress_tokens_with_cluster_indices`.
+`ViTModel` does.  `compress_tokens_with_cluster_indices` (the TX
+compression by least squares) lies on no path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from msvit_tpu_torch.models.base.vit import ViTEmbeddings
 from msvit_tpu_torch.models.clustering import cluster, max_children_bound
 from msvit_tpu_torch.models.multistate.config import MultiStateViTConfig
 from msvit_tpu_torch.ops.banded_attention import BandedSegments
+from msvit_tpu_torch.utils.math import multiclass_logits
 from msvit_tpu_torch.utils.rng import Rng, draw_seed, fold_in
 
 
@@ -311,6 +313,51 @@ class MultiStateViTEncoderModel(nn.Module):
             out["receiver_to_transmitter_attentions"] = out[
                 "last_receiver_to_transmitter_attentions"]
         return out
+
+
+def _lstsq_min_norm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`jnp.linalg.lstsq(a, b)[0]` for a [B, m, n], b [B, m, k]: the
+    minimum-norm least-squares solution through an SVD, singular values
+    below eps * max(m, n) * s_max dropped (the design matrices here are
+    rank-deficient; CUDA's `torch.linalg.lstsq` has only `gels`, which
+    assumes full rank)."""
+    u, s, vt = torch.linalg.svd(a, full_matrices=False)
+    rcond = torch.finfo(a.dtype).eps * max(a.shape[-2:])
+    keep = (s > 0) & (s >= rcond * s[..., :1])
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, 1.0), 0.0)
+    return vt.mT @ (s_inv[..., None] * (u.mT @ b))
+
+
+def compress_tokens_with_cluster_indices(
+    query_layer: torch.Tensor,  # [B, H, N, dh]
+    key_weight: torch.Tensor,  # [D, H, dh]: the K slice of the fused QKV
+    key_bias: torch.Tensor,  # [H, dh]
+    attention_probs: torch.Tensor,  # [B, H, N, N]
+    cluster_indices: torch.Tensor,  # [B, N]
+    n_clusters: int,
+    head_dim: int,
+) -> torch.Tensor:
+    """Least-squares "transmitter token" compression (the JAX package's
+    function of that name; no forward calls it): C tokens t_c, plus a bias
+    absorber per (head, query), whose key projections reproduce the
+    cluster-summed attention logits, Q.(W_k t_c + b_k) ~ s.  The design
+    matrix, rows (h, q, c), is block-diagonal in c for the tokens and the
+    identity in (h, q) for the absorbers: [B, HNC, CD + HN], solved per
+    image for the minimum-norm solution (`_lstsq_min_norm`).  Returns
+    transmitter_tokens [B, C, D] f32."""
+    b, h, n, _ = query_layer.shape
+    d = key_weight.shape[0]
+    c = n_clusters
+    dev = query_layer.device
+    masks = (cluster_indices[..., None] == torch.arange(c, device=dev)).to(attention_probs.dtype)
+    tx_probs = torch.einsum("bhqk,bkc->bhqc", attention_probs, masks)
+    s = multiclass_logits(tx_probs) * head_dim**0.5  # [B, H, N, C]
+    qmk = torch.einsum("bhqe,dhe->bhqd", query_layer, key_weight)  # [B, H, N, D]
+    s = s - torch.einsum("bhqe,he->bhq", query_layer, key_bias)[..., None]
+    xh = torch.einsum("bhqd,ce->bhqced", qmk, torch.eye(c, device=dev)).reshape(b, h * n * c, c * d)
+    xc = torch.eye(h * n, device=dev).repeat_interleave(c, dim=0).expand(b, -1, -1)
+    w = _lstsq_min_norm(torch.cat([xh, xc], dim=-1), s.reshape(b, h * n * c, 1))
+    return w[:, : c * d, 0].reshape(b, c, d)
 
 
 class MultiStateViTForImageClassification(nn.Module):

@@ -40,7 +40,7 @@ import torch
 from torch import nn
 
 from msvit_tpu_torch.models.base.quantized import _layer_norm, quantize_layer_params
-from msvit_tpu_torch.models.base.vit import check_grid, patchify
+from msvit_tpu_torch.models.base.vit import grid_position_table, patchify
 from msvit_tpu_torch.models.multistate.config import MultiStateViTConfig
 from msvit_tpu_torch.models.multistate.model import (
     SortedTokens,
@@ -103,16 +103,14 @@ def quantized_multistate_apply(
     num_clusters and receiver_to_transmitter_attentions.
 
     `rng`: an `Rng`, an int seed or None.  `use_kernels=None` means
-    kernels iff the pixels are on the card."""
+    kernels iff the pixels are on the card.  The position table is
+    resampled to the pixels' patch grid wherever its length differs, as in
+    JAX, where `interpolate_pos_encoding` only asks for what a differing
+    grid already implies."""
     if attn_mode not in ("bf16", "int8", "banded"):
         raise ValueError(f"attn_mode must be 'bf16', 'int8' or 'banded'; got {attn_mode}")
-    if interpolate_pos_encoding:
-        raise NotImplementedError(
-            "position-embedding interpolation is not ported yet (ROADMAP.md "
-            "queue 1, item 2)")
     cfg = config
     cfg.check_supported()
-    check_grid(cfg, pixel_values)
     b = pixel_values.shape[0]
     d, h = cfg.hidden_size, cfg.num_attention_heads
     c = cfg.max_clusters
@@ -127,7 +125,8 @@ def quantized_multistate_apply(
 
     emb = qparams["embeddings"]
     x = mm("patch", patchify(pixel_values, cfg.patch_size), emb["patch_projection"])
-    hidden = x + emb["position_embeddings"].to(x.dtype)
+    pos = grid_position_table(emb["position_embeddings"], cfg, pixel_values, False)
+    hidden = x + pos.to(x.dtype)
     n = hidden.shape[1]
     kernels = pixel_values.is_cuda if use_kernels is None else use_kernels
     int8_attn = (attn_mode == "int8" and kernels and act_scales is not None

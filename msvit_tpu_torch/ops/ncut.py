@@ -18,6 +18,9 @@ to bf16 and accumulates in f32.  A bf16 `torch.matmul` rounds its output
 to bf16 as well, so the port rounds the inputs and multiplies in f32:
 bf16 x bf16 products are exact in f32.
 
+`kway_ncut` turns an embedding into axis-aligned clusters (the Yu-Shi
+discretisation of the JAX package's debug path).
+
 `eigh` syncs the host with the card (PyTorch checks its error code on
 the host): once per call on the [2k, 2k] Rayleigh-Ritz matrix with
 `eig_method="subspace"`.  The Cholesky factorisations use
@@ -31,8 +34,6 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from msvit_tpu_torch.ops.kmeans import gumbel_top_k, top_k_indices
-
-_ROADMAP = "ROADMAP.md queue 1, item 5 (multistate: kway_ncut, FPS, axis-align)"
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor, dtype: str) -> torch.Tensor:
@@ -219,7 +220,31 @@ def ncut_shared(
                   gamma, eig_method, eig_iters, matmul_dtype)
 
 
-def kway_ncut(*args, **kwargs):
-    """Yu-Shi multiclass discretization (the JAX package's debug path):
-    not ported yet."""
-    raise NotImplementedError(f"kway_ncut is not ported yet ({_ROADMAP})")
+def kway_ncut(
+    x: torch.Tensor,  # [n, k] spectral embedding (top-k eigenvectors)
+    iters: int = 30,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multiclass spectral discretisation (Yu & Shi 2003), the JAX
+    package's `kway_ncut`: rows normalised, a greedy near-orthogonal
+    initial basis (the largest-norm row, then each next row of least
+    accumulated |cos| to those taken), then `iters` fixed alternations of
+    the row-argmax one-hot D and the orthogonal Procrustes rotation
+    R = U V^T of svd(X^T D) (k x k).  Returns (onehot [n, k] f32, rotation
+    [k, k]); U V^T does not depend on the SVD's signs."""
+    n, k = x.shape
+    x = x.float()
+    xn = x / (torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-8)
+    rows = [xn[torch.linalg.vector_norm(x, dim=1).argmax()]]
+    c = torch.zeros(n, device=x.device)
+    for _ in range(k - 1):
+        c = c + (xn @ rows[-1]).abs()
+        rows.append(xn[c.argmin()])
+    r = torch.stack(rows, dim=1)  # columns: the basis directions
+
+    def onehot(r):
+        return torch.nn.functional.one_hot((xn @ r).argmax(1), k).float()
+
+    for _ in range(iters):
+        u, _, vt = torch.linalg.svd(xn.T @ onehot(r), full_matrices=False)
+        r = u @ vt
+    return onehot(r), r

@@ -8,7 +8,14 @@ updates in place: ``step(model, opt_state, batch, generator[, ema]) ->
 The optimizer is `torch.optim.AdamW` (fused), configured as `optax.adamw`:
 b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay.  `make_optimizer`
 returns a recipe; ``recipe.init(model)`` builds its state, as an optax
-`GradientTransformation.init` does.
+`GradientTransformation.init` does.  With ``mu_dtype`` (a bf16 first
+moment, `optax.adamw(mu_dtype=...)`) the update is the port's own, in
+`torch._foreach_*` ops, step for step as optax computes it under jit (the
+JAX package's train step): both moments updated in f32 (b1 rounded to the
+stored mu's dtype, as optax's Python float is where it meets a bf16 array:
+0.8984375 for bf16), the bias-corrected update from that f32 mu, and only
+then mu rounded to `mu_dtype` for storage; nu stays in the parameter's
+dtype.
 
 Non-finite steps (`apply_if_finite`, optax semantics): a step whose
 gradients hold a NaN or an Inf leaves the params, both moments and the
@@ -54,13 +61,16 @@ class Optimizer:
       at "."; the others get no update and no decay (optax `set_to_zero`).
     max_nonfinite: set by `apply_if_finite`.
     clip_norm: global-norm clip of the gradients ahead of AdamW
-      (`optax.clip_by_global_norm`); None or 0 disables it."""
+      (`optax.clip_by_global_norm`); None or 0 disables it.
+    mu_dtype: the first moment's storage dtype (None: the fused AdamW,
+      moments in the parameter's dtype)."""
 
     learning_rate: Schedule = 1e-3
     weight_decay: float = 1e-2
     trainable: Optional[Callable[[Tuple[str, ...]], bool]] = None
     max_nonfinite: Optional[int] = None
     clip_norm: Optional[float] = None
+    mu_dtype: Optional[torch.dtype] = None
 
     def init(self, model: nn.Module) -> "OptState":
         return OptState(self, model)
@@ -74,14 +84,12 @@ def make_optimizer(
     clip_norm: Optional[float] = None,
 ) -> Optimizer:
     """AdamW, optionally masked to a trainable subset by parameter name,
-    optionally behind a global-norm clip of the gradients."""
-    if mu_dtype is not None:
-        raise NotImplementedError(
-            "mu_dtype (a bf16 first moment) is not ported yet "
-            "(ROADMAP.md queue 1, item 4: mu_dtype)"
-        )
+    optionally behind a global-norm clip of the gradients.
+    ``mu_dtype=torch.bfloat16`` stores the first moment in bf16 (the second
+    stays in the parameter's dtype: its EMA of tiny squared gradients would
+    underflow bf16's 8-bit mantissa)."""
     return Optimizer(learning_rate, weight_decay, trainable,
-                     clip_norm=clip_norm or None)
+                     clip_norm=clip_norm or None, mu_dtype=mu_dtype)
 
 
 def apply_if_finite(optimizer: Optimizer, max_nonfinite: int) -> Optimizer:
@@ -89,11 +97,15 @@ def apply_if_finite(optimizer: Optimizer, max_nonfinite: int) -> Optimizer:
     return dataclasses.replace(optimizer, max_nonfinite=max_nonfinite)
 
 
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
 class OptState:
     """An `Optimizer`'s state for one model: a fused `torch.optim.AdamW`
-    over the trainable parameters, the count of applied steps (the
-    schedule's argument), and apply_if_finite's counters (device
-    tensors)."""
+    over the trainable parameters (with `mu_dtype`, the moments `mu` and
+    `nu` of the port's own update), the count of applied steps (the
+    schedule's argument, and Adam's bias-correction count), and
+    apply_if_finite's counters (device tensors)."""
 
     def __init__(self, spec: Optimizer, model: nn.Module):
         self.spec = spec
@@ -104,12 +116,18 @@ class OptState:
         ]
         if not named:
             raise ValueError("no trainable parameters")
+        self.params = [p for _, p in named]
         lr = spec.learning_rate
-        self.adamw = torch.optim.AdamW(
-            [p for _, p in named], lr=0.0 if callable(lr) else float(lr),
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=spec.weight_decay,
-            fused=True,
-        )
+        self.adamw = None
+        if spec.mu_dtype is None:
+            self.adamw = torch.optim.AdamW(
+                self.params, lr=0.0 if callable(lr) else float(lr),
+                betas=(_B1, _B2), eps=_EPS, weight_decay=spec.weight_decay,
+                fused=True,
+            )
+        else:
+            self.mu = [torch.zeros_like(p, dtype=spec.mu_dtype) for p in self.params]
+            self.nu = [torch.zeros_like(p) for p in self.params]
         dev = named[0][1].device
         # applied steps, the schedule's argument (optax's inner count)
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -122,35 +140,87 @@ class OptState:
         device, whether the step is taken; the count of applied steps
         advances with it."""
         lr = self.spec.learning_rate
-        if callable(lr):
-            lr_now = lr(self.count)
-            for group in self.adamw.param_groups:
-                group["lr"] = lr_now
-        applied = 1
+        lr_now = lr(self.count) if callable(lr) else lr
+        skip = None
         if self.spec.max_nonfinite is not None:
             bad = ~grads_finite
             self.notfinite_count = torch.where(
                 bad, self.notfinite_count + 1, torch.zeros_like(self.notfinite_count))
             self.total_notfinite = self.total_notfinite + bad.int()
             skip = bad & (self.notfinite_count <= self.spec.max_nonfinite)
-            self.adamw.found_inf = skip.float()
-            applied = (~skip).int()
-        self.adamw.step()
-        self.count = self.count + applied
+        if self.adamw is None:
+            self._update_mu_dtype(lr_now, skip)
+        else:
+            if callable(lr):
+                for group in self.adamw.param_groups:
+                    group["lr"] = lr_now
+            if skip is not None:
+                self.adamw.found_inf = skip.float()
+            self.adamw.step()
+        self.count = self.count + (1 if skip is None else (~skip).int())
+
+    @torch.no_grad()
+    def _update_mu_dtype(self, lr, skip: Optional[torch.Tensor]) -> None:
+        """`optax.adamw(lr, weight_decay, mu_dtype=...)` on the trainable
+        parameters, in optax's order (`scale_by_adam`,
+        `add_decayed_weights`, `scale_by_learning_rate`, `apply_updates`).
+        A skipped step (`skip` true) leaves parameters and moments as they
+        were."""
+        held = [i for i, p in enumerate(self.params) if p.grad is not None]
+        params = [self.params[i] for i in held]
+        mu_old = [self.mu[i] for i in held]
+        nu_old = [self.nu[i] for i in held]
+        g = [p.grad.float() for p in params]
+        mu = torch._foreach_mul(g, 1 - _B1)
+        # optax's b1 * mu: the Python float meets a bf16 array, so b1 is
+        # taken in mu's dtype (bf16(0.9) = 0.8984375); under jit the product
+        # stays f32 (exact for bf16 operands)
+        b1 = float(torch.tensor(_B1, dtype=self.spec.mu_dtype))
+        torch._foreach_add_(mu, torch._foreach_mul([m.float() for m in mu_old], b1))
+        nu = torch._foreach_mul(torch._foreach_mul(g, g), 1 - _B2)
+        torch._foreach_add_(nu, torch._foreach_mul([v.float() for v in nu_old], _B2))
+        t = (self.count + 1).float()  # Adam's count after this step
+        mu_hat = torch._foreach_div(mu, 1 - torch.pow(_B1, t))
+        nu_hat = torch._foreach_div(nu, 1 - torch.pow(_B2, t))
+        den = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(den, _EPS)
+        upd = torch._foreach_div(mu_hat, den)
+        if self.spec.weight_decay:
+            torch._foreach_add_(upd, torch._foreach_mul(
+                [p.float() for p in params], self.spec.weight_decay))
+        torch._foreach_mul_(upd, -lr)
+        new_p = torch._foreach_add([p.float() for p in params], upd)
+        new_mu = [m.to(self.spec.mu_dtype) for m in mu]
+        new_nu = [v.to(o.dtype) for v, o in zip(nu, nu_old)]
+        if skip is not None:
+            new_p = [torch.where(skip, p, q) for p, q in zip(params, new_p)]
+            new_mu = [torch.where(skip, o, m) for o, m in zip(mu_old, new_mu)]
+            new_nu = [torch.where(skip, o, v) for o, v in zip(nu_old, new_nu)]
+        torch._foreach_copy_(params, new_p)
+        torch._foreach_copy_(mu_old, new_mu)
+        torch._foreach_copy_(nu_old, new_nu)
 
     def state_dict(self) -> Dict[str, Any]:
-        return {
-            "adamw": self.adamw.state_dict(),
+        state = {
             "count": self.count,
             "notfinite_count": self.notfinite_count,
             "total_notfinite": self.total_notfinite,
         }
+        if self.adamw is None:
+            state.update(mu=self.mu, nu=self.nu)
+        else:
+            state["adamw"] = self.adamw.state_dict()
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """`state` from `state_dict`.  An older checkpoint whose "count"
         is a host int (steps taken, skipped ones included) loads with that
         count taken as the applied steps."""
-        self.adamw.load_state_dict(state["adamw"])
+        if self.adamw is None:
+            torch._foreach_copy_(self.mu, list(state["mu"]))
+            torch._foreach_copy_(self.nu, list(state["nu"]))
+        else:
+            self.adamw.load_state_dict(state["adamw"])
         self.count = torch.as_tensor(
             state["count"], dtype=torch.int32, device=self.count.device).clone()
         self.notfinite_count.copy_(state["notfinite_count"])

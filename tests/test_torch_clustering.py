@@ -184,11 +184,10 @@ def test_ncut_parent_smaller_than_sample_matches_jax():
 
 
 def test_ncut_shared_and_kway_ncut_raise():
-    """`kway_ncut` is not ported and raises; `ncut_shared` is ported now
-    (held against JAX in tests/test_torch_multistate_train.py) and gives
-    an embedding per parent."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tncut_mod.kway_ncut()
+    """`ncut_shared` (held against JAX in
+    tests/test_torch_multistate_train.py) gives an embedding per parent.
+    (`kway_ncut` no longer raises: tests/test_torch_fps_axis.py holds it
+    against JAX.)"""
     member = torch.from_numpy(np.arange(120) < 60)[None].repeat(2, 1)
     member[1] = ~member[1]
     vecs, vals = tncut_mod.ncut_shared(torch.from_numpy(blobs()), 4, Rng(0), member,
@@ -249,9 +248,10 @@ def test_max_children_bound_matches_jax(max_parents):
                 == jcl.max_children_bound(getattr(jcl, name)(), max_parents))
 
 
-@pytest.mark.parametrize("cfg", [tcl.FPSClusteringConfig(), tcl.AxisAlignClusteringConfig(),
-                                 tcl.ClusteringConfig()])
+@pytest.mark.parametrize("cfg", [pytest.param(tcl.ClusteringConfig(), id="cfg2")])
 def test_unported_clustering_raises(cfg):
+    """A `model_type` of no clustering raises.  (FPS and axis-align run:
+    tests/test_torch_fps_axis.py.)"""
     x = torch.zeros(1, 8, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="model_type"):
         tcl.cluster(cfg, torch.zeros(1, 8, dtype=torch.long), x, Rng(0))

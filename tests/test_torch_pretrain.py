@@ -316,20 +316,29 @@ def test_transfer_base_to_multistate_matches_jax(qk_norm):
 
 def test_transfer_refuses_mismatched_trunks():
     pix = jnp.zeros((1, 48, 48, 3))
-    base = vit_params_from_jax(JCls(JCfg(qk_norm=True, **GEOM), num_labels=5).init(
-        {"params": jax.random.PRNGKey(0)}, pix)["params"]["vit"])
-    ms = multistate_params_from_jax(JMs(JMsCfg(
+    jbase = JCls(JCfg(qk_norm=True, **GEOM), num_labels=5).init(
+        {"params": jax.random.PRNGKey(0)}, pix)["params"]["vit"]
+    base = vit_params_from_jax(jbase)
+    jms_tree = JMs(JMsCfg(
         pregeneration_period=1, generation_period=1,
         clustering=JSpectral(ncut_dim=4, num_sample=8, max_clusters=4), **GEOM)).init(
             {"params": jax.random.PRNGKey(1), "clustering": jax.random.PRNGKey(1)},
-            pix)["params"])
+            pix)["params"]
+    ms = multistate_params_from_jax(jms_tree)
     with pytest.raises(ValueError, match="qk_norm"):
         transfer_base_to_multistate(base, ms, 2)
+    # a position table of another length (4 rows, a 2 x 2 grid, against
+    # the base's 3 x 3) is resampled as JAX resamples it (1e-5, f32)
     short = dict(ms)
     short["embeddings.position_embeddings"] = ms["embeddings.position_embeddings"][:, :4]
     base_plain = {k: v for k, v in base.items() if "_norm." not in k or "attention" not in k}
-    with pytest.raises(NotImplementedError, match="interpolation"):
-        transfer_base_to_multistate(base_plain, short, 2)
+    got = transfer_base_to_multistate(base_plain, short, 2)["embeddings.position_embeddings"]
+    jms_short = {**jms_tree, "embeddings": {
+        **jms_tree["embeddings"],
+        "position_embeddings": jms_tree["embeddings"]["position_embeddings"][:, :4]}}
+    want = j_transfer(jbase, jms_short, 2)["embeddings"]["position_embeddings"]
+    assert got.shape == (1, 4, 64)
+    torch.testing.assert_close(got, torch.from_numpy(np.asarray(want)), rtol=0, atol=1e-5)
 
 
 # -------------------------------------------------------------- example ----

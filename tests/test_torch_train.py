@@ -128,17 +128,6 @@ def test_remat_equals_no_remat_with_dropout():
     assert l2 != l0
 
 
-def test_remat_policies_raise():
-    for policy in ("dots", "dots_no_batch"):
-        with pytest.raises(NotImplementedError, match="remat_policy"):
-            TCls(TCfg(**SMALL, remat=True, remat_policy=policy), LABELS)
-
-
-def test_mu_dtype_raises():
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
-        make_optimizer(1e-3, mu_dtype=torch.bfloat16)
-
-
 # ------------------------------------------------------------ optimizer ----
 
 

@@ -68,7 +68,6 @@ def test_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [("num_experts", 2), ("scan_layers", True),
-                                         ("remat_policy", "dots"),
                                          ("sequence_sharding", True)])
 def test_unported_fields_raise_at_build(field, value):
     with pytest.raises(NotImplementedError, match=field):
@@ -164,12 +163,6 @@ def test_vit_matches_jax_default_bf16_policy():
         got = _f32(model(torch.from_numpy(pix))["last_hidden_state"])
     assert _cos(got, want) >= 0.999
     assert np.abs(got - want).max() <= 0.25
-
-
-def test_pos_interpolation_not_ported_raises():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="interpolation"):
-        TViT(tcfg)(torch.zeros(1, 64, 64, 3))
 
 
 # ---------------------------------------------------------------- int8 ----
