@@ -125,7 +125,25 @@ fails (non-zero exit, no result line) if any phase fails:
    kernel launched (its 8-token key-masked attention is the plain path,
    as in JAX), falling loss; the step's ms, img/s, peak memory and device
    time; 3 steps of `--losses all7`; one batch's loss and gradients in f32
-   on the card against the CPU.
+   on the card against the CPU;
+29. subsample: `bench.py`'s config (ViT-B width, 6 layers, 224 px, grid
+   4 -> x2, depth 1, bs32) in open, lock and freeze mode: valid outputs (the
+   valid slots tile the image once), no kernel launched (81 tokens, the
+   plain path as in JAX), ms/batch, img/s, device time, host syncs, peak
+   memory; the deep configuration (448 px, depth 3: 1,361 tokens, bs8) in
+   open and freeze mode: K7 launched 24 and 6 times (its key-only mask read
+   through a row stride of 0), the forward timed with K7's share, and with
+   every slot split the kernel path against the plain attention path;
+   `train_subsample_synthetic` for 3 + 3 steps and its evaluation;
+30. key-only masks: K4, K5, K5-lse, K7 and K6 at [8,12,1361,64] with an
+   additive [8,1,1,1361] mask (and Nq 1025), each against its plain version
+   and bit-equal to itself given the mask expanded, then timed;
+31. saccadic: `bench.py`'s config (ViT-B width, 512 patterns of complexity
+   2, rank 64, beam 64, 448 px, 128-px glimpses): the batched run of 16
+   images x 10 glimpses (no kernel launched, no host sync in the loop),
+   ms/run, device time, peak memory; in f32 the first glimpse (embedding,
+   prediction, next query) on the card against the CPU (2 images); the
+   serial controller on one image; `train_saccadic` for 3 steps.
 
 Every kernel is timed beside the least time the card could take for its
 work (`bound`) and, where one PyTorch call computes the same function,
@@ -133,16 +151,18 @@ that call (`scaled_dot_product_attention` or its backward; the port never
 calls it).  The second-to-last line is a JSON object with each kernel's
 launches in its path's run (serving for K1 and K3, training for K1-lse and
 K2, the clustered multistate forwards for K4 and K5, multistate training
-for K5-lse and K6, the clustered 448-px bf16 forward for K7, the 224-px
-int8-attention forward for K9, the 448-px banded forward for K10, the
+for K5-lse and K6, the clustered 448-px bf16 forward and the deep subsample
+forwards for K7, the 224-px int8-attention forward for K9, the 448-px banded forward for K10, the
 ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows), its error, its time beside the plain version's, the library call's and the
 bound, and its share of the bound (K6 and K10 also at their other timed
-shapes); the last is `{"ok": true, "device": {...}}`.
+shapes, K4, K5, K5-lse, K6 and K7 with the key-only mask); the last is
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -273,53 +293,65 @@ def device_ms(fn, pattern: str, kernels: int = 1, runs: int = 10) -> float:
     return device_profile(fn, pattern, kernels, runs, median=True)[1]
 
 
+def _profiled_calls(fn, runs: int, attempt: int):
+    """The card's events of `runs` calls of `fn` in one `torch.profiler`
+    profile, sorted by start, or None when the profile lost a mark.  On
+    the H100 the profiler drops the kernels whose card timestamps, mapped
+    to the host's clock, fall before the profile's start (the card's read
+    ms early), and a profile can also lose its first launches
+    (`tools/profiler_probe.py` counts both).  So the
+    calls sit behind a lead-in (a 0.1 s host sleep, then 256 one-element
+    adds, twice as many on each further `attempt`) and between two marks
+    (`torch.cuda._sleep`'s spin kernel), the second one before 64 adds and
+    a short sleep."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        time.sleep(0.1)
+        for _ in range(256 << attempt):
+            pad.add_(1)
+        torch.cuda._sleep(100_000)
+        for _ in range(runs):
+            fn()
+        torch.cuda._sleep(100_000)
+        for _ in range(64):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    if len(marks) != 2:
+        log(f"[profile] {len(marks)} of 2 marks in the profile (at {marks} of "
+            f"{len(events)} events): taken again")
+        return None
+    return events[marks[0] + 1:marks[1]]
+
+
 def device_profile(fn, pattern: str, kernels: int, runs: int = 3,
                    median: bool = False) -> tuple:
     """Device time (ms) per call of `fn`, summed over every kernel, copy and
     set it ran on the card, and the part of it in the kernels whose names
     match `pattern` (`torch.profiler`, `runs` calls after one of warm-up;
     `median`: per name, the median launch times its launches per call).
-    A call launches `kernels` of those.  The profiler can lose the first
-    few launches after it starts (on the H100: 3 of 10 calls of K4; a
-    mark after 2 calls of K4, or first, even 50 ms in), so the counted
-    calls sit between two marks (`torch.cuda._sleep`'s spin kernel), each
-    behind or before 64 one-element adds: a profile without both marks, or
-    with another count than runs x kernels between them, is taken again,
-    at most twice, and then the readout fails."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    A call launches `kernels` of those.  A profile without both marks, or
+    with another count than runs x kernels between them, is taken again
+    with a longer lead-in (`_profiled_calls`), at most four times, and then
+    the readout fails."""
     fn()
     torch.cuda.synchronize()
-    pad = torch.zeros(1, device="cuda")
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-            for _ in range(64):
-                pad.add_(1)
-            torch.cuda._sleep(1)
-            for _ in range(runs):
-                fn()
-            torch.cuda._sleep(1)
-            for _ in range(64):
-                pad.add_(1)
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-        if len(marks) == 2:
-            events = events[marks[0] + 1:marks[1]]
+    for attempt in range(5):
+        events = _profiled_calls(fn, runs, attempt)
+        if events is not None:
             matched = [e for e in events if re.search(pattern, e.name)]
             if len(matched) == runs * kernels:
                 break
             log(f"[profile] {len(matched)} of {runs * kernels} launches matching "
                 f"{pattern!r} between the marks: taken again")
-        else:
-            adds = [i for i, e in enumerate(events) if "spin_kernel" not in e.name
-                    and not re.search(pattern, e.name)]
-            log(f"[profile] {len(marks)} of 2 marks in the profile (at {marks} of "
-                f"{len(events)} events; other kernels at {adds[:3]}..{adds[-3:]}): taken again")
     else:
-        raise AssertionError(f"torch.profiler lost launches matching {pattern!r} in three "
+        raise AssertionError(f"torch.profiler lost launches matching {pattern!r} in five "
                              f"profiles of {runs} calls")
     total = sum(e.device_time_total for e in events)
     if median:
@@ -330,6 +362,27 @@ def device_profile(fn, pattern: str, kernels: int, runs: int = 3,
     else:
         part = sum(e.device_time_total for e in matched)
     return total / runs / 1e3, part / runs / 1e3
+
+
+def top_kernels(fn, k: int = 6, runs: int = 3) -> str:
+    """The `k` kernels (by name) that take the most device time per call
+    of `fn` (`torch.profiler`, `runs` calls after one of warm-up), with
+    their ms per call and launches per call."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        events = _profiled_calls(fn, runs, attempt)
+        if events is not None:
+            break
+    else:
+        raise AssertionError("torch.profiler lost a mark in five profiles")
+    per = {}
+    for e in events:
+        t, n = per.get(e.name, (0.0, 0))
+        per[e.name] = (t + e.device_time_total, n + 1)
+    top = sorted(per.items(), key=lambda x: -x[1][0])[:k]
+    return "; ".join(f"{name[:60]} {t / runs / 1e3:.3f} ms x{n // runs}"
+                     for name, (t, n) in top)
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2724,6 +2777,363 @@ def predictive_phase(dev, smi: str) -> None:
         raise AssertionError("the predictive loss or gradients on the card disagree with the CPU")
 
 
+SS_SHAPE = (8, 12, 1361, 64)  # the depth-3 448-px subsample trunk's [B, H, N, dh]
+SS_BATCH = 32  # bench.py's subsample batch
+SS_DEEP_BATCH = 8
+
+
+def subsample_config(**overrides):
+    """`bench.py`'s `_bench_subsample` config: ViT-B (768 wide, 12 heads), 6
+    layers, 224 px, patch 16, grid 4 -> x2, depth 1 (80 slots + CLS)."""
+    from msvit_tpu_torch.models.subsample import SubsampleViTConfig
+
+    cfg = SubsampleViTConfig(num_hidden_layers=6, image_size=224, patch_size=16,
+                             initial_grid_size=4, multiplicative_grid_size=2, max_depth=1)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def _check_subsample_out(label: str, out: dict, cfg, b: int) -> None:
+    """Shapes, finite values, and the valid slots tiling the image exactly
+    once (a split parent leaves, its children enter: the areas, 1/16 of the
+    image at a root and a quarter of the parent's below, sum to 1)."""
+    lh, valid, lp = out["last_hidden_state"], out["last_valid_mask"], out["log_prob"]
+    if tuple(lh.shape) != (b, 1 + cfg.capacity, cfg.hidden_size) or lh.dtype != torch.float32:
+        raise AssertionError(f"{label}: last_hidden_state {tuple(lh.shape)} {lh.dtype}")
+    if not (torch.isfinite(lh).all() and torch.isfinite(lp).all()):
+        raise AssertionError(f"{label}: non-finite outputs")
+    area = (valid.float() * cfg.children_per_split ** -out["depths"].float()).sum(-1)
+    if (area / cfg.num_roots - 1.0).abs().max().item() > 1e-6:
+        raise AssertionError(f"{label}: the valid slots do not tile the image once")
+
+
+def subsample_phase(dev, smi: str) -> dict:
+    """The subsample encoder at `bench.py`'s config (bs32), seeded weights,
+    in its three modes: valid outputs, no kernel launched (81 tokens, the
+    plain attention path as in JAX), ms/batch, img/s, device time, host
+    syncs, peak memory.  Then the deep configuration (448 px, depth 3: 1,360
+    slots + CLS, bs8) in open and freeze mode: K7 in every layer of every
+    open iteration (24 launches) and of the last freeze iteration (6), the
+    forward timed with K7's share; with every slot split (policy bias +20:
+    one tree whatever the rounding) the kernel path against the plain
+    attention path.  Then `train_subsample_synthetic` for 3 + 3 steps and
+    its evaluation.  Returns the K7 launches of the deep forwards."""
+    from msvit_tpu_torch.data.synthetic import generate_batch
+    from msvit_tpu_torch.examples import train_subsample_synthetic as ex
+    from msvit_tpu_torch.models.subsample import SubsampleViTModel
+    from msvit_tpu_torch.utils.rng import Rng
+
+    def build(cfg):
+        return SubsampleViTModel(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=dev).eval()
+
+    def forward(model, pix, seed=0):
+        with torch.inference_mode():
+            return model(pix, rng=Rng(seed))
+
+    gen = torch.Generator().manual_seed(21)
+    pix = torch.randn(SS_BATCH, 224, 224, 3, generator=gen).to(dev)
+    for mode in ("open", "lock", "freeze"):
+        cfg = subsample_config(nesting_mode=mode)
+        model = build(cfg)
+        _reset_all_counts()
+        out = forward(model, pix)
+        counts = _all_counts()
+        _check_subsample_out(f"subsample {mode}", out, cfg, SS_BATCH)
+        if any(counts.values()):
+            raise AssertionError(f"subsample {mode} at 81 tokens launched {counts}")
+        fn = functools.partial(forward, model, pix)
+        ms = wall_ms(fn)
+        busy, _ = device_profile(fn, r"^$", 0)
+        syncs, peak = _syncs(fn), _peak_gib(fn)
+        log(f"[subsample] bench config ({mode}, bs{SS_BATCH}, 81 tokens, 6 layers, ViT-B "
+            f"width): {ms!r} ms/batch, {SS_BATCH / ms * 1e3!r} img/s (10 runs after 2 of "
+            f"warm-up, host clock); device time {busy!r} ms/batch (torch.profiler, every "
+            f"kernel, copy and set), {1 - busy / ms!r} of the forward idle; {syncs} host "
+            f"syncs; peak memory {peak!r} GiB; valid slots per image "
+            f"{out['last_valid_mask'].sum(-1).tolist()[:8]}...; no kernel launched ({smi})")
+        if mode == "open":
+            log(f"[subsample] bench config (open): the top kernels per forward: "
+                f"{top_kernels(fn)}")
+        del model, out
+    torch.cuda.empty_cache()
+
+    launches = {}
+    pix = torch.randn(SS_DEEP_BATCH, 448, 448, 3, generator=gen).to(dev)
+    for mode, want in (("open", 24), ("freeze", 6)):
+        cfg = subsample_config(image_size=448, max_depth=3, nesting_mode=mode)
+        model = build(cfg)
+        _reset_all_counts()
+        out = forward(model, pix)
+        counts = _all_counts()
+        _check_subsample_out(f"subsample 448 {mode}", out, cfg, SS_DEEP_BATCH)
+        full = {k: want if k == "K7" else 0 for k in counts}
+        log(f"[subsample] 448 px depth 3 ({mode}, bs{SS_DEEP_BATCH}, 1361 tokens): launches "
+            f"{counts}")
+        if counts != full:
+            raise AssertionError(f"subsample 448 {mode}: launches {counts}, want {full}")
+        launches[mode] = want
+        fn = functools.partial(forward, model, pix)
+        ms = wall_ms(fn)
+        busy, k7 = device_profile(fn, "flash_mma_kernel", want)
+        syncs, peak = _syncs(fn), _peak_gib(fn)
+        # every slot split: the same tree on both paths whatever the rounding
+        plain = build(dataclasses.replace(cfg, attn_implementation="xla"))
+        plain.load_state_dict(model.state_dict())
+        for m in (model, plain):
+            m.projection.bias.data.fill_(20.0)
+        ok, op = forward(model, pix, 1), forward(plain, pix, 1)
+        same = torch.equal(ok["last_valid_mask"], op["last_valid_mask"])
+        c = min_cos(ok["last_hidden_state"], op["last_hidden_state"])
+        log(f"[subsample] 448 px depth 3 ({mode}): {ms!r} ms/batch, "
+            f"{SS_DEEP_BATCH / ms * 1e3!r} img/s (host clock); device time {busy!r} ms, K7 "
+            f"{k7!r} ms of it ({k7 / busy!r}), {1 - busy / ms!r} idle; {syncs} host syncs; "
+            f"peak memory {peak!r} GiB; every slot split: valid masks equal {same}, min "
+            f"per-image cosine of last_hidden_state, K7 vs the plain path, {c!r} (tolerance "
+            f">= {MS_BF16_COS!r}) ({smi})")
+        if not same or c < MS_BF16_COS:
+            raise AssertionError(f"subsample 448 {mode}: the kernel path disagrees with plain")
+        log(f"[subsample] 448 px depth 3 ({mode}, every slot split): the top kernels per "
+            f"forward: {top_kernels(functools.partial(forward, model, pix, 1))}")
+        del model, plain, out, ok, op
+        torch.cuda.empty_cache()
+
+    data = generate_batch(range(256), size=224)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ss_") as tmp:
+        args = ex.build_parser().parse_args(
+            ["--warmup", "3", "--steps", "3", "--eval-size", "64", "--log-every", "1",
+             "--out", tmp])
+        t0 = time.perf_counter()
+        summary = ex.train(args, data)
+        wall = time.perf_counter() - t0
+    rows = summary["history"]
+    phases = [r["phase"] for r in rows]
+    log(f"[subsample] train_subsample_synthetic, 3 warmup + 3 REINFORCE steps at bs32 and "
+        f"the evaluation on 64 held-out scenes in {wall:.1f} s: {rows}; accuracy learned / "
+        f"never / always {summary['acc_learned']!r} / {summary['acc_never']!r} / "
+        f"{summary['acc_always']!r}, tokens {summary['tokens_learned']!r} / "
+        f"{summary['tokens_never']!r} / {summary['tokens_always']!r}")
+    # phase A logs its first and last step, phase B every step
+    if phases != ["warmup"] * 2 + ["reinforce"] * 3 or not all(
+            math.isfinite(r["ce"]) for r in rows):
+        raise AssertionError("the subsample example's losses are missing or not finite")
+    if (summary["tokens_never"], summary["tokens_always"]) != (16.0, 64.0):
+        raise AssertionError("the forced subsample controls kept the wrong token counts")
+    return launches
+
+
+def key_mask_kernel_phase(dev, smi: str) -> dict:
+    """K4, K5, K5-lse, K7 and K6 with the subsample trunk's key-only mask:
+    bf16 [8,12,1361,64] views of a packed QKV output and an additive
+    [8,1,1,1361] mask (CLS and ~60% of the slots 0, the others -1e30, every
+    slot minus log 4 x its depth: weighted tokens), read through a row
+    stride of 0; each against its plain version and bit-equal to itself
+    given the mask expanded to [8,1,1361,1361]; K4, K5, K7 and K6 also at
+    Nq 1025 x Nk 1361 (the freeze iteration).  Then each timed through the
+    wrapper beside its plain version, the library call and its bound."""
+    from msvit_tpu_torch.models.subsample import build_quadtree
+    from msvit_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    from msvit_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_inference, fused_attention_inference_plain,
+        fused_attention_lse, fused_attention_lse_plain, fused_attention_plain)
+    from msvit_tpu_torch.ops.packed_attention import unpack_qkv
+
+    b, h, n, dh = SS_SHAPE
+    gen = torch.Generator().manual_seed(31)
+    depth = torch.from_numpy(
+        build_quadtree(subsample_config(image_size=448, max_depth=3)).depth).float()
+    valid = torch.rand(b, n - 1, generator=gen) < 0.6
+    key = torch.cat([torch.zeros(b, 1), torch.where(valid, 0.0, -1e30) - math.log(4) * depth],
+                    dim=-1)
+    mask = key[:, None, None, :].to(dev)
+    x = torch.randn(b, n, 3 * h * dh, generator=gen).to(dev).to(torch.bfloat16)
+    q, k, v = unpack_qkv(x, h)
+    g = torch.randn(b, n, h, dh, generator=gen).to(dev).to(torch.bfloat16).transpose(1, 2)
+    shape, tag = list(SS_SHAPE), "[8,12,1361,64] key-only mask [8,1,1,1361]"
+    tol = K1_TOL[torch.bfloat16]
+    fwd = {"K4": (fused_attention_inference, fused_attention_inference_plain),
+           "K5": (fused_attention, fused_attention_plain),
+           "K7": (flash_attention, flash_attention_plain)}
+    res = {}
+    with torch.inference_mode():
+        full = mask.expand(-1, -1, n, -1).contiguous()
+        for name, (fn, plain) in fwd.items():
+            for label, qq, mm, fm in (("", q, mask, full),
+                                      (" Nq 1025", q[:, :, :1025], mask, full[:, :, :1025])):
+                got, again, want = fn(qq, k, v, mask=mm), fn(qq, k, v, mask=fm), plain(qq, k, v, mask=mm)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(got).all() and torch.equal(got, again)):
+                    raise AssertionError(f"{name} key-only{label}: non-finite, or not bit-equal "
+                                         "to the expanded mask's")
+                err = _check("key-mask", f"{name} bf16 {shape}{label} key-only mask",
+                             max_err(got, want), tol * max(1.0, want.float().abs().max().item()))
+                if not label:
+                    res[name] = err
+        (o, lse), (o2, lse2) = fused_attention_lse(q, k, v, mask=mask), \
+            fused_attention_lse(q, k, v, mask=full)
+        wo, wl = fused_attention_lse_plain(q, k, v, mask=mask)
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError("K5-lse key-only: not bit-equal to the expanded mask's")
+        res["K5-lse"] = _check("key-mask", f"K5-lse bf16 {shape} key-only mask", max_err(o, wo),
+                               tol * max(1.0, wo.float().abs().max().item()))
+        e_l = ((lse - wl).abs() / wl.abs().clamp_min(1.0)).max().item()
+        _check("key-mask", "K5-lse lse (relative)", e_l, LSE_REL_TOL)
+        del o2, lse2
+    with torch.no_grad():
+        for label, qq, gg, mm in (("", q, g, mask), (" Nq 1025", q[:, :, :1025],
+                                                     g[:, :, :1025], mask)):
+            ow, lw = fused_attention_lse_plain(qq, k, v, mask=mm)
+            got = flash_attention_bwd(qq, k, v, ow, gg, lw, mm)
+            want = flash_attention_bwd_plain(qq, k, v, ow, gg, lw, mm)
+            torch.cuda.synchronize()
+            err = _check("key-mask", f"K6 bf16 {shape}{label} key-only mask: dq, dk, dv",
+                         max(max_err(a, w) for a, w in zip(got, want)),
+                         K6_TOL[torch.bfloat16] * max(1.0, max(w.float().abs().max().item()
+                                                               for w in want)))
+            if not label:
+                res["K6"] = err
+            del got, want
+    del full
+    torch.cuda.empty_cache()
+
+    out = {}
+    ops = attn_ops(b, h, n, n, dh, 2)
+    with torch.inference_mode():
+        for name, (fn, plain) in fwd.items():
+            ms, plain_ms = race(lambda: fn(q, k, v, mask=mask), lambda: plain(q, k, v, mask=mask))
+            lib = library_ms(lambda: sdpa(q, k, v, mask))
+            lim = bound([q, k, v, mask], [q], ops, torch.bfloat16)
+            out[name] = dict(err=res[name], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)
+        ms, plain_ms = race(lambda: fused_attention_lse(q, k, v, mask=mask),
+                            lambda: fused_attention_lse_plain(q, k, v, mask=mask))
+        lim = bound([q, k, v, mask], [q, lse], ops, torch.bfloat16)
+        out["K5-lse"] = dict(err=res["K5-lse"], ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms(lambda: sdpa(q, k, v, mask)), **lim)
+    with torch.no_grad():
+        ms, plain_ms = race(lambda: flash_attention_bwd(q, k, v, wo, g, wl, mask),
+                            lambda: flash_attention_bwd_plain(q, k, v, wo, g, wl, mask))
+        lib = library_ms(sdpa_bwd(q, k, v, g, mask))
+    lim = bound([q, k, v, wo, g, wl, mask], [q, k, v], attn_ops(b, h, n, n, dh, 5),
+                torch.bfloat16)
+    out["K6"] = dict(err=res["K6"], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)
+    for name, r in out.items():
+        log(f"[key-mask] {name} bf16 {tag}: kernel {r['ms']!r} ms, plain {r['plain_ms']!r} "
+            f"ms, library {r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
+            f"({r['bound_by']}), {r['bound_ms'] / r['ms']!r} of its bound (median of 20, "
+            f"CUDA events; {smi})")
+    return {f"{name}@key": r for name, r in out.items()}
+
+
+SACCADIC_BATCH, SACCADIC_STEPS = 16, 10  # bench.py's saccadic run
+
+
+def saccadic_config(**overrides):
+    """`bench.py`'s `_bench_saccadic` config: ViT-B width (768, 12 heads, a
+    12-layer refiner), patterns of complexity 2 (512 of them), rank 64,
+    beam 64, 448 px, 128-px translation glimpses, the Cholesky matcher."""
+    from msvit_tpu_torch.models.saccadic import SaccadicViTConfig
+
+    cfg = SaccadicViTConfig(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                            num_patterns=((2, 512),), covariance_dim=64, beam_size=64,
+                            image_size=448, patch_size=128, patch_config="translation",
+                            pe_bias=True, matcher_solver="chol")
+    return dataclasses.replace(cfg, **overrides)
+
+
+def saccadic_phase(dev, smi: str) -> None:
+    """The saccadic family at `bench.py`'s config, seeded weights: the
+    batched lockstep run (16 images x 10 glimpses): shapes, finite values,
+    no kernel launched (the matcher is dense linear algebra; the refiner's
+    few-token attention the plain path, as in JAX), no host sync in the
+    loop; ms/run, device time, peak memory; in f32 on 2 images the first
+    glimpse's embedding, prediction and next query on the card against the
+    CPU.  Then the serial controller on
+    one image (16 steps at most) and `train_saccadic` for 3 steps."""
+    from msvit_tpu_torch.examples import train_saccadic as ex
+    from msvit_tpu_torch.models.saccadic import SaccadicViTModel, batched_saccade_run
+    from msvit_tpu_torch.settings import parity_policy
+
+    cfg = saccadic_config()
+    model = SaccadicViTModel(cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
+    pix = torch.randn(SACCADIC_BATCH, 448, 448, 3,
+                      generator=torch.Generator().manual_seed(41)).to(dev)
+
+    def run():
+        return batched_saccade_run(model.embeddings, model.pattern, pix,
+                                   num_steps=SACCADIC_STEPS)
+
+    _reset_all_counts()
+    tr = run()
+    counts = _all_counts()
+    b, t, d = SACCADIC_BATCH, SACCADIC_STEPS, cfg.hidden_size
+    shapes = [tuple(tr[k].shape) for k in ("queries", "embeddings", "predicted", "converged")]
+    if shapes != [(t, b, cfg.dof), (t, b, d), (t, b, d), (t, b)]:
+        raise AssertionError(f"saccadic batched run: shapes {shapes}")
+    if not all(torch.isfinite(tr[k]).all() for k in ("queries", "embeddings", "predicted")):
+        raise AssertionError("saccadic batched run: non-finite values")
+    if any(counts.values()):
+        raise AssertionError(f"the saccadic run launched a kernel: {counts}")
+    ms = wall_ms(run, runs=5)
+    busy, _ = device_profile(run, r"^$", 0)
+    syncs, peak = _syncs(run), _peak_gib(run)
+    log(f"[saccadic] batched run, {b} images x {t} glimpses (512 patterns of complexity 2, "
+        f"rank 64, beam 64, chol): {ms!r} ms/run (5 runs after 2 of warm-up, host clock); "
+        f"device time {busy!r} ms/run (torch.profiler), {1 - busy / ms!r} idle; {syncs} host "
+        f"syncs; peak memory {peak!r} GiB; saccades per image {tr['num_saccades'].tolist()} "
+        f"({smi})")
+    if syncs:
+        raise AssertionError(f"the batched saccade loop synced with the host {syncs} times")
+    log(f"[saccadic] batched run: the top kernels per run: {top_kernels(run)}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # f32, 2 images: the card against the CPU, the same weights, on what
+    # one glimpse determines: its embedding, its prediction and the next
+    # query.  Later glimpses are not compared: on N(0, 1) pixels a query
+    # that moves by 1e-5 of the image moves the next glimpse's embedding
+    # by O(1), so the two devices' roundings part the traces there.
+    f32 = saccadic_config(policy=parity_policy())
+    small = pix[:2].cpu()
+    res = {}
+    for d_ in (torch.device("cpu"), dev):
+        m = SaccadicViTModel(f32, generator=torch.Generator().manual_seed(0), device=d_)
+        tr = batched_saccade_run(m.embeddings, m.pattern, small.to(d_), num_steps=2)
+        res[d_.type] = {"query 1": tr["queries"][1].cpu(), "embedding 0": tr["embeddings"][0].cpu(),
+                        "predicted 0": tr["predicted"][0].cpu()}
+        del m, tr
+    errs = {k: (max_err(res["cuda"][k], res["cpu"][k])
+                / max(1.0, res["cpu"][k].abs().max().item())) for k in res["cpu"]}
+    log(f"[saccadic] f32, 2 images, the first glimpse on the card vs the CPU: errors relative "
+        f"to max(1, max |CPU|) {errs} (tolerance 1e-4 each)")
+    if max(errs.values()) > 1e-4:
+        raise AssertionError("the saccadic run on the card disagrees with the CPU")
+
+    t0 = time.perf_counter()
+    out = model(pix[:1], max_trace_length=16, max_saccade_length=6)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tq = out["trace"]["query"]
+    log(f"[saccadic] serial controller, one image: {out['num_steps']} steps in {wall!r} s "
+        f"(host clock, first call), terminal indices {out['terminal_indices']}, "
+        f"{len(out['constructed_edges'])} constructed edges, trace {tq.shape}")
+    if not 1 <= out["num_steps"] <= 16 or tq.shape != (out["num_steps"], cfg.dof) or \
+            not np.isfinite(out["trace"]["embedding"]).all():
+        raise AssertionError("the serial saccade controller's trace is malformed")
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    summary = ex.main(["--steps", "3"])
+    wall = time.perf_counter() - t0
+    log(f"[saccadic] train_saccadic (its config: 256 wide, 2 layers, bs8, 8 glimpses), 3 "
+        f"steps in {wall:.1f} s: losses {summary['losses']}, pools {summary['hidden']} / "
+        f"{summary['context']}")
+    if len(summary["losses"]) != 3 or not all(math.isfinite(x) for x in summary["losses"]):
+        raise AssertionError("train_saccadic's losses are missing or not finite")
+
+
 def int8_ab(tag: str) -> dict:
     """The int8 serving attention on the package beside this file, for an
     A/B of two trees in one call, each run from its root in turns (parent,
@@ -2908,11 +3318,22 @@ def main() -> None:
     clustering_phase(dev, smi)
     torch.cuda.empty_cache()
     predictive_phase(dev, smi)
+    torch.cuda.empty_cache()
+    # K7's row counts the 448-px multistate forward's launches and the deep
+    # subsample forwards' (open and freeze)
+    launches["K7"] += sum(subsample_phase(dev, smi).values())
+    torch.cuda.empty_cache()
+    kernels.update(key_mask_kernel_phase(dev, smi))
+    torch.cuda.empty_cache()
+    saccadic_phase(dev, smi)
     src = "msvit_tpu_torch/csrc/"
-    # K6 and K10 at the other shapes their phases timed
-    extra = {"K6": [("[8,12,3168,64] soft mask of the 448 partition", "K6@3168")],
+    # K4, K5, K5-lse, K6, K7 and K10 at the other shapes their phases timed
+    key = "[8,12,1361,64] key-only mask [8,1,1,1361] (subsample 448 px, depth 3)"
+    extra = {"K6": [("[8,12,3168,64] soft mask of the 448 partition", "K6@3168"),
+                    (key, "K6@key")],
              "K10": [("[8,32+3136,2304] one cluster", "K10@448 one-cluster"),
-                     ("[8,32+784,2304] the 224 partition", "K10@224")]}
+                     ("[8,32+784,2304] the 224 partition", "K10@224")],
+             **{k: [(key, f"{k}@key")] for k in ("K4", "K5", "K5-lse", "K7")}}
     packed, fused = "msvit_tpu/ops/packed_attention.py:", "msvit_tpu/ops/fused_attention.py:"
     flash = "msvit_tpu/ops/flash_attention.py:"
     rows = [

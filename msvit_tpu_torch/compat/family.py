@@ -1,8 +1,8 @@
 """Wire a trained base trunk into an encoder family's state dict
 (counterpart of `msvit_tpu/compat/family_import.py`).
 
-Only `transfer_base_to_multistate` is ported; the three `import_into_*`
-functions take HF state dicts (or the subsample model) and wait for
+`transfer_base_to_multistate` and `transfer_base_to_subsample` are ported;
+the three `import_into_*` functions take HF state dicts and wait for
 `compat/hf_import.py`.
 """
 
@@ -66,4 +66,67 @@ def transfer_base_to_multistate(
     cls = base_state["embeddings.cls_token"][0, 0]
     put("backbone.transmitter_token", cls)
     put("backbone.receiver_token", cls)
+    return out
+
+
+def transfer_base_to_subsample(
+    base_state: Mapping[str, torch.Tensor],
+    state: Mapping[str, torch.Tensor],
+    num_layers: int,
+) -> Dict[str, torch.Tensor]:
+    """The subsample bootstrap: a `ViTModel` state dict trained in this
+    framework (`ViTForImageClassification`'s keys under ``vit.``, stripped
+    by the caller) into a copy of a `SubsampleViTModel`'s `state`, or of a
+    `SubsampleViTForImageClassification`'s (keys under ``model.``).
+
+    As the JAX function: trunk layers 0 .. num_layers - 1 by index (a layer
+    the base trunk lacks raises, naming it; deeper layers of the base are
+    not taken); the patch projection (both are one dense [P*P*C -> D] over
+    the same (p1, p2, c) order; another patch size raises); the position
+    table with its CLS row, resampled bicubically to the target's square
+    grid where the lengths differ (`interpolate_pos_embed`); the CLS token.
+    Whatever else `state` holds is kept.  Every tensor of the result is a
+    copy."""
+    out = {k: v.clone() for k, v in state.items()}
+    pre = "model." if any(k.startswith("model.") for k in out) else ""
+
+    def put(key: str, value: torch.Tensor) -> None:
+        key = pre + key
+        if key not in out:
+            raise KeyError(f"transfer_base_to_subsample: no {key!r} in the "
+                           "subsample state dict")
+        if out[key].shape != value.shape:
+            raise ValueError(f"transfer_base_to_subsample: {key} is "
+                             f"{tuple(out[key].shape)}, the base trunk's "
+                             f"{tuple(value.shape)}")
+        out[key] = value.detach().to(out[key].dtype).clone()
+
+    missing = [i for i in range(num_layers)
+               if not any(k.startswith(f"encoder.layer.{i}.") for k in base_state)]
+    if missing:
+        raise ValueError(f"base trunk has no layer(s) {missing}; need {num_layers} "
+                         "layers for the subsample model")
+    for i in range(num_layers):
+        src = f"encoder.layer.{i}."
+        for k, v in base_state.items():
+            if k.startswith(src):
+                put(k, v)
+
+    src_w = base_state["embeddings.patch_projection.weight"]
+    dst_w = out[pre + "embeddings.patch_projection.weight"]
+    if src_w.shape != dst_w.shape:
+        raise ValueError(
+            f"patch_projection shapes differ ({tuple(src_w.shape)} vs "
+            f"{tuple(dst_w.shape)}): the subsample config must use the base "
+            "trunk's patch_size")
+    for k, v in base_state.items():
+        if k.startswith("embeddings.patch_projection."):
+            put(k, v)
+    pos = base_state["embeddings.position_embeddings"]
+    want = out[pre + "embeddings.position_embeddings"].shape[1]
+    if pos.shape[1] != want:
+        g = int(round((want - 1) ** 0.5))
+        pos = interpolate_pos_embed(pos, want - 1, (g, g), has_cls=True)
+    put("embeddings.position_embeddings", pos)
+    put("cls_token", base_state["embeddings.cls_token"])
     return out

@@ -2,8 +2,10 @@
 `ViTForImageClassification`, `classifier_params_from_jax`, of
 `MultiStateViTEncoderModel`, `multistate_params_from_jax`, of
 `MultiStateViTForImageClassification`,
-`multistate_classifier_params_from_jax`, and of `PredictiveViTModel`,
-`predictive_params_from_jax`).
+`multistate_classifier_params_from_jax`, of `PredictiveViTModel`,
+`predictive_params_from_jax`, of `SubsampleViTModel` and its classifier,
+`subsample_params_from_jax` and `subsample_classifier_params_from_jax`, and
+of the saccadic family's three modules, `saccadic_params_from_jax`).
 
 Takes the JAX package's `ViTModel` params as nested dicts of numpy arrays
 (with or without the top-level "params" collection) and never imports JAX.
@@ -167,6 +169,81 @@ def predictive_params_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Ten
         raise ValueError(f"tree has {n_layers} layers, config {cfg.num_hidden_layers}")
     for i in range(n_layers):
         _layer(out, f"encoder.layer.{i}", enc[f"layer_{i}"])
+    return out
+
+
+def _layers(out: Dict[str, torch.Tensor], key: str, tree: Mapping, cfg) -> None:
+    n_layers = len([k for k in tree if k.startswith("layer_")])
+    if cfg is not None and n_layers != cfg.num_hidden_layers:
+        raise ValueError(f"tree has {n_layers} layers, config {cfg.num_hidden_layers}")
+    for i in range(n_layers):
+        _layer(out, f"{key}.layer.{i}", tree[f"layer_{i}"])
+
+
+def subsample_params_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX `SubsampleViTModel` params ({"cls_token", "embeddings",
+    "encoder", "projection", "layernorm"}) -> state dict for the port's
+    `SubsampleViTModel`."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {"cls_token": _t(params["cls_token"])}
+    emb = params["embeddings"]
+    _dense(out, "embeddings.patch_projection", emb["patch_projection"])
+    out["embeddings.position_embeddings"] = _t(emb["position_embeddings"])
+    _layers(out, "encoder", params["encoder"], cfg)
+    _dense(out, "projection", params["projection"])
+    _norm(out, "layernorm", params["layernorm"])
+    return out
+
+
+def subsample_classifier_params_from_jax(
+    params: Mapping, cfg=None
+) -> Dict[str, torch.Tensor]:
+    """JAX `SubsampleViTForImageClassification` params ({"model": ...,
+    "classifier": ...}) -> state dict for the port's
+    `SubsampleViTForImageClassification`."""
+    if "params" in params:
+        params = params["params"]
+    out = {f"model.{k}": v for k, v in subsample_params_from_jax(params["model"], cfg).items()}
+    _dense(out, "classifier", params["classifier"])
+    return out
+
+
+def saccadic_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX saccadic variables, {"embeddings": ..., "pattern": ...,
+    "predictor": ...} (each a module's `init` output, with or without its
+    "params" collection; any subset) -> state dict of the port's
+    `SaccadicViTModel`, keys under ``embeddings.``, ``pattern.`` and
+    ``predictor.`` (a single module's state is the keys under its
+    prefix)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def tree(name):
+        t = variables[name]
+        return t["params"] if "params" in t else t
+
+    if "embeddings" in variables:
+        emb = tree("embeddings")
+        _dense(out, "embeddings.patch_embeddings.projection",
+               emb["patch_embeddings"]["projection"])
+        _dense(out, "embeddings.position_encoder", emb["position_encoder"])
+        _dense(out, "embeddings.position_decoder", emb["position_decoder"])
+    if "pattern" in variables:
+        for k, v in tree("pattern").items():  # mean_<K>, std_<K>, log_covariance_shift
+            out[f"pattern.{k}"] = _t(v)
+    if "predictor" in variables:
+        prd = tree("predictor")
+        for k, v in prd.items():
+            if k.startswith("cls_tokens_"):
+                out[f"predictor.{k}"] = _t(v)
+        enc = prd["encoder"]
+        for i in range(len([k for k in enc if k.startswith("layer_")])):
+            src, dst = enc[f"layer_{i}"], f"predictor.encoder.layer.{i}"
+            for name, mod in src["attention"].items():  # query, key, value[, distance]
+                _dense(out, f"{dst}.attention.{name}", mod)
+            for name in ("output_dense", "intermediate", "output"):
+                _dense(out, f"{dst}.{name}", src[name])
+            _norm(out, f"{dst}.layernorm_after", src["layernorm_after"])
     return out
 
 

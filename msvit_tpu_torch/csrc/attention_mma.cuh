@@ -128,7 +128,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const void* __restrict__ mask,
                  bf16* __restrict__ out, float* __restrict__ lse, Strides st,
                  int h_count, int nq, int nk, int dh, int mask_kind,
-                 long long mask_sb, long long mask_sh, float scale,
+                 long long mask_sb, long long mask_sh, long long mask_sr, float scale,
                  float mask_value) {
   constexpr int LD = mma_ld<DHT>();
   constexpr int KT = kMmaTile;   // keys per staged tile
@@ -152,7 +152,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // the mask: staged rows of mrow bytes
   const int mrow = mask_row_bytes(mask_kind);
-  const MaskStage mstage(mask, mask_kind, nk, mask_sb, mask_sh, b, h);
+  const MaskStage mstage(mask, mask_kind, nk, mask_sb, mask_sh, mask_sr, b, h);
+  const int mread = mstage.read_pitch(mrow);  // 0: a key-only mask's one row
 
   if (dh < DHT) {  // pad columns of every head tile: zero once
     zero_smem(smem, (4 * KT + (kShareQ ? 0 : kMmaRows)) * LD *
@@ -215,7 +216,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // scale, mask, (shave,) ragged edge; the tile's row max
       float mx[2] = {m[0], m[1]};
-      flash_scores<EDGE, SHAVED, NT>(s, mx, mt, mrow, r_lo, kv0, tq, nk,
+      flash_scores<EDGE, SHAVED, NT>(s, mx, mt, mread, r_lo, kv0, tq, nk,
                                      mask_kind, c2, masked);
       float mu[2] = {0.f, 0.f};  // what p subtracts: 0 when shaved
       if (!SHAVED) {
@@ -311,7 +312,7 @@ template <int DHT, bool SHAVED>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* mask, void* out, float* lse,
                        const Strides& st, int b, int h, int nq, int nk, int dh,
-                       int mask_kind, long long sb, long long sh, float scale,
+                       int mask_kind, long long sb, long long sh, long long sr, float scale,
                        float mask_value, cudaStream_t stream) {
   const int bytes = mma_smem_bytes<DHT>(mask_kind);
   const cudaError_t err = allow_smem<DHT, SHAVED>(bytes);
@@ -320,7 +321,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   flash_mma_kernel<DHT, SHAVED><<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), mask, static_cast<bf16*>(out), lse, st, h,
-      nq, nk, dh, mask_kind, sb, sh, scale, mask_value);
+      nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value);
   return cudaGetLastError();
 }
 
@@ -330,15 +331,15 @@ template <bool SHAVED>
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
                          const void* mask, void* out, float* lse,
                          const Strides& st, int b, int h, int nq, int nk,
-                         int dh, int mask_kind, long long sb, long long sh,
+                         int dh, int mask_kind, long long sb, long long sh, long long sr,
                          float scale, float mask_value, cudaStream_t stream) {
   if (dh <= 16)
-    return launch_mma<16, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    return launch_mma<16, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
   if (dh <= 32)
-    return launch_mma<32, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    return launch_mma<32, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
   if (dh <= 64)
-    return launch_mma<64, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
-  return launch_mma<128, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    return launch_mma<64, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
+  return launch_mma<128, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
 }
 
 template <int DHT, bool SHAVED>

@@ -563,48 +563,63 @@ __device__ __forceinline__ void mask_pair(const unsigned char* mt, int mrow,
   }
 }
 
-// One (image, head)'s [Nq, Nk] panel of a mask [B|1, 1|H, Nq, Nk] (bool,
+// One (image, head)'s [Nq, Nk] panel of a mask [B|1, 1|H, 1|Nq, Nk] (bool,
 // one byte per entry, or additive f32, or additive bf16 with add_bytes 2;
-// last two dims contiguous), staged a [64 x 64] tile at a time by cp.async:
-// 16 bytes a copy where every row is 16-byte aligned (f32 with Nk % 4 == 0,
-// bf16 with Nk % 8 == 0, bool with Nk % 16 == 0), else 4 (f32; bf16 with
-// Nk % 2 == 0; bool with Nk % 4 == 0), else an entry at a time by plain
-// loads (bf16 two bytes, bool one): never a misaligned cp.async.
+// the last dim contiguous, rows `sr` entries apart: 0 for a key-only mask
+// of one row, which every query row reads: it is staged once a tile, as the
+// tile's row 0, and its readers take a row pitch of 0, `read_pitch`),
+// staged a [64 x 64] tile at a time by cp.async: 16 bytes a copy where
+// every row is 16-byte aligned (f32 with Nk % 4 == 0, bf16 with
+// Nk % 8 == 0, bool with Nk % 16 == 0, and the strides alike), else 4
+// (f32; bf16 with Nk % 2 == 0; bool with Nk % 4 == 0), else an entry at a
+// time by plain loads (bf16 two bytes, bool one): never a misaligned
+// cp.async.
 struct MaskStage {
   const unsigned char* img;
-  long long grow;  // bytes per panel row
-  int esize;       // bytes per entry
-  int chunk;       // bytes per copy; 0 without a mask
+  long long pitch;  // bytes from one panel row to the next (0: one row)
+  long long width;  // bytes of a row's Nk entries
+  int esize;        // bytes per entry
+  int chunk;        // bytes per copy; 0 without a mask
 
   __device__ MaskStage(const void* mask, int kind, int nk, long long sb,
-                       long long sh, int b, int h, int add_bytes = 4)
+                       long long sh, long long sr, int b, int h,
+                       int add_bytes = 4)
       : img(static_cast<const unsigned char*>(mask)),
-        grow(static_cast<long long>(nk) * (kind == kAddMask ? add_bytes : 1)),
+        pitch(sr * (kind == kAddMask ? add_bytes : 1)),
+        width(static_cast<long long>(nk) * (kind == kAddMask ? add_bytes : 1)),
         esize(kind == kAddMask ? add_bytes : 1),
         chunk(0) {
     img += (b * sb + h * sh) * esize;
     auto aligned = [&](int a) {
-      return reinterpret_cast<uintptr_t>(mask) % a == 0 && grow % a == 0 &&
-             (sb * esize) % a == 0 && (sh * esize) % a == 0;
+      return reinterpret_cast<uintptr_t>(mask) % a == 0 && width % a == 0 &&
+             pitch % a == 0 && (sb * esize) % a == 0 && (sh * esize) % a == 0;
     };
     if (kind != kNoMask)
       chunk = aligned(16) ? 16 : aligned(4) ? 4 : esize == 2 && aligned(2) ? 2 : 1;
   }
 
+  // The row pitch, in bytes, at which a tile's readers take its rows: 0
+  // for a key-only mask (its one staged row serves every query row).
+  __device__ __forceinline__ int read_pitch(int row_bytes) const {
+    return pitch == 0 ? 0 : row_bytes;
+  }
+
   // Rows [r0, r0 + 64) x columns [k0, k0 + 64) of the panel into `dst`
-  // (rows of `row_bytes`); rows past nq and columns past Nk are
-  // zero-filled.  All threads of the block take part.
+  // (rows of `row_bytes`; a key-only mask's row once, as row 0); rows past
+  // nq and columns past Nk are zero-filled.  All threads of the block take
+  // part.
   __device__ __forceinline__ void stage(unsigned char* dst, int row_bytes,
                                         int r0, int nq, int k0) const {
     if (chunk == 0) return;
     const long long c0 = static_cast<long long>(k0) * esize;
     const int per_row = kMmaTile * esize / chunk;
-    for (int c = threadIdx.x; c < kMmaRows * per_row; c += blockDim.x) {
+    const int rows = pitch == 0 ? 1 : kMmaRows;
+    for (int c = threadIdx.x; c < rows * per_row; c += blockDim.x) {
       const int r = c / per_row;
       const int off = (c - r * per_row) * chunk;
-      const bool ok = r0 + r < nq && c0 + off < grow;
+      const bool ok = r0 + r < nq && c0 + off < width;
       const unsigned char* src =
-          img + (ok ? static_cast<long long>(r0 + r) * grow + c0 + off : 0);
+          img + (ok ? static_cast<long long>(r0 + r) * pitch + c0 + off : 0);
       unsigned char* to = dst + r * row_bytes + off;
       if (chunk == 16) {
         cp_async16(to, src, ok);

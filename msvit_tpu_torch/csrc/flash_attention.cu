@@ -17,7 +17,8 @@
 // row strides in elements with the last dim contiguous and every row
 // 16-byte aligned (views of the QKV GEMM output need no copy); out written
 // through strides.  Masks bool (true = attend) or additive f32,
-// [B|1, 1|H, Nq, Nk] with the last two dims contiguous, applied in the TPU
+// [B|1, 1|H, 1|Nq, Nk] with the last dim contiguous (one row: a key-only
+// mask that every query row reads), applied in the TPU
 // kernel's order: scale, add the additive mask, then where-valid with
 // mask_value.  No N limit.  The softmax is the exact one: the online row
 // max, p = exp(s - m), l summed from the unrounded p, P.V with p rounded to
@@ -76,7 +77,7 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const void* __restrict__ mask,
                      T* __restrict__ out, float* __restrict__ lse, Strides st,
                      int nq, int nk, int dh, int mask_kind, long long mask_sb,
-                     long long mask_sh, float scale, float mask_value) {
+                     long long mask_sh, long long mask_sr, float scale, float mask_value) {
   constexpr int KV = flash_kv<T, DHT>();
   constexpr int MS = KV + 1;  // padded mask tile row
   __shared__ __align__(16) T ks[KV * DHT];
@@ -126,7 +127,7 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = e - r * KV;
         float val = 0.f;
         if (i0 + r < nq && c < cnt) {
-          const long long at = static_cast<long long>(i0 + r) * nk + kv0 + c;
+          const long long at = static_cast<long long>(i0 + r) * mask_sr + kv0 + c;
           val = mask_kind == kBoolMask ? (mb[at] ? 1.f : 0.f) : mf[at];
         }
         ms[r * MS + c] = val;
@@ -196,35 +197,35 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DHT>
 void launch(const void* q, const void* k, const void* v, const void* mask,
             void* out, float* lse, const Strides& st, int b, int h, int nq,
-            int nk, int dh, int mask_kind, long long sb, long long sh,
+            int nk, int dh, int mask_kind, long long sb, long long sh, long long sr,
             float scale, float mask_value, cudaStream_t stream) {
   const dim3 grid((nq + kRows - 1) / kRows, h, b);
   flash_forward_kernel<T, DHT><<<grid, kRows, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), lse, st, nq, nk, dh,
-      mask_kind, sb, sh, scale, mask_value);
+      mask_kind, sb, sh, sr, scale, mask_value);
 }
 
 template <typename T>
 void dispatch(const void* q, const void* k, const void* v, const void* mask,
               void* out, float* lse, const Strides& st, int b, int h, int nq,
-              int nk, int dh, int mask_kind, long long sb, long long sh,
+              int nk, int dh, int mask_kind, long long sb, long long sh, long long sr,
               float scale, float mask_value, cudaStream_t stream) {
   if (dh <= 16) {
-    launch<T, 16>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 16>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
   } else if (dh <= 32) {
-    launch<T, 32>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 32>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
   } else if (dh <= 64) {
-    launch<T, 64>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 64>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
   } else {
-    launch<T, 128>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 128>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
   }
 }
 
 int run(const void* q, const void* k, const void* v, const void* mask,
         void* out, float* lse, int dtype, int b, int h, int nq, int nk, int dh,
         const long long* strides, int mask_kind, long long mask_sb,
-        long long mask_sh, float scale, float mask_value, void* stream) {
+        long long mask_sh, long long mask_sr, float scale, float mask_value, void* stream) {
   if (dh <= 0 || dh > 128 || dh % 8 != 0 || nq <= 0 || nk <= 0 || b <= 0 ||
       h <= 0 || b > 65535 || h > 65535 || mask_kind < 0 || mask_kind > 2 ||
       (mask_kind != kNoMask && mask == nullptr) || strides == nullptr)
@@ -235,11 +236,11 @@ int run(const void* q, const void* k, const void* v, const void* mask,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     dispatch<float>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind,
-                    mask_sb, mask_sh, scale, mask_value, s);
+                    mask_sb, mask_sh, mask_sr, scale, mask_value, s);
   } else if (dtype == 1) {
     return static_cast<int>(dispatch_mma<false>(q, k, v, mask, out, lse, st, b, h,
                                          nq, nk, dh, mask_kind, mask_sb,
-                                         mask_sh, scale, mask_value, s));
+                                         mask_sh, mask_sr, scale, mask_value, s));
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -254,17 +255,18 @@ extern "C" {
 // K7.  dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  strides: 12 element strides (host
 // memory) of q, k, v, out, each (image, head, row); every row's dh elements
 // contiguous and 16-byte aligned.  mask_kind: 0 none, 1 bool (one byte per
-// entry), 2 additive float32; mask_sb / mask_sh the mask's image and head
-// strides in elements (0 where broadcast), its last two dims contiguous
-// [Nq, Nk].  Returns cudaGetLastError() after the launch.
+// entry), 2 additive float32; mask_sb / mask_sh / mask_sr the mask's image,
+// head and query-row strides in elements (0 where broadcast: mask_sr 0 for a
+// key-only [B|1, 1|H, 1, Nk] mask), its last dim contiguous.  Returns
+// cudaGetLastError() after the launch.
 int msvit_flash_attention(const void* q, const void* k, const void* v,
                           const void* mask, void* out, int dtype, int b,
                           int h, int nq, int nk, int dh,
                           const long long* strides, int mask_kind,
-                          long long mask_sb, long long mask_sh, float scale,
+                          long long mask_sb, long long mask_sh, long long mask_sr, float scale,
                           float mask_value, void* stream) {
   return msvit::run(q, k, v, mask, out, nullptr, dtype, b, h, nq, nk, dh,
-                    strides, mask_kind, mask_sb, mask_sh, scale, mask_value,
+                    strides, mask_kind, mask_sb, mask_sh, mask_sr, scale, mask_value,
                     stream);
 }
 
@@ -274,11 +276,11 @@ int msvit_flash_attention_lse(const void* q, const void* k, const void* v,
                               const void* mask, void* out, void* lse,
                               int dtype, int b, int h, int nq, int nk, int dh,
                               const long long* strides, int mask_kind,
-                              long long mask_sb, long long mask_sh,
+                              long long mask_sb, long long mask_sh, long long mask_sr,
                               float scale, float mask_value, void* stream) {
   if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return msvit::run(q, k, v, mask, out, static_cast<float*>(lse), dtype, b, h,
-                    nq, nk, dh, strides, mask_kind, mask_sb, mask_sh, scale,
+                    nq, nk, dh, strides, mask_kind, mask_sb, mask_sh, mask_sr, scale,
                     mask_value, stream);
 }
 

@@ -19,8 +19,9 @@
 // Operands are read through their (image, head, row) element strides with
 // the last dim contiguous, so views of the QKV GEMM output and a strided
 // cotangent need no copy; dq, dk and dv are written through strides too.
-// Masks are bool (true = attend) or additive f32, [B|1, 1|H, Nq, Nk] with
-// the last two dims contiguous.  Nq != Nk is allowed (cross-context K/V).
+// Masks are bool (true = attend) or additive f32, [B|1, 1|H, 1|Nq, Nk] with
+// the last dim contiguous (one row: a key-only mask).  Nq != Nk is allowed
+// (cross-context K/V).
 //
 // Blocks run in no order, so the TPU grid's sequential kv (dQ) and q (dK/dV)
 // axes become loops inside a block, and the work is two kernels launched in
@@ -108,7 +109,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ g, const float* __restrict__ lse,
                     const void* __restrict__ mask, float* __restrict__ delta,
                     T* __restrict__ dq, Strides st, int nq, int nk, int dh,
-                    int mask_kind, long long mask_sb, long long mask_sh,
+                    int mask_kind, long long mask_sb, long long mask_sh, long long mask_sr,
                     float scale, float mask_value) {
   using RS = RowSlice<DHT>;
   constexpr int CH = RS::kCh;
@@ -146,7 +147,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint8_t* mb = static_cast<const uint8_t*>(mask);
   const float* mf = static_cast<const float*>(mask);
   const long long moff =
-      b * mask_sb + h * mask_sh + static_cast<long long>(i) * nk;
+      b * mask_sb + h * mask_sh + static_cast<long long>(i) * mask_sr;
   const char* kimg = reinterpret_cast<const char*>(k + b * st.k[0] + h * st.k[1]);
   const char* vimg = reinterpret_cast<const char*>(v + b * st.v[0] + h * st.v[1]);
   const int width = dh * static_cast<int>(sizeof(T));
@@ -185,7 +186,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const void* __restrict__ mask,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, Strides st, int nq, int nk, int dh,
-                     int mask_kind, long long mask_sb, long long mask_sh,
+                     int mask_kind, long long mask_sb, long long mask_sh, long long mask_sr,
                      float scale, float mask_value) {
   using RS = RowSlice<DHT>;
   constexpr int CH = RS::kCh;
@@ -243,7 +244,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dp = row_sum<RS::kTpr>(dp);
       if (!active) continue;
       s = apply_mask(s * scale, mask_kind, mb, mf,
-                     moff + static_cast<long long>(i0 + r) * nk, mask_value);
+                     moff + static_cast<long long>(i0 + r) * mask_sr, mask_value);
       const float p = expf(s - lses[r]);
       axpy<T, CH>(dvr, round_to<T>(p), gt, rs.e0, dh);
       const float ds = round_to<T>(p * (dp - deltas[r]));
@@ -290,7 +291,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const void* __restrict__ mask, float* __restrict__ delta,
                         bf16* __restrict__ dq, Strides st, int h_count, int nq,
                         int nk, int dh, int mask_kind, long long mask_sb,
-                        long long mask_sh, float scale, float mask_value) {
+                        long long mask_sh, long long mask_sr, float scale, float mask_value) {
   constexpr int LD = mma_ld<DHT>();
   constexpr int KT = kMmaTile;  // keys per staged tile
   constexpr int NT = KT / 8;    // score n-tiles per tile
@@ -311,7 +312,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kimg = k + b * st.k[0] + h * st.k[1];
   const bf16* vimg = v + b * st.v[0] + h * st.v[1];
   const int mrow = mask_row_bytes(mask_kind);
-  const MaskStage mstage(mask, mask_kind, nk, mask_sb, mask_sh, b, h);
+  const MaskStage mstage(mask, mask_kind, nk, mask_sb, mask_sh, mask_sr, b, h);
+  const int mread = mstage.read_pitch(mrow);  // 0: a key-only mask's one row
 
   if (dh < DHT) {  // pad columns of every head tile: zero once
     zero_smem(smem, dq_head_rows<DHT>() * LD * static_cast<int>(sizeof(bf16)));
@@ -405,7 +407,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int r = 0; r < 2; ++r) {
           float add[2];
           bool keep[2];
-          mask_pair(mt, mrow, r_lo + 8 * r, c, mask_kind, add, keep);
+          mask_pair(mt, mread, r_lo + 8 * r, c, mask_kind, add, keep);
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             const int e = 2 * r + u;
@@ -453,7 +455,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const float* __restrict__ delta, bf16* __restrict__ dk,
                          bf16* __restrict__ dv, Strides st, int h_count, int nq,
                          int nk, int dh, int mask_kind, long long mask_sb,
-                         long long mask_sh, float scale, float mask_value) {
+                         long long mask_sh, long long mask_sr, float scale, float mask_value) {
   constexpr int LD = mma_ld<DHT>();
   constexpr int QT = kMmaTile;  // query rows per staged tile
   constexpr int NT = QT / 8;
@@ -475,7 +477,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* gimg = g + b * st.g[0] + h * st.g[1];
   const int mrow = mask_row_bytes(mask_kind, true);
   const int esize = mask_kind == kAddMask ? 4 : 1;
-  const MaskStage mstage(mask, mask_kind, nk, mask_sb, mask_sh, b, h);
+  const MaskStage mstage(mask, mask_kind, nk, mask_sb, mask_sh, mask_sr, b, h);
+  const int mread = mstage.read_pitch(mrow);  // 0: a key-only mask's one row
 
   if (dh < DHT) {
     zero_smem(smem, dq_head_rows<DHT>() * LD * static_cast<int>(sizeof(bf16)));
@@ -545,7 +548,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int c = j * 8 + 2 * tq + u;  // query within the tile
-          const unsigned char* mc = mt + c * mrow;
+          const unsigned char* mc = mt + c * mread;
           const float ls = lses[c];
           const float de = dels[c];
 #pragma unroll
@@ -597,7 +600,7 @@ struct Args {
   void *delta, *dq, *dk, *dv;
   Strides st;
   int b, h, nq, nk, dh, mask_kind;
-  long long mask_sb, mask_sh;
+  long long mask_sb, mask_sh, mask_sr;
   float scale, mask_value;
 };
 
@@ -610,7 +613,7 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.v), static_cast<const T*>(a.out),
       static_cast<const T*>(a.g), static_cast<const float*>(a.lse), a.mask,
       static_cast<float*>(a.delta), static_cast<T*>(a.dq), a.st, a.nq, a.nk,
-      a.dh, a.mask_kind, a.mask_sb, a.mask_sh, a.scale, a.mask_value);
+      a.dh, a.mask_kind, a.mask_sb, a.mask_sh, a.mask_sr, a.scale, a.mask_value);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_k((a.nk + kRows - 1) / kRows, a.h, a.b);
@@ -620,7 +623,7 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.lse), a.mask,
       static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), a.st, a.nq, a.nk, a.dh, a.mask_kind, a.mask_sb,
-      a.mask_sh, a.scale, a.mask_value);
+      a.mask_sh, a.mask_sr, a.scale, a.mask_value);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -641,7 +644,7 @@ int launch_mma(const Args& a, cudaStream_t stream) {
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.out),
       static_cast<const bf16*>(a.g), static_cast<const float*>(a.lse), a.mask,
       static_cast<float*>(a.delta), static_cast<bf16*>(a.dq), a.st, a.h, a.nq,
-      a.nk, a.dh, a.mask_kind, a.mask_sb, a.mask_sh, a.scale, a.mask_value);
+      a.nk, a.dh, a.mask_kind, a.mask_sb, a.mask_sh, a.mask_sr, a.scale, a.mask_value);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_k(a.h, (a.nk + kMmaRows - 1) / kMmaRows, a.b);
@@ -651,7 +654,7 @@ int launch_mma(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.lse), a.mask,
       static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.st, a.h, a.nq, a.nk, a.dh, a.mask_kind,
-      a.mask_sb, a.mask_sh, a.scale, a.mask_value);
+      a.mask_sb, a.mask_sh, a.mask_sr, a.scale, a.mask_value);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -683,8 +686,9 @@ extern "C" {
 // strides: 24 element strides (host memory), (image, head, row) of q, k,
 // v, out, g, dq, dk, dv in that order; every row's dh elements contiguous
 // and 16-byte aligned.  mask_kind: 0 none, 1 bool (one byte per entry),
-// 2 additive float32; mask_sb / mask_sh its image and head strides in
-// elements (0 where broadcast), its last two dims contiguous [Nq, Nk].
+// 2 additive float32; mask_sb / mask_sh / mask_sr its image, head and
+// query-row strides in elements (0 where broadcast: mask_sr 0 for a
+// key-only [B|1, 1|H, 1, Nk] mask), its last dim contiguous.
 // Returns cudaGetLastError() after the launches.
 int msvit_flash_attention_bwd(const void* q, const void* k, const void* v,
                               const void* out, const void* g,
@@ -692,14 +696,14 @@ int msvit_flash_attention_bwd(const void* q, const void* k, const void* v,
                               void* dq, void* dk, void* dv, int dtype, int b,
                               int h, int nq, int nk, int dh,
                               const long long* strides, int mask_kind,
-                              long long mask_sb, long long mask_sh,
+                              long long mask_sb, long long mask_sh, long long mask_sr,
                               float scale, float mask_value, void* stream) {
   if (dh <= 0 || dh > 128 || dh % 8 != 0 || nq <= 0 || nk <= 0 || b <= 0 ||
       h <= 0 || b > 65535 || h > 65535 || mask_kind < 0 || mask_kind > 2 ||
       strides == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   msvit::Args a{q, k, v, out, g, lse, mask, delta, dq, dk, dv, {},
-                b, h, nq, nk, dh, mask_kind, mask_sb, mask_sh, scale,
+                b, h, nq, nk, dh, mask_kind, mask_sb, mask_sh, mask_sr, scale,
                 mask_value};
   long long* st[8] = {a.st.q, a.st.k, a.st.v, a.st.o,
                       a.st.g, a.st.dq, a.st.dk, a.st.dv};

@@ -19,9 +19,10 @@
 // the QKV GEMM output [B, N, 3D] without a transpose copy, and writes out
 // through strides too (the wrapper's out is [B, Nq, H, dh] in memory, the
 // layout the output projection reads).  Masks are bool (true = attend) or
-// additive f32, shaped [B|1, 1|H, Nq, Nk] with the last two dims
-// contiguous, applied to the f32 scores in the TPU kernels' order: scale,
-// add the additive mask, then where-valid with mask_value, then (K4) clip.
+// additive f32, shaped [B|1, 1|H, 1|Nq, Nk] with the last dim contiguous
+// (one row: a key-only mask that every query row reads), applied to the
+// f32 scores in the TPU kernels' order: scale, add the additive mask, then
+// where-valid with mask_value, then (K4) clip.
 //
 // What bounds it on the card: 4*Nq*Nk*dh FLOP per head against
 // 2*(Nq + 2*Nk)*dh bytes of q/k/v/out plus the mask's Nq*Nk entries; at the
@@ -83,7 +84,7 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        T* __restrict__ out, float* __restrict__ lse,
                        Strides st, int nq, int nk,
                        int dh, int mask_kind, long long mask_sb,
-                       long long mask_sh, float scale, float mask_value) {
+                       long long mask_sh, long long mask_sr, float scale, float mask_value) {
   constexpr int KV = kv_rows<T, DHT>();
   __shared__ __align__(16) T ks[KV * DHT];
   __shared__ __align__(16) T vs[KV * DHT];
@@ -110,7 +111,7 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint8_t* mb = nullptr;
   const float* mf = nullptr;
   const long long moff =
-      b * mask_sb + h * mask_sh + static_cast<long long>(i) * nk;
+      b * mask_sb + h * mask_sh + static_cast<long long>(i) * mask_sr;
   if (mask_kind == kBoolMask) mb = static_cast<const uint8_t*>(mask) + moff;
   if (mask_kind == kAddMask) mf = static_cast<const float*>(mask) + moff;
 
@@ -199,28 +200,28 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DHT, bool SHAVED>
 void launch(const void* q, const void* k, const void* v, const void* mask,
             void* out, float* lse, const Strides& st, int b, int h, int nq,
-            int nk, int dh, int mask_kind, long long sb, long long sh,
+            int nk, int dh, int mask_kind, long long sb, long long sh, long long sr,
             float scale, float mask_value, cudaStream_t stream) {
   const dim3 grid((nq + kRows - 1) / kRows, h, b);
   fused_attention_kernel<T, DHT, SHAVED><<<grid, kRows, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), lse, st, nq, nk, dh,
-      mask_kind, sb, sh, scale, mask_value);
+      mask_kind, sb, sh, sr, scale, mask_value);
 }
 
 template <typename T, bool SHAVED>
 void dispatch(const void* q, const void* k, const void* v, const void* mask,
               void* out, float* lse, const Strides& st, int b, int h, int nq,
-              int nk, int dh, int mask_kind, long long sb, long long sh,
+              int nk, int dh, int mask_kind, long long sb, long long sh, long long sr,
               float scale, float mask_value, cudaStream_t stream) {
   if (dh <= 16) {
-    launch<T, 16, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 16, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
   } else if (dh <= 32) {
-    launch<T, 32, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 32, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
   } else if (dh <= 64) {
-    launch<T, 64, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 64, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
   } else {
-    launch<T, 128, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, scale, mask_value, stream);
+    launch<T, 128, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind, sb, sh, sr, scale, mask_value, stream);
   }
 }
 
@@ -228,7 +229,7 @@ template <bool SHAVED>
 int run(const void* q, const void* k, const void* v, const void* mask,
         void* out, float* lse, int dtype, int b, int h, int nq, int nk, int dh,
         const long long* strides, int mask_kind, long long mask_sb,
-        long long mask_sh, float scale, float mask_value, void* stream) {
+        long long mask_sh, long long mask_sr, float scale, float mask_value, void* stream) {
   if (dh <= 0 || dh > 128 || dh % 8 != 0 || nq <= 0 || nk <= 0 || b <= 0 ||
       h <= 0 || b > 65535 || h > 65535 || mask_kind < 0 || mask_kind > 2 ||
       (mask_kind != kNoMask && mask == nullptr) || strides == nullptr)
@@ -239,11 +240,11 @@ int run(const void* q, const void* k, const void* v, const void* mask,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     dispatch<float, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh,
-                            mask_kind, mask_sb, mask_sh, scale, mask_value, s);
+                            mask_kind, mask_sb, mask_sh, mask_sr, scale, mask_value, s);
   } else if (dtype == 1) {
     return static_cast<int>(dispatch_mma<SHAVED>(q, k, v, mask, out, lse, st,
                                                  b, h, nq, nk, dh, mask_kind,
-                                                 mask_sb, mask_sh, scale,
+                                                 mask_sb, mask_sh, mask_sr, scale,
                                                  mask_value, s));
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -260,17 +261,18 @@ extern "C" {
 // cores).  strides: 12 element strides (host memory) of q, k, v, out, each
 // (image, head, row); every row's dh elements contiguous and 16-byte
 // aligned.  mask_kind: 0 none, 1 bool (one byte per entry), 2 additive
-// float32; mask_sb / mask_sh the mask's image and head strides in elements
-// (0 where broadcast), its last two dims contiguous [Nq, Nk].  Returns
+// float32; mask_sb / mask_sh / mask_sr the mask's image, head and
+// query-row strides in elements (0 where broadcast: mask_sr 0 for a
+// key-only [B|1, 1|H, 1, Nk] mask), its last dim contiguous.  Returns
 // cudaGetLastError() after the launch.
 int msvit_fused_attention(const void* q, const void* k, const void* v,
                           const void* mask, void* out, int dtype, int b,
                           int h, int nq, int nk, int dh,
                           const long long* strides, int mask_kind,
-                          long long mask_sb, long long mask_sh, float scale,
+                          long long mask_sb, long long mask_sh, long long mask_sr, float scale,
                           float mask_value, void* stream) {
   return msvit::run<false>(q, k, v, mask, out, nullptr, dtype, b, h, nq, nk, dh,
-                           strides, mask_kind, mask_sb, mask_sh, scale,
+                           strides, mask_kind, mask_sb, mask_sh, mask_sr, scale,
                            mask_value, stream);
 }
 
@@ -280,11 +282,11 @@ int msvit_fused_attention_inference(const void* q, const void* k,
                                     void* out, int dtype, int b, int h,
                                     int nq, int nk, int dh,
                                     const long long* strides, int mask_kind,
-                                    long long mask_sb, long long mask_sh,
+                                    long long mask_sb, long long mask_sh, long long mask_sr,
                                     float scale, float mask_value,
                                     void* stream) {
   return msvit::run<true>(q, k, v, mask, out, nullptr, dtype, b, h, nq, nk, dh,
-                          strides, mask_kind, mask_sb, mask_sh, scale,
+                          strides, mask_kind, mask_sb, mask_sh, mask_sr, scale,
                           mask_value, stream);
 }
 
@@ -294,12 +296,12 @@ int msvit_fused_attention_lse(const void* q, const void* k, const void* v,
                               const void* mask, void* out, void* lse,
                               int dtype, int b, int h, int nq, int nk, int dh,
                               const long long* strides, int mask_kind,
-                              long long mask_sb, long long mask_sh,
+                              long long mask_sb, long long mask_sh, long long mask_sr,
                               float scale, float mask_value, void* stream) {
   if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return msvit::run<false>(q, k, v, mask, out, static_cast<float*>(lse),
                            dtype, b, h, nq, nk, dh, strides, mask_kind,
-                           mask_sb, mask_sh, scale, mask_value, stream);
+                           mask_sb, mask_sh, mask_sr, scale, mask_value, stream);
 }
 
 // Blocks of the bf16 tensor-core kernel of K4 (shaved = 1) or K5/K5-lse

@@ -182,7 +182,7 @@ packed_attention_int8_kernel(const int8_t* __restrict__ qkv,
   const int8_t* img = qkv + static_cast<long long>(b) * n * row;
   const bool wide = dh % 16 == 0;
   const int mrow = MASKED ? mask_row_bytes(mask_kind, false, 2) : 0;
-  const MaskStage mstage(mask, MASKED ? mask_kind : kNoMask, n, mask_sb, mask_sh,
+  const MaskStage mstage(mask, MASKED ? mask_kind : kNoMask, n, mask_sb, mask_sh, n,
                          b, h, 2);
 
   if (dh < DHT) {  // q's pad columns: zero once

@@ -45,6 +45,7 @@ from msvit_tpu_torch.models.base.model import BaseViTEncoder, Linear, trunc_norm
 from msvit_tpu_torch.models.multistate.model import as_rng
 from msvit_tpu_torch.models.predictive.config import PredictiveViTConfig
 from msvit_tpu_torch.ops.grid_sample import grid_sample_separable
+from msvit_tpu_torch.utils.math import linspace
 
 
 def batch_norm(x: torch.Tensor, dims: Tuple[int, ...], eps: float = 1e-5) -> torch.Tensor:
@@ -71,13 +72,6 @@ def geometric_lengths(rng, shape, expected: float, max_len: int, device=None) ->
     u = rng.uniform(shape, 1e-7, 1.0, device)
     k = torch.floor(torch.log(u) / torch.log1p(torch.tensor(-1.0 / expected, device=device)))
     return (k.long() + 1).clamp(1, max_len)
-
-
-def _linspace(p: int, device=None) -> torch.Tensor:
-    """`jnp.linspace(-1, 1, p)` in f32, step for step (start (1 - t) +
-    stop t with t = i / (p - 1), the end point appended)."""
-    t = torch.arange(p - 1, dtype=torch.float32, device=device) / (p - 1)
-    return torch.cat([-1.0 * (1.0 - t) + t, torch.ones(1, device=device)])
 
 
 class Conv(nn.Module):
@@ -188,7 +182,7 @@ class PredictiveViTPatchEmbeddings(nn.Module):
         diag = self._diag(patch_config)
         t = (1.0 - diag) * patch_config[..., :2]  # scale-restricted translation
         lin = (torch.tensor([-1.0, 1.0], device=patch_config.device) if bbox_only
-               else _linspace(self.config.patch_size, patch_config.device))
+               else linspace(-1.0, 1.0, self.config.patch_size, patch_config.device))
         g0, g1 = torch.meshgrid(lin, lin, indexing="ij")
         pts = torch.stack([g0, g1], dim=-1)
         return pts * diag[..., None, None, :] + t[..., None, None, :]
@@ -197,7 +191,7 @@ class PredictiveViTPatchEmbeddings(nn.Module):
         """The lattice per axis: (ys, xs) [..., P]."""
         diag = self._diag(patch_config)
         t = (1.0 - diag) * patch_config[..., :2]
-        lin = _linspace(self.config.patch_size, patch_config.device)
+        lin = linspace(-1.0, 1.0, self.config.patch_size, patch_config.device)
         return lin * diag[..., 0:1] + t[..., 0:1], lin * diag[..., 1:2] + t[..., 1:2]
 
     def position_to_patch(self, pixel_values: torch.Tensor,

@@ -54,23 +54,23 @@ _SIGNATURES = {
     "msvit_packed_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _LL, _LL, _F, _F, _P],
     # q, k, v, mask, out, dtype, b, h, nq, nk, dh, strides[12] (host),
-    # mask_kind, mask_sb, mask_sh, scale, mask_value, stream
+    # mask_kind, mask_sb, mask_sh, mask_sr, scale, mask_value, stream
     "msvit_fused_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              ctypes.POINTER(_LL), _I, _LL, _LL, _F, _F, _P],
+                              ctypes.POINTER(_LL), _I, _LL, _LL, _LL, _F, _F, _P],
     "msvit_fused_attention_inference": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                         _I, _I, ctypes.POINTER(_LL), _I, _LL,
-                                        _LL, _F, _F, _P],
+                                        _LL, _LL, _F, _F, _P],
     # q, k, v, mask, out, lse, then as msvit_fused_attention
     "msvit_fused_attention_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, ctypes.POINTER(_LL), _I, _LL, _LL, _F,
+                                  _I, ctypes.POINTER(_LL), _I, _LL, _LL, _LL, _F,
                                   _F, _P],
     # dh, mask_kind, shaved, blocks (out): K4's or K5's blocks per SM
     "msvit_fused_attention_occupancy": [_I, _I, _I, ctypes.POINTER(_I)],
     # K7 and K7-lse: as msvit_fused_attention and msvit_fused_attention_lse
     "msvit_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              ctypes.POINTER(_LL), _I, _LL, _LL, _F, _F, _P],
+                              ctypes.POINTER(_LL), _I, _LL, _LL, _LL, _F, _F, _P],
     "msvit_flash_attention_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, ctypes.POINTER(_LL), _I, _LL, _LL, _F,
+                                  _I, ctypes.POINTER(_LL), _I, _LL, _LL, _LL, _F,
                                   _F, _P],
     # qkv, cid, band, out, dtype, b, n, pfx, h, dh, image stride, row
     # stride, stream
@@ -83,11 +83,11 @@ _SIGNATURES = {
     # dh, masked, mask_kind, blocks (out): K3's or K9's blocks per SM
     "msvit_packed_attention_int8_occupancy": [_I, _I, _I, ctypes.POINTER(_I)],
     # q, k, v, out, g, lse, mask, delta, dq, dk, dv, dtype, b, h, nq, nk, dh,
-    # strides[24] (host), mask_kind, mask_sb, mask_sh, scale, mask_value,
+    # strides[24] (host), mask_kind, mask_sb, mask_sh, mask_sr, scale, mask_value,
     # stream
     "msvit_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, ctypes.POINTER(_LL),
-                                  _I, _LL, _LL, _F, _F, _P],
+                                  _I, _LL, _LL, _LL, _F, _F, _P],
 }
 
 _lock = threading.Lock()

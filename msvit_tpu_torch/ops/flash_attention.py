@@ -22,7 +22,7 @@
 autograd (grad enabled and q, k or v requiring grad) it runs
 `FlashAttentionFunction`, K7-lse forward and K6 backward; otherwise K7.
 Operands, masks and strides as `ops/fused_attention.py` (Nq != Nk, bool or
-additive masks ``[B|1, 1|H, Nq, Nk]``, q/k/v read through their strides).
+additive masks ``[B|1, 1|H, 1|Nq, Nk]``, q/k/v read through their strides).
 
 The wrappers take the plain version for a tensor on the CPU, and for a
 tensor on the card launch the kernel or raise: there is no fallback.  Each
@@ -80,7 +80,7 @@ def flash_attention(
     mask_value: float = DEFAULT_MASK_VALUE,
 ) -> torch.Tensor:
     """Exact softmax attention, the long-sequence kernel.  q [B, H, Nq, dh];
-    k, v [B, H, Nk, dh]; bf16 or f32; mask [B|1, 1|H, Nq, Nk] bool or
+    k, v [B, H, Nk, dh]; bf16 or f32; mask [B|1, 1|H, 1|Nq, Nk] bool or
     additive; scale defaults to 1/sqrt(dh).  Returns [B, H, Nq, dh] in q's
     dtype.
 
@@ -198,7 +198,7 @@ def flash_attention_bwd(
     if lse.device != q.device:
         raise ValueError(f"{name}: lse on another device")
     lse = lse.to(torch.float32).contiguous()
-    kind, m, sb, sh = _mask_args(mask, b, h, nq, nk, q.device, name)
+    kind, m, sb, sh, sr = _mask_args(mask, b, h, nq, nk, q.device, name)
 
     def grad(n):  # [B, n, H, dh] in memory, the layout the QKV GEMM's views take
         return torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -211,7 +211,7 @@ def flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
             lse.data_ptr(), _ptr(m), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _DTYPE_CODES[q.dtype], b, h, nq, nk, dh,
-            _strides(q, k, v, out, g, dq, dk, dv), kind, sb, sh, float(scale),
+            _strides(q, k, v, out, g, dq, dk, dv), kind, sb, sh, sr, float(scale),
             float(mask_value), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, name)

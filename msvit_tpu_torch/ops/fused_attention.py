@@ -2,7 +2,8 @@
 
 Attention on ``q [B, H, Nq, dh]`` and ``k, v [B, H, Nk, dh]`` (Nq != Nk
 allowed: cross-context K/V), bool (True = attend) or additive f32 masks
-``[B|1, 1|H, Nq, Nk]`` applied after the f32 upcast.  Three kernels, one
+``[B|1, 1|H, 1|Nq, Nk]`` applied after the f32 upcast (one row: a key-only
+mask, read by every query row through a row stride of 0).  Three kernels, one
 hand-written CUDA source for Hopper (`csrc/fused_attention.cu`) with three
 entry points, each with a plain PyTorch version beside it.  In bf16 all
 three run on the tensor cores in the tile body K7 runs
@@ -174,15 +175,17 @@ def _strides(*ts: torch.Tensor):
 
 
 def _mask_args(mask, b, h, nq, nk, device, name):
-    """(kind, mask tensor, image stride, head stride): kind 0 none, 1 bool
-    (one byte per entry), 2 additive f32; strides in elements, 0 where the
-    mask broadcasts."""
+    """(kind, mask tensor, image stride, head stride, query-row stride):
+    kind 0 none, 1 bool (one byte per entry), 2 additive f32; strides in
+    elements, 0 where the mask broadcasts.  A key-only mask [B|1, 1|H, 1, Nk]
+    (the subsample trunk's) has row stride 0: every query row reads its one
+    row, which is never expanded."""
     if mask is None:
-        return 0, None, 0, 0
+        return 0, None, 0, 0, 0
     if (mask.ndim != 4 or mask.shape[0] not in (1, b) or mask.shape[1] not in (1, h)
-            or tuple(mask.shape[2:]) != (nq, nk)):
+            or mask.shape[2] not in (1, nq) or mask.shape[3] != nk):
         raise ValueError(
-            f"{name}: mask {tuple(mask.shape)} does not fit [B|1, 1|H, {nq}, {nk}]")
+            f"{name}: mask {tuple(mask.shape)} does not fit [B|1, 1|H, 1|{nq}, {nk}]")
     if mask.device != device:
         raise ValueError(f"{name}: mask on another device")
     if mask.dtype == torch.bool:
@@ -191,11 +194,10 @@ def _mask_args(mask, b, h, nq, nk, device, name):
         kind, m = 2, mask.to(torch.float32)
     else:
         raise TypeError(f"{name}: mask dtype {mask.dtype}")
-    if m.stride(3) != 1 or m.stride(2) != nk:
+    if m.stride(3) != 1:
         m = m.contiguous()
-    sb = m.stride(0) if m.shape[0] > 1 else 0
-    sh = m.stride(1) if m.shape[1] > 1 else 0
-    return kind, m, sb, sh
+    sb, sh, sr = (m.stride(d) if m.shape[d] > 1 else 0 for d in range(3))
+    return kind, m, sb, sh, sr
 
 
 def _run(wrapper, entry: str, plain, q, k, v, mask, scale, mask_value,
@@ -210,7 +212,7 @@ def _run(wrapper, entry: str, plain, q, k, v, mask, scale, mask_value,
     if q.device.type == "cpu":
         return plain(q, k, v, mask, scale, mask_value)
     q, k, v = _kernel_operands(name, dh, q, k, v)
-    kind, m, sb, sh = _mask_args(mask, b, h, nq, nk, q.device, name)
+    kind, m, sb, sh, sr = _mask_args(mask, b, h, nq, nk, q.device, name)
     out = torch.empty((b, nq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -220,7 +222,7 @@ def _run(wrapper, entry: str, plain, q, k, v, mask, scale, mask_value,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m), out.data_ptr(),
             *([lse.data_ptr()] if with_lse else []),
             _DTYPE_CODES[q.dtype], b, h, nq, nk, dh, _strides(q, k, v, out), kind,
-            sb, sh, float(scale), float(mask_value),
+            sb, sh, sr, float(scale), float(mask_value),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, name)
@@ -241,7 +243,7 @@ def fused_attention(
     mask_value: float = DEFAULT_MASK_VALUE,
 ) -> torch.Tensor:
     """Exact softmax attention.  q [B, H, Nq, dh]; k, v [B, H, Nk, dh];
-    bf16 or f32; mask [B|1, 1|H, Nq, Nk] bool or additive; scale defaults
+    bf16 or f32; mask [B|1, 1|H, 1|Nq, Nk] bool or additive; scale defaults
     to 1/sqrt(dh).  Returns [B, H, Nq, dh] in q's dtype.
 
     Under autograd (grad enabled and q, k or v requiring grad) this is

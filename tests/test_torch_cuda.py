@@ -1017,6 +1017,118 @@ def test_k7_refuses_bad_inputs(dev):
             fl.flash_attention(q, k.cpu(), v)
 
 
+# ------------------------------------------------------- key-only masks
+
+
+def _key_mask(kind, b, nk, dev, seed):
+    """A key-only mask [b, 1, 1, Nk], the subsample trunk's: key 0 (CLS)
+    always attended, ~40% of the others masked; bool (True = attend), or
+    additive: 0 / -1e30 for valid / masked plus -log(4) x depth (0-3) on
+    every key, the weighted-token bias."""
+    g = torch.Generator().manual_seed(seed)
+    valid = torch.rand(b, 1, 1, nk, generator=g) < 0.6
+    valid[..., 0] = True
+    if kind == "bool":
+        return valid.to(dev)
+    depth = torch.randint(0, 4, (nk,), generator=g).float()
+    return (torch.where(valid, 0.0, -1e30) - 1.3862943611198906 * depth).to(dev)
+
+
+_KEY_ONLY_SHAPES = [
+    (70, 70, 2, 64),  # Nq = Nk, one key tile and a ragged second
+    (100, 137, 3, 32),  # Nq != Nk, Nk not a multiple of 64 (nor of 4: unaligned rows)
+    (130, 65, 2, 128),  # Q longer than K/V
+    (1025, 1361, 2, 64),  # the depth-3 subsample trunk's freeze iteration
+    (1361, 1361, 1, 64),  # ... and its open iteration
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+@pytest.mark.parametrize("images", ["B", "1"])
+@pytest.mark.parametrize("nq,nk,h,dh", _KEY_ONLY_SHAPES)
+def test_key_only_masks_k4_k5_k7(dev, dtype, kind, images, nq, nk, h, dh):
+    """K4, K5, K5-lse, K7 and K7-lse with a key-only mask [B|1, 1, 1, Nk]
+    (read through a row stride of 0, never expanded) against their plain
+    versions at the existing bars, and bit-equal to the same kernel given
+    the mask expanded to [B|1, 1, Nq, Nk] in memory."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    b = 2
+    q, k, v = _heads(b, nq, nk, h, dh, dtype, dev, seed=90, packed=True)
+    m = _key_mask(kind, b if images == "B" else 1, nk, dev, seed=91)
+    full = m.expand(-1, -1, nq, -1).contiguous()
+    fns = [(fa.fused_attention_inference, fa.fused_attention_inference_plain),
+           (fa.fused_attention, fa.fused_attention_plain),
+           (fl.flash_attention, fl.flash_attention_plain)]
+    with torch.inference_mode():
+        for fn, plain in fns:
+            before = fn.launches
+            got, again = fn(q, k, v, mask=m), fn(q, k, v, mask=full)
+            want = plain(q, k, v, mask=m)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 2, fn.__name__
+            assert torch.isfinite(got).all(), fn.__name__
+            assert torch.equal(got, again), fn.__name__
+            tol = _TOL[dtype] * max(1.0, want.float().abs().max().item())
+            assert (got.float() - want.float()).abs().max().item() <= tol, fn.__name__
+        for fn in (fa.fused_attention_lse, fl.flash_attention_lse):
+            (o, lse), (o2, lse2) = fn(q, k, v, mask=m), fn(q, k, v, mask=full)
+            wo, wl = fa.fused_attention_lse_plain(q, k, v, mask=m)
+            torch.cuda.synchronize()
+            assert torch.equal(o, o2) and torch.equal(lse, lse2), fn.__name__
+            tol = _TOL[dtype] * max(1.0, wo.float().abs().max().item())
+            assert (o.float() - wo.float()).abs().max().item() <= tol, fn.__name__
+            assert _lse_err(lse, wl) <= 1e-5, fn.__name__
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+@pytest.mark.parametrize("images", ["B", "1"])
+@pytest.mark.parametrize("nq,nk,h,dh", _KEY_ONLY_SHAPES[:4])
+def test_key_only_masks_k6(dev, dtype, kind, images, nq, nk, h, dh):
+    """K6 (dq, dk, dv) with a key-only mask against its plain version at
+    K6's bars (the plain forward's residuals, a strided cotangent), and
+    bit-equal to K6 given the expanded mask."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    b = 2
+    q, k, v = _heads(b, nq, nk, h, dh, dtype, dev, seed=92, packed=True)
+    m = _key_mask(kind, b if images == "B" else 1, nk, dev, seed=93)
+    g = torch.randn(b, nq, h, dh, generator=torch.Generator().manual_seed(94))
+    g = g.to(dtype).to(dev).transpose(1, 2)
+    with torch.no_grad():
+        wo, wl = fl.flash_attention_lse_plain(q, k, v, mask=m)
+        before = fl.flash_attention_bwd.launches
+        got = fl.flash_attention_bwd(q, k, v, wo, g, wl, m)
+        again = fl.flash_attention_bwd(q, k, v, wo, g, wl,
+                                       m.expand(-1, -1, nq, -1).contiguous())
+        want = fl.flash_attention_bwd_plain(q, k, v, wo, g, wl, m)
+    torch.cuda.synchronize()
+    assert fl.flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    _k6_check(got, want, dtype)
+
+
+def test_key_only_mask_is_not_expanded(dev):
+    """The wrappers hand the kernels the key-only mask itself (row stride
+    0): a [8, 1, 1, 1361] f32 mask costs no [8, 1, 1361, 1361] copy, so a
+    call allocates no more than its output."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    q, k, v = _heads(8, 1361, 1361, 12, 64, torch.bfloat16, dev, seed=95, packed=True)
+    m = _key_mask("additive", 8, 1361, dev, seed=96)
+    with torch.inference_mode():
+        fl.flash_attention(q, k, v, mask=m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fl.flash_attention(q, k, v, mask=m)
+        torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= 2 * q.numel() * 2
+
+
 # ------------------------------------------------------------------- K9
 
 
@@ -1354,3 +1466,64 @@ def test_prefetch_on_the_card(dev):
     assert i == 8
     assert not any(t.name == "prefetch_to_device" and t.is_alive()
                    for t in threading.enumerate())
+
+
+# ------------------------------------------------ subsample and saccadic
+
+
+def test_subsample_deep_trunk_runs_k7_with_its_key_only_mask(dev):
+    """The subsample model at 448 px and depth 3 (1,361 tokens) at a small
+    width, f32: open mode runs K7 in every layer of its 4 iterations, freeze
+    mode in its last one (Nq 1025 against 1361 keys), both with the key-only
+    mask; with every slot split (policy bias +20: one tree on both paths)
+    the outputs equal the plain attention path's within 1e-4."""
+    import dataclasses
+
+    from msvit_tpu_torch.models.subsample import SubsampleViTConfig, SubsampleViTModel
+    from msvit_tpu_torch.ops import flash_attention as fl
+    from msvit_tpu_torch.settings import parity_policy
+
+    pix = torch.randn(2, 448, 448, 3, generator=torch.Generator().manual_seed(97)).to(dev)
+    for mode, want in (("open", 8), ("freeze", 2)):
+        cfg = SubsampleViTConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                                 image_size=448, patch_size=16, max_depth=3, nesting_mode=mode,
+                                 policy=parity_policy())
+        outs = []
+        for impl in ("auto", "xla"):
+            model = SubsampleViTModel(dataclasses.replace(cfg, attn_implementation=impl),
+                                      generator=torch.Generator().manual_seed(0),
+                                      device=dev).eval()
+            model.projection.bias.data.fill_(20.0)
+            before = fl.flash_attention.launches
+            with torch.inference_mode():
+                outs.append(model(pix, rng=5))
+            assert fl.flash_attention.launches - before == (want if impl == "auto" else 0)
+        a, b = outs
+        assert torch.equal(a["last_valid_mask"], b["last_valid_mask"])
+        assert int(a["last_valid_mask"].sum()) == 2 * 1024
+        assert (a["last_hidden_state"] - b["last_hidden_state"]).abs().max().item() <= 1e-4
+
+
+def test_subsample_and_saccadic_entry_points_run_on_the_card(dev, tmp_path):
+    """The subsample and saccadic examples run on the card unless the
+    caller asks for the CPU (`--device cpu`)."""
+    from msvit_tpu_torch.examples import saccadic_demo, train_saccadic
+    from msvit_tpu_torch.examples import train_subsample_synthetic as subsample
+    from msvit_tpu_torch.models.saccadic import SaccadicViTConfig
+    from msvit_tpu_torch.models.subsample import SubsampleViTConfig
+
+    scfg = SubsampleViTConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                              image_size=32, patch_size=8, initial_grid_size=2, max_depth=2,
+                              num_labels=10)
+    args = ["--warmup", "1", "--steps", "1", "--batch", "4", "--corpus-size", "8",
+            "--eval-size", "8", "--out", str(tmp_path)]
+    assert subsample.main(args, config=scfg)["device"] == "cuda"
+    assert subsample.main(args + ["--device", "cpu"], config=scfg)["device"] == "cpu"
+    acfg = SaccadicViTConfig(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+                             num_patterns=((1, 8), (2, 8)), covariance_dim=4, beam_size=4,
+                             image_size=64, patch_size=16)
+    assert saccadic_demo.main([], config=acfg)["device"] == "cuda"
+    assert saccadic_demo.main(["--device", "cpu"], config=acfg)["device"] == "cpu"
+    small = ["--steps", "1", "--batch", "2", "--glimpses", "3", "--context", "1"]
+    assert train_saccadic.main(small, config=acfg)["device"] == "cuda"
+    assert train_saccadic.main(small + ["--device", "cpu"], config=acfg)["device"] == "cpu"
