@@ -143,13 +143,27 @@ fails (non-zero exit, no result line) if any phase fails:
    images x 10 glimpses (no kernel launched, no host sync in the loop),
    ms/run, device time, peak memory; in f32 the first glimpse (embedding,
    prediction, next query) on the card against the CPU (2 images); the
-   serial controller on one image; `train_saccadic` for 3 steps.
+   serial controller on one image; `train_saccadic` for 3 steps;
+32. runtime: 64 q95 JPEGs at 900 x 675 (seeded scenes) decoded to 224 px by
+   the native libjpeg decoder (its route counted, its mean difference from
+   PIL's decode, img/s), or, where the machine has no libjpeg header, a line
+   that says the decoder was not built and PIL's decode through the native
+   preprocessor; ViT-B/16 @224 (phase 4's weights and scales) exported
+   with a symbolic batch, int8 (K3) and bf16 (K1; also with the params
+   bundled), reloaded in a child process that imports no model code and
+   equal to the live model on every element at batches 1, 2 and 64; served
+   through `BatchingServer` (phase 4's traffic on the decoded requests),
+   printed beside phase 4's live model; `aot_compile` of the int8 bs64 forward (equal to
+   eager, FLOPs within 1% of the analytic count); `Trainer.fit` fed by a
+   `ResumableLoader` through `prefetch_to_device`, 6 steps straight against
+   3 + a checkpoint + 3 in a fresh Trainer (losses bit for bit).
 
 Every kernel is timed beside the least time the card could take for its
 work (`bound`) and, where one PyTorch call computes the same function,
 that call (`scaled_dot_product_attention` or its backward; the port never
 calls it).  The second-to-last line is a JSON object with each kernel's
-launches in its path's run (serving for K1 and K3, training for K1-lse and
+launches in its path's run (serving for K1 and K3, with the reloaded
+artifacts' launches of phase 32, training for K1-lse and
 K2, the clustered multistate forwards for K4 and K5, multistate training
 for K5-lse and K6, the clustered 448-px bf16 forward and the deep subsample
 forwards for K7, the 224-px int8-attention forward for K9, the 448-px banded forward for K10, the
@@ -561,10 +575,6 @@ def cos(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def slice_phase(dev, smi: str) -> dict:
     from msvit_tpu_torch.models.base import ViTModel
-    from msvit_tpu_torch.models.base.quantized import quantized_vit_apply
-    from msvit_tpu_torch.ops.packed_attention import (
-        packed_attention, packed_attention_int8)
-    from msvit_tpu_torch.serve import BatchingServer
 
     t0 = time.perf_counter()
     cfg, model, qparams, scales = vit_int8(dev)
@@ -575,42 +585,14 @@ def slice_phase(dev, smi: str) -> dict:
     def normalize(u8):
         return wire_pixels(u8, dev)
 
-    def int8_fn(u8):
-        with torch.inference_mode():
-            f = quantized_vit_apply(qparams, cfg, normalize(u8), act_scales=scales)
-            return f[:, 0].float(), torch.ones(len(u8), device=dev)
-
-    def bf16_fn(u8):
-        with torch.inference_mode():
-            f = model(normalize(u8))["last_hidden_state"]
-            return f[:, 0].float(), torch.zeros(len(u8), device=dev)
-
+    int8_fn, bf16_fn = serving_fns(cfg, model, qparams, scales, dev)
     images = serving_images()
-    responses = []  # (image index, (features, route))
-    with BatchingServer(int8_fn, images[0], max_batch=64, max_wait_ms=5.0,
-                        small_apply_fn=bf16_fn, small_bucket_max=2) as srv:
-        t0 = time.perf_counter()
-        srv.warmup()
-        log(f"[slice] server warm-up of buckets {srv.buckets} in "
-            f"{time.perf_counter() - t0:.1f} s")
-        packed_attention.launches = 0
-        packed_attention_int8.launches = 0
-        t0 = time.perf_counter()
-        for i in range(64):  # single requests -> bucket 1 -> bf16
-            responses.append((i % 32, srv.submit(images[i % 32]).result(timeout=120)))
-        t_single = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        for burst in range(7):  # bursts of 64 -> int8 buckets
-            idx = [(burst * 64 + j) % 32 for j in range(64)]
-            futs = [srv.submit(images[i]) for i in idx]
-            responses += [(i, f.result(timeout=120)) for i, f in zip(idx, futs)]
-        t_burst = time.perf_counter() - t1
-        wall = time.perf_counter() - t0
-        launches = {"K1": packed_attention.launches, "K3": packed_attention_int8.launches}
-        stats = srv.stats()
+    served = _serve_through(int8_fn, bf16_fn, images, "slice")
+    stats, wall, launches, responses = (served[k] for k in ("stats", "wall", "launches",
+                                                             "responses"))
     log(f"[slice] served {stats['requests']} requests in {wall:.3f} s: "
         f"{stats['requests'] / wall!r} img/s sustained; 64 single requests "
-        f"{64 / t_single!r} img/s, 448 in bursts of 64 {448 / t_burst!r} img/s; "
+        f"{served['lone']!r} img/s, 448 in bursts of 64 {served['burst']!r} img/s; "
         f"latency p50/p95/p99 {stats['p50_ms']!r} / {stats['p95_ms']!r} / "
         f"{stats['p99_ms']!r} ms; mean batch {stats['mean_batch']!r} over "
         f"{stats['batches']} batches ({smi})")
@@ -629,7 +611,7 @@ def slice_phase(dev, smi: str) -> dict:
     worst = 0.0
     routes = [float(route) for _, (_, route) in responses]
     for img, (feat, route) in responses:
-        if feat.shape != (768,) or not torch.isfinite(feat).all():
+        if feat.shape != (cfg.hidden_size,) or not torch.isfinite(feat).all():
             raise AssertionError(f"response shape {tuple(feat.shape)} or non-finite")
         worst = max(worst, max_err(feat, direct[float(route)][img]))
     log(f"[slice] responses vs direct calls: max abs err {worst!r} (tolerance 0.05); "
@@ -657,7 +639,8 @@ def slice_phase(dev, smi: str) -> dict:
     log(f"[slice] device time per int8 bs64 forward (every kernel, copy and set summed, "
         f"torch.profiler, 3 forwards after 1 of warm-up): {total!r} ms, K3 {k3!r} ms, "
         f"{k3 / total!r} of it ({smi})")
-    return launches
+    served.pop("responses")
+    return launches, served
 
 
 def vit_int8(dev) -> tuple:
@@ -672,6 +655,24 @@ def vit_int8(dev) -> tuple:
     qparams = quantize_vit_params(model)
     calib = torch.randn(64, 224, 224, 3, generator=torch.Generator().manual_seed(1)).to(dev)
     return cfg, model, qparams, calibrate_act_scales(qparams, cfg, calib)
+
+
+def serving_fns(cfg, model, qparams, scales, dev) -> tuple:
+    """Phase 4's apply functions (uint8 wire images -> CLS features and the
+    route, 1 int8 and 0 bf16): (int8_fn, bf16_fn)."""
+    from msvit_tpu_torch.models.base.quantized import quantized_vit_apply
+
+    def int8_fn(u8):
+        with torch.inference_mode():
+            f = quantized_vit_apply(qparams, cfg, wire_pixels(u8, dev), act_scales=scales)
+            return f[:, 0].float(), torch.ones(len(u8), device=dev)
+
+    def bf16_fn(u8):
+        with torch.inference_mode():
+            f = model(wire_pixels(u8, dev))["last_hidden_state"]
+            return f[:, 0].float(), torch.zeros(len(u8), device=dev)
+
+    return int8_fn, bf16_fn
 
 
 def serving_images() -> np.ndarray:
@@ -3134,6 +3135,379 @@ def saccadic_phase(dev, smi: str) -> None:
         raise AssertionError("train_saccadic's losses are missing or not finite")
 
 
+# ------------------------------------------------------------- the runtime
+
+RUNTIME_REQUESTS = 64  # q95 JPEGs at 900 x 675, decoded to 224
+# the reload runs in a child process: it imports the export module (and so
+# the op registrations) and must not import the model code
+_RELOAD_CHILD = r"""
+import json, pathlib, sys, torch
+from msvit_tpu_torch.export import load_forward
+from msvit_tpu_torch.ops import packed_attention as pa
+d, dev = pathlib.Path(sys.argv[1]), torch.device(sys.argv[2])
+state = torch.load(d / "inputs.pt", weights_only=False)  # written by chip_smoke.py
+out, launches = {}, {}
+for name in ("int8", "bf16", "bf16_bundled"):
+    g = load_forward((d / f"{name}.msvx").read_bytes())
+    args = () if name == "bf16_bundled" else (state["params"][name],)
+    pa.packed_attention.launches = pa.packed_attention_int8.launches = 0
+    out[name] = {b: g(*args, x.to(dev)).cpu() for b, x in state["inputs"].items()}
+    launches[name] = {"K1": pa.packed_attention.launches, "K3": pa.packed_attention_int8.launches}
+models = sorted(m for m in sys.modules if m.startswith("msvit_tpu_torch.models"))
+if models:
+    raise SystemExit(f"the reload imported model code: {models}")
+torch.save(out, d / "outputs.pt")
+print("RELOAD " + json.dumps(launches))
+"""
+
+
+def _jpeg_requests() -> list:
+    """64 q95 JPEGs at 900 x 675 in memory: `generate_batch` scenes, upscaled
+    bicubically (PIL), so the decoder meets edges and textures."""
+    import io
+
+    from PIL import Image
+
+    from msvit_tpu_torch.data.synthetic import generate_batch
+
+    scenes = generate_batch(range(2000, 2000 + RUNTIME_REQUESTS), size=224)["images"]
+    blobs = []
+    for im in scenes:
+        buf = io.BytesIO()
+        Image.fromarray(im).resize((900, 675), Image.BICUBIC).save(buf, format="JPEG",
+                                                                   quality=95)
+        blobs.append(buf.getvalue())
+    return blobs
+
+
+def _has_jpeglib() -> bool:
+    """Whether g++ finds libjpeg's header (the native decoder needs it)."""
+    res = subprocess.run(["g++", "-x", "c++", "-fsyntax-only", "-"],
+                         input="#include <cstdio>\n#include <jpeglib.h>\n",
+                         capture_output=True, text=True, timeout=120)
+    return res.returncode == 0
+
+
+def _serve_through(int8_fn, bf16_fn, images: np.ndarray, tag: str) -> dict:
+    """Phase 4's traffic through a `BatchingServer` (int8 buckets > 2, bf16
+    buckets 1 and 2): a warm-up of every bucket, then the K1 and K3 counts
+    set to 0, 64 lone requests and 7 bursts of 64.  Returns the server's
+    `stats`, the `wall` seconds, the `lone` and `burst` img/s, the
+    `launches` of the served requests alone, and the `responses` as
+    (image, (features, route))."""
+    from msvit_tpu_torch.ops.packed_attention import packed_attention, packed_attention_int8
+    from msvit_tpu_torch.serve import BatchingServer
+
+    n = len(images)
+    responses = []
+    with BatchingServer(int8_fn, images[0], max_batch=64, max_wait_ms=5.0,
+                        small_apply_fn=bf16_fn, small_bucket_max=2) as srv:
+        t0 = time.perf_counter()
+        srv.warmup()
+        log(f"[{tag}] server warm-up of buckets {srv.buckets} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        packed_attention.launches = packed_attention_int8.launches = 0
+        t0 = time.perf_counter()
+        for i in range(64):  # lone requests -> bucket 1 -> bf16
+            responses.append((i % n, srv.submit(images[i % n]).result(timeout=120)))
+        t_single = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for burst in range(7):  # bursts of 64 -> int8 buckets
+            idx = [(burst * 64 + j) % n for j in range(64)]
+            futs = [srv.submit(images[i]) for i in idx]
+            responses += [(i, f.result(timeout=120)) for i, f in zip(idx, futs)]
+        t_burst = time.perf_counter() - t1
+        wall = time.perf_counter() - t0
+        launches = {"K1": packed_attention.launches, "K3": packed_attention_int8.launches}
+        stats = srv.stats()
+    return dict(stats=stats, wall=wall, lone=64 / t_single, burst=448 / t_burst,
+                launches=launches, responses=responses)
+
+
+def _graph_nodes(artifact: bytes) -> tuple:
+    """(op nodes, `_assert_tensor_metadata` nodes) of an artifact's program:
+    each runs as one Python dispatch when the reloaded graph is called."""
+    import io
+    import zipfile
+
+    with zipfile.ZipFile(io.BytesIO(artifact)) as z:
+        name = next(n for n in z.namelist() if n.startswith("program_"))
+        ep = torch.export.load(io.BytesIO(z.read(name)))
+    ops = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    return len(ops), sum("_assert_tensor_metadata" in o for o in ops)
+
+
+def _analytic_vit_flops(cfg, b: int) -> float:
+    """A ViT forward's GEMMs at 2 M K N (patch projection; qkv, proj, fc1,
+    fc2 per layer) and its attention at 4 B N^2 D a layer."""
+    d, p, n = cfg.hidden_size, cfg.patch_size, cfg.num_patches + 1
+    m = b * n
+    gemms = 2 * b * (n - 1) * (p * p * cfg.num_channels) * d + cfg.num_hidden_layers * (
+        2 * m * d * 3 * d + 2 * m * d * d + 2 * 2 * m * d * cfg.mlp_hidden_size)
+    return float(gemms + cfg.num_hidden_layers * 4 * b * n * n * d)
+
+
+def runtime_phase(dev, smi: str, live_served: dict) -> dict:
+    """The runtime: (a) the native decode of 64 q95 JPEGs at 900 x 675 to
+    224 px (with libjpeg on the machine; else the native preprocessor on
+    PIL's decode, and a line that says the decoder was not built); (b) the
+    int8 (K3) and bf16 (K1) ViT-B/16 forwards exported with a polymorphic
+    batch (params outside; the bf16 one also bundled), reloaded in a child
+    process without model code, equal to the live model at batches 1, 2
+    and 64; (c) `BatchingServer` over the reloaded artifacts, phase 4's
+    traffic on the decoded requests, printed beside `live_served` (phase
+    4's serving of the live model); (d) `aot_compile` of
+    the int8 bs64 forward: equal to eager, its FLOPs within 1% of the
+    analytic count; (e) `Trainer.fit` (ViT-B/16, bs64) fed by a
+    `ResumableLoader` through `prefetch_to_device`: 6 steps straight, and 3
+    steps, a checkpoint and a fresh Trainer's 3 more, the losses of steps
+    4-6 bit for bit.  Returns the artifacts' K1 and K3 launches (served
+    requests and the child's batches)."""
+    from msvit_tpu_torch import native
+    from msvit_tpu_torch.data import pipeline as tpipe
+    from msvit_tpu_torch.data.resumable import IndexSampler, ResumableLoader
+    from msvit_tpu_torch.export import aot_compile, export_forward, load_forward
+    from msvit_tpu_torch.models.base.quantized import quantized_vit_apply
+    from msvit_tpu_torch.train import Trainer, make_optimizer
+
+    import io
+
+    from PIL import Image
+
+    phase_t0 = time.perf_counter()
+    # ---- (a) decode ----
+    blobs = _jpeg_requests()
+    cfg224 = tpipe.ImagePipelineConfig(image_size=224)
+    pil_rgb = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB")) for b in blobs]
+    calls = native.preprocess_batch.calls
+    t0 = time.perf_counter()
+    pre = tpipe.preprocess_images(pil_rgb, cfg224)
+    t_pre = time.perf_counter() - t0
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tpipe.preprocess_images(pil_rgb, cfg224)
+        times.append(time.perf_counter() - t0)
+    if native.preprocess_batch.calls != calls + 6:
+        raise AssertionError("preprocess_images did not run the native preprocessor")
+    numpy_pre = np.stack([(tpipe._resize_bilinear_np(a.astype(np.float32), 224, 224) / 255.0
+                           - 0.5) / 0.5 for a in pil_rgb[:4]])
+    pre_err = float(np.abs(pre[:4] - numpy_pre).max())
+    # the native resize takes its sample positions in f32, numpy in f64: at
+    # 900 -> 224 they part by ~1e-5 px, up to a few 1e-3 of a level at an
+    # edge: 1e-4 normalized
+    log(f"[runtime] native preprocessor (g++ -O3 -march=native), 64 PIL-decoded 900 x 675 "
+        f"images -> 224: {64 / statistics.median(times)!r} img/s (host clock, median of 5 "
+        f"calls, {os.cpu_count()} host cores; the first call, its build included, "
+        f"{t_pre!r} s); against the numpy path max abs {pre_err!r} (tolerance 1e-4) ({smi})")
+    if pre_err > 1e-4:
+        raise AssertionError("the native preprocessor disagrees with the numpy path")
+    requests = np.clip(np.rint((pre * 0.5 + 0.5) * 255.0), 0, 255).astype(np.uint8)
+    if _has_jpeglib():
+        calls = native.decode_resize_u8.calls, tpipe.decode_jpeg_images_u8.pil_images
+        u8 = tpipe.decode_jpeg_images_u8(blobs, cfg224)  # builds the decoder: a failure raises
+        if (native.decode_resize_u8.calls - calls[0],
+                tpipe.decode_jpeg_images_u8.pil_images - calls[1]) != (1, 0):
+            raise AssertionError("decode_jpeg_images_u8 did not take the native route")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            tpipe.decode_jpeg_images_u8(blobs, cfg224)
+            times.append(time.perf_counter() - t0)
+        f32 = tpipe.decode_jpeg_images(blobs, cfg224)
+        mad = float(np.abs(f32 - pre).mean())
+        log(f"[runtime] native decoder: 64 q95 JPEGs at 900 x 675 -> 224 px uint8, route "
+            f"native (calls +1, PIL images +0); mean abs vs the PIL route {mad!r} normalized "
+            f"(bar 0.05); {64 / statistics.median(times)!r} img/s (host clock, median of 5 "
+            f"calls, {os.cpu_count()} host cores) ({smi})")
+        if mad >= 0.05:
+            raise AssertionError("the native decoder disagrees with the PIL route")
+        requests = u8
+    else:
+        log("[runtime] the native JPEG decoder was not built: this machine has no jpeglib.h "
+            "(libjpeg's header), so decode_jpeg_images(_u8) raise here as the JAX package's "
+            "do; the requests are PIL's decode through the native preprocessor")
+    torch.cuda.empty_cache()
+
+    # ---- (b) export and reload ----
+    cfg, model, qparams, scales = vit_int8(dev)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    qp = {"w": qparams, "s": scales}
+
+    def normalize(u8):
+        return u8.float() / 127.5 - 1.0
+
+    def int8_fwd(p, u8):
+        return quantized_vit_apply(p["w"], cfg, normalize(u8), act_scales=p["s"])[:, 0].float()
+
+    def bf16_fwd(p, u8):
+        out = torch.func.functional_call(model, p, (normalize(u8),))
+        return out["last_hidden_state"][:, 0].float()
+
+    example = torch.from_numpy(requests[:2]).to(dev)
+    arts, export_s = {}, {}
+    for name, fn, p, bundle in (("int8", int8_fwd, qp, False), ("bf16", bf16_fwd, params, False),
+                                ("bf16_bundled", bf16_fwd, params, True)):
+        t0 = time.perf_counter()
+        arts[name] = export_forward(fn, (p, example), polymorphic_batch=True, bundle_params=bundle)
+        export_s[name] = time.perf_counter() - t0
+    log(f"[runtime] exported ViT-B/16 @224 forwards (uint8 in, CLS f32 out, symbolic batch): "
+        + ", ".join(f"{k} {len(v) / 1e6:.3f} MB in {export_s[k]:.1f} s" for k, v in arts.items())
+        + f" ({smi}); graph nodes (all / dtype-metadata checks) "
+        + ", ".join(f"{k} {_graph_nodes(arts[k])}" for k in ("int8", "bf16")))
+    inputs = {b: torch.from_numpy(requests[np.arange(b) % len(requests)]) for b in (1, 2, 64)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_") as tmp:
+        for name, art in arts.items():
+            with open(os.path.join(tmp, f"{name}.msvx"), "wb") as f:
+                f.write(art)
+        torch.save({"inputs": inputs, "params": {"int8": qp, "bf16": params}},
+                   os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", _RELOAD_CHILD, tmp, str(dev)],
+                             capture_output=True,
+                             text=True, timeout=600, cwd=ROOT,
+                             env={**os.environ, "PYTHONPATH": ROOT})
+        child_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"the reload child failed:\n{res.stderr[-4000:]}")
+        line = [ln for ln in res.stdout.splitlines() if ln.startswith("RELOAD ")][-1]
+        child = json.loads(line[len("RELOAD "):])
+        outs = torch.load(os.path.join(tmp, "outputs.pt"), weights_only=True)
+    live = {}
+    with torch.no_grad():
+        for name, fn, p in (("int8", int8_fwd, qp), ("bf16", bf16_fwd, params)):
+            live[name] = {b: fn(p, x.to(dev)).cpu() for b, x in inputs.items()}
+    live["bf16_bundled"] = live["bf16"]
+    equal = {name: {b: bool(torch.equal(outs[name][b], live[name][b])) for b in inputs}
+             for name in outs}
+    log(f"[runtime] reloaded in a child process without msvit_tpu_torch.models ({child_s:.1f} s, "
+        f"interpreter start included): batches 1, 2, 64 equal to the live model on every "
+        f"element {equal}; the child's launches {child} ({smi})")
+    per = 3 * cfg.num_hidden_layers  # one launch a layer, 3 batch sizes
+    want = {"int8": {"K1": 0, "K3": per}, "bf16": {"K1": per, "K3": 0},
+            "bf16_bundled": {"K1": per, "K3": 0}}
+    if child != want:
+        raise AssertionError(f"the reloaded artifacts' launches {child}, want {want}")
+    if not all(all(v.values()) for v in equal.values()):
+        raise AssertionError("a reloaded artifact differs from the live model")
+
+    # ---- (c) serve the reloaded artifacts, beside phase 4's live model ----
+    g_int8, g_bf16 = load_forward(arts["int8"]), load_forward(arts["bf16"])
+
+    def wire(u8):
+        return torch.from_numpy(u8).to(dev)
+
+    def live_int8(u8):
+        with torch.no_grad():
+            return int8_fwd(qp, wire(u8))
+
+    def live_bf16(u8):
+        with torch.no_grad():
+            return bf16_fwd(params, wire(u8))
+
+    def routed(fn, route):  # features and the route that served them
+        return lambda u8: (fn(u8), torch.full((len(u8),), route, device=dev))
+
+    served = _serve_through(routed(lambda u8: g_int8(qp, wire(u8)), 1.0),
+                            routed(lambda u8: g_bf16(params, wire(u8)), 0.0), requests, "runtime")
+    stats, launches = served["stats"], served["launches"]
+    for name, got in (("artifact", served), ("phase 4's live model", live_served)):
+        log(f"[runtime] served {name} ({got['stats']['requests']} uint8 requests): "
+            f"{got['stats']['requests'] / got['wall']!r} img/s sustained; 64 lone "
+            f"{got['lone']!r} img/s, 448 in bursts of 64 {got['burst']!r} img/s; latency "
+            f"p50/p95/p99 {got['stats']['p50_ms']!r} / {got['stats']['p95_ms']!r} / "
+            f"{got['stats']['p99_ms']!r} ms; mean batch {got['stats']['mean_batch']!r} ({smi})")
+    log(f"[runtime] the artifacts' launches while serving: {launches}")
+    if stats["requests"] != 512 or min(launches.values()) <= 0:
+        raise AssertionError("the served artifacts missed requests or launched no kernel")
+    # every response against a direct call of the live forward of its route
+    # (0.05 abs, as phase 4: a direct call at another batch size may take
+    # another bf16 GEMM algorithm)
+    direct = {1.0: live_int8(requests).cpu(),
+              0.0: torch.cat([live_bf16(requests[i:i + 1]) for i in range(len(requests))]).cpu()}
+    worst = 0.0
+    for img, (feat, route) in served["responses"]:
+        if feat.shape != (cfg.hidden_size,) or not torch.isfinite(feat).all():
+            raise AssertionError("a served response is malformed")
+        worst = max(worst, max_err(feat, direct[float(route)][img]))
+    log(f"[runtime] served artifact responses vs the live model's direct calls: max abs err "
+        f"{worst!r} (tolerance 0.05, as phase 4) ({smi})")
+    if worst > 0.05:
+        raise AssertionError("served artifact responses disagree with the live model")
+    del g_int8, g_bf16
+    torch.cuda.empty_cache()
+
+    # ---- (d) aot_compile ----
+    x64 = inputs[64].to(dev)
+    t0 = time.perf_counter()
+    compiled, cost = aot_compile(int8_fwd, (qp, x64))
+    aot_s = time.perf_counter() - t0
+    with torch.no_grad():
+        eager = int8_fwd(qp, x64)
+    same = bool(torch.equal(compiled(qp, x64), eager))
+    analytic = _analytic_vit_flops(cfg, 64)
+    ratio = cost["flops"] / analytic
+    ms_c = statistics.median(time_ms(lambda: compiled(qp, x64)))
+    ms_e = statistics.median(time_ms(lambda: int8_fwd(qp, x64)))
+    log(f"[runtime] aot_compile of the int8 bs64 forward in {aot_s:.1f} s: equal to eager "
+        f"{same}; FlopCounterMode {cost['flops']!r} FLOPs, analytic {analytic!r} (ratio "
+        f"{ratio!r}, tolerance 1%); {ms_c!r} ms per call (CUDA events, median of 10) against "
+        f"eager {ms_e!r} ms ({smi})")
+    if not same or abs(ratio - 1.0) > 0.01:
+        raise AssertionError("aot_compile's output or its FLOP count is wrong")
+    del model, qparams, scales, qp, params, compiled
+    torch.cuda.empty_cache()
+
+    # ---- (e) resume through a ResumableLoader ----
+    table = np.concatenate([requests, requests[:, ::-1], requests[:, :, ::-1],
+                            requests[:, ::-1, ::-1]])
+    labels = np.random.default_rng(5).integers(0, 1000, len(table))
+
+    def loader():
+        def fetch(idx):
+            return {"pixel_values": table[idx], "labels": labels[idx]}
+
+        def to_f32(item):
+            return {**item, "pixel_values": normalize(item["pixel_values"])}
+
+        return ResumableLoader(IndexSampler(len(table), 64, seed=3), fetch, prefetch=2,
+                               device=dev, transform=to_f32)
+
+    def run(tmp, tag, steps, ckpt=None, resume=False):
+        metrics = os.path.join(tmp, f"{tag}.jsonl")
+        tr = Trainer(_ce_loss, make_optimizer(3e-4, weight_decay=0.05),
+                     _classifier(dev, 1 if resume else 0), checkpoint_dir=ckpt, save_every=3,
+                     metrics_path=metrics, log_every=1)
+        it = loader()
+        if resume:
+            tr.restore(it)
+        t0 = time.perf_counter()
+        tr.fit(it, steps, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        it.close()
+        with open(metrics) as fh:
+            return [json.loads(line)["loss"] for line in fh], wall
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        _reset_training_counts()
+        straight, wall = run(tmp, "straight", 6)
+        counts = _training_counts()
+        ckpt = os.path.join(tmp, "ckpt")
+        first, _ = run(tmp, "first", 3, ckpt)
+        resumed, _ = run(tmp, "resumed", 6, ckpt, resume=True)
+    log(f"[runtime] Trainer fed by ResumableLoader through prefetch_to_device, ViT-B/16 bs64: "
+        f"6 steps straight in {wall:.2f} s, losses {straight}; 3 steps {first}, a checkpoint, a "
+        f"fresh Trainer's steps 4-6 {resumed}; bit for bit {resumed == straight[3:]}; "
+        f"launches of the straight run {counts} ({smi})")
+    if first != straight[:3] or resumed != straight[3:]:
+        raise AssertionError("the resumed run's losses differ from the uninterrupted run's")
+    if counts != {"K1-lse": 6 * LAYERS, "K2": 6 * LAYERS}:
+        raise AssertionError(f"the training launches {counts}")
+    log(f"[runtime] phase 32 in {time.perf_counter() - phase_t0:.1f} s ({smi})")
+    return {k: launches[k] + sum(c[k] for c in child.values()) for k in launches}
+
+
 def int8_ab(tag: str) -> dict:
     """The int8 serving attention on the package beside this file, for an
     A/B of two trees in one call, each run from its root in turns (parent,
@@ -3176,6 +3550,75 @@ def int8_ab(tag: str) -> dict:
     pix = wire_pixels(np.concatenate([serving_images()] * 2), dev)
     res["vit_int8_bs64_device_ms"], res["vit_K3_ms"] = int8_forward_profile(
         qparams, vcfg, scales, pix)
+    print("AB " + json.dumps(res), flush=True)
+    return res
+
+
+def dispatch_ab(tag: str) -> dict:
+    """The host cost of a K1 and a K3 wrapper call, and phase 4's serving,
+    on the package beside this file, for an A/B of two trees in one call
+    (parent, change, change, parent; each run from its root after this
+    file is copied over the parent's own):
+
+        python3 -c "import chip_smoke as c; c.dispatch_ab('change')"
+
+    Host microseconds of one wrapper call at a lone request's shape
+    [1,197,2304] (K1 bf16, K3 int8 with phase 4's scale tensors; median of
+    200 calls, each timed alone on the host clock, no sync inside), the
+    wall time of a bf16 ViT-B/16 bs1 forward with its sync (median of 50),
+    and `_serve_through` of phase 4's live model (lone and burst img/s,
+    p50/p99).  Prints one line, "AB " and a JSON object."""
+    smi = card()
+    sys.path.insert(0, ROOT)
+    from msvit_tpu_torch.ops import packed_attention as pa
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main()
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"tag": tag, "card": smi}
+    g = torch.Generator().manual_seed(0)
+    qkv = torch.randn(1, 197, 2304, generator=g).to(dev, torch.bfloat16)
+    _, q, sec = int8_qkv(g, (1, 197, 2304), dev, scale=0.5)
+    inv = torch.tensor(20.0, device=dev)
+
+    def host_us(fn, n=200):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return statistics.median(ts) * 1e6
+
+    with torch.inference_mode():
+        res["K1_host_us"] = host_us(lambda: pa.packed_attention(qkv, 12))
+        res["K3_host_us"] = host_us(lambda: pa.packed_attention_int8(
+            q, sec, 12, out_inv_scale=inv, int8_out=True))
+    cfg, model, qparams, scales = vit_int8(dev)
+    images = serving_images()
+    one = wire_pixels(images[:1], dev)
+
+    def fwd():
+        with torch.inference_mode():
+            model(one)
+        torch.cuda.synchronize()
+
+    for _ in range(5):
+        fwd()
+    ts = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        fwd()
+        ts.append(time.perf_counter() - t0)
+    res["bf16_bs1_forward_ms"] = statistics.median(ts) * 1e3
+
+    served = _serve_through(*serving_fns(cfg, model, qparams, scales, dev), images, "ab")
+    res.update(lone_img_s=served["lone"], burst_img_s=served["burst"],
+               p50_ms=served["stats"]["p50_ms"], p99_ms=served["stats"]["p99_ms"],
+               launches=served["launches"])
     print("AB " + json.dumps(res), flush=True)
     return res
 
@@ -3244,6 +3687,7 @@ def ptxas_lines() -> list:
 
 
 def main() -> None:
+    started = time.perf_counter()
     smi = card()
     log(smi)
     dev = torch.device("cuda", 0)
@@ -3265,7 +3709,7 @@ def main() -> None:
 
     kernels = kernel_phase(dev, smi)
     kernels.update(train_kernel_phase(dev, smi))
-    launches = slice_phase(dev, smi)
+    launches, live_served = slice_phase(dev, smi)
     torch.cuda.empty_cache()
     gradient_phase(dev, smi)
     torch.cuda.empty_cache()
@@ -3326,6 +3770,11 @@ def main() -> None:
     kernels.update(key_mask_kernel_phase(dev, smi))
     torch.cuda.empty_cache()
     saccadic_phase(dev, smi)
+    torch.cuda.empty_cache()
+    # K1's and K3's rows add the reloaded artifacts' launches (served and in
+    # the reload child) to phase 4's
+    for k, n in runtime_phase(dev, smi, live_served).items():
+        launches[k] += n
     src = "msvit_tpu_torch/csrc/"
     # K4, K5, K5-lse, K6, K7 and K10 at the other shapes their phases timed
     key = "[8,12,1361,64] key-only mask [8,1,1,1361] (subsample 448 px, depth 3)"
@@ -3361,6 +3810,8 @@ def main() -> None:
             ("K8b", "packed_attention_bwd (K8b)", "packed_attention_bwd.cu", packed + "641"),
         )
     ]
+    log(f"[total] chip_smoke.py ran in {time.perf_counter() - started:.1f} s, the kernels' "
+        f"build included ({smi})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,30 @@
 """Image pipeline (counterpart of `msvit_tpu/data/pipeline.py`): decode,
 resize, normalize, grayscale to 3 channels, and the host-to-device feed.
 
-* `preprocess_images`: host path (numpy / PIL) for arbitrary inputs,
-  [B, S, S, 3] float32, normalized.
+* `preprocess_images`: host path for arbitrary inputs, [B, S, S, 3]
+  float32, normalized: the native C++ preprocessor (`msvit_tpu_torch.native`),
+  or numpy where it cannot be built.
 * `preprocess_on_device`: device path for already-decoded uint8 tensors:
   resize, rescale and normalize on the device the tensor lies on.
-* `decode_jpeg_images_u8`: encoded JPEG bytes to [B, S, S, 3] uint8 through
-  PIL (the JAX package's ctypes C++ decoder is not ported).
+* `decode_jpeg_images` / `decode_jpeg_images_u8`: encoded JPEG bytes to
+  [B, S, S, 3] float32 (normalized) or uint8 (resized only) through the
+  native libjpeg decoder, which scales in the DCT domain when the source
+  is much larger than the target: the same bytes as the JAX package's.
 * `prefetch_to_device`: a worker thread runs the host iterator, stages each
   batch in pinned host memory and copies it on a side stream, so the host
   prepares batch i+1.. while the device computes on batch i.  uint8 on the
   wire and the normalization on the device move a quarter of the bytes of
   an f32 feed.
+* `load_image_batches`: a `datasets` dataset (a local image folder, say)
+  decoded natively and fed through `prefetch_to_device`.
 
-Not ported: `load_image_batches` (a hub dataset loader; it needs a
-download) and the f32 `decode_jpeg_images`.
+The JAX package's fallback ladder, exactly: an `ImportError` or `OSError`
+from the native module (no g++) sends the whole batch to PIL; a blob that
+libjpeg refuses goes to PIL alone; an image neither can read gives zeros
+(f32) or black (uint8).  A decoder that fails to compile (no
+``jpeglib.h``) raises.  Counters show the route that ran: the native entry
+points' ``.calls``, and each decoder's ``.pil_images`` (images decoded by
+PIL) and ``.unreadable`` (images left zero).
 """
 
 from __future__ import annotations
@@ -74,14 +84,23 @@ def _resize_bilinear_np(img: np.ndarray, h: int, w: int) -> np.ndarray:
 def preprocess_images(
     images: Sequence[Any], config: ImagePipelineConfig = ImagePipelineConfig()
 ) -> np.ndarray:
-    """Host path -> [B, S, S, 3] float32, normalized (the JAX package's
-    numpy path: half-pixel bilinear resize, x / 255, mean / std)."""
+    """Host path -> [B, S, S, 3] float32, normalized: the native C++
+    preprocessor, or, where it cannot be built, numpy (half-pixel bilinear
+    resize, x / 255, mean / std)."""
     s = config.image_size
-    out = np.empty((len(images), s, s, 3), np.float32)
+    arrays = [to_rgb_array(im) for im in images]
+    try:
+        from msvit_tpu_torch.native import preprocess_batch
+
+        return preprocess_batch(arrays, s, config.mean, config.std)
+    except (ImportError, OSError):
+        pass
+
+    out = np.empty((len(arrays), s, s, 3), np.float32)
     mean = np.asarray(config.mean, np.float32)
     std = np.asarray(config.std, np.float32)
-    for i, im in enumerate(images):
-        resized = _resize_bilinear_np(to_rgb_array(im).astype(np.float32), s, s)
+    for i, arr in enumerate(arrays):
+        resized = _resize_bilinear_np(arr.astype(np.float32), s, s)
         out[i] = (resized / 255.0 - mean) / std
     return out
 
@@ -105,29 +124,80 @@ def preprocess_on_device(
     return (x / 255.0 - mean) / std
 
 
+def _native_or_pil(native, blobs: Sequence[bytes], out: np.ndarray, pil_one, counter) -> np.ndarray:
+    """The fallback ladder: `native(blobs)` -> (out, ok); an `ImportError`
+    or `OSError` from the native module sends every blob to PIL, and each
+    blob that it refused goes to `pil_one(image) -> row` alone; a blob PIL
+    cannot read either keeps `out`'s zeros."""
+    try:
+        out, ok = native(blobs)
+    except (ImportError, OSError):
+        ok = np.zeros((len(blobs),), bool)
+    if not ok.all():
+        from PIL import Image
+
+        for i in np.nonzero(~ok)[0]:
+            try:
+                out[i] = pil_one(Image.open(io.BytesIO(blobs[i])))
+            except Exception:  # any unreadable blob keeps its zeros
+                counter.unreadable += 1
+                continue
+            counter.pil_images += 1
+    return out
+
+
+def decode_jpeg_images(
+    blobs: Sequence[bytes],
+    config: ImagePipelineConfig = ImagePipelineConfig(),
+) -> np.ndarray:
+    """Encoded JPEG bytes -> normalized [B, S, S, 3] float32 through the
+    native fused decode + resize + normalize (`native/decode.cpp`; DCT
+    downscaling, threaded across the batch); the fallback ladder of the
+    module's docstring, an unreadable image giving zeros."""
+    s = config.image_size
+
+    def native(b):
+        from msvit_tpu_torch.native import decode_preprocess_batch
+
+        return decode_preprocess_batch(b, s, config.mean, config.std)
+
+    return _native_or_pil(native, blobs, np.zeros((len(blobs), s, s, 3), np.float32),
+                          lambda img: preprocess_images([img], config)[0],
+                          decode_jpeg_images)
+
+
+decode_jpeg_images.pil_images = 0
+decode_jpeg_images.unreadable = 0
+
+
 def decode_jpeg_images_u8(
     blobs: Sequence[bytes],
     config: ImagePipelineConfig = ImagePipelineConfig(),
 ) -> np.ndarray:
     """Encoded JPEG bytes -> [B, S, S, 3] **uint8** (decoded and resized,
     NOT normalized): the wire format of the host-to-device feed, with
-    `preprocess_on_device` (or ``/ 127.5 - 1``) on the device.  Decodes
-    with PIL; an image PIL cannot read comes out black, as in the JAX
-    package."""
-    from PIL import Image, UnidentifiedImageError
-
+    `preprocess_on_device` (or ``/ 127.5 - 1``) on the device.  The native
+    decoder (DCT downscaling) and the fallback ladder of the module's
+    docstring; an unreadable image comes out black (u8 zeros, -mean/std
+    after the device normalization), where the f32 path gives zeros in
+    normalized space."""
     s = config.image_size
-    out = np.zeros((len(blobs), s, s, 3), np.uint8)
-    for i, blob in enumerate(blobs):
-        try:
-            img = Image.open(io.BytesIO(blob)).convert("RGB")
-        except (UnidentifiedImageError, OSError):
-            continue  # keep zeros
-        arr = to_rgb_array(img)
-        if arr.shape[:2] != (s, s):
-            arr = np.clip(_resize_bilinear_np(arr.astype(np.float32), s, s) + 0.5, 0, 255)
-        out[i] = arr.astype(np.uint8)
-    return out
+
+    def native(b):
+        from msvit_tpu_torch.native import decode_resize_u8
+
+        return decode_resize_u8(b, s)
+
+    def pil_one(img):
+        arr = to_rgb_array(img.convert("RGB")).astype(np.float32)
+        return np.clip(_resize_bilinear_np(arr, s, s) + 0.5, 0, 255).astype(np.uint8)
+
+    return _native_or_pil(native, blobs, np.zeros((len(blobs), s, s, 3), np.uint8),
+                          pil_one, decode_jpeg_images_u8)
+
+
+decode_jpeg_images_u8.pil_images = 0
+decode_jpeg_images_u8.unreadable = 0
 
 
 class _PinnedRing:
@@ -267,3 +337,86 @@ def prefetch_to_device(
         except queue.Empty:
             pass
         t.join(timeout=10.0)
+
+
+def _read_blob(image: Any) -> bytes:
+    """An image column's value under ``datasets.Image(decode=False)``:
+    {"bytes": ..., "path": ...}; file-backed datasets (an image folder)
+    give bytes None and a path, read here."""
+    blob = image.get("bytes")
+    if blob is None and image.get("path"):
+        with open(image["path"], "rb") as f:
+            blob = f.read()
+    return blob if blob is not None else b""
+
+
+def load_image_batches(
+    dataset_id: str,
+    split: str = "train",
+    batch_size: int = 32,
+    config: ImagePipelineConfig = ImagePipelineConfig(),
+    streaming: bool = True,
+    image_key: str = "image",
+    label_key: Optional[str] = "label",
+    shuffle_seed: Optional[int] = None,
+    prefetch: int = 2,
+    native_decode: bool = True,
+    wire_dtype: str = "uint8",
+    device=None,
+) -> Iterator[dict]:
+    """A `datasets` loader: yields {"pixel_values": [B, S, S, 3] f32,
+    "labels": [B] int or None}, full batches only.  `dataset_id` is what
+    `datasets.load_dataset` takes: a local directory is read as an image
+    folder (class sub-folders give the labels); nothing is downloaded
+    unless the id names a hub dataset and the network allows it.
+
+    With `native_decode` the image column is read as encoded bytes and
+    decoded by the native JPEG decoder; with ``prefetch > 0`` batches are
+    prepared and sent to `device` (default: the CUDA card) by
+    `prefetch_to_device`'s worker thread.  ``wire_dtype="uint8"`` (the
+    default, with native decode and prefetch) sends the resized uint8 (a
+    quarter of the bytes) and normalizes on the device
+    (`preprocess_on_device`); ``"float32"`` normalizes on the host.  With
+    ``prefetch=0`` the batches stay numpy on the host."""
+    try:
+        import datasets  # noqa: PLC0415
+    except ImportError as e:
+        raise ImportError("`datasets` is required for load_image_batches") from e
+
+    ds = datasets.load_dataset(dataset_id, split=split, streaming=streaming)
+    if native_decode:
+        try:
+            ds = ds.cast_column(image_key, datasets.Image(decode=False))
+        except Exception:  # a column that is not an image: decode in Python
+            native_decode = False
+    if shuffle_seed is not None:
+        ds = ds.shuffle(seed=shuffle_seed)
+
+    u8_wire = wire_dtype == "uint8" and native_decode and prefetch > 0
+
+    def gen() -> Iterator[dict]:
+        images, labels = [], []
+        for row in ds:
+            images.append(row[image_key])
+            if label_key is not None and label_key in row:
+                labels.append(row[label_key])
+            if len(images) == batch_size:
+                if native_decode:
+                    blobs = [_read_blob(im) for im in images]
+                    decode = decode_jpeg_images_u8 if u8_wire else decode_jpeg_images
+                    pix = decode(blobs, config)
+                else:
+                    pix = preprocess_images(images, config)
+                yield {"pixel_values": pix,
+                       "labels": np.asarray(labels) if labels else None}
+                images, labels = [], []
+
+    it = gen()
+    if prefetch <= 0:
+        return it
+    transform = None
+    if u8_wire:
+        def transform(item):
+            return {**item, "pixel_values": preprocess_on_device(item["pixel_values"], config)}
+
+    return prefetch_to_device(it, buffer_size=prefetch, device=device, transform=transform)

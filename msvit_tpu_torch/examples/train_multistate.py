@@ -10,9 +10,11 @@ still flows through every layer.
 The same flags and defaults as the JAX example (patch 16 @224: 196 patch
 tokens + 2 x 16 TX/RX slots; spectral clustering at layers 4, 6, 8 and
 10).  It runs on the CUDA card; ``--device cpu`` is the only way to the CPU
-(with no card and no ``--device cpu`` it raises).  ``--dataset`` needs the
-hub dataset loader and ``--pretrained`` the HF weight import, not ported
-yet: both raise.  The images and labels are seeded random ones.
+(with no card and no ``--device cpu`` it raises).  ``--dataset`` takes one
+batch from `data.pipeline.load_image_batches` (a local image folder, whose
+class sub-folders give the labels, modulo ``--labels``), as the JAX example
+does; without it the images and labels are seeded random ones.
+``--pretrained`` needs the HF weight import, not ported yet: it raises.
 
 ``--ckpt <dir>`` restores a `pretrain_synthetic` checkpoint and wires its
 trunk into the encoder (`transfer_base_to_multistate`) before fine-tuning,
@@ -31,11 +33,12 @@ seeds the step's clustering `Rng` and its dropout.
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from msvit_tpu_torch.compat.family import transfer_base_to_multistate
+from msvit_tpu_torch.data.pipeline import ImagePipelineConfig, load_image_batches
 from msvit_tpu_torch.examples.pretrain_synthetic import PRESETS
 from msvit_tpu_torch.models.clustering import SpectralClusteringConfig
 from msvit_tpu_torch.models.multistate import (
@@ -72,6 +75,20 @@ def loss_fn(model, batch, generator):
     return out["loss"], {"accuracy": acc}
 
 
+def dataset_batch(dataset: str, batch: int, size: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first batch of `load_image_batches` over `dataset` (native
+    decode, normalized on `dev`): (pixels [B, S, S, 3] f32, labels [B])."""
+    loader = load_image_batches(dataset, batch_size=batch,
+                                config=ImagePipelineConfig(image_size=size), device=dev)
+    try:
+        first = next(loader, None)
+    finally:
+        loader.close()
+    if first is None:
+        raise ValueError(f"no full batch of {batch} images in {dataset!r}")
+    return first["pixel_values"], first["labels"].long()
+
+
 def load_pretrained_trunk(model: MultiStateViTForImageClassification,
                           ckpt_dir: str) -> None:
     """Restore the newest `pretrain_synthetic` checkpoint under `ckpt_dir`
@@ -93,7 +110,8 @@ def main(argv: Optional[List[str]] = None,
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--labels", type=int, default=10)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--dataset", default=None)
+    ap.add_argument("--dataset", default=None,
+                    help="a local image folder (or a dataset id for datasets.load_dataset)")
     ap.add_argument("--num-sample", type=int, default=256)
     ap.add_argument("--pretrained", default=None)
     ap.add_argument("--ckpt", default=None,
@@ -104,10 +122,6 @@ def main(argv: Optional[List[str]] = None,
                     help="the trunk was pretrained with config.qk_norm")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.dataset:
-        raise NotImplementedError(
-            "--dataset needs the hub dataset loader (ROADMAP.md queue 1, item 10: "
-            "data/pipeline.py::load_image_batches), not ported yet")
     if args.pretrained:
         raise NotImplementedError(
             "--pretrained needs the HF weight import (ROADMAP.md queue 1, item 9: "
@@ -118,10 +132,14 @@ def main(argv: Optional[List[str]] = None,
     dev = torch.device(args.device)
 
     cfg = config or default_config(args.num_sample, args.preset, args.qk_norm)
-    g = torch.Generator().manual_seed(SEED)
-    pix = torch.randn(args.batch, cfg.image_size, cfg.image_size, cfg.num_channels,
-                      generator=g).to(dev)
-    labels = torch.randint(0, args.labels, (args.batch,), generator=g).to(dev)
+    if args.dataset:
+        pix, labels = dataset_batch(args.dataset, args.batch, cfg.image_size, dev)
+        labels = labels % args.labels
+    else:
+        g = torch.Generator().manual_seed(SEED)
+        pix = torch.randn(args.batch, cfg.image_size, cfg.image_size, cfg.num_channels,
+                          generator=g).to(dev)
+        labels = torch.randint(0, args.labels, (args.batch,), generator=g).to(dev)
     model = MultiStateViTForImageClassification(
         cfg, args.labels, generator=torch.Generator().manual_seed(SEED), device=dev)
     if args.ckpt:

@@ -12,10 +12,11 @@
     python -m msvit_tpu_torch.examples.train_saccadic --device cpu --steps 2
 
 The images are the JAX example's synthetic default, standard-normal
-pixels drawn on the CPU from ``--seed``.  ``--dataset`` needs
-`load_image_batches` (ROADMAP.md queue 1, item 10: data loading), not
-ported: the flag raises.  The run is on the CUDA card; ``--device cpu`` is
-the only way to the CPU (with no card and no ``--device cpu`` it raises).
+pixels drawn on the CPU from ``--seed``, or with ``--dataset`` the first
+batch of `data.pipeline.load_image_batches` (a local image folder, decoded
+natively and normalized on the device).  The run is on the CUDA card;
+``--device cpu`` is the only way to the CPU (with no card and no
+``--device cpu`` it raises).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from torch import nn
 
 from msvit_tpu_torch.examples.pretrain_synthetic import resolve_device
+from msvit_tpu_torch.examples.train_multistate import dataset_batch
 from msvit_tpu_torch.models.saccadic import (
     SaccadicViTConfig, SaccadicViTEmbeddings, SaccadicViTMultiStatePattern,
     TransformerSaccadicViTPredictor, batched_saccade_run, pattern_nll_loss,
@@ -63,18 +65,17 @@ def main(argv: Optional[List[str]] = None,
     ap.add_argument("--context", type=int, default=3)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--dataset", default=None,
-                    help="an image folder (needs load_image_batches: not ported)")
+                    help="a local image folder (or a dataset id for datasets.load_dataset)")
     ap.add_argument("--seed", type=int, default=1212)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.dataset:
-        raise NotImplementedError(
-            "--dataset needs load_image_batches (ROADMAP.md queue 1, item 10: data "
-            "loading), not ported yet")
     dev = resolve_device(args.device)
     cfg = config or train_config()
     gen = torch.Generator().manual_seed(args.seed)
-    pix = torch.randn((args.batch, cfg.image_size, cfg.image_size, 3), generator=gen).to(dev)
+    if args.dataset:
+        pix = dataset_batch(args.dataset, args.batch, cfg.image_size, dev)[0]
+    else:
+        pix = torch.randn((args.batch, cfg.image_size, cfg.image_size, 3), generator=gen).to(dev)
     embeddings = SaccadicViTEmbeddings(cfg, gen).to(dev)
     trained = nn.Module()
     trained.pattern = SaccadicViTMultiStatePattern(cfg, gen)

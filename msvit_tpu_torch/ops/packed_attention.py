@@ -44,6 +44,17 @@ Each wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches its kernel or raises: there is no fallback.
 Each counts its kernel launches in a plain int attribute (`.launches`).
 
+K1 (the inference branch of `packed_attention`) and K3 are registered ops,
+`torch.ops.msvit.packed_attention` and `torch.ops.msvit.packed_attention_int8`
+(`torch.library.custom_op`, each with a fake implementation that gives the
+output's shape and dtype), so that `torch.export` keeps each as one node of
+the graph and a reloaded program calls the same kernel (`export.py`).  The
+host work of a launch (checks, the ctypes call, the count) sits inside the
+op, where a trace does not reach.  Under a trace or a dispatch mode the
+wrappers call the registered op; a plain call runs the op's body directly
+and skips the dispatcher's host cost, which a host-bound lone request pays
+on every layer (`chip_smoke.dispatch_ab` measures both).
+
 `packed_attention` splits as the JAX `custom_vjp` does: under autograd
 (grad enabled and qkv requiring grad) it runs `PackedAttentionFunction`,
 K1-lse forward and K2 backward, exact at any logit scale; otherwise K1.
@@ -191,6 +202,61 @@ def packed_attention_plain(
     return merge_heads(out.to(qkv.dtype))
 
 
+def _traced(x: torch.Tensor) -> bool:
+    """Whether a wrapper call is traced (`torch.export`, `torch.compile`:
+    fake or functional tensors) or runs under a dispatch mode
+    (`FlopCounterMode`): then it goes through the registered op, which the
+    trace keeps as one node and the mode sees."""
+    return (type(x) is not torch.Tensor or torch.compiler.is_compiling()
+            or torch._C._len_torch_dispatch_stack() > 0)
+
+
+def _off_kernel_devices(x: torch.Tensor, name: str) -> None:
+    """A registered op sends a meta tensor to its fake implementation;
+    outside tracing, a tensor that is neither on the CPU nor on the card
+    has no kernel (as the other wrappers say through `_check_cuda`)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for tensors on {x.device}")
+
+
+def _packed_attention_k1(
+    qkv: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    num_heads: int,
+    scale: float,
+    mask_value: float,
+) -> torch.Tensor:
+    """K1, the body of the registered op `torch.ops.msvit.packed_attention`:
+    the plain version on the CPU, the kernel on the card (or an
+    exception)."""
+    if qkv.device.type == "cpu":
+        return packed_attention_plain(qkv, num_heads, mask, scale, mask_value)
+    b, n, d, dh = _dims(qkv, num_heads)
+    _check_cuda(qkv, "packed_attention", dh)
+    kind, m, sb, sh = _mask_args(mask, qkv, num_heads, "packed_attention")
+    out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        code = lib.msvit_packed_attention(
+            qkv.data_ptr(), _ptr(m), out.data_ptr(), _DTYPE_CODES[qkv.dtype],
+            b, n, num_heads, dh, kind, sb, sh, float(scale), float(mask_value),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, code, "packed_attention")
+    packed_attention.launches += 1
+    return out
+
+
+_packed_attention_op = torch.library.custom_op(
+    "msvit::packed_attention", _packed_attention_k1, mutates_args=())
+
+
+@_packed_attention_op.register_fake
+def _(qkv, mask, num_heads, scale, mask_value):
+    b, n, d3 = qkv.shape
+    return qkv.new_empty((b, n, d3 // 3))
+
+
 def packed_attention(
     qkv: torch.Tensor,
     num_heads: int,
@@ -207,7 +273,8 @@ def packed_attention(
 
     Under autograd (grad enabled and qkv requiring grad) this is
     `PackedAttentionFunction`: K1-lse forward, K2 backward.  Otherwise K1,
-    the shaved inference softmax."""
+    the shaved inference softmax (through the registered op
+    `torch.ops.msvit.packed_attention` when traced)."""
     b, n, d, dh = _dims(qkv, num_heads)
     _check_mask_rank(mask)
     if scale is None:
@@ -216,21 +283,11 @@ def packed_attention(
         return PackedAttentionFunction.apply(
             qkv, mask, num_heads, float(scale), float(mask_value)
         )
-    if qkv.device.type == "cpu":
-        return packed_attention_plain(qkv, num_heads, mask, scale, mask_value)
-    _check_cuda(qkv, "packed_attention", dh)
-    kind, m, sb, sh = _mask_args(mask, qkv, num_heads, "packed_attention")
-    out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
-    lib = _build.library()
-    with torch.cuda.device(qkv.device):
-        code = lib.msvit_packed_attention(
-            qkv.data_ptr(), _ptr(m), out.data_ptr(), _DTYPE_CODES[qkv.dtype],
-            b, n, num_heads, dh, kind, sb, sh, float(scale), float(mask_value),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, code, "packed_attention")
-    packed_attention.launches += 1
-    return out
+    if not _traced(qkv):
+        return _packed_attention_k1(qkv, mask, num_heads, float(scale), float(mask_value))
+    _off_kernel_devices(qkv, "packed_attention")
+    return torch.ops.msvit.packed_attention(
+        qkv, mask, num_heads, float(scale), float(mask_value))
 
 
 packed_attention.launches = 0
@@ -466,27 +523,24 @@ def packed_attention_int8_plain(
     return merge_heads(o)
 
 
-def packed_attention_int8(
+def _packed_attention_k3(
     qkv_q: torch.Tensor,
-    section_scales,
+    section_scales: torch.Tensor,
+    out_inv_scale: Optional[torch.Tensor],
     num_heads: int,
-    out_inv_scale=None,
-    scale: Optional[float] = None,
-    int8_out: bool = False,
+    scale: float,
+    int8_out: bool,
 ) -> torch.Tensor:
-    """Fully-int8 packed self-attention for serving (K3).
-
-    qkv_q: [B, N, 3*D] int8 (per-section quantized GEMM output).
-    section_scales: [3] f32 dequant scales of q | k | v.
-    out_inv_scale: scalar f32, the inverse output scale for ``int8_out``.
-    Returns [B, N, D] bf16, or int8 when ``int8_out``.  No mask, no VJP."""
-    b, n, d, dh = _dims(qkv_q, num_heads)
-    if scale is None:
-        scale = 1.0 / dh**0.5
+    """K3, the body of the registered op
+    `torch.ops.msvit.packed_attention_int8`: the plain version on the CPU,
+    the kernel on the card (or an exception).  The scales are gathered on
+    the device here, inside the op, so that a traced graph holds no device
+    constant of them."""
     if qkv_q.device.type == "cpu":
         return packed_attention_int8_plain(
             qkv_q, section_scales, num_heads, out_inv_scale, scale, int8_out
         )
+    b, n, d, dh = _dims(qkv_q, num_heads)
     _check_cuda(qkv_q, "packed_attention_int8", dh, dtypes=(torch.int8,))
     sc = _int8_scales(section_scales, out_inv_scale, qkv_q.device)
     out = torch.empty(
@@ -503,6 +557,51 @@ def packed_attention_int8(
     _build.check(lib, code, "packed_attention_int8")
     packed_attention_int8.launches += 1
     return out
+
+
+_packed_attention_int8_op = torch.library.custom_op(
+    "msvit::packed_attention_int8", _packed_attention_k3, mutates_args=())
+
+
+@_packed_attention_int8_op.register_fake
+def _(qkv_q, section_scales, out_inv_scale, num_heads, scale, int8_out):
+    b, n, d3 = qkv_q.shape
+    return qkv_q.new_empty((b, n, d3 // 3),
+                           dtype=torch.int8 if int8_out else torch.bfloat16)
+
+
+def _scale_tensor(x, device) -> Optional[torch.Tensor]:
+    if x is None or isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def packed_attention_int8(
+    qkv_q: torch.Tensor,
+    section_scales,
+    num_heads: int,
+    out_inv_scale=None,
+    scale: Optional[float] = None,
+    int8_out: bool = False,
+) -> torch.Tensor:
+    """Fully-int8 packed self-attention for serving (K3; through the
+    registered op `torch.ops.msvit.packed_attention_int8` when traced).
+
+    qkv_q: [B, N, 3*D] int8 (per-section quantized GEMM output).
+    section_scales: [3] f32 dequant scales of q | k | v.
+    out_inv_scale: scalar f32, the inverse output scale for ``int8_out``.
+    Returns [B, N, D] bf16, or int8 when ``int8_out``.  No mask, no VJP."""
+    _, _, _, dh = _dims(qkv_q, num_heads)
+    if scale is None:
+        scale = 1.0 / dh**0.5
+    if not _traced(qkv_q):
+        return _packed_attention_k3(qkv_q, section_scales, out_inv_scale, num_heads,
+                                    float(scale), bool(int8_out))
+    _off_kernel_devices(qkv_q, "packed_attention_int8")
+    return torch.ops.msvit.packed_attention_int8(
+        qkv_q, _scale_tensor(section_scales, qkv_q.device),
+        _scale_tensor(out_inv_scale, qkv_q.device), num_heads, float(scale),
+        bool(int8_out))
 
 
 packed_attention_int8.launches = 0

@@ -1504,13 +1504,24 @@ def test_subsample_deep_trunk_runs_k7_with_its_key_only_mask(dev):
         assert (a["last_hidden_state"] - b["last_hidden_state"]).abs().max().item() <= 1e-4
 
 
-def test_subsample_and_saccadic_entry_points_run_on_the_card(dev, tmp_path):
+def test_subsample_and_saccadic_entry_points_run_on_the_card(dev, tmp_path, monkeypatch):
     """The subsample and saccadic examples run on the card unless the
-    caller asks for the CPU (`--device cpu`)."""
+    caller asks for the CPU (`--device cpu`).  The subsample example's
+    corpus is made in memory (`generate_batch`, as `chip_smoke.py` does):
+    its JPEG route decodes with the native libjpeg decoder, which a machine
+    without libjpeg's header cannot build (it raises there, as the JAX
+    package's does), and the decode is host work, not the card's."""
+    from msvit_tpu_torch.data.synthetic import generate_batch
     from msvit_tpu_torch.examples import saccadic_demo, train_saccadic
     from msvit_tpu_torch.examples import train_subsample_synthetic as subsample
     from msvit_tpu_torch.models.saccadic import SaccadicViTConfig
     from msvit_tpu_torch.models.subsample import SubsampleViTConfig
+
+    def in_memory(out_dir, num_images, size, seed, label_mode, max_objects):
+        return generate_batch(range(seed, seed + num_images), size=size, label_mode=label_mode,
+                              max_objects=max_objects)
+
+    monkeypatch.setattr(subsample, "ensure_corpus", in_memory)
 
     scfg = SubsampleViTConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
                               image_size=32, patch_size=8, initial_grid_size=2, max_depth=2,
@@ -1527,3 +1538,68 @@ def test_subsample_and_saccadic_entry_points_run_on_the_card(dev, tmp_path):
     small = ["--steps", "1", "--batch", "2", "--glimpses", "3", "--context", "1"]
     assert train_saccadic.main(small, config=acfg)["device"] == "cuda"
     assert train_saccadic.main(small + ["--device", "cpu"], config=acfg)["device"] == "cpu"
+
+
+def test_subsample_example_jpeg_corpus_route_on_the_card(dev, tmp_path):
+    """The subsample example's default route, unpatched: it writes a JPEG
+    corpus and decodes it with the native libjpeg decoder.  Where that
+    decoder builds, the example runs on the card.  Where it does not (no
+    libjpeg header on the machine), the route raises `BuildError`, as the
+    JAX package's does: no silent PIL fallback stands in for it."""
+    from msvit_tpu_torch import native
+    from msvit_tpu_torch.examples import train_subsample_synthetic as subsample
+    from msvit_tpu_torch.models.subsample import SubsampleViTConfig
+
+    scfg = SubsampleViTConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                              image_size=32, patch_size=8, initial_grid_size=2, max_depth=2,
+                              num_labels=10)
+    args = ["--warmup", "1", "--steps", "1", "--batch", "4", "--corpus-size", "8",
+            "--eval-size", "8", "--out", str(tmp_path)]
+    try:
+        native.build("decode")
+    except native.BuildError:
+        with pytest.raises(native.BuildError, match="jpeglib"):
+            subsample.main(args, config=scfg)
+        return
+    assert subsample.main(args, config=scfg)["device"] == "cuda"
+
+
+def test_reloaded_k1_k3_artifacts_equal_the_live_model(dev):
+    """The export round trip on the card: a 2-layer ViT at 224 px (197
+    tokens, dh 64, bf16 compute) exported with a polymorphic batch, bf16 (K1
+    as a registered op) and int8 calibrated (K3), reloaded from bytes: at
+    b = 1, 2 and 5 each equals the live forward element for element (the
+    same kernels on the same inputs) and launches its kernel once per
+    layer."""
+    from msvit_tpu_torch.export import export_forward, load_forward
+    from msvit_tpu_torch.models.base import BaseViTConfig, ViTModel
+    from msvit_tpu_torch.models.base.quantized import (
+        calibrate_act_scales, quantize_vit_params, quantized_vit_apply)
+
+    cfg = BaseViTConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2)
+    model = ViTModel(cfg, generator=torch.Generator().manual_seed(0), device=dev).eval()
+    g = torch.Generator().manual_seed(1)
+    pix = torch.randn(2, 224, 224, 3, generator=g).to(dev)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    qparams = quantize_vit_params(model)
+    scales = calibrate_act_scales(qparams, cfg, torch.randn(8, 224, 224, 3, generator=g).to(dev))
+
+    def bf16(p, x):
+        return torch.func.functional_call(model, p, (x,))["last_hidden_state"]
+
+    def int8(p, x):
+        return quantized_vit_apply(p["w"], cfg, x, act_scales=p["s"])
+
+    cases = [(bf16, params, packed_attention), (int8, {"w": qparams, "s": scales},
+                                                packed_attention_int8)]
+    for fn, p, kernel in cases:
+        reloaded = load_forward(export_forward(fn, (p, pix), polymorphic_batch=True))
+        for b in (1, 2, 5):
+            x = torch.randn(b, 224, 224, 3, generator=g).to(dev)
+            before = kernel.launches
+            got = reloaded(p, x)
+            assert kernel.launches == before + 2
+            with torch.no_grad():
+                want = fn(p, x)
+            torch.cuda.synchronize()
+            assert got.shape == (b, 197, 128) and torch.equal(got, want)

@@ -185,12 +185,11 @@ def test_example_cli_runs_on_the_cpu(capsys):
 
 def test_example_cli_refuses(monkeypatch):
     """No card and no `--device cpu`: it raises, it never falls back.
-    `--dataset` and `--pretrained` name the ROADMAP items they need."""
+    `--pretrained` names the ROADMAP item it needs (`--dataset` is ported:
+    `tests/test_torch_runtime_examples.py` runs it on an image folder)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         example.main(["--steps", "1"], _tiny())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        example.main(["--dataset", "x", "--device", "cpu"], _tiny())
     with pytest.raises(NotImplementedError, match="item 9"):
         example.main(["--pretrained", "x", "--device", "cpu"], _tiny())
 
