@@ -156,7 +156,21 @@ fails (non-zero exit, no result line) if any phase fails:
    printed beside phase 4's live model; `aot_compile` of the int8 bs64 forward (equal to
    eager, FLOPs within 1% of the analytic count); `Trainer.fit` fed by a
    `ResumableLoader` through `prefetch_to_device`, 6 steps straight against
-   3 + a checkpoint + 3 in a fresh Trainer (losses bit for bit).
+   3 + a checkpoint + 3 in a fresh Trainer (losses bit for bit);
+33. base extras (`extras_phase`), each route against the plain attention
+   path: an HF-layout checkpoint (config.json + pytorch_model.bin, seeded,
+   `facebook/dino-vitb8`'s geometry) through `load_pretrained_vit` into
+   `zoo.build_config("dino-vitb8")`, bf16 (K1) and int8 (K3) at bs64 and
+   785 tokens; the same checkpoint through `import_into_multistate` at
+   `bench.py`'s multistate config, int8 (K4) and bf16 (K5) forwards, and 3
+   steps of `train_multistate --pretrained` (K5-lse, K6); an MoE ViT-B/16
+   (8 experts, dispatch, 31 slots of 197 tokens) forward at bs64 (K1),
+   dispatch against dense without drops, the share of tokens dropped, 3
+   `Trainer` steps (K1-lse, K2); ViT-B/16 with two heads a layer removed by
+   `prune_heads` (H 10) through K1 and K3, equal to `prune_heads_masked`'s
+   model; a DINOv2-B/14 checkpoint at 518 px (1,370 tokens, layer scale
+   1e-5, bs8) through K1; K1 at [64,197,1920] and [8,1370,2304] and K3 at
+   [64,197,1920] against their plain versions, timed.
 
 Every kernel is timed beside the least time the card could take for its
 work (`bound`) and, where one PyTorch call computes the same function,
@@ -167,9 +181,12 @@ artifacts' launches of phase 32, training for K1-lse and
 K2, the clustered multistate forwards for K4 and K5, multistate training
 for K5-lse and K6, the clustered 448-px bf16 forward and the deep subsample
 forwards for K7, the 224-px int8-attention forward for K9, the 448-px banded forward for K10, the
-ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows), its error, its time beside the plain version's, the library call's and the
+ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows; the extras
+phase's launches added to the K1, K3, K1-lse, K2, K4, K5, K5-lse and K6
+rows), its error, its time beside the plain version's, the library call's and the
 bound, and its share of the bound (K6 and K10 also at their other timed
-shapes, K4, K5, K5-lse, K6 and K7 with the key-only mask); the last is
+shapes, K4, K5, K5-lse, K6 and K7 with the key-only mask, K1 and K3 at
+the extras' shapes); the last is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -2701,7 +2718,8 @@ def predictive_phase(dev, smi: str) -> None:
 
     data = generate_batch(range(256), size=224)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pred_") as tmp:
-        args = ex.build_parser().parse_args(["--steps", "10", "--log-every", "1", "--out", tmp])
+        args = ex.build_parser().parse_args(["--steps", "10", "--log-every", "1", "--out", tmp,
+                                             "--viz-at", ""])  # no figure on the card
         _reset_all_counts()
         t0 = time.perf_counter()
         summary = ex.train(args, data)
@@ -2745,7 +2763,7 @@ def predictive_phase(dev, smi: str) -> None:
         torch.cuda.empty_cache()
 
         args7 = ex.build_parser().parse_args(["--steps", "3", "--losses", "all7",
-                                              "--log-every", "1", "--out", tmp])
+                                              "--log-every", "1", "--out", tmp, "--viz-at", ""])
         s7 = ex.train(args7, data)
         rows = s7["history"]
         log(f"[predictive] --losses all7, 3 steps: {rows}")
@@ -2902,7 +2920,7 @@ def subsample_phase(dev, smi: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ss_") as tmp:
         args = ex.build_parser().parse_args(
             ["--warmup", "3", "--steps", "3", "--eval-size", "64", "--log-every", "1",
-             "--out", tmp])
+             "--out", tmp, "--no-figure"])
         t0 = time.perf_counter()
         summary = ex.train(args, data)
         wall = time.perf_counter() - t0
@@ -3623,6 +3641,476 @@ def dispatch_ab(tag: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ base extras
+
+
+EX_BATCH = 64  # the ViT serving and train batch of the extras phase
+EX_PRUNED = {i: [3, 7] for i in range(LAYERS)}  # two heads a layer: H 12 -> 10
+EX_EXPERTS = 8
+# the MoE trunk's routes on the kernel and the plain attention path: the
+# share of (layer, token) top-1 routes that agree (see `moe_route`).  A
+# route flips where a token's two best router logits lie within the two
+# paths' bf16 difference, and a flipped token's later layers and its queue
+# neighbours follow: 0.9920 measured at bs64 (NVIDIA H100 80GB HBM3, 700
+# W); a wrong gate, expert or queue would agree on ~1/8 of the routes
+MOE_ROUTE_AGREEMENT = 0.98
+
+
+def write_hf_checkpoint(directory: str, cfg, model_type: str, seed: int) -> None:
+    """An HF-layout checkpoint of `cfg`'s geometry from seeded tensors
+    under HF's names: config.json beside pytorch_model.bin (`torch.save`;
+    no safetensors or transformers needed).  ``model_type`` "vit" writes
+    ViTModel's names, "dinov2" Dinov2Model's (norm1/2, mlp.fc1/2, layer
+    scales at ``cfg.layerscale_value``)."""
+    g = torch.Generator().manual_seed(seed)
+    d, p, c = cfg.hidden_size, cfg.patch_size, cfg.num_channels
+    f = cfg.mlp_hidden_size
+
+    def w(*shape):
+        return torch.randn(*shape, generator=g) * 0.02
+
+    sd = {"embeddings.cls_token": w(1, 1, d),
+          "embeddings.position_embeddings": w(1, cfg.num_patches + 1, d),
+          "embeddings.patch_embeddings.projection.weight": w(d, c, p, p),
+          "embeddings.patch_embeddings.projection.bias": w(d),
+          "layernorm.weight": torch.ones(d), "layernorm.bias": torch.zeros(d)}
+    names = {"vit": ("layernorm_before", "layernorm_after", "intermediate.dense",
+                     "output.dense"),
+             "dinov2": ("norm1", "norm2", "mlp.fc1", "mlp.fc2")}[model_type]
+    for i in range(cfg.num_hidden_layers):
+        lp = f"encoder.layer.{i}."
+        for n in ("query", "key", "value"):
+            sd[lp + f"attention.attention.{n}.weight"] = w(d, d)
+            sd[lp + f"attention.attention.{n}.bias"] = w(d)
+        sd[lp + "attention.output.dense.weight"] = w(d, d)
+        sd[lp + "attention.output.dense.bias"] = w(d)
+        for n in names[:2]:
+            sd[lp + n + ".weight"], sd[lp + n + ".bias"] = torch.ones(d), torch.zeros(d)
+        sd[lp + names[2] + ".weight"], sd[lp + names[2] + ".bias"] = w(f, d), w(f)
+        sd[lp + names[3] + ".weight"], sd[lp + names[3] + ".bias"] = w(d, f), w(d)
+        if model_type == "dinov2":
+            for n in ("layer_scale1", "layer_scale2"):
+                sd[lp + n + ".lambda1"] = torch.full((d,), cfg.layerscale_value)
+    hf = dict(model_type=model_type, hidden_size=d, num_hidden_layers=cfg.num_hidden_layers,
+              num_attention_heads=cfg.num_attention_heads, intermediate_size=f,
+              image_size=cfg.image_size, patch_size=p, num_channels=c, qkv_bias=True,
+              layer_norm_eps=cfg.layer_norm_eps)
+    if model_type == "dinov2":
+        hf.update(mlp_ratio=cfg.mlp_ratio, layerscale_value=cfg.layerscale_value,
+                  use_swiglu_ffn=False)
+    os.makedirs(directory, exist_ok=True)
+    torch.save(sd, os.path.join(directory, "pytorch_model.bin"))
+    with open(os.path.join(directory, "config.json"), "w") as fh:
+        json.dump(hf, fh)
+
+
+def _expect(label: str, got: dict, want: dict) -> None:
+    """Fail unless the counts are `want` (kernels not named: 0)."""
+    full = {k: want.get(k, 0) for k in got}
+    log(f"[extras] {label}: launches {got}")
+    if got != full:
+        raise AssertionError(f"extras {label}: launches {got}, want {full}")
+
+
+def _vit_pair(cfg, state, dev):
+    """The ViT on `state` on the kernel path and on the plain attention
+    path ("xla")."""
+    from msvit_tpu_torch.models.base import ViTModel
+
+    out = []
+    for impl in (cfg.attn_implementation, "xla"):
+        m = ViTModel(dataclasses.replace(cfg, attn_implementation=impl), device=dev).eval()
+        m.load_state_dict(state)
+        out.append(m)
+    return out
+
+
+def _bf16_forward(model, pix):
+    with torch.inference_mode():
+        return model(pix)["last_hidden_state"]
+
+
+def _held(label: str, pairs) -> None:
+    """`pairs`: (what, value, bar); fail below a bar."""
+    log(f"[extras] {label}: " + "; ".join(f"{w} {c!r} (tolerance >= {t!r})"
+                                          for w, c, t in pairs))
+    for w, c, t in pairs:
+        if not c >= t:
+            raise AssertionError(f"extras {label}: {w} {c} < {t}")
+
+
+def _vit_routes(label, cfg, state, dev, smi, bs, int8=True):
+    """A ViT from `state`: the bf16 forward (K1 in every layer) and, with
+    `int8`, the calibrated int8 apply (K3 in every layer), each against the
+    plain attention path; host ms per batch and peak memory.  Returns
+    (launches of the two forwards, kernel-path bf16 output)."""
+    from msvit_tpu_torch.models.base.quantized import (
+        calibrate_act_scales, quantize_vit_params, quantized_vit_apply)
+
+    g = torch.Generator().manual_seed(9)
+    s = cfg.image_size
+    pix = torch.randn(bs, s, s, 3, generator=g).to(dev)
+    model, plain = _vit_pair(cfg, state, dev)
+    _reset_all_counts()
+    bk = _bf16_forward(model, pix)
+    launches = _all_counts()
+    pairs = [("bf16 kernel vs plain path, min per-image cosine",
+              min_cos(bk, _bf16_forward(plain, pix)), MS_BF16_COS)]
+    t_bf16 = wall_ms(lambda: _bf16_forward(model, pix))
+    peak = _peak_gib(lambda: _bf16_forward(model, pix))
+    n = 1 + (s // cfg.patch_size) ** 2
+    if tuple(bk.shape) != (bs, n, cfg.hidden_size) or not torch.isfinite(bk).all():
+        raise AssertionError(f"extras {label}: bf16 output {tuple(bk.shape)} or non-finite")
+    msg = f"bf16 {t_bf16!r} ms/batch, peak {peak!r} GiB"
+    if int8:
+        qparams = quantize_vit_params(model)
+        scales = calibrate_act_scales(qparams, cfg, torch.randn(bs, s, s, 3, generator=g).to(dev))
+
+        def apply(use_kernels=None):
+            return quantized_vit_apply(qparams, cfg, pix, act_scales=scales,
+                                       use_kernels=use_kernels)
+
+        _reset_all_counts()
+        ik = apply()
+        k3 = _all_counts()
+        launches = {k: launches[k] + k3[k] for k in launches}
+        pairs += [("int8 kernel vs plain path, min per-image cosine",
+                   min_cos(ik, apply(use_kernels=False)), MS_INT8_COS),
+                  ("int8 vs bf16, min per-image cosine", min_cos(ik, bk), 0.98)]
+        t_int8 = wall_ms(apply)
+        msg += f"; int8 {t_int8!r} ms/batch, peak {_peak_gib(apply)!r} GiB"
+    _held(f"{label} bs{bs}, {n} tokens", pairs)
+    log(f"[extras] {label} bs{bs}: {msg} (10 runs after 2 of warm-up, host clock; {smi})")
+    return launches, bk
+
+
+def _k1_k3_rows(dev, smi: str, res: dict) -> None:
+    """K1 at [64,197,1920] (H 10 after prune_heads) and [8,1370,2304]
+    (DINOv2-B/14 @518), K3 at [64,197,1920], against their plain versions
+    and timed beside their library call and bound."""
+    from msvit_tpu_torch.ops.packed_attention import (
+        packed_attention, packed_attention_int8, packed_attention_int8_plain,
+        packed_attention_plain, unpack_qkv)
+
+    g = torch.Generator().manual_seed(15)
+    with torch.inference_mode():
+        for key, shape, h in (("K1@H10", (EX_BATCH, 197, 1920), 10),
+                              ("K1@1370", (8, 1370, 2304), 12)):
+            x = torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+            out = packed_attention(x, h)
+            err = _check("extras", f"K1 bf16 {list(shape)}",
+                         max_err(out, packed_attention_plain(x, h)), K1_TOL[torch.bfloat16])
+            ms, plain = race(lambda: packed_attention(x, h), lambda: packed_attention_plain(x, h))
+            lib = library_ms(lambda: sdpa(*unpack_qkv(x, h)))
+            b, n, _ = shape
+            ops = attn_ops(b, h, n, n, 64, 2)
+            lim = bound([x], [out], ops, torch.bfloat16)
+            log(f"[extras] K1 bf16 {list(shape)}: kernel {ms!r} ms, plain {plain!r} ms, "
+                f"library {lib!r} ms, bound {lim}; {rate(ops, ms, lim)} (median of 20, CUDA "
+                f"events; {smi})")
+            res[key] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib, **lim)
+        shape = (EX_BATCH, 197, 1920)
+        _, q, sec = int8_qkv(g, shape, dev, scale=0.5)
+        got, want = packed_attention_int8(q, sec, 10), packed_attention_int8_plain(q, sec, 10)
+        err = _check("extras", "K3 int8 [64,197,1920] bf16 out", max_err(got, want),
+                     K3_BF16_REL_TOL * want.float().abs().max().item())
+        inv = 127.0 / want.float().abs().amax()
+        gq = packed_attention_int8(q, sec, 10, out_inv_scale=inv, int8_out=True)
+        wq = packed_attention_int8_plain(q, sec, 10, out_inv_scale=inv, int8_out=True)
+        delta = (gq.int() - wq.int()).abs()
+        same = (delta == 0).float().mean().item()
+        log(f"[extras] K3 int8 [64,197,1920] int8 out: max |delta| {delta.max().item()} "
+            f"(tolerance 1), exactly equal {same!r} (tolerance >= 0.99)")
+        if delta.max().item() > 1 or same < 0.99:
+            raise AssertionError("K3 at H 10 disagrees with its plain version")
+        ms, plain = race(
+            lambda: packed_attention_int8(q, sec, 10, out_inv_scale=inv, int8_out=True),
+            lambda: packed_attention_int8_plain(q, sec, 10, out_inv_scale=inv, int8_out=True))
+        ops = attn_ops(EX_BATCH, 10, 197, 197, 64, 2)
+        lim = bound([q, sec], [gq], ops, torch.int8)
+        log(f"[extras] K3 int8-out [64,197,1920]: kernel {ms!r} ms, plain {plain!r} ms, no "
+            f"library call, bound {lim}; {rate(ops, ms, lim)} (median of 20, CUDA events; "
+            f"{smi})")
+        res["K3@H10"] = dict(err=err, ms=ms, plain_ms=plain, library_ms=None, bit_equal=same,
+                             **lim)
+
+
+def _moe_routes(model, pix) -> tuple:
+    """One bf16 forward and every MoE layer's route of each token (forward
+    hooks on the MoE FFNs): (output, routes [L, B, N], the token's expert,
+    -1 where it was dropped past its expert's capacity)."""
+    from msvit_tpu_torch.models.base.moe import MoEFFN
+
+    routes = []
+
+    def hook(mod, args):
+        _, expert, slot = mod.route(args[0])
+        routes.append(torch.where(slot < mod.capacity(args[0].shape[-2]), expert, -1))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, MoEFFN)]
+    try:
+        out = _bf16_forward(model, pix)
+    finally:
+        for h in handles:
+            h.remove()
+    return out, torch.stack(routes)
+
+
+def _moe_loss(model, batch, gen):
+    logits = model(batch["pixel_values"], generator=gen)
+    aux = torch.stack(model.vit.encoder.moe_aux_loss).sum()
+    return F.cross_entropy(logits, batch["labels"]) + 0.01 * aux, {"aux": aux}
+
+
+def _set_config(model, cfg) -> None:
+    """Give every module of the port under `model` that holds a config
+    `cfg` (another attention route, MoE impl or capacity on the same
+    weights, without drawing a second model)."""
+    for m in model.modules():
+        if hasattr(m, "config"):
+            m.config = cfg
+
+
+def moe_route(dev, smi: str) -> dict:
+    """(c) ViT-B/16 with 8 experts a layer (dispatch, capacity factor 1.25:
+    31 slots of 197 tokens): the bf16 forward at bs64 (K1) against the
+    plain attention path, dispatch against dense at capacity factor 8
+    (nothing drops), the share of tokens dropped; three `Trainer` steps at
+    bs64 (K1-lse, K2): ms/step, peak memory, falling loss."""
+    from msvit_tpu_torch.models.base import BaseViTConfig, ViTForImageClassification
+    from msvit_tpu_torch.models.base.moe import MoEFFN
+    from msvit_tpu_torch.train import Trainer, make_optimizer
+
+    cfg = BaseViTConfig(num_experts=EX_EXPERTS, moe_impl="dispatch", moe_capacity_factor=1.25)
+    clf = ViTForImageClassification(cfg, 1000, generator=torch.Generator().manual_seed(21),
+                                    device=dev)
+    model = clf.vit.eval()
+    cap = next(m for m in model.modules() if isinstance(m, MoEFFN)).capacity(197)
+    pix = _batch(dev, EX_BATCH, 22)["pixel_values"]
+    _reset_all_counts()
+    bk, rk = _moe_routes(model, pix)
+    launches = _all_counts()
+    _expect("MoE ViT-B/16 bf16 forward", launches, {"K1": LAYERS})
+    drop = (rk < 0).float().mean().item()
+    t_fwd = wall_ms(lambda: _bf16_forward(model, pix))
+    peak = _peak_gib(lambda: _bf16_forward(model, pix))
+    _set_config(model, dataclasses.replace(cfg, attn_implementation="xla"))
+    bp, rp = _moe_routes(model, pix)
+    nodrop = dataclasses.replace(cfg, moe_capacity_factor=float(EX_EXPERTS))
+    outs = {}
+    dense = dataclasses.replace(nodrop, moe_impl="dense")
+    for label, c in (("dispatch", nodrop), ("dense", dense)):
+        _set_config(model, c)
+        outs[label] = _bf16_forward(model, pix)
+    _set_config(clf, cfg)
+    # top-1 routing is discrete: a token whose two best router logits lie
+    # within the two attention paths' bf16 difference takes another expert
+    # (or queue slot) on the plain path.  The routes are held by their
+    # agreement, the features on the tokens routed alike in all 12 layers.
+    same_route = (rk == rp).float().mean().item()
+    alike = (rk == rp).all(0)  # [B, N]
+    c_alike = min(cos(bk[i][alike[i]], bp[i][alike[i]]) for i in range(len(bk)))
+    _held("MoE ViT-B/16 (E 8, capacity 31 of 197 tokens) bs64", [
+        ("share of (layer, token) routes alike on the kernel and the plain path", same_route,
+         MOE_ROUTE_AGREEMENT),
+        ("bf16 kernel vs plain path on the tokens routed alike, min per-image cosine",
+         c_alike, MS_BF16_COS),
+        ("dispatch vs dense at capacity factor 8, min per-image cosine",
+         min_cos(outs["dispatch"], outs["dense"]), MS_BF16_COS)])
+    log(f"[extras] MoE ViT-B/16 bs64: capacity {cap} slots an expert, {drop!r} of (layer, "
+        f"token) routes dropped; tokens routed alike in every layer on both paths "
+        f"{alike.float().mean().item()!r}, all tokens' min per-image cosine "
+        f"{min_cos(bk, bp)!r}; bf16 forward {t_fwd!r} ms/batch (10 runs after 2 of warm-up, "
+        f"host clock), peak {peak!r} GiB ({smi})")
+    if cap != 31 or not 0.0 <= drop < 1.0:
+        raise AssertionError(f"MoE capacity {cap} or drop share {drop}")
+    del outs, bk, bp
+    torch.cuda.empty_cache()
+
+    batch = _batch(dev, EX_BATCH, 23)
+    tr = Trainer(_moe_loss, make_optimizer(1e-4), clf, log_every=1)
+    clf.train()
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    for step in range(3):
+        t0 = time.perf_counter()
+        loss, aux = tr.step_fn(tr.model, tr.opt_state, batch,
+                               torch.Generator().manual_seed(step))
+        losses.append(loss.item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _expect("MoE ViT-B/16 3 Trainer steps", counts, {"K1-lse": 3 * LAYERS, "K2": 3 * LAYERS})
+    log(f"[extras] MoE ViT-B/16 Trainer bs64: losses {losses} (cross-entropy + 0.01 x the "
+        f"12 layers' Switch losses); ms/step {times} (host clock, the first with its "
+        f"warm-up); peak memory {peak!r} GiB ({smi})")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE training losses {losses}")
+    return {k: launches[k] + counts[k] for k in launches}
+
+
+def pruned_route(dev, smi: str) -> dict:
+    """(d) ViT-B/16 with heads 3 and 7 of every layer removed by
+    `prune_heads` (H 12 -> 10, qkv [64,197,1920]): bf16 (K1) and int8 (K3)
+    against the plain attention path, and equal to `prune_heads_masked`'s
+    model at H 12 within the bf16 bar."""
+    from msvit_tpu_torch.models.base import BaseViTConfig, ViTModel
+    from msvit_tpu_torch.models.base.pruning import prune_heads, prune_heads_masked
+
+    cfg = BaseViTConfig()
+    full = ViTModel(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    state, pcfg = prune_heads(full, cfg, EX_PRUNED)
+    if (pcfg.num_attention_heads, pcfg.head_dim) != (10, 64):
+        raise AssertionError(f"pruned config {pcfg}")
+    launches, bk = _vit_routes("pruned ViT-B/16 (H 10)", pcfg, state, dev, smi, EX_BATCH)
+    _expect("pruned ViT-B/16 bf16 + int8", launches, {"K1": LAYERS, "K3": LAYERS})
+    masked = ViTModel(cfg, device=dev).eval()
+    masked.load_state_dict(prune_heads_masked(full, EX_PRUNED, cfg))
+    pix = torch.randn(EX_BATCH, 224, 224, 3, generator=torch.Generator().manual_seed(9)).to(dev)
+    _reset_all_counts()
+    _held("pruned ViT-B/16", [("surgery (H 10) vs masked (H 12), min per-image cosine",
+                               min_cos(bk, _bf16_forward(masked, pix)), MS_BF16_COS)])
+    launches["K1"] += _all_counts()["K1"]
+    return launches
+
+
+def extras_phase(dev, smi: str) -> tuple:
+    """The base extras, each route against the plain attention path:
+    (a) an HF-layout `facebook/dino-vitb8`-shaped checkpoint (seeded) loaded
+    by `load_pretrained_vit` into `zoo.build_config("dino-vitb8")`: bf16 at
+    bs64, 785 tokens (K1) and int8 (K3); (b) the same checkpoint through
+    `import_into_multistate` at `bench.py`'s multistate config: int8 (K4)
+    and bf16 (K5) forwards, then 3 steps of `train_multistate --pretrained`
+    (K5-lse, K6); (c) `moe_route`; (d) `pruned_route`; (e) a DINOv2-shaped
+    checkpoint into `zoo.build_config("dinov2-vitb14")` at 518 px (1,370
+    tokens, layer scale 1e-5), bs8 bf16 (K1); and K1 / K3 at the new shapes.
+    Returns (launches per kernel, kernel rows)."""
+    from msvit_tpu_torch import zoo
+    from msvit_tpu_torch.compat import (
+        import_into_multistate, load_pretrained_vit, load_state_dict_from)
+    from msvit_tpu_torch.examples import train_multistate as tm
+    from msvit_tpu_torch.models.multistate import (
+        MultiStateViTEncoderModel, calibrate_multistate_act_scales,
+        quantize_multistate_params, quantized_multistate_apply)
+    from msvit_tpu_torch.utils.rng import Rng
+
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in _all_counts()}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as tmp:
+        b8 = os.path.join(tmp, "dino-vitb8")
+        write_hf_checkpoint(b8, zoo.build_config("dino-vitb8"), "vit", seed=31)
+        # (a)
+        cfg, state = load_pretrained_vit(b8, zoo.build_config("dino-vitb8"))
+        counts, _ = _vit_routes("(a) dino-vitb8", cfg, state, dev, smi, EX_BATCH)
+        _expect("(a) dino-vitb8 bf16 + int8", counts, {"K1": LAYERS, "K3": LAYERS})
+        add(counts)
+        del state
+        torch.cuda.empty_cache()
+
+        # (b)
+        sd = load_state_dict_from(b8)
+        mcfg = multistate_config()
+        model = MultiStateViTEncoderModel(mcfg, device=dev).eval()
+        model.load_state_dict(import_into_multistate(sd, mcfg, model.state_dict()))
+        got = model.state_dict()
+        same = torch.equal(got["backbone.layer.3.attention.qkv.weight"].cpu(), torch.cat(
+            [sd[f"encoder.layer.3.attention.attention.{n}.weight"]
+             for n in ("query", "key", "value")]))
+        same &= torch.equal(got["backbone.receiver_token"].cpu(), sd["embeddings.cls_token"][0, 0])
+        if not same:
+            raise AssertionError("the imported multistate trunk is not the checkpoint's")
+        flat = multistate_config(pregeneration_period=LAYERS)  # no clustering event
+        twins = {}
+        for label, c in (("kernel", flat), ("plain", dataclasses.replace(
+                flat, attn_implementation="xla"))):
+            twins[label] = MultiStateViTEncoderModel(c, device=dev).eval()
+            twins[label].load_state_dict(model.state_dict())
+        qparams = quantize_multistate_params(model)
+        scales = calibrate_multistate_act_scales(qparams, mcfg, scene_pixels(1).to(dev), Rng(0))
+        pix = scene_pixels(2).to(dev)
+
+        def int8(c, use_kernels=None):
+            return quantized_multistate_apply(qparams, c, pix, Rng(3), act_scales=scales,
+                                              use_kernels=use_kernels)
+
+        def bf16(m):
+            with torch.inference_mode():
+                return m(pix, rng=Rng(3))
+
+        _held("(b) multistate from the checkpoint, no clustering event", [
+            ("bf16 kernel vs plain path, min per-image cosine",
+             _agree(bf16(twins["kernel"]), bf16(twins["plain"])), MS_BF16_COS),
+            ("int8 kernel vs plain path, min per-image cosine",
+             _agree(int8(flat), int8(flat, use_kernels=False)), MS_INT8_COS)])
+        del twins
+        _reset_all_counts()
+        ci = int8(mcfg)
+        n_int8 = _all_counts()
+        _reset_all_counts()
+        cb = bf16(model)
+        n_bf16 = _all_counts()
+        _expect("(b) multistate int8 forward with clustering", n_int8, {"K4": LAYERS - 1})
+        _expect("(b) multistate bf16 forward with clustering", n_bf16, {"K5": LAYERS - 1})
+        _check_multistate_out("extras (b) int8", ci, mcfg)
+        _check_multistate_out("extras (b) bf16", cb, mcfg)
+        t_int8, t_bf16 = wall_ms(lambda: int8(mcfg)), wall_ms(lambda: bf16(model))
+        log(f"[extras] (b) multistate bs8 with clustering: num_clusters int8 "
+            f"{int(ci['num_clusters'])}, bf16 {int(cb['num_clusters'])}; int8 {t_int8!r} "
+            f"ms/batch, bf16 {t_bf16!r} ms/batch, peak {_peak_gib(lambda: int8(mcfg))!r} GiB "
+            f"(int8) (10 runs after 2 of warm-up, host clock; {smi})")
+        add(n_int8)
+        add(n_bf16)
+        del model, qparams, ci, cb
+        torch.cuda.empty_cache()
+        _reset_all_counts()
+        t1 = time.perf_counter()
+        losses = tm.main(["--steps", "3", "--preset", "b8", "--pretrained", b8])
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        _expect("(b) train_multistate --pretrained, 3 steps", counts,
+                {"K5-lse": 3 * (LAYERS - 1), "K6": 3 * (LAYERS - 1)})
+        log(f"[extras] (b) train_multistate --preset b8 --pretrained: 3 steps in "
+            f"{time.perf_counter() - t1:.1f} s (model build and import included); losses "
+            f"{losses} ({smi})")
+        if len(losses) != 3 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train_multistate --pretrained losses {losses}")
+        add(counts)
+        torch.cuda.empty_cache()
+
+        # (c), (d)
+        add(moe_route(dev, smi))
+        torch.cuda.empty_cache()
+        add(pruned_route(dev, smi))
+        torch.cuda.empty_cache()
+
+        # (e)
+        zcfg = zoo.build_config("dinov2-vitb14")
+        v2 = os.path.join(tmp, "dinov2-vitb14")
+        write_hf_checkpoint(v2, zcfg, "dinov2", seed=32)
+        cfg, state = load_pretrained_vit(v2)
+        if any(getattr(cfg, f) != getattr(zcfg, f) for f in (
+                "hidden_size", "num_hidden_layers", "num_attention_heads", "patch_size",
+                "image_size", "layerscale_value", "mlp_ratio", "use_swiglu_ffn")):
+            raise AssertionError(f"config.json gives {cfg}, the zoo {zcfg}")
+        counts, _ = _vit_routes("(e) dinov2-vitb14 @518", zcfg, state, dev, smi, 8, int8=False)
+        _expect("(e) dinov2-vitb14 bf16 forward", counts, {"K1": LAYERS})
+        add(counts)
+        del state
+    torch.cuda.empty_cache()
+    res = {}
+    _k1_k3_rows(dev, smi, res)
+    log(f"[extras] launches of the phase {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches, res
+
+
 def _summary(r: dict) -> dict:
     """A timed call's numbers for the kernels line (the kernel alone and the
     share of elements bit-equal to plain too, where its phase took them)."""
@@ -3775,6 +4263,11 @@ def main() -> None:
     # the reload child) to phase 4's
     for k, n in runtime_phase(dev, smi, live_served).items():
         launches[k] += n
+    torch.cuda.empty_cache()
+    ex_launches, ex_kernels = extras_phase(dev, smi)
+    for k, n in ex_launches.items():
+        launches[k] += n
+    kernels.update(ex_kernels)
     src = "msvit_tpu_torch/csrc/"
     # K4, K5, K5-lse, K6, K7 and K10 at the other shapes their phases timed
     key = "[8,12,1361,64] key-only mask [8,1,1,1361] (subsample 448 px, depth 3)"
@@ -3782,7 +4275,10 @@ def main() -> None:
                     (key, "K6@key")],
              "K10": [("[8,32+3136,2304] one cluster", "K10@448 one-cluster"),
                      ("[8,32+784,2304] the 224 partition", "K10@224")],
-             **{k: [(key, f"{k}@key")] for k in ("K4", "K5", "K5-lse", "K7")}}
+             **{k: [(key, f"{k}@key")] for k in ("K4", "K5", "K5-lse", "K7")},
+             "K1": [("[64,197,1920] H 10 after prune_heads", "K1@H10"),
+                    ("[8,1370,2304] DINOv2-B/14 518 px", "K1@1370")],
+             "K3": [("[64,197,1920] H 10 after prune_heads", "K3@H10")]}
     packed, fused = "msvit_tpu/ops/packed_attention.py:", "msvit_tpu/ops/fused_attention.py:"
     flash = "msvit_tpu/ops/flash_attention.py:"
     rows = [

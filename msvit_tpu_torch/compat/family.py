@@ -1,9 +1,9 @@
 """Wire a trained base trunk into an encoder family's state dict
 (counterpart of `msvit_tpu/compat/family_import.py`).
 
-`transfer_base_to_multistate` and `transfer_base_to_subsample` are ported;
-the three `import_into_*` functions take HF state dicts and wait for
-`compat/hf_import.py`.
+`transfer_base_to_multistate` and `transfer_base_to_subsample`; the three
+`import_into_*` functions, which take HF state dicts, are in
+`compat/family_import.py`.
 """
 
 from __future__ import annotations
@@ -13,6 +13,30 @@ from typing import Dict, Mapping
 import torch
 
 from msvit_tpu_torch.models.base.vit import interpolate_pos_embed
+
+
+def _putter(name: str, out: Dict[str, torch.Tensor], pre: str = ""):
+    """``put(key, value)``: a copy of `value` into ``out[pre + key]``, cast
+    to its dtype; a key `out` lacks or another shape raises, naming `name`."""
+    def put(key: str, value: torch.Tensor) -> None:
+        key = pre + key
+        if key not in out:
+            raise KeyError(f"{name}: no {key!r} in the target state dict")
+        if out[key].shape != value.shape:
+            raise ValueError(f"{name}: {key} is {tuple(out[key].shape)}, the "
+                             f"source's {tuple(value.shape)}")
+        out[key] = value.detach().to(out[key].dtype).clone()
+    return put
+
+
+def _resampled(pos: torch.Tensor, want: int, has_cls: bool) -> torch.Tensor:
+    """A [1, N(+1), D] table resampled bicubically to `want` rows (its CLS
+    row among them when `has_cls`) on the target's square grid."""
+    if pos.shape[1] == want:
+        return pos
+    n = want - (1 if has_cls else 0)
+    g = int(round(n**0.5))
+    return interpolate_pos_embed(pos, n, (g, g), has_cls=has_cls)
 
 
 def transfer_base_to_multistate(
@@ -31,26 +55,14 @@ def transfer_base_to_multistate(
     and this raises); the TX and RX tokens both from the CLS token.  Whatever else `state` holds is
     kept.  Every tensor of the result is a copy."""
     out = {k: v.clone() for k, v in state.items()}
-
-    def put(key: str, value: torch.Tensor) -> None:
-        if key not in out:
-            raise KeyError(f"transfer_base_to_multistate: no {key!r} in the "
-                           "multistate state dict")
-        if out[key].shape != value.shape:
-            raise ValueError(f"transfer_base_to_multistate: {key} is "
-                             f"{tuple(out[key].shape)}, the base trunk's "
-                             f"{tuple(value.shape)}")
-        out[key] = value.detach().to(out[key].dtype).clone()
+    put = _putter("transfer_base_to_multistate", out)
 
     for k, v in base_state.items():
         if k.startswith("embeddings.patch_projection."):
             put(k, v)
     pos = base_state["embeddings.position_embeddings"][:, 1:]  # drop the CLS row
     want = out["embeddings.position_embeddings"].shape[1]
-    if pos.shape[1] != want:
-        g = int(round(want**0.5))
-        pos = interpolate_pos_embed(pos, want, (g, g), has_cls=False)
-    put("embeddings.position_embeddings", pos)
+    put("embeddings.position_embeddings", _resampled(pos, want, has_cls=False))
 
     for i in range(num_layers):
         src, dst = f"encoder.layer.{i}.", f"backbone.layer.{i}."
@@ -89,17 +101,7 @@ def transfer_base_to_subsample(
     copy."""
     out = {k: v.clone() for k, v in state.items()}
     pre = "model." if any(k.startswith("model.") for k in out) else ""
-
-    def put(key: str, value: torch.Tensor) -> None:
-        key = pre + key
-        if key not in out:
-            raise KeyError(f"transfer_base_to_subsample: no {key!r} in the "
-                           "subsample state dict")
-        if out[key].shape != value.shape:
-            raise ValueError(f"transfer_base_to_subsample: {key} is "
-                             f"{tuple(out[key].shape)}, the base trunk's "
-                             f"{tuple(value.shape)}")
-        out[key] = value.detach().to(out[key].dtype).clone()
+    put = _putter("transfer_base_to_subsample", out, pre)
 
     missing = [i for i in range(num_layers)
                if not any(k.startswith(f"encoder.layer.{i}.") for k in base_state)]
@@ -122,11 +124,8 @@ def transfer_base_to_subsample(
     for k, v in base_state.items():
         if k.startswith("embeddings.patch_projection."):
             put(k, v)
-    pos = base_state["embeddings.position_embeddings"]
     want = out[pre + "embeddings.position_embeddings"].shape[1]
-    if pos.shape[1] != want:
-        g = int(round((want - 1) ** 0.5))
-        pos = interpolate_pos_embed(pos, want - 1, (g, g), has_cls=True)
-    put("embeddings.position_embeddings", pos)
+    put("embeddings.position_embeddings",
+        _resampled(base_state["embeddings.position_embeddings"], want, has_cls=True))
     put("cls_token", base_state["embeddings.cls_token"])
     return out

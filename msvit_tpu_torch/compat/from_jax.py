@@ -18,6 +18,9 @@ Takes the JAX package's `ViTModel` params as nested dicts of numpy arrays
   `ConvTranspose` kernels ``[k, k, in, out]`` become torch's
   `conv_transpose2d` layout ``[in, out, k, k]``, flipped in both spatial
   axes (lax does not flip the kernel, torch's transposed conv does);
+* an MoE layer's ``mlp/router`` is a Dense like the others; its raw
+  ``experts_in [E, D, F]``, ``experts_out [E, F, D]`` and their biases keep
+  their layout (`models/base/moe.py`);
 * LayerNorm ``scale`` / ``bias`` become ``weight`` / ``bias``; the qk-norm
   ``q_norm/scale`` and ``k_norm/scale`` of a layer (``config.qk_norm``)
   become ``attention.q_norm.weight`` and ``attention.k_norm.weight``.
@@ -64,7 +67,10 @@ def _layer(out: Dict[str, torch.Tensor], key: str, p: Mapping) -> None:
     out[key + ".layer_scale1"] = _t(p["layer_scale1"])
     out[key + ".layer_scale2"] = _t(p["layer_scale2"])
     for name, mod in p["mlp"].items():
-        _dense(out, f"{key}.mlp.{name}", mod)
+        if isinstance(mod, Mapping):  # Dense: fc1/fc2, weights_in/out, MoE router
+            _dense(out, f"{key}.mlp.{name}", mod)
+        else:  # MoE expert arrays keep their layout
+            out[f"{key}.mlp.{name}"] = _t(mod)
 
 
 def vit_params_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:

@@ -14,7 +14,11 @@ tokens + 2 x 16 TX/RX slots; spectral clustering at layers 4, 6, 8 and
 batch from `data.pipeline.load_image_batches` (a local image folder, whose
 class sub-folders give the labels, modulo ``--labels``), as the JAX example
 does; without it the images and labels are seeded random ones.
-``--pretrained`` needs the HF weight import, not ported yet: it raises.
+``--pretrained <path>`` loads an HF ViT / DINO checkpoint (a file, or a
+directory in HF layout; a hub id only with network) into the frozen trunk
+(`import_into_multistate`: TX/RX from its CLS token), as the JAX example
+does; ``--preset`` gives the encoder the checkpoint's geometry (``b8`` for
+`facebook/dino-vitb8`).
 
 ``--ckpt <dir>`` restores a `pretrain_synthetic` checkpoint and wires its
 trunk into the encoder (`transfer_base_to_multistate`) before fine-tuning,
@@ -38,6 +42,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from msvit_tpu_torch.compat.family import transfer_base_to_multistate
+from msvit_tpu_torch.compat.family_import import import_into_multistate
+from msvit_tpu_torch.compat.pretrained import load_state_dict_from
 from msvit_tpu_torch.data.pipeline import ImagePipelineConfig, load_image_batches
 from msvit_tpu_torch.examples.pretrain_synthetic import PRESETS
 from msvit_tpu_torch.models.clustering import SpectralClusteringConfig
@@ -113,7 +119,8 @@ def main(argv: Optional[List[str]] = None,
     ap.add_argument("--dataset", default=None,
                     help="a local image folder (or a dataset id for datasets.load_dataset)")
     ap.add_argument("--num-sample", type=int, default=256)
-    ap.add_argument("--pretrained", default=None)
+    ap.add_argument("--pretrained", default=None,
+                    help="checkpoint path, HF-layout dir, or HF hub id (hub needs network)")
     ap.add_argument("--ckpt", default=None,
                     help="pretrain_synthetic checkpoint dir to start the trunk from")
     ap.add_argument("--preset", default=None, choices=sorted(PRESETS),
@@ -122,10 +129,6 @@ def main(argv: Optional[List[str]] = None,
                     help="the trunk was pretrained with config.qk_norm")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.pretrained:
-        raise NotImplementedError(
-            "--pretrained needs the HF weight import (ROADMAP.md queue 1, item 9: "
-            "compat/hf_import.py), not ported yet")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the example runs on the card "
                            "(pass --device cpu for the CPU)")
@@ -145,6 +148,12 @@ def main(argv: Optional[List[str]] = None,
     if args.ckpt:
         load_pretrained_trunk(model, args.ckpt)
         print(f"restored trunk from {args.ckpt}", flush=True)
+    if args.pretrained:
+        # the frozen pretrained trunk under the classifier
+        sd = load_state_dict_from(args.pretrained)
+        model.encoder.load_state_dict(
+            import_into_multistate(sd, cfg, model.encoder.state_dict()))
+        print(f"imported the HF trunk from {args.pretrained}", flush=True)
     model.train()
     for name, p in model.named_parameters():
         p.requires_grad_(trainable(tuple(name.split("."))))

@@ -13,8 +13,10 @@ is on the CUDA card; ``--device cpu`` is the only way to the CPU (with no
 card and no ``--device cpu`` it raises).  ``--losses sandbox`` weighs
 {context_patch 1e-4, query_patch 1.0, positional_regularization 0.5};
 ``all7`` turns on every loss (unit weights elsewhere) with
-`normalize_latent`.  The figures (``--viz-at``) need `viz.py`, not ported:
-the flag raises.
+`normalize_latent`.  ``--viz-at`` (default "0,mid,end", as JAX's) draws
+`viz.visualize_predictive_sample` of the first batch's first images at
+those steps (`sample_step<i>.png`; matplotlib needed, ``--viz-at ""`` for
+none).
 
 `main` writes the JPEG corpus once (`ensure_corpus`, PIL) and loads it;
 `train(args, data)` takes a loaded corpus, so a caller can hand it one made
@@ -78,8 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="runs/synthetic")
     ap.add_argument("--log-every", type=int, default=25)
-    ap.add_argument("--viz-at", default=None,
-                    help="step markers for figures (needs viz.py: not ported)")
+    ap.add_argument("--viz-at", default="0,mid,end",
+                    help="steps that draw a figure: 0, mid, end (\"\" for none)")
     ap.add_argument("--losses", default="sandbox", choices=["sandbox", "all7"],
                     help="'sandbox': query_patch 1.0, context_patch 1e-4, "
                     "pos_reg 0.5; 'all7': every loss, normalize_latent=True")
@@ -128,12 +130,30 @@ def train(args, data: Dict[str, np.ndarray],
         pix = torch.from_numpy(next(host)["pixel_values"]).to(dev)
         return pix.float() / 127.5 - 1.0
 
+    pix0 = nxt()
+
+    def render(step_no: int) -> None:
+        """`visualize_predictive_sample` of the first batch at the current
+        weights."""
+        from msvit_tpu_torch.viz import visualize_predictive_sample
+
+        with torch.no_grad():
+            out = model(pix0[:4], rng=Rng(777), output_inputs=True)
+            _, _, meta = training_loss(model, pix0[:4], out, tc)
+        visualize_predictive_sample(pix0[:4], out, meta, model, num_ims=3, show=False,
+                                    save_path=os.path.join(run_dir, f"sample_step{step_no}.png"))
+
+    marks = {"0": 0, "mid": args.steps // 2, "end": args.steps - 1}
+    viz_steps = {marks.get(m, -1) for m in args.viz_at.split(",")}
+
     metrics = MetricsLogger(os.path.join(run_dir, "metrics.jsonl"), echo=False)
     history: List[Dict[str, float]] = []
     t0 = time.perf_counter()
     for i in range(args.steps):
         gen = torch.Generator().manual_seed(fold_in(args.seed, i))
-        loss, losses = step(model, opt_state, nxt(), gen)
+        loss, losses = step(model, opt_state, pix0 if i == 0 else nxt(), gen)
+        if i in viz_steps:
+            render(i)
         if i % args.log_every == 0 or i == args.steps - 1:
             row = {k: float(v) for k, v in losses.items()}
             row["total"] = float(loss)
@@ -183,10 +203,6 @@ def train(args, data: Dict[str, np.ndarray],
 def main(argv: Optional[List[str]] = None,
          config: Optional[PredictiveViTConfig] = None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.viz_at:
-        raise NotImplementedError(
-            "--viz-at needs the figures of viz.py (ROADMAP.md queue 1, item 9: "
-            "viz.py), not ported yet")
     resolve_device(args.device)  # raise before the corpus is written
     size = (config or sandbox_config()).image_size
     data = ensure_corpus(args.out, args.corpus_size, size=size, seed=args.seed)

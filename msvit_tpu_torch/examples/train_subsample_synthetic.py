@@ -20,16 +20,17 @@ Phases:
 
 Evaluation: held-out accuracy of the learned policy against never- and
 always-subdivide controls (the same weights with the policy bias forced to
--20 and +20), with the tokens each keeps.  The JAX example's quadtree
-heat-map figure needs `viz.py` (ROADMAP.md queue 1, item 9), not ported:
-this one writes no figure.
+-20 and +20), with the tokens each keeps, and the quadtree heat-map figure
+of four held-out scenes (`viz.visualize_subsample_output`, `quadtree.png`;
+matplotlib needed, ``--no-figure`` for none).
 
 The same flags and defaults as the JAX example, plus ``--device``: the run
 is on the CUDA card; ``--device cpu`` is the only way to the CPU (with no
-card and no ``--device cpu`` it raises).  Step i of phase A is seeded with
+card and no ``--device cpu`` it raises), and ``--no-figure``.  Step i of phase A is seeded with
 `fold_in(seed, i)`, step i of phase B with `fold_in(seed, 10**6 + i)`; the
 step's policy `Rng` is a draw from that generator.  Outputs under
-``--out/subsample[_<label mode>]``: `metrics.jsonl` and `summary.json`.
+``--out/subsample[_<label mode>]``: `metrics.jsonl`, `summary.json` and
+`quadtree.png`.
 """
 
 from __future__ import annotations
@@ -72,8 +73,7 @@ def box_object_fraction(regions: np.ndarray, grid: int,
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Subsample REINFORCE on the procedural corpus (no heat-map "
-        "figure: it needs viz.py, not ported).")
+        description="Subsample REINFORCE on the procedural corpus.")
     ap.add_argument("--warmup", type=int, default=600, help="phase A steps")
     ap.add_argument("--steps", type=int, default=400, help="phase B steps")
     ap.add_argument("--batch", type=int, default=32)
@@ -98,6 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="phase A fine-tunes the whole trunk, not the head only")
     ap.add_argument("--log-every", type=int, default=25, help="phase B log period")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--figure", action=argparse.BooleanOptionalAction, default=True,
+                    help="draw the quadtree heat map (needs matplotlib)")
     return ap
 
 
@@ -260,6 +262,15 @@ def train(args, data: Dict[str, np.ndarray],
                "tokens_never": tok_never, "tokens_always": tok_always}
     with open(os.path.join(run_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
+    if args.figure:  # the quadtree heat map of four held-out scenes
+        from msvit_tpu_torch.viz import visualize_subsample_output
+
+        pix = torch.from_numpy(hold["images"][:4]).to(dev).float() / 127.5 - 1.0
+        model.eval()
+        with torch.no_grad():
+            out = model(pix, rng=Rng(0), output_logs=True, return_pixel_values=True)
+        visualize_subsample_output(out, model.model.tree, show=False,
+                                   save_path=os.path.join(run_dir, "quadtree.png"))
     print(f"metrics under {run_dir}", flush=True)
     return {**summary, "history": history}
 

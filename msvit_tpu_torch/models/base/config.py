@@ -15,7 +15,6 @@ from msvit_tpu_torch.settings import Policy
 
 # field -> the ROADMAP.md item that ports it
 _NOT_PORTED = {
-    "num_experts": "ROADMAP.md queue 1, item 9 (base extras: moe.py)",
     "scan_layers": "ROADMAP.md 'Not ported, by decision' (scan_layers)",
     "sequence_sharding": "ROADMAP.md queue 1, item 11 (parallel)",
 }

@@ -298,8 +298,16 @@ class BaseViTLayer(nn.Module):
         self.layer_scale1 = nn.Parameter(
             torch.full((d,), config.layerscale_value, dtype=policy.param))
         self.norm2 = LayerNorm(d, config.layer_norm_eps, policy.compute, policy.param)
-        mlp_cls = BaseSwiGLUFFN if config.use_swiglu_ffn else BaseMLP
-        self.mlp = mlp_cls(config, generator)
+        if config.num_experts > 0:
+            from msvit_tpu_torch.models.base.moe import MoEFFN
+
+            self.mlp = MoEFFN(config, config.num_experts, generator)
+        else:
+            mlp_cls = BaseSwiGLUFFN if config.use_swiglu_ffn else BaseMLP
+            self.mlp = mlp_cls(config, generator)
+        # the MoE layer's Switch loss of the last forward (JAX sows it into
+        # "intermediates"); None without experts
+        self.moe_aux_loss: Optional[torch.Tensor] = None
         self.layer_scale2 = nn.Parameter(
             torch.full((d,), config.layerscale_value, dtype=policy.param))
 
@@ -332,6 +340,8 @@ class BaseViTLayer(nn.Module):
         )
         hidden_states = self._branch(attn_out, self.layer_scale1, g) + hidden_states
         mlp_out = self.mlp(self.norm2(hidden_states))
+        if self.config.num_experts > 0:
+            mlp_out, self.moe_aux_loss = mlp_out
         hidden_states = self._branch(mlp_out, self.layer_scale2, g) + hidden_states
         return hidden_states, probs
 
@@ -364,11 +374,22 @@ def remat_context(policy: str):
                              functools.partial(_save_products, _REMAT_SAVED[policy]))
 
 
+def _layer_and_aux(layer: BaseViTLayer, *args):
+    """One block's (hidden, probs, MoE aux loss or None): the loss leaves a
+    recomputed block as one of its outputs."""
+    hidden, probs = layer(*args)
+    return hidden, probs, layer.moe_aux_loss
+
+
 class BaseViTEncoder(nn.Module):
     """Stack of blocks, with optional per-layer context states.  Under
     ``config.remat`` each block is recomputed in the backward
     (`torch.utils.checkpoint`, non-reentrant), the counterpart of JAX's
-    `nn.remat`, with what ``config.remat_policy`` saves (`remat_context`)."""
+    `nn.remat`, with what ``config.remat_policy`` saves (`remat_context`).
+
+    With ``config.num_experts`` each forward leaves the blocks' Switch
+    losses in ``self.moe_aux_loss`` (a per-layer tuple; empty without
+    experts), the counterpart of JAX's sown ``moe_aux_loss``."""
 
     def __init__(self, config: BaseViTConfig, generator: torch.Generator):
         super().__init__()
@@ -376,6 +397,7 @@ class BaseViTEncoder(nn.Module):
         self.layer = nn.ModuleList(
             BaseViTLayer(config, generator) for _ in range(config.num_hidden_layers)
         )
+        self.moe_aux_loss: Tuple[torch.Tensor, ...] = ()
 
     def forward(
         self,
@@ -395,6 +417,7 @@ class BaseViTEncoder(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         all_hidden = [] if output_hidden_states else None
         all_attn = [] if output_attentions else None
+        aux = []
         for i, layer in enumerate(self.layer):
             if output_hidden_states:
                 all_hidden.append(hidden_states)
@@ -404,13 +427,16 @@ class BaseViTEncoder(nn.Module):
             if remat:
                 # the block's masks come from its seed, not from the global
                 # RNG, so the RNG state need not be saved for the recompute
-                hidden_states, probs = torch.utils.checkpoint.checkpoint(
-                    layer, *args, use_reentrant=False, preserve_rng_state=False,
-                    context_fn=remat_context(cfg.remat_policy))
+                hidden_states, probs, layer_aux = torch.utils.checkpoint.checkpoint(
+                    _layer_and_aux, layer, *args, use_reentrant=False,
+                    preserve_rng_state=False, context_fn=remat_context(cfg.remat_policy))
             else:
-                hidden_states, probs = layer(*args)
+                hidden_states, probs, layer_aux = _layer_and_aux(layer, *args)
+            if layer_aux is not None:
+                aux.append(layer_aux)
             if output_attentions:
                 all_attn.append(probs)
         if output_hidden_states:
             all_hidden.append(hidden_states)
+        self.moe_aux_loss = tuple(aux)
         return hidden_states, all_hidden, all_attn

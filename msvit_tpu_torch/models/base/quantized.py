@@ -61,6 +61,11 @@ def quantize_layer_params(sd: Mapping[str, torch.Tensor], prefix: str):
     """One BaseViTLayer (state-dict keys under `prefix`) -> quantized
     inference dict: qkv / proj / fc1 / fc2 int8 per channel, layer scales
     folded into the proj / fc2 dequant scales, norms passed through."""
+    if prefix + "mlp.router.weight" in sd:
+        # JAX fails here with a KeyError on mlp/fc1; the int8 apply has no
+        # expert dispatch
+        raise ValueError("quantize_layer_params: an MoE trunk (num_experts > 0) "
+                         "has no int8 apply path; serve it through the bf16 path")
     if prefix + "mlp.fc1.weight" not in sd:
         raise ValueError("quantize_layer_params: the int8 path needs the GELU "
                          "MLP (fc1/fc2), not SwiGLU")
@@ -132,6 +137,7 @@ def quantized_vit_apply(
     cfg = config
     b = pixel_values.shape[0]
     d, h = cfg.hidden_size, cfg.num_attention_heads
+    hd = h * cfg.head_dim  # one q, k or v section: D, or less after prune_heads
     eps = cfg.layer_norm_eps
 
     def mm(site, x, wp):
@@ -162,7 +168,7 @@ def quantized_vit_apply(
         if int8_attn:
             sec = act_scales[f"attn_{i}"]  # [3]
             s_proj = act_scales[f"proj_{i}"]
-            inv_cols = (1.0 / sec).repeat_interleave(d)  # [3D]
+            inv_cols = (1.0 / sec).repeat_interleave(hd)  # [3 H dh]
             qkv_q = int8_matmul(
                 y, lp["qkv"]["w"], lp["qkv"]["bias"],
                 act_scale=act_scales.get(f"qkv_{i}"), out_inv_scale=inv_cols,
@@ -174,9 +180,9 @@ def quantized_vit_apply(
                 out_q, s_proj, lp["proj"]["w"], lp["proj"]["bias"]
             )
         else:
-            qkv = mm(f"qkv_{i}", y, lp["qkv"])  # [B, N, 3D] bf16
+            qkv = mm(f"qkv_{i}", y, lp["qkv"])  # [B, N, 3 H dh] bf16
             if _record_scales is not None:
-                ys = qkv.float().reshape(-1, 3, d).abs().amax(0)
+                ys = qkv.float().reshape(-1, 3, hd).abs().amax(0)
                 _record_scales[f"attn_{i}"] = ys.amax(-1) / 127.0
             if kernels:
                 out = packed_attention(qkv, h)

@@ -205,6 +205,8 @@ class ViTModel(nn.Module):
             "pooler_output": pooled,
             "hidden_states": all_hidden,
             "attentions": all_attn,
+            # per-layer Switch losses of an MoE trunk (empty without experts)
+            "moe_aux_loss": self.encoder.moe_aux_loss,
         }
 
 

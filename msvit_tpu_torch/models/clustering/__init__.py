@@ -17,10 +17,11 @@ from msvit_tpu_torch.models.clustering.module import (
     cluster,
     max_children_bound,
     spectral_cluster,
+    spectral_debug_labels,
 )
 
 __all__ = [
     "AxisAlignClusteringConfig", "ClusteringConfig", "FPSClusteringConfig",
     "SpectralClusteringConfig", "check_supported", "cluster",
-    "max_children_bound", "spectral_cluster",
+    "max_children_bound", "spectral_cluster", "spectral_debug_labels",
 ]

@@ -310,3 +310,66 @@ def cluster(
     check_supported(config)
     return CLUSTERING_CLASSES[config.model_type](
         config, parent_indices, x, key, max_parents=max_parents)
+
+
+def spectral_debug_labels(
+    ncut_x: torch.Tensor,  # [n, ncut_dim] NCut eigenvectors (pooled batch)
+    key,  # an Rng
+    cluster_size_threshold: float = 0.02,
+    min_samples: int = 512,
+    num_sample: int = 1024,
+    kmeans_iters: int = 16,
+):
+    """The debug labellings of the spectral clustering (the JAX package's
+    `spectral_debug_labels`), from the batch-pooled NCut eigenvectors:
+
+    * ``hdbscan``: HDBSCAN on the cosine NCut of the row-normalised
+      eigenvectors; noise is -1;
+    * ``km_boosted_spectral``: the nearest HDBSCAN centroid;
+    * ``km_spectral``: KMeans started from those centroids;
+    * ``aa_boosted_spectral``: the `kway_ncut` rotation fitted on the
+      clustered rows, applied to all;
+    * ``aa_spectral``: the plain `kway_ncut` one-hot argmax.
+
+    Host-side (the HDBSCAN tree is host code); nothing on a forward path
+    calls it.  Returns an ``OrderedDict[str, np.ndarray [n]]``, with
+    ``hdbscan`` only when HDBSCAN finds no cluster.  Draws in JAX's order:
+    ``k1, k2 = key.split(2)``, the NCut's anchors from k1, KMeans from k2."""
+    from collections import OrderedDict
+
+    import numpy as np
+
+    from msvit_tpu_torch.ops.hdbscan import hdbscan
+    from msvit_tpu_torch.ops.ncut import kway_ncut
+
+    ncut_x = ncut_x.float()
+    n, k_dim = ncut_x.shape
+    normalized = ncut_x / (torch.linalg.vector_norm(ncut_x, dim=-1, keepdim=True) + 1e-8)
+    k1, k2 = key.split(2)
+    spectral_x, _ = ncut(normalized, num_eig=k_dim, key=k1, num_sample=min(num_sample, n),
+                         distance="cosine", gamma=3.0)
+    res = hdbscan(spectral_x, min_cluster_size=max(int(cluster_size_threshold * n), 2),
+                  min_samples=min(min_samples, n))
+    labels = np.asarray(res.labels)
+    out = OrderedDict(hdbscan=labels)
+    n_child = int(labels.max()) + 1
+    if n_child == 0:
+        return out
+
+    sx = spectral_x[:, :n_child]
+    sx_np = sx.cpu().numpy()
+    centers = np.stack([sx_np[labels == c].mean(axis=0) for c in range(n_child)])
+    d2 = ((sx_np[:, None] - centers[None]) ** 2).sum(-1)  # [n, n_child]
+    out["km_boosted_spectral"] = d2.argmin(axis=1)
+    km_labels, _ = kmeans(sx, k=n_child, key=k2, iters=kmeans_iters,
+                          init_centers=torch.from_numpy(centers).to(sx.device))
+    out["km_spectral"] = km_labels.cpu().numpy()
+
+    clustered = labels >= 0
+    fit_rows = sx[torch.from_numpy(clustered).to(sx.device)] \
+        if clustered.sum() >= n_child else sx
+    _, rt = kway_ncut(fit_rows)
+    out["aa_boosted_spectral"] = (sx @ rt).argmax(1).cpu().numpy()
+    onehot, _ = kway_ncut(sx)
+    out["aa_spectral"] = onehot.argmax(1).cpu().numpy()
+    return out

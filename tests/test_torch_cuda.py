@@ -1527,7 +1527,7 @@ def test_subsample_and_saccadic_entry_points_run_on_the_card(dev, tmp_path, monk
                               image_size=32, patch_size=8, initial_grid_size=2, max_depth=2,
                               num_labels=10)
     args = ["--warmup", "1", "--steps", "1", "--batch", "4", "--corpus-size", "8",
-            "--eval-size", "8", "--out", str(tmp_path)]
+            "--eval-size", "8", "--out", str(tmp_path), "--no-figure"]  # no matplotlib there
     assert subsample.main(args, config=scfg)["device"] == "cuda"
     assert subsample.main(args + ["--device", "cpu"], config=scfg)["device"] == "cpu"
     acfg = SaccadicViTConfig(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
@@ -1554,7 +1554,7 @@ def test_subsample_example_jpeg_corpus_route_on_the_card(dev, tmp_path):
                               image_size=32, patch_size=8, initial_grid_size=2, max_depth=2,
                               num_labels=10)
     args = ["--warmup", "1", "--steps", "1", "--batch", "4", "--corpus-size", "8",
-            "--eval-size", "8", "--out", str(tmp_path)]
+            "--eval-size", "8", "--out", str(tmp_path), "--no-figure"]
     try:
         native.build("decode")
     except native.BuildError:
@@ -1603,3 +1603,72 @@ def test_reloaded_k1_k3_artifacts_equal_the_live_model(dev):
                 want = fn(p, x)
             torch.cuda.synchronize()
             assert got.shape == (b, 197, 128) and torch.equal(got, want)
+
+
+# ------------------------------------------------------- base extras' shapes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h", [(4, 197, 10), (2, 1370, 12)])
+def test_k1_at_the_extras_shapes(dev, dtype, b, n, h):
+    """K1 after `prune_heads` (H 12 -> 10: 3 H dh = 1920, not 3 D) and at
+    DINOv2-B/14's 1,370 tokens (518 px), against its plain version."""
+    x = _qkv(b, n, h * 64, dtype, dev, seed=71)
+    before = packed_attention.launches
+    with torch.inference_mode():
+        got = packed_attention(x, h)
+        want = packed_attention_plain(x, h)
+    torch.cuda.synchronize()
+    assert packed_attention.launches == before + 1
+    assert got.shape == (b, n, h * 64)
+    assert (got.float() - want.float()).abs().max().item() <= _TOL[dtype]
+
+
+def test_k3_after_prune_heads(dev):
+    """K3 at H 10 (qkv [4, 197, 1920]), bf16 and int8 out."""
+    q, sec = _int8(4, 197, 10 * 64, dev, seed=72)
+    with torch.inference_mode():
+        got = packed_attention_int8(q, sec, 10)
+        want = packed_attention_int8_plain(q, sec, 10)
+        inv = 127.0 / want.float().abs().amax()
+        got_q = packed_attention_int8(q, sec, 10, out_inv_scale=inv, int8_out=True)
+        want_q = packed_attention_int8_plain(q, sec, 10, out_inv_scale=inv, int8_out=True)
+    torch.cuda.synchronize()
+    assert got.shape == (4, 197, 640)
+    _int8_bars(got, want, got_q, want_q)
+
+
+def test_moe_and_pruned_trunks_on_the_card(dev):
+    """A 2-layer MoE trunk (dispatch, capacity 1.25) and a pruned one
+    (4 -> 3 heads) against the plain attention path on the card (bf16),
+    and the pruned trunk's int8 apply (K3 at 3 H' dh = 384)."""
+    import dataclasses
+
+    from msvit_tpu_torch.models.base import BaseViTConfig, ViTModel
+    from msvit_tpu_torch.models.base.pruning import prune_heads
+    from msvit_tpu_torch.models.base.quantized import (
+        calibrate_act_scales, quantize_vit_params, quantized_vit_apply)
+
+    g = torch.Generator().manual_seed(73)
+    pix = torch.randn(4, 224, 224, 3, generator=g).to(dev)
+    cos = torch.nn.functional.cosine_similarity
+    base = BaseViTConfig(hidden_size=256, num_hidden_layers=2, num_attention_heads=4)
+    moe = dataclasses.replace(base, num_experts=4)
+    pruned_state, pruned = prune_heads(ViTModel(base).state_dict(), base,
+                                       {0: [1], 1: [2]})
+    for cfg, state in ((moe, ViTModel(moe).state_dict()), (pruned, pruned_state)):
+        outs = []
+        for impl in ("auto", "xla"):
+            m = ViTModel(dataclasses.replace(cfg, attn_implementation=impl), device=dev).eval()
+            m.load_state_dict(state)
+            with torch.inference_mode():
+                outs.append(m(pix)["last_hidden_state"].float())
+        assert torch.isfinite(outs[0]).all()
+        assert cos(outs[0].flatten(1), outs[1].flatten(1)).min().item() >= 0.999
+    qp = quantize_vit_params(m)
+    scales = calibrate_act_scales(qp, pruned, pix)
+    before = packed_attention_int8.launches
+    got = quantized_vit_apply(qp, pruned, pix, act_scales=scales).float()
+    torch.cuda.synchronize()
+    assert packed_attention_int8.launches == before + 2
+    assert cos(got.flatten(1), outs[1].flatten(1)).min().item() >= 0.98

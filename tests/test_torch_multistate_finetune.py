@@ -185,13 +185,17 @@ def test_example_cli_runs_on_the_cpu(capsys):
 
 def test_example_cli_refuses(monkeypatch):
     """No card and no `--device cpu`: it raises, it never falls back.
-    `--pretrained` names the ROADMAP item it needs (`--dataset` is ported:
-    `tests/test_torch_runtime_examples.py` runs it on an image folder)."""
+    `--pretrained` of a path that is not there, with no network, raises
+    (`tests/test_torch_extras_examples.py` runs it on a checkpoint;
+    `--dataset`: `tests/test_torch_runtime_examples.py`)."""
+    from msvit_tpu_torch.compat import pretrained
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         example.main(["--steps", "1"], _tiny())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        example.main(["--pretrained", "x", "--device", "cpu"], _tiny())
+    monkeypatch.setattr(pretrained, "_network_available", lambda *a: False)
+    with pytest.raises(FileNotFoundError, match="not a local path"):
+        example.main(["--pretrained", "no/such-checkpoint", "--device", "cpu"], _tiny())
 
 
 def test_example_config_is_the_jax_examples():

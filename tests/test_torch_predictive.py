@@ -448,8 +448,9 @@ def test_patch_mean_bar_mirrors_the_valid_count_normaliser():
 
 def test_example_cli_on_the_cpu(tmp_path):
     """The example on `--device cpu` for 2 steps at a tiny config: it
-    writes metrics.jsonl and summary.json, every logged loss finite; a
-    figure request raises; without a card `--device cuda` raises."""
+    writes metrics.jsonl and summary.json, every logged loss finite, and the
+    figures of `--viz-at`'s default steps (0, mid = end = 1); without a card
+    `--device cuda` raises."""
     cfg = ex.sandbox_config(**GEOM)
     args = ["--device", "cpu", "--steps", "2", "--batch", "2", "--corpus-size", "4",
             "--log-every", "1", "--out", str(tmp_path)]
@@ -460,8 +461,8 @@ def test_example_cli_on_the_cpu(tmp_path):
     assert set(rows[0]) >= {"total", *jl.LOSS2FN}
     assert all(np.isfinite(v) for r in summary["history"] for v in r.values())
     assert json.load(open(run / "summary.json"))["steps"] == 2
-    with pytest.raises(NotImplementedError, match="viz"):
-        ex.main(args + ["--viz-at", "0"], config=cfg)
+    assert sorted(p.name for p in run.glob("sample_step*.png")) == [
+        "sample_step0.png", "sample_step1.png"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ex.main(["--steps", "1", "--out", os.fspath(tmp_path)], config=cfg)

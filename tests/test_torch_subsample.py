@@ -392,8 +392,8 @@ def test_example_cli_on_the_cpu(tmp_path):
     """The example on `--device cpu`, 2 warmup and 2 REINFORCE steps at the
     tiny config: finite logged losses, precision and recall in [0, 1], the
     three controls' accuracies, the never-subdivide control at the root
-    count and the always one at the capacity's leaves; without a card
-    `--device cuda` raises."""
+    count and the always one at the capacity's leaves, the quadtree
+    figure; without a card `--device cuda` raises."""
     cfg = ts.SubsampleViTConfig(**{**GEOM, "num_labels": 10})
     args = ["--device", "cpu", "--warmup", "2", "--steps", "2", "--batch", "4",
             "--corpus-size", "8", "--eval-size", "8", "--log-every", "1",
@@ -410,6 +410,7 @@ def test_example_cli_on_the_cpu(tmp_path):
         assert 0.0 <= summary[k] <= 1.0
     saved = json.load(open(tmp_path / "subsample" / "summary.json"))
     assert saved["steps"] == 2 and os.path.exists(tmp_path / "subsample" / "metrics.jsonl")
+    assert (tmp_path / "subsample" / "quadtree.png").stat().st_size > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ex.main(["--steps", "1", "--out", str(tmp_path)], config=cfg)

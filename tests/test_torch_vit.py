@@ -67,8 +67,7 @@ def test_config_fields_match_jax():
             assert jd == td, n
 
 
-@pytest.mark.parametrize("field,value", [("num_experts", 2), ("scan_layers", True),
-                                         ("sequence_sharding", True)])
+@pytest.mark.parametrize("field,value", [("scan_layers", True), ("sequence_sharding", True)])
 def test_unported_fields_raise_at_build(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TViT(TCfg(**{**SMALL, field: value}))
@@ -88,6 +87,21 @@ def test_converter_layout():
     np.testing.assert_array_equal(
         sd["encoder.layer.0.mlp.fc1.weight"].numpy(),
         np.asarray(p["encoder"]["layer_0"]["mlp"]["fc1"]["kernel"]).T)
+
+
+def test_converter_layout_moe():
+    """An MoE layer: the router Dense transposed to [E, D], the expert
+    arrays [E, D, F], [E, F, D] and their biases kept as they are."""
+    jcfg, tcfg = _cfgs(num_experts=3)
+    params, model = _pair(jcfg, tcfg)
+    mlp = params["params"]["encoder"]["layer_2"]["mlp"]
+    sd = model.state_dict()
+    np.testing.assert_array_equal(sd["encoder.layer.2.mlp.router.weight"].numpy(),
+                                  np.asarray(mlp["router"]["kernel"]).T)
+    for name in ("experts_in", "experts_in_bias", "experts_out", "experts_out_bias"):
+        np.testing.assert_array_equal(sd[f"encoder.layer.2.mlp.{name}"].numpy(),
+                                      np.asarray(mlp[name]))
+    assert tuple(sd["encoder.layer.0.mlp.experts_in"].shape) == (3, 64, 256)
 
 
 @pytest.mark.parametrize("impl", ["auto", "xla"])
