@@ -170,7 +170,20 @@ fails (non-zero exit, no result line) if any phase fails:
    `prune_heads` (H 10) through K1 and K3, equal to `prune_heads_masked`'s
    model; a DINOv2-B/14 checkpoint at 518 px (1,370 tokens, layer scale
    1e-5, bs8) through K1; K1 at [64,197,1920] and [8,1370,2304] and K3 at
-   [64,197,1920] against their plain versions, timed.
+   [64,197,1920] against their plain versions, timed;
+34. the parallel layer (`parallel_phase`) at world size 1 over NCCL (an
+   in-process group on a `file://` store, destroyed at the end): ViT-B/16
+   @224 bs64 through `make_sharded_train_step` as data parallel, ZeRO-1
+   and FSDP (3 steps each) against the `Trainer`'s step on the same
+   weights and batch, timed in turns with it (ms/step, peak memory, 12
+   K1-lse and 12 K2 a step); the trunk with `sequence_sharding` through
+   `parallelize` against the plain trunk (K1); ring attention at
+   [8,3168,12,64] bf16 in 4 blocks, every rank's block steps in one
+   process (K7-lse and K6 per step) against `FlashAttentionFunction` with
+   a padding-tail key mask that blanks a whole block, `ring_attention` at
+   world size 1, the ring forward timed beside dense K7 with its top
+   kernels; GPipe at S = 1 with 4 microbatches against the unpipelined
+   classifier (K1); one `parallel {...}` line.
 
 Every kernel is timed beside the least time the card could take for its
 work (`bound`) and, where one PyTorch call computes the same function,
@@ -183,6 +196,7 @@ for K5-lse and K6, the clustered 448-px bf16 forward and the deep subsample
 forwards for K7, the 224-px int8-attention forward for K9, the 448-px banded forward for K10, the
 ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows; the extras
 phase's launches added to the K1, K3, K1-lse, K2, K4, K5, K5-lse and K6
+rows, the parallel phase's to the K1, K1-lse, K2, K7 (K7-lse) and K6
 rows), its error, its time beside the plain version's, the library call's and the
 bound, and its share of the bound (K6 and K10 also at their other timed
 shapes, K4, K5, K5-lse, K6 and K7 with the key-only mask, K1 and K3 at
@@ -4111,6 +4125,343 @@ def extras_phase(dev, smi: str) -> tuple:
     return launches, res
 
 
+# ring attention's card check: the 448-px multistate trunk's 3168 tokens, in
+# 4 blocks of 792
+RING_SHAPE = (8, 3168, 12, 64, 4)
+
+
+def _ring_counts() -> dict:
+    from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_lse
+
+    return {"K7-lse": flash_attention_lse.launches, "K6": flash_attention_bwd.launches}
+
+
+def _reset_ring_counts() -> None:
+    from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_lse
+
+    flash_attention_lse.launches = 0
+    flash_attention_bwd.launches = 0
+
+
+def _flat(state: dict) -> torch.Tensor:
+    return torch.cat([t.detach().float().flatten() for t in state.values()])
+
+
+def _sharded_steps(dev, mesh, base, batch, lr: float, steps: int, **mode) -> dict:
+    """`steps` steps of `make_sharded_train_step` (mode: zero1 / fsdp / none)
+    on a copy of `base`: losses, the first step's gradients and the last
+    parameters (whole), ms per step after the first, peak GiB above what
+    was held before the run (the model copy, its optimizer state and the
+    steps), K1-lse and K2 launches per step."""
+    import copy
+
+    from msvit_tpu_torch.parallel.sharding import full_state_dict
+    from msvit_tpu_torch.parallel.train_step import make_sharded_train_step
+    from msvit_tpu_torch.train import make_optimizer
+    from msvit_tpu_torch.utils.rng import fold_in
+
+    held = torch.cuda.memory_allocated()
+    model = copy.deepcopy(base)
+    step, opt_state = make_sharded_train_step(
+        _ce_loss, make_optimizer(lr, weight_decay=0.05), mesh, model, **mode)
+    out = {"losses": [], "ms": [], "launches": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        _reset_training_counts()
+        t0 = time.perf_counter()
+        loss, _ = step(model, opt_state, batch, torch.Generator().manual_seed(fold_in(0, i)))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(_training_counts())
+        out["losses"].append(float(loss))
+        if i == 0:
+            out["grads"] = _flat(full_state_dict(model, grads=True))
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    out["params"] = _flat(full_state_dict(model))
+    del model, opt_state
+    return out
+
+
+def _trainer_steps(dev, base, batch, lr: float, steps: int) -> dict:
+    """The same steps through the unsharded `Trainer`'s step function."""
+    import copy
+
+    from msvit_tpu_torch.train import Trainer, make_optimizer
+    from msvit_tpu_torch.utils.rng import fold_in
+
+    held = torch.cuda.memory_allocated()
+    model = copy.deepcopy(base)
+    tr = Trainer(_ce_loss, make_optimizer(lr, weight_decay=0.05), model)
+    out = {"losses": [], "ms": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        loss, _ = tr.step_fn(model, tr.opt_state, batch, torch.Generator().manual_seed(
+            fold_in(0, i)))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(loss))
+        if i == 0:
+            out["grads"] = _flat({n: p.grad for n, p in model.named_parameters()})
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    out["params"] = _flat(model.state_dict())
+    start = _flat(base.state_dict())
+    del model, tr
+    return out, start
+
+
+def ring_plain_f32(q, k, v, mask, g, images: int = 2) -> tuple:
+    """Attention of q, k, v ``[B, N, H, dh]`` under the key mask ``[B, N]``
+    and its gradients for the cotangent g, by the plain versions of K7-lse
+    and K6 in f32 (the inputs' values upcast), `images` at a time.
+    Returns (out, (dq, dk, dv)) ``[B, N, H, dh]`` f32."""
+    from msvit_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_lse_plain)
+
+    outs, grads = [], []
+    for i in range(0, q.shape[0], images):
+        qi, ki, vi, gi = (x[i:i + images].transpose(1, 2).float() for x in (q, k, v, g))
+        mi = mask[i:i + images, None, None, :]
+        o, lse = flash_attention_lse_plain(qi, ki, vi, mi)
+        grads.append(flash_attention_bwd_plain(qi, ki, vi, o, gi, lse, mi))
+        outs.append(o)
+    return (torch.cat(outs).transpose(1, 2),
+            tuple(torch.cat(t).transpose(1, 2) for t in zip(*grads)))
+
+
+def parallel_phase(dev, smi: str) -> tuple:
+    """The parallel layer on this one card, at world size 1 over NCCL (one
+    card cannot hold two NCCL ranks, and gloo has no reduce-scatter or
+    all-gather of CUDA tensors: multi-rank runs are the CPU tests').  An
+    in-process group (a `file://` store in a temporary directory), then:
+    (a) ViT-B/16 @224 at bs64 through `make_sharded_train_step` as data
+    parallel, ZeRO-1 and FSDP, 3 steps each, each held against the
+    `Trainer`'s unsharded step on the same weights and batch (loss, first
+    gradients, parameters after 3 steps), with ms/step, peak memory and
+    K1-lse / K2 launches a step; (b) the trunk with `sequence_sharding`
+    through `parallelize` (tp = 1) against the plain trunk; (c) ring
+    attention at [8, 3168, 12, 64] bf16 (the 448-px multistate trunk's
+    tokens) in s = 4 blocks, every rank's per-block steps in one process
+    (`ring_attention_single_process`, K7-lse and K6 per step) against the
+    plain K7-lse and K6 in f32 and `FlashAttentionFunction` on the whole
+    sequence with a padding-tail key mask that blanks the last block of
+    half the images, and
+    `ring_attention` itself at world size 1; timed beside dense K7; (d)
+    GPipe at S = 1 with 4 microbatches on the classifier against the
+    unpipelined model.  The group is destroyed at the end.  Returns
+    (launches per kernel row, the phase's numbers)."""
+    import torch.distributed as dist
+
+    from msvit_tpu_torch.models.base import BaseViTConfig, ViTModel
+    from msvit_tpu_torch.ops.flash_attention import FlashAttentionFunction, flash_attention
+    from msvit_tpu_torch.parallel import distributed as pdist
+    from msvit_tpu_torch.parallel.mesh import make_mesh
+    from msvit_tpu_torch.parallel.pipeline import make_stage_mesh
+    from msvit_tpu_torch.parallel.pipeline_vit import (
+        PipelinedViTClassifier, make_pipelined_classifier_apply, shard_pipeline_params)
+    from msvit_tpu_torch.parallel.ring_attention import (
+        ring_attention, ring_attention_single_process)
+    from msvit_tpu_torch.parallel.sharding import parallelize
+    from msvit_tpu_torch.settings import parity_policy
+
+    t_phase = time.perf_counter()
+    launches = {"K1": 0, "K1-lse": 0, "K2": 0, "K7": 0, "K6": 0}
+    res = {"card": smi, "world_size": 1, "backend": "nccl"}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        pdist.initialize(init_method=f"file://{tmp}/store", world_size=1, rank=0,
+                         backend="nccl")
+        try:
+            mesh = make_mesh(tp=1)
+            # (a) the sharded train step against the Trainer's
+            batch = _batch(dev, 64, 8)
+            base = _classifier(dev, 9)
+            lr, steps = 1e-4, 3
+            ref, start = _trainer_steps(dev, base, batch, lr, steps)
+            ref_move = ref["params"] - start
+            res["trainer_ms_per_step"] = statistics.median(ref["ms"][1:])
+            res["trainer_peak_gib"] = ref["peak_gib"]
+            for name, mode in (("dp", {}), ("zero1", {"zero1": True}),
+                               ("fsdp", {"fsdp": True})):
+                got = _sharded_steps(dev, mesh, base, batch, lr, steps, **mode)
+                g_err = (got["grads"] - ref["grads"]).abs().max().item()
+                g_tol = 5e-2 * ref["grads"].abs().max().item()
+                p_err = (got["params"] - ref["params"]).abs().max().item()
+                move_cos = cos(got["params"] - start, ref_move)
+                l_err = max(abs(a - b) for a, b in zip(got["losses"], ref["losses"]))
+                per_step = got["launches"]
+                log(f"[parallel] {name}: losses {got['losses']} (Trainer {ref['losses']}), "
+                    f"first gradients max |diff| {g_err!r} (tolerance {g_tol!r}, 5% of max "
+                    f"|grad|, bf16 compute; a group of one sums nothing: 0 expected), "
+                    f"parameters after {steps} steps max |diff| {p_err!r} "
+                    f"(tolerance {2 * lr * steps!r}, 2 lr a step: AdamW's update is at most "
+                    f"~lr an element), cosine of the two runs' parameter moves "
+                    f"{move_cos!r} (>= 0.99); {statistics.median(got['ms'][1:])!r} ms/step "
+                    f"against the Trainer's {res['trainer_ms_per_step']!r}, peak "
+                    f"{got['peak_gib']!r} GiB (Trainer {ref['peak_gib']!r}); launches a "
+                    f"step {per_step}")
+                if l_err > 2e-2 or g_err > g_tol or p_err > 2 * lr * steps or move_cos < 0.99:
+                    raise AssertionError(f"parallel {name}: the sharded step is off the "
+                                         f"Trainer's")
+                if any(c != {"K1-lse": LAYERS, "K2": LAYERS} for c in per_step):
+                    raise AssertionError(f"parallel {name}: launches {per_step}")
+                launches["K1-lse"] += sum(c["K1-lse"] for c in per_step)
+                launches["K2"] += sum(c["K2"] for c in per_step)
+                res[name] = dict(ms_per_step=statistics.median(got["ms"][1:]),
+                                 peak_gib=got["peak_gib"], grad_err=g_err, param_err=p_err,
+                                 move_cos=move_cos, launches_per_step=per_step[-1],
+                                 losses=got["losses"])
+            # the Trainer again, last: the four runs in turns on one card
+            again, _ = _trainer_steps(dev, base, batch, lr, steps)
+            res["trainer_ms_per_step_again"] = statistics.median(again["ms"][1:])
+            log(f"[parallel] the Trainer step again after the three modes: "
+                f"{res['trainer_ms_per_step_again']!r} ms/step ({smi})")
+            res["trainer_losses"] = ref["losses"]
+            del base, ref, start, again
+            torch.cuda.empty_cache()
+
+            # (b) the trunk through the tensor/sequence-parallel code at tp = 1
+            cfg = BaseViTConfig(policy=parity_policy(), sequence_sharding=True)
+            plain = ViTModel(dataclasses.replace(cfg, sequence_sharding=False),
+                             generator=torch.Generator().manual_seed(10), device=dev).eval()
+            sharded = ViTModel(cfg, device=dev).eval()
+            sharded.load_state_dict(plain.state_dict())
+            parallelize(sharded, mesh)
+            pix = _batch(dev, 8, 11)["pixel_values"]
+            _reset_packed_counts()
+            with torch.inference_mode():
+                got = sharded(pix)["last_hidden_state"]
+                n_k1 = _packed_counts()["K1"]
+                want = plain(pix)["last_hidden_state"]
+            err = max_err(got, want)
+            log(f"[parallel] sequence_sharding trunk (tp 1, f32, bs8): max |diff| against "
+                f"the plain trunk {err!r} (tolerance 1e-4; a group of one: 0 expected), "
+                f"K1 launches {n_k1}")
+            if err > 1e-4 or n_k1 != LAYERS:
+                raise AssertionError("the sequence-sharded trunk is off the plain one")
+            launches["K1"] += n_k1
+            res["seq_trunk_err"] = err
+            del plain, sharded
+            torch.cuda.empty_cache()
+
+            # (c) ring attention, 4 blocks of 792 tokens
+            b, n, h, dh, s = RING_SHAPE
+            g = torch.Generator().manual_seed(12)
+            q, k, v, gout = (torch.randn(b, n, h, dh, generator=g).to(dev, torch.bfloat16)
+                             for _ in range(4))
+            mask = torch.ones(b, n, dtype=torch.bool)
+            mask[: b // 2, (s - 1) * n // s:] = False  # the last block blank
+            mask[b // 2:, n - n // 32:] = False
+            mask = mask.to(dev)
+            _reset_ring_counts()
+            out, grads = ring_attention_single_process(q, k, v, s, mask, gout)
+            torch.cuda.synchronize()
+            ring_counts = _ring_counts()
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            m4 = mask[:, None, None, :]
+            with torch.enable_grad():
+                dense = FlashAttentionFunction.apply(
+                    qt, kt, vt, m4, dh ** -0.5, -0.7 * float(torch.finfo(torch.float32).max))
+                dense_grads = torch.autograd.grad(dense, (qt, kt, vt), gout.transpose(1, 2))
+            # the plain versions of K7-lse and K6 in f32 on the same values,
+            # two images at a time ([2, 12, 3168, 3168] f32 scores)
+            plain_out, plain_grads = ring_plain_f32(q, k, v, mask, gout)
+            # the output bar: 2 bf16 steps at the largest |out| (bf16 keeps 8
+            # significant bits; each block's output is rounded to bf16 before
+            # the merge, and the merged output again: one step measured)
+            o_tol = 2 * 2.0 ** (math.floor(math.log2(plain_out.abs().max().item())) - 7)
+            o_err = max_err(out, dense.transpose(1, 2))
+            p_err = max_err(out, plain_out)
+            g_errs = [max_err(a, bb.transpose(1, 2)) / bb.abs().max().item()
+                      for a, bb in zip(grads, dense_grads)]
+            pg_errs = [max_err(a, bb) / bb.abs().max().item()
+                       for a, bb in zip(grads, plain_grads)]
+            log(f"[parallel] ring, {s} blocks of {n // s} at [{b},{n},{h},{dh}] bf16, tail "
+                f"mask: out max |diff| against the plain K7-lse in f32 {p_err!r}, against "
+                f"FlashAttentionFunction (bf16) {o_err!r} (tolerance {o_tol!r}: 2 bf16 steps "
+                f"at max |out| {plain_out.abs().max().item()!r}), dq/dk/dv max |diff| / max "
+                f"|grad| against the plain K6 in f32 {pg_errs}, against "
+                f"FlashAttentionFunction {g_errs} (tolerance 2e-2: K6 rounds p and ds to "
+                f"bf16); launches {ring_counts} (s x s: every rank's s steps)")
+            if max(o_err, p_err) > o_tol or max(g_errs + pg_errs) > 2e-2:
+                raise AssertionError("the ring's blocks are off dense attention")
+            if ring_counts != {"K7-lse": s * s, "K6": s * s}:
+                raise AssertionError(f"ring launches {ring_counts}")
+            launches["K7"] += ring_counts["K7-lse"]
+            launches["K6"] += ring_counts["K6"]
+            del plain_out, plain_grads
+            # world size 1 through ring_attention itself (one block)
+            ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+            _reset_ring_counts()
+            with torch.enable_grad():
+                whole = ring_attention(ql, kl, vl, mesh, key_padding_mask=mask)
+                whole_grads = torch.autograd.grad(whole, (ql, kl, vl), gout)
+            torch.cuda.synchronize()
+            one_counts = _ring_counts()
+            w_err = max(max_err(whole, dense.transpose(1, 2)),
+                        *(max_err(a, bb.transpose(1, 2))
+                          for a, bb in zip(whole_grads, dense_grads)))
+            log(f"[parallel] ring_attention at world size 1: max |diff| against "
+                f"FlashAttentionFunction (out and grads) {w_err!r}; launches {one_counts}")
+            if w_err > o_tol or one_counts != {"K7-lse": 1, "K6": 1}:
+                raise AssertionError("ring_attention at world size 1 is off")
+            launches["K7"] += 1
+            launches["K6"] += 1
+            qd, kd, vd = (x.detach() for x in (qt, kt, vt))
+            big = -0.7 * float(torch.finfo(torch.float32).max)
+            with torch.no_grad():
+                ring_ms = statistics.median(time_ms(
+                    lambda: ring_attention_single_process(q, k, v, s, mask)))
+                dense_ms = statistics.median(time_ms(lambda: flash_attention(qd, kd, vd, m4)))
+                lse_ms = statistics.median(time_ms(lambda: FlashAttentionFunction.apply(
+                    qd, kd, vd, m4, dh ** -0.5, big)))
+                top = top_kernels(lambda: ring_attention_single_process(q, k, v, s, mask))
+            log(f"[parallel] ring forward, all {s} ranks' steps on one card "
+                f"({s * s} K7-lse blocks and merges): {ring_ms!r} ms; dense K7 "
+                f"{dense_ms!r} ms, dense K7-lse {lse_ms!r} ms ({smi}); top kernels of "
+                f"the ring forward: {top}")
+            res.update(ring_ms=ring_ms, ring_dense_k7_ms=dense_ms, ring_dense_k7_lse_ms=lse_ms,
+                       ring_out_err=o_err, ring_grad_err=max(g_errs), ring_world1_err=w_err,
+                       ring_plain_out_err=p_err, ring_plain_grad_err=max(pg_errs),
+                       ring_out_tol=o_tol)
+            del q, k, v, gout, qt, kt, vt, qd, kd, vd, dense, dense_grads, grads, out
+            torch.cuda.empty_cache()
+
+            # (d) GPipe, one stage, 4 microbatches
+            from msvit_tpu_torch.models.base import ViTForImageClassification
+
+            pcfg = BaseViTConfig(policy=parity_policy())
+            full = ViTForImageClassification(pcfg, 1000,
+                                             generator=torch.Generator().manual_seed(13))
+            stage_mesh = make_stage_mesh(1)
+            piped = PipelinedViTClassifier(pcfg, 1000, 1)
+            piped.load_state_dict(shard_pipeline_params(stage_mesh, full.state_dict(), 1))
+            full, piped = full.to(dev).eval(), piped.to(dev).eval()
+            apply = make_pipelined_classifier_apply(pcfg, 1000, 1, 4, stage_mesh)
+            pix = _batch(dev, 16, 14)["pixel_values"]
+            _reset_packed_counts()
+            with torch.inference_mode():
+                logits = apply(piped, pix)
+                n_k1 = _packed_counts()["K1"]
+                want = full(pix)
+            err = max_err(logits, want)
+            log(f"[parallel] GPipe S=1, 4 microbatches of 4, ViT-B/16 f32: logits max |diff| "
+                f"against the unpipelined classifier {err!r} (tolerance 1e-4), K1 launches "
+                f"{n_k1} (12 a microbatch)")
+            if err > 1e-4 or n_k1 != 4 * LAYERS:
+                raise AssertionError("the pipelined classifier is off the sequential one")
+            launches["K1"] += n_k1
+            res["gpipe_err"] = err
+            del full, piped
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print("parallel " + json.dumps(res), flush=True)
+    return launches, res
+
+
 def _summary(r: dict) -> dict:
     """A timed call's numbers for the kernels line (the kernel alone and the
     share of elements bit-equal to plain too, where its phase took them)."""
@@ -4268,6 +4619,11 @@ def main() -> None:
     for k, n in ex_launches.items():
         launches[k] += n
     kernels.update(ex_kernels)
+    torch.cuda.empty_cache()
+    # the parallel layer's launches: K1 (sequence-sharded trunk, GPipe),
+    # K1-lse / K2 (the sharded steps), K7-lse on the K7 row and K6 (ring)
+    for k, n in parallel_phase(dev, smi)[0].items():
+        launches[k] += n
     src = "msvit_tpu_torch/csrc/"
     # K4, K5, K5-lse, K6, K7 and K10 at the other shapes their phases timed
     key = "[8,12,1361,64] key-only mask [8,1,1,1361] (subsample 448 px, depth 3)"

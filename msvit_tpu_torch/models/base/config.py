@@ -16,7 +16,6 @@ from msvit_tpu_torch.settings import Policy
 # field -> the ROADMAP.md item that ports it
 _NOT_PORTED = {
     "scan_layers": "ROADMAP.md 'Not ported, by decision' (scan_layers)",
-    "sequence_sharding": "ROADMAP.md queue 1, item 11 (parallel)",
 }
 
 

@@ -42,12 +42,25 @@ With ``banded_segments`` (the multistate trunk's banded mode) the same
 q-prescaled QKV projection goes to `ops/banded_attention.py::
 multistate_banded_attention` (K10 for the token rows) instead of a masked
 kernel; context states or requested probabilities then raise, as in JAX.
+
+Tensor parallelism (`msvit_tpu_torch.parallel.sharding.parallelize`): the
+attention, the MLPs and the MoE layer take a `ModelParallel` (``.tp``, the
+mesh's "model" group) and compute on this rank's shards: H/tp heads (the
+same kernels at H/tp), F/tp hidden units, E/tp experts.  A column-parallel
+layer's input goes through `copy_to_model`, a row-parallel layer's partial
+product through `reduce_from_model`, and its bias is added once, after the
+reduction.  With ``config.sequence_sharding`` the encoder splits the tokens
+over the group between blocks: a block gathers its LayerNorm's output
+before the column-parallel layer and reduce-scatters the row-parallel
+output.  Dropout draws the unsharded model's mask and keeps this rank's
+slice of it, so the sharded trunk draws what the unsharded one draws.
+Without ``.tp`` (None, the default) nothing of this runs.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +75,9 @@ from msvit_tpu_torch.ops.banded_attention import (
     BandedSegments, multistate_banded_attention)
 from msvit_tpu_torch.ops.gelu import gelu_erf, gelu_erf_tanh
 from msvit_tpu_torch.ops.packed_attention import packed_attention
+from msvit_tpu_torch.parallel.collectives import (
+    ModelParallel, copy_to_model, gather_tokens, gather_tokens_replicated,
+    reduce_from_model, reduce_scatter_tokens, split_tokens)
 from msvit_tpu_torch.utils.rng import draw_seed, fold_in
 
 
@@ -75,13 +91,54 @@ def trunc_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            full_shape: Optional[Sequence[int]] = None,
+            select: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """Inverted dropout as flax `nn.Dropout`: keep each entry with
     probability 1 - rate and divide it by that; the keep mask is drawn from
-    `generator` (the device's default generator when None)."""
+    `generator` (the device's default generator when None).  A shard of a
+    tensor passes the unsharded shape as `full_shape` and `select`, which
+    cuts its part out of the mask drawn at that shape."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = torch.rand(tuple(full_shape or x.shape), generator=generator,
+                      device=x.device) < keep
+    if select is not None:
+        mask = select(mask)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _tp_enter(x: torch.Tensor, tp: Optional[ModelParallel]) -> torch.Tensor:
+    """The input of a column-parallel layer: the tokens gathered under
+    sequence sharding, else the identity whose backward sums the ranks'
+    partial gradients."""
+    if tp is None:
+        return x
+    return gather_tokens(x, tp, tp.tokens) if tp.seq else copy_to_model(x, tp)
+
+
+def _row_parallel(linear: "Linear", x: torch.Tensor,
+                  tp: Optional[ModelParallel]) -> torch.Tensor:
+    """A row-parallel Linear: the partial product summed over the group
+    (reduce-scattered over tokens under sequence sharding), then the bias,
+    added once (in a group of one, inside the product, as unsharded)."""
+    if tp is None:
+        return linear(x)
+    c = linear.compute_dtype
+    b = None if linear.bias is None else linear.bias.to(c)
+    if tp.size == 1:  # the bias in the GEMM, as unsharded: the same numbers
+        y, b = F.linear(x.to(c), linear.weight.to(c), b), None
+    else:
+        y = F.linear(x.to(c), linear.weight.to(c))
+    y = reduce_scatter_tokens(y, tp) if tp.seq else reduce_from_model(y, tp)
+    return y if b is None else y + b
+
+
+def _token_select(tp: Optional[ModelParallel]):
+    """(full shape function, select) of a dropout on a block's output: under
+    sequence sharding the mask of all tokens, cut to this rank's chunk."""
+    if tp is None or not tp.seq:
+        return None, None
+    return (lambda x: (x.shape[0], tp.tokens) + tuple(x.shape[2:])), tp.token_slice
 
 
 def is_stochastic(config: BaseViTConfig) -> bool:
@@ -135,6 +192,21 @@ class BaseViTSelfAttention(nn.Module):
                                     policy.param, bias=False)
             self.k_norm = LayerNorm(dh, config.layer_norm_eps, policy.compute,
                                     policy.param, bias=False)
+        self.tp: Optional[ModelParallel] = None
+
+    @property
+    def num_heads(self) -> int:
+        """The heads this rank computes: H, or H/tp under tensor parallelism."""
+        h = self.config.num_attention_heads
+        return h if self.tp is None else h // self.tp.size
+
+    def _local_heads(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's heads of a tensor with all H on axis `dim` (a
+        per-head mask, a dropout mask); others pass through."""
+        h, hl = self.config.num_attention_heads, self.num_heads
+        if hl == h or t.shape[dim] != h:
+            return t
+        return t.narrow(dim, self.tp.rank * hl, hl)
 
     def _use_packed(self, x, context_states, attention_mask, output_attentions):
         cfg = self.config
@@ -163,9 +235,11 @@ class BaseViTSelfAttention(nn.Module):
         banded_segments: Optional[BandedSegments] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.config
-        h, dh = cfg.num_attention_heads, cfg.head_dim
+        h, dh = self.num_heads, cfg.head_dim
         compute = cfg.policy.compute
-        x = hidden_states.to(compute)
+        x = _tp_enter(hidden_states.to(compute), self.tp)
+        if attention_mask is not None and attention_mask.ndim == 4:
+            attention_mask = self._local_heads(attention_mask, 1)
         p_drop = cfg.attention_probs_dropout_prob if self.training else 0.0
         if banded_segments is not None and (
                 context_states is not None or output_attentions or x.ndim != 3):
@@ -193,8 +267,11 @@ class BaseViTSelfAttention(nn.Module):
                 out = multistate_banded_attention(qkvp, banded_segments, h)
             else:
                 out = packed_attention(qkvp, h, mask=attention_mask, scale=1.0)
-            out = dropout(out, p_drop, generator) if p_drop > 0 else out
-            out = self.output_dense(out)
+            if p_drop > 0:  # [.., N, H*dh]: this rank's heads of the mask
+                full = out.shape[:-1] + (cfg.num_attention_heads * dh,)
+                out = dropout(out, p_drop, generator, full, lambda m: m.narrow(
+                    -1, (self.tp.rank if self.tp else 0) * h * dh, h * dh))
+            out = _row_parallel(self.output_dense, out, self.tp)
             return self._hidden_dropout(out, generator), None
 
         qkv = self.qkv(x).unflatten(-1, (3, h, dh))  # [..., N, 3, H, dh]
@@ -215,14 +292,20 @@ class BaseViTSelfAttention(nn.Module):
             implementation=cfg.attn_implementation,
             output_probs=output_attentions,
         )
-        out = dropout(out, p_drop, generator) if p_drop > 0 else out
-        out = out.transpose(-3, -2).reshape(*hidden_states.shape[:-1], h * dh)
-        out = self.output_dense(out)
+        if p_drop > 0:  # [.., H, N, dh]: this rank's heads of the mask
+            full = out.shape[:-3] + (cfg.num_attention_heads,) + out.shape[-2:]
+            out = dropout(out, p_drop, generator, full,
+                          lambda m: self._local_heads(m, -3))
+        out = out.transpose(-3, -2).reshape(*x.shape[:-1], h * dh)
+        out = _row_parallel(self.output_dense, out, self.tp)
         return self._hidden_dropout(out, generator), probs
 
     def _hidden_dropout(self, out, generator):
         p = self.config.hidden_dropout_prob
-        return dropout(out, p, generator) if p > 0 and self.training else out
+        if p == 0 or not self.training:
+            return out
+        full, select = _token_select(self.tp)
+        return dropout(out, p, generator, full and full(out), select)
 
 
 def _activation(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -247,9 +330,10 @@ class BaseMLP(nn.Module):
                           config, generator)
         self.fc2 = Linear(config.mlp_hidden_size, config.hidden_size, True,
                           config, generator)
+        self.tp: Optional[ModelParallel] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc1(x)
+        h = self.fc1(_tp_enter(x, self.tp))
         if torch.is_grad_enabled() and h.requires_grad:
             # keep only the GELU's input for the backward and recompute the
             # formula there: autograd would otherwise keep ~7 f32 [B, N,
@@ -259,7 +343,7 @@ class BaseMLP(nn.Module):
                 _activation, self.act, h, use_reentrant=False)
         else:
             a = _activation(self.act, h)
-        return self.fc2(a)
+        return _row_parallel(self.fc2, a, self.tp)
 
 
 class BaseSwiGLUFFN(nn.Module):
@@ -270,10 +354,13 @@ class BaseSwiGLUFFN(nn.Module):
                                  generator)
         self.weights_out = Linear(hidden, config.hidden_size, True, config,
                                   generator)
+        self.tp: Optional[ModelParallel] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = self.weights_in(x).chunk(2, dim=-1)
-        return self.weights_out(F.silu(x1) * x2)
+        # under tensor parallelism weights_in holds this rank's units of
+        # both halves ([2, h/tp] rows), so the chunk still pairs them
+        x1, x2 = self.weights_in(_tp_enter(x, self.tp)).chunk(2, dim=-1)
+        return _row_parallel(self.weights_out, F.silu(x1) * x2, self.tp)
 
 
 def _drop_path(x: torch.Tensor, rate: float,
@@ -398,6 +485,8 @@ class BaseViTEncoder(nn.Module):
             BaseViTLayer(config, generator) for _ in range(config.num_hidden_layers)
         )
         self.moe_aux_loss: Tuple[torch.Tensor, ...] = ()
+        # sequence sharding: set (seq=True) by `parallel.parallelize`
+        self.tp: Optional[ModelParallel] = None
 
     def forward(
         self,
@@ -415,12 +504,20 @@ class BaseViTEncoder(nn.Module):
         if seed is None and self.training and is_stochastic(cfg):
             seed = draw_seed(None)
         remat = cfg.remat and torch.is_grad_enabled()
+        tp, n = self.tp, hidden_states.shape[-2]
+        if tp is not None:  # tokens sharded on "model" between blocks
+            tp.tokens = n
+            hidden_states = split_tokens(hidden_states, tp)
+
+        def whole(h):
+            return h if tp is None else gather_tokens_replicated(h, tp, n)
+
         all_hidden = [] if output_hidden_states else None
         all_attn = [] if output_attentions else None
         aux = []
         for i, layer in enumerate(self.layer):
             if output_hidden_states:
-                all_hidden.append(hidden_states)
+                all_hidden.append(whole(hidden_states))
             ctx = context_states[i] if context_states is not None else None
             args = (hidden_states, ctx, attention_mask, output_attentions,
                     None if seed is None else fold_in(seed, i))
@@ -436,6 +533,7 @@ class BaseViTEncoder(nn.Module):
                 aux.append(layer_aux)
             if output_attentions:
                 all_attn.append(probs)
+        hidden_states = whole(hidden_states)
         if output_hidden_states:
             all_hidden.append(hidden_states)
         self.moe_aux_loss = tuple(aux)

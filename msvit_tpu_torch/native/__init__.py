@@ -8,12 +8,21 @@ Two libraries, built with g++ on first use (nothing is built at import):
 * `decode.cpp`: libjpeg decode with DCT scaling when the source is much
   larger than the target, fused with the resize (`decode_resize_u8`) or
   with resize + normalize (`decode_preprocess_batch`), or decode only
-  (`decode_jpeg_batch`); linked with ``-ljpeg``.
+  (`decode_jpeg_batch`).
+
+The decoder links against the system's libjpeg (``-ljpeg``, its own
+headers) where the linker finds one.  Where it does not, it links against
+the libjpeg-turbo that Pillow's wheel bundles (``pillow.libs/libjpeg-*.so.62*``
+beside the PIL package, found from ``PIL.__file__``, with an rpath to it),
+compiled against the libjpeg-turbo 2.1.5 headers kept in `native/include/`
+(``JPEG_LIB_VERSION 62``, the ABI that library exports; their licence is
+`include/COPYRIGHT.libjpeg-turbo`).  Where there is neither, the build
+raises as below: nothing falls back to PIL silently.
 
 The sources are copies of the JAX package's, compiled with its flags, so on
 one machine both packages give the same bytes.  Each library lands in
 `native/_build/` (listed in `.gitignore`) under a name that carries a hash
-of its source, the flags and the host's CPU (``-march=native`` code runs
+of its source, the flags, the libjpeg it links and the host's CPU (``-march=native`` code runs
 only where it was built), so a stale library is never loaded.
 
 Errors, as in the JAX package: no g++ raises `OSError` (FileNotFoundError);
@@ -28,18 +37,20 @@ Each entry point counts its calls in a plain int attribute (``.calls``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import platform
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "_build"
+INCLUDE_DIR = _DIR / "include"
 FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -65,7 +76,8 @@ _SIGNATURES = {
                          ctypes.POINTER(_I)],
     },
 }
-_LINK = {"preprocess": [], "decode": ["-ljpeg"]}
+# how the decoder finds libjpeg: "system" (-ljpeg) or "pillow"
+LINKS = ("system", "pillow")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -89,26 +101,66 @@ def _cpu() -> str:
     return "\n".join(lines[:2])
 
 
-def library_path(name: str) -> Path:
+def pillow_libjpeg() -> Optional[Path]:
+    """The libjpeg that Pillow's wheel bundles (``pillow.libs/libjpeg-*.so.62*``
+    beside the PIL package), or None."""
+    try:
+        import PIL
+    except ImportError:
+        return None
+    found = sorted((Path(PIL.__file__).resolve().parent.parent / "pillow.libs")
+                   .glob("libjpeg-*.so.62*"))
+    return found[0] if found else None
+
+
+@functools.lru_cache(maxsize=None)
+def system_libjpeg() -> bool:
+    """Whether the linker finds a libjpeg of the system's (OSError: no g++)."""
+    res = subprocess.run(["g++", "-print-file-name=libjpeg.so"],
+                         capture_output=True, text=True)
+    return os.path.isabs(res.stdout.strip())
+
+
+def link_args(name: str, link: Optional[str] = None) -> List[str]:
+    """The compiler's libjpeg arguments for `name`: none for "preprocess";
+    for "decode" those of `link` ("system" or "pillow"), by default the
+    system's libjpeg where the linker finds one, else Pillow's, else the
+    system's (whose build then fails)."""
+    if name != "decode":
+        return []
+    if link is None:
+        link = "system" if system_libjpeg() or pillow_libjpeg() is None else "pillow"
+    if link not in LINKS:
+        raise ValueError(f"link {link!r} is not one of {LINKS}")
+    if link == "system":
+        return ["-ljpeg"]
+    lib = pillow_libjpeg()
+    if lib is None:
+        raise FileNotFoundError("Pillow bundles no libjpeg (pillow.libs/libjpeg-*.so.62*)")
+    return [f"-I{INCLUDE_DIR}", str(lib), f"-Wl,-rpath,{lib.parent}"]
+
+
+def library_path(name: str, link: Optional[str] = None) -> Path:
     """The library of `name` ("preprocess" or "decode") for these sources,
-    flags and CPU."""
+    flags, libjpeg (`link_args`) and CPU."""
     src = _DIR / f"{name}.cpp"
-    h = hashlib.sha256(" ".join(FLAGS + _LINK[name]).encode())
+    h = hashlib.sha256(" ".join(FLAGS + link_args(name, link)).encode())
     h.update(_cpu().encode())
     h.update(src.read_bytes())
     return BUILD_DIR / f"libmsvit_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, link: Optional[str] = None) -> Path:
     """Compile `name` unless a library of the same sources exists; returns
     its path.  The library is written under a temporary name and renamed,
     so processes that build at once never load a half-written file."""
-    so = library_path(name)
+    so = library_path(name, link)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = ["g++", *FLAGS, str(_DIR / f"{name}.cpp"), "-o", str(tmp), *_LINK[name]]
+    cmd = ["g++", *FLAGS, str(_DIR / f"{name}.cpp"), "-o", str(tmp),
+           *link_args(name, link)]
     res = subprocess.run(cmd, capture_output=True, text=True)  # OSError: no g++
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -117,14 +169,19 @@ def build(name: str) -> Path:
     return so
 
 
+def load(name: str, path: Path) -> ctypes.CDLL:
+    """Load a built library of `name` and declare its entry points."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = None
+    return lib
+
+
 def _lib(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn, argtypes in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = None
-            _libs[name] = lib
+            _libs[name] = load(name, build(name))
     return _libs[name]
 
 

@@ -4,7 +4,9 @@ and the `Trainer` (counterpart of `msvit_tpu/train`)."""
 from msvit_tpu_torch.train.checkpoint import (  # noqa: F401
     CheckpointManager,
     restore_checkpoint,
+    restore_sharded_checkpoint,
     save_checkpoint,
+    save_sharded_checkpoint,
 )
 from msvit_tpu_torch.train.loop import (  # noqa: F401
     Optimizer,

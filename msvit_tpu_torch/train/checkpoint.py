@@ -5,6 +5,13 @@ holding a nested dict of tensors and plain values (model and optimizer
 state dicts, the step, the EMA, the data iterator's position).  It is
 written to a temporary name and renamed into place, so a reader never sees
 a partial file.  Loading uses `torch.load(weights_only=True)`.
+
+A sharded state (every rank holding its part, e.g. FSDP's `DTensor`s or
+`parallel.sharding.sharded_state_dict`) is saved by all ranks together with
+`torch.distributed.checkpoint` under ``<dir>/sharded_<step>/``
+(`save_sharded_checkpoint`), and restored into a state of any layout, the
+target's own (`restore_sharded_checkpoint`): FSDP-sharded parameters restore
+onto plain replicated tensors, a tp=2 state onto tp=4.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
+_SHARDED = re.compile(r"^sharded_(\d+)$")
 
 
 def _path(directory: str) -> Path:
@@ -133,3 +141,36 @@ class CheckpointManager:
 
     def close(self) -> None:
         self.wait()
+
+
+def sharded_steps(directory: str) -> List[int]:
+    """The steps of sharded checkpoints under `directory`, ascending."""
+    d = _path(directory)
+    if not d.is_dir():
+        return []
+    found = (_SHARDED.match(p.name) for p in d.iterdir())
+    return sorted(int(m.group(1)) for m in found if m)
+
+
+def save_sharded_checkpoint(directory: str, step: int, state: Any) -> None:
+    """Save a state whose tensors may be sharded over ranks (`DTensor`s;
+    plain tensors count as whole on every rank).  Every rank of the default
+    group calls it."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(state, checkpoint_id=str(_path(directory) / f"sharded_{step}"))
+
+
+def restore_sharded_checkpoint(directory: str, like: Any, step: Optional[int] = None) -> Any:
+    """Load the latest (or the given) sharded step into `like`, in place,
+    and return it: each of its tensors receives its own part, whatever
+    the layout the state was saved from.  Every rank calls it."""
+    import torch.distributed.checkpoint as dcp
+
+    if step is None:
+        saved = sharded_steps(directory)
+        if not saved:
+            raise FileNotFoundError(f"no sharded checkpoint under {directory}")
+        step = saved[-1]
+    dcp.load(like, checkpoint_id=str(_path(directory) / f"sharded_{step}"))
+    return like

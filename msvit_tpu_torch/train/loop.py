@@ -39,7 +39,7 @@ the fused AdamW takes as its lr (no host sync).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -107,10 +107,14 @@ class OptState:
     schedule's argument, and Adam's bias-correction count), and
     apply_if_finite's counters (device tensors)."""
 
-    def __init__(self, spec: Optimizer, model: nn.Module):
+    def __init__(self, spec: Optimizer,
+                 model: Union[nn.Module, Iterable[Tuple[str, nn.Parameter]]]):
+        """`model`: a module, or (name, parameter) pairs (the ZeRO-1 step
+        hands its shards of the parameters)."""
         self.spec = spec
+        pairs = model.named_parameters() if isinstance(model, nn.Module) else model
         named = [
-            (n, p) for n, p in model.named_parameters()
+            (n, p) for n, p in pairs
             if p.requires_grad
             and (spec.trainable is None or spec.trainable(tuple(n.split("."))))
         ]

@@ -197,3 +197,51 @@ def test_library_name_follows_source_and_flags(monkeypatch):
     b = native.library_path("decode")
     assert a != b and a.parent == b.parent == native.BUILD_DIR
     assert a.name.startswith("libmsvit_decode_")
+
+
+@pytest.mark.parametrize("system,pillow,want", [
+    (True, True, "system"), (False, True, "pillow"), (False, False, "system")])
+def test_libjpeg_link_choice(monkeypatch, system, pillow, want):
+    """The decoder links the system's libjpeg where the linker finds one,
+    else the one Pillow's wheel bundles (vendored libjpeg-turbo 62 headers,
+    an rpath to the library), else the system's again, whose build then
+    raises `BuildError`: nothing falls back to PIL silently.  The choice
+    enters the library's name."""
+    lib = native.pillow_libjpeg()
+    monkeypatch.setattr(native, "system_libjpeg", lambda: system)
+    monkeypatch.setattr(native, "pillow_libjpeg", lambda: lib if pillow else None)
+    args = native.link_args("decode")
+    if want == "system":
+        assert args == ["-ljpeg"]
+    else:
+        assert args[0] == f"-I{native.INCLUDE_DIR}" and args[1] == str(lib)
+        assert args[2] == f"-Wl,-rpath,{lib.parent}"
+        assert native.library_path("decode") != native.library_path("decode", "system")
+    assert native.link_args("preprocess") == []
+
+
+def test_pillow_linked_decoder_equals_system_and_jax():
+    """The decoder linked against Pillow's bundled libjpeg-turbo gives the
+    bytes of the one linked against the system's libjpeg and of the JAX
+    package's, at 160 x 120, 500 x 375 and 900 x 675 -> 112 px (the last two
+    through libjpeg's scaled DCT), in all three entry points."""
+    if native.pillow_libjpeg() is None:
+        pytest.skip("this Pillow bundles no libjpeg")
+    blobs = _blobs()
+    mean, std = (0.5, 0.4, 0.3), (0.2, 0.25, 0.3)
+    got = {}
+    for link in native.LINKS:
+        native._libs["decode"] = native.load("decode", native.build("decode", link))
+        try:
+            got[link] = (native.decode_resize_u8(blobs, SIZE),
+                         native.decode_preprocess_batch(blobs, SIZE, mean, std),
+                         native.decode_jpeg_batch(blobs, 700, 900))
+        finally:
+            native._libs.pop("decode")
+    want = (jnative.decode_resize_u8(blobs, SIZE),
+            jnative.decode_preprocess_batch(blobs, SIZE, mean, std),
+            jnative.decode_jpeg_batch(blobs, 700, 900))
+    for entry in range(3):
+        for a, b, c in zip(got["pillow"][entry], got["system"][entry], want[entry]):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)

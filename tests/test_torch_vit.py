@@ -67,10 +67,26 @@ def test_config_fields_match_jax():
             assert jd == td, n
 
 
-@pytest.mark.parametrize("field,value", [("scan_layers", True), ("sequence_sharding", True)])
+@pytest.mark.parametrize("field,value", [("scan_layers", True)])
 def test_unported_fields_raise_at_build(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TViT(TCfg(**{**SMALL, field: value}))
+
+
+def test_sequence_sharding_without_a_mesh_is_a_no_op():
+    """`sequence_sharding=True` builds and, with no mesh set on the model
+    (`parallel.parallelize` not called), runs the unsharded trunk: the
+    forward equals the plain config's bit for bit, as JAX's `constrain` is
+    a no-op without an active mesh."""
+    _, tcfg = _cfgs()
+    plain = TViT(tcfg).eval()
+    sharded = TViT(dataclasses.replace(tcfg, sequence_sharding=True)).eval()
+    sharded.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(_pixels())
+    with torch.no_grad():
+        want = plain(x)["last_hidden_state"]
+        got = sharded(x)["last_hidden_state"]
+    assert torch.equal(got, want)
 
 
 def test_converter_layout():
