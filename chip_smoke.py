@@ -183,7 +183,20 @@ fails (non-zero exit, no result line) if any phase fails:
    a padding-tail key mask that blanks a whole block, `ring_attention` at
    world size 1, the ring forward timed beside dense K7 with its top
    kernels; GPipe at S = 1 with 4 microbatches against the unpipelined
-   classifier (K1); one `parallel {...}` line.
+   classifier (K1); one `parallel {...}` line;
+35. export -> reload -> serve of the clustered families
+   (`export_families_phase`): the 224-px multistate encoder (`bench.py`'s
+   config) in bf16 (K5), int8 (K4) and int8 with `attn_mode="int8"` (K9),
+   the 448-px one dense (K7) and banded (K10), and the subsample forward
+   at 448 px, depth 3 (K7, key-only mask), each taking uint8 requests (the
+   448-px ones f32 pixels) and
+   exported with a symbolic batch by a child process of its own (all at
+   once: seconds, bytes, graph nodes), reloaded by another that imports no
+   model code: every element equal to the live model at batches 1, 2 and
+   8, its K launched once a layer and no other; then in turns lone
+   requests through the live model and the artifact, and the bf16 and int8
+   224-px artifacts served by a `BatchingServer`; one `families {...}`
+   line.
 
 Every kernel is timed beside the least time the card could take for its
 work (`bound`) and, where one PyTorch call computes the same function,
@@ -197,6 +210,7 @@ forwards for K7, the 224-px int8-attention forward for K9, the 448-px banded for
 ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows; the extras
 phase's launches added to the K1, K3, K1-lse, K2, K4, K5, K5-lse and K6
 rows, the parallel phase's to the K1, K1-lse, K2, K7 (K7-lse) and K6
+rows, the reloaded clustered families' to the K4, K5, K7, K9 and K10
 rows), its error, its time beside the plain version's, the library call's and the
 bound, and its share of the bound (K6 and K10 also at their other timed
 shapes, K4, K5, K5-lse, K6 and K7 with the key-only mask, K1 and K3 at
@@ -4462,6 +4476,413 @@ def parallel_phase(dev, smi: str) -> tuple:
     return launches, res
 
 
+# ------------------------------------------------------------ phase 35 ----
+
+# The artifacts of `export_families_phase`: (name, weight set, the kernel
+# its graph calls, launches of that kernel per forward).  The 224-px ones
+# at `bench.py`'s multistate config; the 448-px ones at `ms448_config`; the
+# subsample one at 448 px, quadtree depth 3 (1,361 tokens, open: 4 passes
+# of 6 layers).
+EXPORT_FAMILIES = (
+    ("ms224_bf16", "ms224", "K5", LAYERS - 1),
+    ("ms224_int8", "ms224q", "K4", LAYERS - 1),
+    ("ms224_int8attn", "ms224q", "K9", LAYERS - 1),
+    ("ms448_dense", "ms448", "K7", LAYERS - 1),
+    ("ms448_banded", "ms448", "K10", LAYERS - 1),
+    ("ss448", "ss448", "K7", 24),
+)
+EXPORT_BATCHES = (1, 2, 8)
+EXPORT_SERVED = ("ms224_bf16", "ms224_int8")
+EXPORT_LONE_RUNS = 5
+
+# the export runs in a child process per artifact, all at once (a trace of
+# a clustered forward takes tens of seconds of host time)
+_EXPORT_CHILD = r"""
+import json, pathlib, sys, time, torch
+import chip_smoke as c
+from msvit_tpu_torch.export import export_forward
+d, name, weights, dev = pathlib.Path(sys.argv[1]), sys.argv[2], sys.argv[3], torch.device(sys.argv[4])
+fn = c.family_forward(name, dev)
+params = torch.load(d / f"{weights}.params.pt", weights_only=False)  # written by chip_smoke.py
+example = torch.load(d / f"{name}.inputs.pt")[2].to(dev)
+t0 = time.perf_counter()
+art = export_forward(fn, (params, example), polymorphic_batch=True)
+seconds = time.perf_counter() - t0
+(d / f"{name}.msvx").write_bytes(art)
+print("EXPORTED " + json.dumps({"seconds": seconds, "bytes": len(art)}), flush=True)
+"""
+
+# the reload: a child process per artifact that imports the export module
+# (the op registrations) and the server, never the model code; it runs the
+# batches, reports, then waits for its turn (a line on stdin) to time lone
+# requests and serve, so that no other child loads the host meanwhile
+_FAMILY_CHILD = r"""
+import json, pathlib, sys, time, numpy as np, torch
+from msvit_tpu_torch.export import load_forward
+from msvit_tpu_torch.ops import banded_attention, flash_attention, fused_attention, packed_attention
+from msvit_tpu_torch.serve import BatchingServer
+d, name, weights, dev = pathlib.Path(sys.argv[1]), sys.argv[2], sys.argv[3], torch.device(sys.argv[4])
+serve, runs = sys.argv[5] == "1", int(sys.argv[6])
+wrappers = {"K4": fused_attention.fused_attention_inference, "K5": fused_attention.fused_attention,
+            "K7": flash_attention.flash_attention,
+            "K9": packed_attention.packed_attention_int8_masked, "K10": banded_attention.token_rows}
+def reset():
+    for f in wrappers.values():
+        f.launches = 0
+def counts():
+    return {k: f.launches for k, f in wrappers.items()}
+params = torch.load(d / f"{weights}.params.pt", weights_only=False)  # written by chip_smoke.py
+inputs = torch.load(d / f"{name}.inputs.pt")
+g = load_forward((d / f"{name}.msvx").read_bytes())
+def call(x):
+    return [o.cpu() for o in g(params, x.to(dev))]
+reset()
+t0 = time.perf_counter()
+outs = {b: call(x) for b, x in inputs.items()}
+first_s = time.perf_counter() - t0
+launches = counts()
+torch.save(outs, d / f"{name}.outputs.pt")
+models = sorted(m for m in sys.modules if m.startswith("msvit_tpu_torch.models"))
+if models:
+    raise SystemExit(f"the reload imported model code: {models}")
+print("READY " + json.dumps({"first_calls_s": first_s, "launches": launches}), flush=True)
+sys.stdin.readline()
+x1 = inputs[1]
+for _ in range(2):
+    call(x1)
+lone = []
+for _ in range(runs):
+    t0 = time.perf_counter()
+    call(x1)
+    lone.append((time.perf_counter() - t0) * 1e3)
+done = {"lone_ms": lone}
+if serve:
+    reqs = inputs[max(inputs)].numpy()
+    direct = [call(torch.from_numpy(reqs[i:i + 1])) for i in range(len(reqs))]
+    def apply(u8):
+        f, nc, ids = g(params, torch.from_numpy(u8).to(dev))
+        return f, nc.expand(f.shape[0]), ids
+    with BatchingServer(apply, reqs[0], max_batch=len(reqs), max_wait_ms=5.0) as srv:
+        srv.warmup()
+        reset()
+        t0 = time.perf_counter()
+        alone = [(i % len(reqs), srv.submit(reqs[i % len(reqs)]).result(timeout=300))
+                 for i in range(16)]
+        t_alone = time.perf_counter() - t0
+        bursts = []
+        for _ in range(4):
+            futs = [srv.submit(r) for r in reqs]
+            bursts += [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+    # a response is row 0 of a batch-1 call: features [D], num_clusters, ids [N]
+    equal = all(torch.equal(f, direct[i][0][0]) and torch.equal(nc, direct[i][1])
+                and torch.equal(ids, direct[i][2][0]) for i, (f, nc, ids) in alone)
+    valid = all(bool(torch.isfinite(f).all()) and 0 <= int(ids.min()) and int(ids.max()) < int(nc)
+                for f, nc, ids in [r for _, r in alone] + bursts)
+    done.update(served={"stats": stats, "launches": counts(), "wall_s": wall,
+                        "lone_img_s": 16 / t_alone, "lone_equal": equal, "valid": valid})
+print("DONE " + json.dumps(done), flush=True)
+"""
+
+
+# the scenes' pixels (prototypes of scale 3) carried in uint8: [-8, 8] onto
+# 0..255, steps of 1/16; the artifacts take uint8 and map it back
+U8_RANGE = 8.0
+
+
+def _u8_requests(pix: torch.Tensor) -> torch.Tensor:
+    """Scene pixels as uint8 requests (`U8_RANGE`): the forwards see the
+    scenes of the other phases to 1/32, so that clustering finds their
+    groups."""
+    x = (torch.clamp(pix, -U8_RANGE, U8_RANGE) + U8_RANGE) * (255.0 / (2 * U8_RANGE))
+    return torch.round(x).to(torch.uint8)
+
+
+def _from_u8(u8: torch.Tensor) -> torch.Tensor:
+    return u8.float() * (2 * U8_RANGE / 255.0) - U8_RANGE
+
+
+def _ms_features(out: dict, cfg) -> torch.Tensor:
+    """A multistate forward's image features: the occupancy-weighted mean of
+    its TX tokens (the head's input in `MultiStateViTForImageClassification`)."""
+    tx = out["cluster_tokens"].float()
+    occ = (F.one_hot(out["last_cluster_indices"], cfg.max_clusters).sum(1) > 0).float()
+    return (tx * occ[..., None]).sum(1) / occ.sum(1, keepdim=True).clamp_min(1.0)
+
+
+def family_forward(name: str, dev):
+    """`fn(params, x)` of one artifact of `EXPORT_FAMILIES`: in, uint8
+    requests [B, S, S, 3] (`U8_RANGE`), or for the 448-px multistate
+    forwards the f32 pixels that `ms448_phase` serves (its scene's first
+    event splits by a margin that the uint8 steps close: one cluster at
+    every event on the card); out, the multistate forwards' (features
+    [B, D] f32, num_clusters [], last_cluster_indices [B, N]) or the
+    subsample forward's (CLS features [B, D] f32, last_valid_mask
+    [B, 1360], log_prob [B]).  Clustering and the policy draw from
+    `Rng(3)`, fixed at export.  The models are built on `dev` from seed 0
+    (their weights come in `params`)."""
+    from msvit_tpu_torch.models.multistate import (
+        MultiStateViTEncoderModel, quantized_multistate_apply)
+    from msvit_tpu_torch.models.subsample import SubsampleViTModel
+    from msvit_tpu_torch.utils.rng import Rng
+
+    normalize = (lambda x: x) if name.startswith("ms448") else _from_u8
+    gen = torch.Generator().manual_seed(0)
+    if name in ("ms224_int8", "ms224_int8attn"):
+        cfg, mode = multistate_config(), "bf16" if name == "ms224_int8" else "int8"
+
+        def fn(p, u8):
+            out = quantized_multistate_apply(p["w"], cfg, normalize(u8), Rng(3),
+                                             act_scales=p["s"], attn_mode=mode)
+            return _ms_features(out, cfg), out["num_clusters"], out["last_cluster_indices"]
+        return fn
+    if name == "ss448":
+        cfg = subsample_config(image_size=448, max_depth=3)
+        model = SubsampleViTModel(cfg, generator=gen, device=dev).eval()
+
+        def fn(p, u8):
+            out = torch.func.functional_call(model, p, (normalize(u8),), {"rng": Rng(3)})
+            return out["last_hidden_state"][:, 0], out["last_valid_mask"], out["log_prob"]
+        return fn
+    cfg = {"ms224_bf16": multistate_config(), "ms448_dense": ms448_config(),
+           "ms448_banded": ms448_config(banded_attention=True)}[name]
+    model = MultiStateViTEncoderModel(cfg, generator=gen, device=dev).eval()
+
+    def fn(p, u8):
+        out = torch.func.functional_call(model, p, (normalize(u8),), {"rng": Rng(3)})
+        return _ms_features(out, cfg), out["num_clusters"], out["last_cluster_indices"]
+    return fn
+
+
+def _family_weights(dev) -> dict:
+    """The weight sets of `EXPORT_FAMILIES`, seed 0 as the other phases':
+    the 224-px encoder's parameters, its int8 weights with the scales
+    calibrated on scene 1, the 448-px encoder's and the deep subsample
+    model's parameters."""
+    from msvit_tpu_torch.models.multistate import (
+        MultiStateViTEncoderModel, calibrate_multistate_act_scales, quantize_multistate_params)
+    from msvit_tpu_torch.models.subsample import SubsampleViTModel
+    from msvit_tpu_torch.utils.rng import Rng
+
+    def params(m):
+        return {k: v.detach() for k, v in m.named_parameters()}
+
+    out = {}
+    cfg = multistate_config()
+    m224 = MultiStateViTEncoderModel(cfg, generator=torch.Generator().manual_seed(0),
+                                     device=dev).eval()
+    qparams = quantize_multistate_params(m224)
+    calib = _from_u8(_u8_requests(scene_pixels(1)).to(dev))
+    out["ms224q"] = {"w": qparams,
+                     "s": calibrate_multistate_act_scales(qparams, cfg, calib, Rng(0))}
+    out["ms224"] = params(m224)
+    out["ms448"] = params(MultiStateViTEncoderModel(
+        ms448_config(), generator=torch.Generator().manual_seed(0), device=dev).eval())
+    out["ss448"] = params(SubsampleViTModel(
+        subsample_config(image_size=448, max_depth=3),
+        generator=torch.Generator().manual_seed(0), device=dev).eval())
+    return out
+
+
+def _family_inputs() -> dict:
+    """Each artifact's requests at `EXPORT_BATCHES`: the first b images of a
+    seeded scene (seed 2 at 224, 5 at 448 as `ms448_phase`, 7 for the
+    subsample forward), on the host: uint8, f32 for the 448-px multistate
+    forwards (`family_forward`)."""
+    scenes = {"ms224": _u8_requests(scene_pixels(2)), "ms448": scene_pixels(5, size=448),
+              "ss448": _u8_requests(scene_pixels(7, size=448))}
+    return {name: {b: scenes[weights.rstrip("q")][:b].contiguous() for b in EXPORT_BATCHES}
+            for name, weights, _, _ in EXPORT_FAMILIES}
+
+
+def _check_family_out(name: str, out: list) -> None:
+    """Finite features; cluster ids in [0, num_clusters) (the multistate
+    forwards) or a finite log-probability (the subsample one)."""
+    ok = bool(torch.isfinite(out[0]).all())
+    if name == "ss448":
+        ok = ok and bool(torch.isfinite(out[2]).all()) and bool(out[1].any(-1).all())
+    else:
+        ok = ok and 0 <= int(out[2].min()) and int(out[2].max()) < int(out[1])
+    if not ok:
+        raise AssertionError(f"the live {name} forward's outputs are malformed")
+
+
+def _meta(artifact: bytes) -> dict:
+    import io
+    import zipfile
+
+    with zipfile.ZipFile(io.BytesIO(artifact)) as z:
+        return json.loads(z.read("meta.json"))
+
+
+def _start(script: str, args: list, tmp: str, tag: str, stdin=False):
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    err = open(os.path.join(tmp, f"{tag}.stderr"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", script, tmp, *args], cwd=ROOT, env=env,
+                            stdin=subprocess.PIPE if stdin else subprocess.DEVNULL,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    return proc
+
+
+def _line(proc, prefix: str, tmp: str, tag: str) -> dict:
+    """The JSON after `prefix` on the next line of the child that starts with
+    it; the child's stderr in the exception if it ends first."""
+    for line in proc.stdout:
+        if line.startswith(prefix + " "):
+            return json.loads(line[len(prefix) + 1:])
+    proc.wait()
+    with open(os.path.join(tmp, f"{tag}.stderr")) as fh:
+        raise AssertionError(f"{tag} exited ({proc.returncode}) without {prefix}:\n"
+                             f"{fh.read()[-4000:]}")
+
+
+def export_families_phase(dev, smi: str) -> dict:
+    """Export -> reload -> serve of the clustered families on the card, each
+    forward taking uint8 requests (the 448-px ones f32 pixels) and exported
+    with a symbolic batch (`EXPORT_FAMILIES`): the 224-px multistate
+    encoder at `bench.py`'s config in bf16 (K5), int8 (K4) and int8 with
+    `attn_mode="int8"` (K9); the 448-px one (`ms448_config`) dense (K7) and
+    banded (K10); the subsample forward at 448 px, depth 3 (K7 under its
+    key-only mask).  (a) One child process per artifact exports it, all at
+    once (seconds, bytes, graph nodes); meanwhile this process runs the
+    live forwards at batches 1, 2 and 8.  (b) One child per artifact,
+    without the model code, reloads it and runs those batches: every
+    element equal to the live model's, and its K launched once a layer but
+    the last (the subsample forward: once a layer of each of its 4 passes)
+    and no other.  (c) In turns, with no other child busy: 5 lone requests
+    through the live model and through the artifact (host clock: the
+    upload, the forward and the copy back); the bf16 and int8 224-px
+    artifacts also served by a
+    `BatchingServer` (buckets 1-8: 16 lone requests, each equal to a
+    direct call of the artifact, then 4 bursts of 8; valid responses).
+    Returns the children's launches of each K."""
+    from msvit_tpu_torch.export import load_forward  # noqa: F401  (the op registrations)
+
+    t_phase = time.perf_counter()
+    names = [f[0] for f in EXPORT_FAMILIES]
+    weights = _family_weights(dev)
+    inputs = _family_inputs()
+    fns = {name: family_forward(name, dev) for name in names}
+    procs = []
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_families_") as tmp:
+        try:
+            for key, w in weights.items():
+                torch.save(w, os.path.join(tmp, f"{key}.params.pt"))
+            for name in names:
+                torch.save(inputs[name], os.path.join(tmp, f"{name}.inputs.pt"))
+            t0 = time.perf_counter()
+            exporters = {name: _start(_EXPORT_CHILD, [name, w, str(dev)], tmp, f"export_{name}")
+                         for name, w, _, _ in EXPORT_FAMILIES}
+            procs += exporters.values()
+            # the live forwards, while the children trace
+            live = {}
+            with torch.inference_mode():
+                for name, w, _, _ in EXPORT_FAMILIES:
+                    live[name] = {b: [o.cpu() for o in fns[name](weights[w], x.to(dev))]
+                                  for b, x in inputs[name].items()}
+            for name, w, _, _ in EXPORT_FAMILIES:
+                res[name] = {"export": _line(exporters[name], "EXPORTED", tmp, f"export_{name}")}
+                exporters[name].wait(timeout=60)
+                with open(os.path.join(tmp, f"{name}.msvx"), "rb") as fh:
+                    res[name]["nodes"] = _meta(fh.read())["graph_nodes"][dev.type]
+            t_export = time.perf_counter() - t0
+            log(f"[families] exported with a symbolic batch, one child process each, all at "
+                f"once ({t_export:.1f} s wall): " + "; ".join(
+                    f"{n} {res[n]['export']['bytes']} bytes in {res[n]['export']['seconds']!r} "
+                    f"s, {res[n]['nodes']} graph nodes" for n in names) + f" ({smi})")
+
+            t0 = time.perf_counter()
+            loaders = {name: _start(_FAMILY_CHILD, [name, w, str(dev),
+                                                    "1" if name in EXPORT_SERVED else "0",
+                                                    str(EXPORT_LONE_RUNS)],
+                                    tmp, f"reload_{name}", stdin=True)
+                       for name, w, _, _ in EXPORT_FAMILIES}
+            procs += loaders.values()
+            for name in names:
+                res[name]["reload"] = _line(loaders[name], "READY", tmp, f"reload_{name}")
+            t_reload = time.perf_counter() - t0
+            for name, w, k, per in EXPORT_FAMILIES:
+                _check_family_out(name, live[name][8])
+                outs = torch.load(os.path.join(tmp, f"{name}.outputs.pt"))
+                equal = {b: all(torch.equal(a, c) for a, c in zip(outs[b], live[name][b]))
+                         for b in EXPORT_BATCHES}
+                got = res[name]["reload"]["launches"]
+                want = {kk: (per * len(EXPORT_BATCHES) if kk == k else 0) for kk in got}
+                res[name]["equal"] = equal
+                # num_clusters, or the subsample forward's valid slots
+                split = int(live[name][8][1].sum())
+                log(f"[families] {name}: reloaded without msvit_tpu_torch.models, batches "
+                    f"{list(EXPORT_BATCHES)} equal to the live model on every element {equal}; "
+                    f"the child's launches {got} (want {want}); its load and first calls "
+                    f"{res[name]['reload']['first_calls_s']!r} s; live num_clusters / valid "
+                    f"slots at batch 8: {split} ({smi})")
+                if not all(equal.values()):
+                    raise AssertionError(f"the reloaded {name} artifact differs from the live model")
+                if got != want:
+                    raise AssertionError(f"the reloaded {name} artifact launched {got}, want {want}")
+            log(f"[families] reload children, all at once: {t_reload:.1f} s wall")
+
+            # (c) in turns: live, then the artifact, lone requests; serving
+            x1 = {name: inputs[name][1].to(dev) for name in names}
+            for name, w, _, _ in EXPORT_FAMILIES:
+                def lone(name=name, w=w):
+                    with torch.inference_mode():
+                        return [o.cpu() for o in fns[name](weights[w], x1[name])]
+                for _ in range(2):
+                    lone()
+                ms = []
+                for _ in range(EXPORT_LONE_RUNS):
+                    t0 = time.perf_counter()
+                    lone()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                loaders[name].stdin.write("go\n")
+                loaders[name].stdin.flush()
+                done = _line(loaders[name], "DONE", tmp, f"reload_{name}")
+                loaders[name].wait(timeout=120)
+                res[name].update(lone_live_ms=ms, lone_artifact_ms=done["lone_ms"])
+                log(f"[families] {name}: a lone request (bs1, upload + forward + copy back, "
+                    f"host clock, {EXPORT_LONE_RUNS} runs after 2) live {ms!r} ms, through "
+                    f"the artifact {done['lone_ms']!r} ms: median +"
+                    f"{statistics.median(done['lone_ms']) - statistics.median(ms)!r} ms "
+                    f"({res[name]['nodes']} nodes run one by one) ({smi})")
+                if "served" in done:
+                    sv = done["served"]
+                    res[name]["served"] = sv
+                    st = sv["stats"]
+                    log(f"[families] {name} served by a BatchingServer from the artifact "
+                        f"({st['requests']} uint8 requests: 16 lone, 4 bursts of 8): "
+                        f"{st['requests'] / sv['wall_s']!r} img/s sustained, lone "
+                        f"{sv['lone_img_s']!r} img/s; latency p50/p95/p99 {st['p50_ms']!r} / "
+                        f"{st['p95_ms']!r} / {st['p99_ms']!r} ms, mean batch "
+                        f"{st['mean_batch']!r}; launches while serving {sv['launches']}; lone "
+                        f"responses equal to direct calls {sv['lone_equal']}, every response "
+                        f"valid {sv['valid']} ({smi})")
+                    if (st["requests"] != 48 or not sv["lone_equal"] or not sv["valid"]
+                            or not any(sv["launches"].values())):
+                        raise AssertionError(f"the served {name} artifact failed its checks")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                for pipe in (p.stdin, p.stdout):
+                    if pipe is not None:
+                        pipe.close()
+    torch.cuda.empty_cache()
+    launches = {}
+    for name, _, k, _ in EXPORT_FAMILIES:
+        launches[k] = launches.get(k, 0) + res[name]["reload"]["launches"][k]
+        if "served" in res[name]:
+            launches[k] += res[name]["served"]["launches"][k]
+    log(f"[families] phase 35 in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    print("families " + json.dumps({n: {k: v for k, v in r.items() if k != "reload"}
+                                    for n, r in res.items()}), flush=True)
+    return launches
+
+
 def _summary(r: dict) -> dict:
     """A timed call's numbers for the kernels line (the kernel alone and the
     share of elements bit-equal to plain too, where its phase took them)."""
@@ -4623,6 +5044,10 @@ def main() -> None:
     # the parallel layer's launches: K1 (sequence-sharded trunk, GPipe),
     # K1-lse / K2 (the sharded steps), K7-lse on the K7 row and K6 (ring)
     for k, n in parallel_phase(dev, smi)[0].items():
+        launches[k] += n
+    torch.cuda.empty_cache()
+    # the reloaded artifacts of the clustered families: K4, K5, K7, K9, K10
+    for k, n in export_families_phase(dev, smi).items():
         launches[k] += n
     src = "msvit_tpu_torch/csrc/"
     # K4, K5, K5-lse, K6, K7 and K10 at the other shapes their phases timed

@@ -5,7 +5,10 @@ resize, normalize, grayscale to 3 channels, and the host-to-device feed.
   float32, normalized: the native C++ preprocessor (`msvit_tpu_torch.native`),
   or numpy where it cannot be built.
 * `preprocess_on_device`: device path for already-decoded uint8 tensors:
-  resize, rescale and normalize on the device the tensor lies on.
+  resize, rescale and normalize on the device the tensor lies on.  The
+  resize is `jax.image.resize`'s (`resize_like_jax`): every method it
+  takes, one weight matrix per axis (its kernels, antialiased when the
+  axis shrinks), in plain torch.
 * `decode_jpeg_images` / `decode_jpeg_images_u8`: encoded JPEG bytes to
   [B, S, S, 3] float32 (normalized) or uint8 (resized only) through the
   native libjpeg decoder, which scales in the DCT domain when the source
@@ -37,7 +40,6 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,20 +107,87 @@ def preprocess_images(
     return out
 
 
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(1.0 - x.abs(), 0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel with a = -0.5 (`F.interpolate`'s
+    bicubic takes -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def _lanczos(radius: float):
+    def kernel(x: torch.Tensor) -> torch.Tensor:
+        y = radius * torch.sin(np.pi * x) * torch.sin(np.pi * x / radius)
+        out = torch.where(x > 1e-3, y / torch.where(x != 0, np.pi**2 * x**2, 1.0), 1.0)
+        return torch.where(x > radius, 0.0, out)
+    return kernel
+
+
+_RESIZE_KERNELS = {
+    **dict.fromkeys(("linear", "bilinear", "trilinear", "triangle"), _triangle),
+    **dict.fromkeys(("cubic", "bicubic", "tricubic"), _keys_cubic),
+    "lanczos3": _lanczos(3.0),
+    "lanczos5": _lanczos(5.0),
+}
+
+
+def resize_weights(m: int, n: int, method: str, device=None) -> torch.Tensor:
+    """[m, n] f32: the weights that take an axis of m samples to n, as
+    `jax.image.resize` computes them (`compute_weight_mat`, antialias on):
+    output j samples input position (j + 0.5) m / n - 0.5 through the
+    method's kernel, widened by m / n when the axis shrinks; each column
+    normalized to sum 1; a sample outside the input weighs nothing."""
+    if method not in _RESIZE_KERNELS:
+        raise ValueError(f"Unknown resize method {method!r}")
+    inv_scale = 1.0 / (n / m)
+    kernel_scale = float(np.float32(max(inv_scale, 1.0)))
+    sample = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    src = torch.arange(m, dtype=torch.float32, device=device)
+    w = _RESIZE_KERNELS[method]((sample[None, :] - src[:, None]).abs() / kernel_scale)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_like_jax(x: torch.Tensor, size: Tuple[int, int], method: str) -> torch.Tensor:
+    """`jax.image.resize(x, (B, H', W', C), method)` of an f32 [B, H, W, C]
+    tensor: "nearest" picks input floor((j + 0.5) m / n) along each axis;
+    every other method contracts each axis whose size changes with its
+    `resize_weights` (H first, then W; JAX contracts both in one einsum, so
+    sums can round apart)."""
+    for axis, n in ((1, size[0]), (2, size[1])):
+        m = x.shape[axis]
+        if m == n:
+            continue
+        if method == "nearest":
+            idx = ((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) * m
+                   / n).floor().long()
+            x = x.index_select(axis, idx)
+        elif axis == 1:
+            x = torch.einsum("bhwc,hy->bywc", x, resize_weights(m, n, method, x.device))
+        else:
+            x = torch.einsum("bhwc,wy->bhyc", x, resize_weights(m, n, method, x.device))
+    return x
+
+
 def preprocess_on_device(
     images_u8: torch.Tensor,  # [B, H, W, 3] uint8
     config: ImagePipelineConfig = ImagePipelineConfig(),
 ) -> torch.Tensor:
     """Device path: resize + rescale + normalize where the tensor lies.
-    The resize is half-pixel bilinear, antialiased when it shrinks (as
-    `jax.image.resize`)."""
+    The resize is `jax.image.resize` with `config.method` (`resize_like_jax`:
+    "nearest", "linear"/"bilinear", "cubic"/"bicubic", "lanczos3",
+    "lanczos5"), antialiased when it shrinks."""
     s = config.image_size
     x = images_u8.float()
     if x.shape[1] != s or x.shape[2] != s:
-        if config.method != "bilinear":
-            raise NotImplementedError(f"resize method {config.method!r}")
-        x = F.interpolate(x.permute(0, 3, 1, 2), size=(s, s), mode="bilinear",
-                          align_corners=False, antialias=True).permute(0, 2, 3, 1)
+        x = resize_like_jax(x, (s, s), config.method)
     mean = torch.tensor(config.mean, device=x.device)
     std = torch.tensor(config.std, device=x.device)
     return (x / 255.0 - mean) / std

@@ -5,13 +5,22 @@ never importing `msvit_tpu_torch.models`.
 
 * Built on `torch.export`: the artifact holds the traced graph of
   ``fn(params, *args)`` (ATen ops and the port's registered kernel ops,
-  `torch.ops.msvit.packed_attention` (K1) and
-  `torch.ops.msvit.packed_attention_int8` (K3)), serialized with
-  `torch.export.save`.  Reloading needs the op registrations, which
-  `load_forward` imports (`msvit_tpu_torch.ops.packed_attention`); the
-  reloaded graph calls the same kernels as the live model.
-* The trace runs under `torch.no_grad()`, so `packed_attention` takes its
-  inference branch (K1, the shaved softmax), not the autograd Function.
+  `torch.ops.msvit.*`: K1 `packed_attention`, K3 `packed_attention_int8`,
+  K9 `packed_attention_int8_masked`, K5 `fused_attention`, K4
+  `fused_attention_inference`, K7 `flash_attention`, K10 `token_rows`),
+  serialized with `torch.export.save`.  Reloading needs the op
+  registrations, which this module imports (`msvit_tpu_torch.ops`' four
+  attention modules, none of the models); the reloaded graph calls the
+  same kernels as the live model.
+* The trace runs under `torch.no_grad()`, so each attention wrapper takes
+  its inference branch (K1, K5, K7, K10), not its autograd Function.
+* Clustering draws (`utils/rng.py`) are counter-based hashes of a seed
+  that the forward closes over: the seed is fixed at export (as a JAX
+  forward that closes over its key) and the graph draws at the traced
+  size, B x N tokens under a symbolic batch.  Per-image clustering
+  (`pool_batch=False`) loops over the batch in Python and exports at a
+  fixed batch only: under `polymorphic_batch=True` it raises a
+  `ValueError`.
 * Params ride outside the artifact (the default: `params` is any pytree of
   tensors, dicts and NamedTuples such as the int8 `QuantizedTensor`, passed
   at every call and checked against the exported key paths) or inside it
@@ -26,8 +35,10 @@ never importing `msvit_tpu_torch.models`.
   A trace bakes device-side constants (a normalization's mean and std, the
   int8 GEMM's row padding) for its device, hence one program per device.
 
-An artifact is a zip: ``meta.json`` (platforms, param key paths, bundling)
-and one ``program_<platform>.pt2`` per platform.  No CUDA graph is taken.
+An artifact is a zip: ``meta.json`` (platforms, param key paths, bundling,
+each program's count of op nodes, ``graph_nodes``: a reloaded graph runs
+them one by one in Python) and one ``program_<platform>.pt2`` per
+platform.  No CUDA graph is taken.
 """
 
 from __future__ import annotations
@@ -43,28 +54,47 @@ from torch.export import Dim
 from torch.utils import _pytree as pytree
 from torch.utils.flop_counter import FlopCounterMode, flop_registry, register_flop_formula
 
-from msvit_tpu_torch.ops import packed_attention  # noqa: F401  (registers torch.ops.msvit)
+# registers torch.ops.msvit.*
+from msvit_tpu_torch.ops import banded_attention, flash_attention  # noqa: F401
+from msvit_tpu_torch.ops import fused_attention, packed_attention  # noqa: F401
 
 FORMAT = 1
 
 
 def _register_flop_formulas() -> None:
     """FLOPs of the registered kernel ops and of `torch._int_mm` (which the
-    counter lacks), so that an int8 forward is counted in full: 2 M K N per
-    GEMM, 4 B N^2 D per attention (QK^T and PV)."""
+    counter lacks), so that an int8 or a clustered forward is counted in
+    full: 2 M K N per GEMM, 4 B H Nq Nk dh per attention (QK^T and PV); K10
+    counts the query-key pairs of its partition (each token's own cluster
+    and its RX key), the work the data needs."""
     def attention(qkv_shape, *args, out_shape=None, **kwargs) -> int:
         b, n, d3 = qkv_shape
         return 4 * b * n * n * (d3 // 3)
+
+    def attention_heads(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+        b, h, nq, dh = q_shape
+        return 4 * b * h * nq * k_shape[2] * dh
+
+    def token_rows(qkv, cid, num_heads, max_clusters, *args, out_val=None, **kwargs) -> int:
+        sizes = torch.nn.functional.one_hot(cid.long(), max_clusters).sum(1).double()
+        pairs = (sizes * sizes).sum() + cid.numel()
+        return int(4 * (qkv.shape[-1] // 3) * pairs.item())
 
     def int_mm(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
         m, k = a_shape
         return 2 * m * k * b_shape[1]
 
-    for op, formula in ((torch.ops.msvit.packed_attention, attention),
-                        (torch.ops.msvit.packed_attention_int8, attention),
-                        (torch.ops.aten._int_mm, int_mm)):
+    ops = torch.ops.msvit
+    for op, formula, raw in ((ops.packed_attention, attention, False),
+                             (ops.packed_attention_int8, attention, False),
+                             (ops.packed_attention_int8_masked, attention, False),
+                             (ops.fused_attention, attention_heads, False),
+                             (ops.fused_attention_inference, attention_heads, False),
+                             (ops.flash_attention, attention_heads, False),
+                             (ops.token_rows, token_rows, True),
+                             (torch.ops.aten._int_mm, int_mm, False)):
         if op not in flop_registry:
-            register_flop_formula(op)(formula)
+            register_flop_formula(op, get_raw=raw)(formula)
 
 
 _register_flop_formulas()
@@ -160,17 +190,21 @@ def export_forward(
     kinds = list(platforms) if platforms else [_device_type(args)]
     batch = Dim("b", min=1) if polymorphic_batch else None
     _, paths, _ = _flatten(params)
+    programs, nodes = {}, {}
+    for kind in kinds:
+        dev = torch.device(kind)
+        ep = _export(fn, _to(params, dev), _to(args, dev), bundle_params, batch)
+        nodes[kind] = sum(1 for n in ep.graph.nodes if n.op == "call_function")
+        buf = io.BytesIO()
+        torch.export.save(ep, buf)
+        programs[kind] = buf.getvalue()
     meta = {"format": FORMAT, "platforms": kinds, "bundle_params": bool(bundle_params),
-            "param_paths": [] if bundle_params else paths}
+            "param_paths": [] if bundle_params else paths, "graph_nodes": nodes}
     out = io.BytesIO()
     with zipfile.ZipFile(out, "w", zipfile.ZIP_STORED) as z:
         z.writestr("meta.json", json.dumps(meta))
-        for kind in kinds:
-            dev = torch.device(kind)
-            ep = _export(fn, _to(params, dev), _to(args, dev), bundle_params, batch)
-            buf = io.BytesIO()
-            torch.export.save(ep, buf)
-            z.writestr(f"program_{kind}.pt2", buf.getvalue())
+        for kind, program in programs.items():
+            z.writestr(f"program_{kind}.pt2", program)
     return out.getvalue()
 
 

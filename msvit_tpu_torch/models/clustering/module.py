@@ -109,6 +109,22 @@ def _ncut_matmul_dtype(config: ClusteringConfig) -> str:
     return "float32" if config.eig_method == "eigh" else "bfloat16"
 
 
+def child_counts(has: torch.Tensor, k_raw: torch.Tensor,
+                 c_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Children per parent slot and the slots taken before each: k_raw
+    (the eigenvalues above the threshold) clamped to >= 1 and to the slots
+    still free, in parent order; empty parent slots (`has` false) get 0.
+    JAX's `lax.scan` over the parents in closed form: a parent's share is
+    taken against the prefix sum of the wishes before it, which is the
+    scan's running sum up to the first parent that overflows the slots;
+    every parent after that gets the floor of 1 in both.  Returns
+    (n_children [C], exclusive prefix sums [C])."""
+    wish = torch.where(has, k_raw.clamp_min(1), 0)
+    n_children = torch.where(
+        has, torch.minimum(wish, c_max - (wish.cumsum(0) - wish)).clamp_min(1), 0)
+    return n_children, n_children.cumsum(0) - n_children
+
+
 def _spectral_single(
     config: SpectralClusteringConfig,
     flat_parent: torch.Tensor,  # [M] int
@@ -146,19 +162,7 @@ def _spectral_single(
         vecs, vals = ncut(flat_x, key=k_ncut, mask=member, **common)
     # [Cb, M, e], [Cb, e]
 
-    # children = #(eigenvalues above threshold), clamped to >= 1 and to the
-    # slots still free, in parent order (JAX's `lax.scan`: a loop over
-    # device scalars); empty parent slots get 0 children
-    k_raw = (vals > config.eigenvalue_threshold).sum(-1)
-    cum = torch.zeros((), dtype=torch.long, device=dev)
-    n_children, cums = [], []
-    for p in range(c_bound):
-        k_p = torch.where(has[p], torch.minimum(
-            k_raw[p].clamp_min(1), (c_max - cum).clamp_min(1)), 0)
-        cums.append(cum)
-        n_children.append(k_p)
-        cum = cum + k_p
-    n_children, cums = torch.stack(n_children), torch.stack(cums)
+    n_children, cums = child_counts(has, (vals > config.eigenvalue_threshold).sum(-1), c_max)
 
     # KMeans on the top-k_p eigenvectors: inactive columns zeroed,
     # inactive centers masked
@@ -170,6 +174,18 @@ def _spectral_single(
     result = torch.where(member, cums[:, None] + labels, 0).sum(0)
     n_children = torch.nn.functional.pad(n_children, (0, c_max - c_bound))
     return result.clamp(0, c_max - 1), n_children
+
+
+def _per_image_batch(b) -> int:
+    """The batch size of a per-image (`pool_batch=False`) call, which loops
+    over the images in Python: a symbolic one (an export with a symbolic
+    batch) raises."""
+    if isinstance(b, torch.SymInt):
+        raise ValueError(
+            "per-image clustering (pool_batch=False) loops over the batch in Python and "
+            "exports at a fixed batch only: export with polymorphic_batch=False, or "
+            "cluster with pool_batch=True")
+    return b
 
 
 def spectral_cluster(
@@ -189,7 +205,7 @@ def spectral_cluster(
             max_parents=max_parents)
         return result.reshape(b, n), n_children
     outs = [_spectral_single(config, pi, xi, ki, max_parents=max_parents)
-            for pi, xi, ki in zip(parent_indices, x, key.split(b))]
+            for pi, xi, ki in zip(parent_indices, x, key.split(_per_image_batch(b)))]
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
@@ -213,8 +229,9 @@ def _per_image(fn, config, parent_indices, x, key):
     """Per-image mode of a variant written against pooled flat tokens: the
     pooled function on each image alone, image i on `key.split(B)[i]`."""
     pooled = dataclasses.replace(config, pool_batch=True)
+    b = _per_image_batch(parent_indices.shape[0])
     outs = [fn(pooled, pi[None], xi[None], ki)
-            for pi, xi, ki in zip(parent_indices, x, key.split(parent_indices.shape[0]))]
+            for pi, xi, ki in zip(parent_indices, x, key.split(b))]
     return torch.cat([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 

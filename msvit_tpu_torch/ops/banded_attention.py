@@ -30,7 +30,11 @@ instead of e^{-100} (at most e^{-80} after the clip).
 
 The wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches the kernel or raises: there is no fallback.  It
-counts its launches (`token_rows.launches`).
+counts its launches (`token_rows.launches`).  K10's forward is the
+registered op `torch.ops.msvit.token_rows` (as K1's, in
+`ops/packed_attention.py`): an exported banded forward keeps it as one
+node, and the band table, which reads the ids' layout, is built inside the
+op on each call, never in the traced graph.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from msvit_tpu_torch.ops import _build
-from msvit_tpu_torch.ops.packed_attention import _DTYPE_CODES, _acc, _dims
+from msvit_tpu_torch.ops.packed_attention import (
+    _DTYPE_CODES, _acc, _dims, _off_kernel_devices, _traced)
 
 _CLIP = 80.0
 BAND_ROWS = 64  # query rows per block of the band table (the kernel's block)
@@ -105,9 +110,11 @@ def token_rows_plain(qkv: torch.Tensor, cid: torch.Tensor, num_heads: int,
     return o.transpose(1, 2).reshape(b, n, -1).to(qkv.dtype)
 
 
-def _token_rows_forward(qkv, cid, num_heads, max_clusters):
+def _token_rows_forward(qkv: torch.Tensor, cid: torch.Tensor, num_heads: int,
+                        max_clusters: int) -> torch.Tensor:
     """K10 for a CUDA tensor (counted on `token_rows.launches`), the plain
-    version for a CPU one."""
+    version for a CPU one: the body of the registered op
+    `torch.ops.msvit.token_rows`."""
     b, s, d, dh = _dims(qkv, num_heads)
     pfx = 2 * max_clusters
     n = s - pfx
@@ -143,6 +150,16 @@ def _token_rows_forward(qkv, cid, num_heads, max_clusters):
     return out
 
 
+_token_rows_op = torch.library.custom_op(
+    "msvit::token_rows", _token_rows_forward, mutates_args=())
+
+
+@_token_rows_op.register_fake
+def _(qkv, cid, num_heads, max_clusters):
+    b, s, d3 = qkv.shape
+    return qkv.new_empty((b, s - 2 * max_clusters, d3 // 3))
+
+
 def token_rows(qkv: torch.Tensor, cid: torch.Tensor, num_heads: int,
                max_clusters: int) -> torch.Tensor:
     """The token rows' attention output [B, N, D] (K10).  qkv [B, 2C + N,
@@ -150,10 +167,14 @@ def token_rows(qkv: torch.Tensor, cid: torch.Tensor, num_heads: int,
     tokens]; cid [B, N] sorted ascending per image, values in [0, C).
 
     Under autograd (grad enabled and qkv requiring grad) this is
-    `TokenRowsFunction`; otherwise K10 (the plain version on the CPU)."""
+    `TokenRowsFunction`; otherwise K10 (the plain version on the CPU;
+    through the registered op `torch.ops.msvit.token_rows` when traced)."""
     if torch.is_grad_enabled() and qkv.requires_grad:
         return TokenRowsFunction.apply(qkv, cid, num_heads, max_clusters)
-    return _token_rows_forward(qkv, cid, num_heads, max_clusters)
+    if not _traced(qkv):
+        return _token_rows_forward(qkv, cid, num_heads, max_clusters)
+    _off_kernel_devices(qkv, "token_rows")
+    return torch.ops.msvit.token_rows(qkv, cid, num_heads, max_clusters)
 
 
 token_rows.launches = 0

@@ -27,6 +27,10 @@ additive masks ``[B|1, 1|H, 1|Nq, Nk]``, q/k/v read through their strides).
 The wrappers take the plain version for a tensor on the CPU, and for a
 tensor on the card launch the kernel or raise: there is no fallback.  Each
 counts its launches (`.launches`; K6 one per call of both its kernels).
+K7 (the no-grad branch of `flash_attention`) is the registered op
+`torch.ops.msvit.flash_attention`, as K4 and K5 are
+(`ops/fused_attention.py`), so that an exported 448-px or subsample
+forward keeps it as one node.
 
 K7's plain version is K5's: the two TPU kernels compute one function (the
 exact max-subtracted softmax, p rounded to the compute dtype into P.V, l
@@ -56,7 +60,8 @@ from msvit_tpu_torch.ops import _build
 from msvit_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
 from msvit_tpu_torch.ops.fused_attention import (
     FusedAttentionFunction, _dims, _kernel_operands, _mask_args, _requires_grad,
-    _run, _strides, fused_attention_lse_plain, fused_attention_plain)
+    _run, _strides, attention_fake, call_op, fused_attention_lse_plain,
+    fused_attention_plain)
 from msvit_tpu_torch.ops.packed_attention import _DTYPE_CODES, _acc, _ptr, _scores
 
 
@@ -69,6 +74,21 @@ from msvit_tpu_torch.ops.packed_attention import _DTYPE_CODES, _acc, _ptr, _scor
 # lse = m + log l, 0 where l == 0) and differ in their tiling only.
 flash_attention_lse_plain = fused_attention_lse_plain
 flash_attention_plain = fused_attention_plain
+
+
+def _flash_k7(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor], scale: float,
+              mask_value: float) -> torch.Tensor:
+    """K7, the body of the registered op `torch.ops.msvit.flash_attention`:
+    the plain version on the CPU, the kernel on the card (or an
+    exception)."""
+    return _run(flash_attention, "msvit_flash_attention", flash_attention_plain,
+                q, k, v, mask, scale, mask_value)
+
+
+_flash_attention_op = torch.library.custom_op(
+    "msvit::flash_attention", _flash_k7, mutates_args=())
+_flash_attention_op.register_fake(attention_fake)
 
 
 def flash_attention(
@@ -85,14 +105,16 @@ def flash_attention(
     dtype.
 
     Under autograd (grad enabled and q, k or v requiring grad) this is
-    `FlashAttentionFunction`: K7-lse forward, K6 backward.  Otherwise K7."""
+    `FlashAttentionFunction`: K7-lse forward, K6 backward.  Otherwise K7
+    (through the registered op `torch.ops.msvit.flash_attention` when
+    traced)."""
     if scale is None:
         scale = 1.0 / q.shape[-1] ** 0.5
     if _requires_grad(q, k, v):
         return FlashAttentionFunction.apply(q, k, v, mask, float(scale),
                                             float(mask_value))
-    return _run(flash_attention, "msvit_flash_attention", flash_attention_plain,
-                q, k, v, mask, scale, mask_value)
+    return call_op(_flash_k7, torch.ops.msvit.flash_attention, "flash_attention",
+                   q, k, v, mask, scale, mask_value)
 
 
 flash_attention.launches = 0

@@ -17,6 +17,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from msvit_tpu_torch.utils.rng import uniform_rows
+
 
 def _fps_chains(x: torch.Tensor, k: int, keys: Optional[Sequence],
                 member: torch.Tensor) -> torch.Tensor:
@@ -27,7 +29,7 @@ def _fps_chains(x: torch.Tensor, k: int, keys: Optional[Sequence],
     x = x.float()
     dev = x.device
     if keys is not None:
-        u = torch.stack([key.uniform((m,), 1e-9, 1.0, dev) for key in keys])
+        u = uniform_rows(keys, (m,), 1e-9, 1.0, dev)
         first = torch.where(member, -torch.log(-torch.log(u)), -torch.inf).argmax(-1)
     else:
         first = member.to(torch.uint8).argmax(-1)  # the first member

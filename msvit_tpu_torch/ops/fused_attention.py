@@ -41,6 +41,18 @@ Each wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches its kernel or raises: there is no fallback.
 Each counts its kernel launches (`.launches`).
 
+K5 (the no-grad branch of `fused_attention`) and K4 are registered ops,
+`torch.ops.msvit.fused_attention` and `torch.ops.msvit.fused_attention_inference`
+(`torch.library.custom_op`; the fake implementation gives the output's
+shape, dtype and strides: the kernel's ``[B, Nq, H, dh]`` buffer seen as
+``[B, H, Nq, dh]`` on the card, the plain version's contiguous tensor on
+the CPU), so that `torch.export` keeps each call as one node and a
+reloaded program calls the same kernel (`export.py`), as K1 and K3 do
+(`ops/packed_attention.py`).  The op's body holds every host read of a
+launch (strides, pointers, the mask's layout: a key-only mask stays one
+row read at pitch 0); a plain call runs the body directly, a traced one
+(`_traced`) the op.
+
 Fully masked rows: the port gives mean(V) over the Nk keys.  The TPU
 kernels give sum(V) / (ceil(Nk / 128) * 128): the keys they pad up to a
 multiple of 128 enter the softmax's denominator (K5 with p = exp(0), K4
@@ -57,7 +69,8 @@ import torch
 
 from msvit_tpu_torch.ops import _build
 from msvit_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
-from msvit_tpu_torch.ops.packed_attention import _DTYPE_CODES, _acc, _ptr, _scores
+from msvit_tpu_torch.ops.packed_attention import (
+    _DTYPE_CODES, _acc, _off_kernel_devices, _ptr, _scores, _traced)
 
 
 def _dims(q, k, v):
@@ -234,6 +247,52 @@ def _requires_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+def attention_fake(q, k, v, mask, scale, mask_value):
+    """The fake implementation of the [B, H, N, dh] attention ops: the
+    kernels' output, a [B, Nq, H, dh] buffer seen as [B, H, Nq, dh], on the
+    card; the plain version's contiguous tensor on the CPU."""
+    b, h, nq, dh = q.shape
+    if q.device.type == "cpu":
+        return q.new_empty((b, h, nq, dh))
+    return q.new_empty((b, nq, h, dh)).transpose(1, 2)
+
+
+def call_op(body, op, name: str, q, k, v, mask, scale: float, mask_value: float):
+    """A wrapper's no-grad call: the op's body directly (no dispatcher
+    cost), or under a trace or a dispatch mode the registered op."""
+    if not _traced(q):
+        return body(q, k, v, mask, float(scale), float(mask_value))
+    _off_kernel_devices(q, name)
+    return op(q, k, v, mask, float(scale), float(mask_value))
+
+
+def _fused_k5(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor], scale: float,
+              mask_value: float) -> torch.Tensor:
+    """K5, the body of the registered op `torch.ops.msvit.fused_attention`:
+    the plain version on the CPU, the kernel on the card (or an
+    exception)."""
+    return _run(fused_attention, "msvit_fused_attention", fused_attention_plain,
+                q, k, v, mask, scale, mask_value)
+
+
+def _fused_k4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor], scale: float,
+              mask_value: float) -> torch.Tensor:
+    """K4, the body of the registered op
+    `torch.ops.msvit.fused_attention_inference`."""
+    return _run(fused_attention_inference, "msvit_fused_attention_inference",
+                fused_attention_inference_plain, q, k, v, mask, scale, mask_value)
+
+
+_fused_attention_op = torch.library.custom_op(
+    "msvit::fused_attention", _fused_k5, mutates_args=())
+_fused_attention_op.register_fake(attention_fake)
+_fused_attention_inference_op = torch.library.custom_op(
+    "msvit::fused_attention_inference", _fused_k4, mutates_args=())
+_fused_attention_inference_op.register_fake(attention_fake)
+
+
 def fused_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -247,14 +306,16 @@ def fused_attention(
     to 1/sqrt(dh).  Returns [B, H, Nq, dh] in q's dtype.
 
     Under autograd (grad enabled and q, k or v requiring grad) this is
-    `FusedAttentionFunction`: K5-lse forward, K6 backward.  Otherwise K5."""
+    `FusedAttentionFunction`: K5-lse forward, K6 backward.  Otherwise K5
+    (through the registered op `torch.ops.msvit.fused_attention` when
+    traced)."""
     if scale is None:
         scale = 1.0 / q.shape[-1] ** 0.5
     if _requires_grad(q, k, v):
         return FusedAttentionFunction.apply(q, k, v, mask, float(scale),
                                             float(mask_value))
-    return _run(fused_attention, "msvit_fused_attention", fused_attention_plain,
-                q, k, v, mask, scale, mask_value)
+    return call_op(_fused_k5, torch.ops.msvit.fused_attention, "fused_attention",
+                   q, k, v, mask, scale, mask_value)
 
 
 fused_attention.launches = 0
@@ -288,14 +349,17 @@ def fused_attention_inference(
     scale: Optional[float] = None,
     mask_value: float = DEFAULT_MASK_VALUE,
 ) -> torch.Tensor:
-    """Serving-only attention with the shaved softmax (K4); arguments as
-    `fused_attention`.  Not differentiable (the TPU function has no VJP):
-    under autograd on the card it raises."""
+    """Serving-only attention with the shaved softmax (K4; through the
+    registered op `torch.ops.msvit.fused_attention_inference` when traced);
+    arguments as `fused_attention`.  Not differentiable (the TPU function
+    has no VJP): under autograd on the card it raises."""
     if q.device.type != "cpu" and _requires_grad(q, k, v):
         raise NotImplementedError("fused_attention_inference is serving-only "
                                   "(no gradient); training takes fused_attention")
-    return _run(fused_attention_inference, "msvit_fused_attention_inference",
-                fused_attention_inference_plain, q, k, v, mask, scale, mask_value)
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    return call_op(_fused_k4, torch.ops.msvit.fused_attention_inference,
+                   "fused_attention_inference", q, k, v, mask, scale, mask_value)
 
 
 fused_attention_inference.launches = 0

@@ -18,12 +18,19 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from msvit_tpu_torch.utils.rng import uniform_rows
+
 
 def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest entries along the last dim, the lower index
     first among equal values (`jax.lax.top_k`'s order; `torch.topk` does
-    not promise one): a stable descending sort, sliced."""
-    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
+    not promise one): a stable descending sort, its first k columns
+    gathered.  (A slice would be a view whose contiguity depends on
+    whether k equals the row length: a branch on the batch when k is
+    `sym_min(num_sample, B * N)` in an export with a symbolic batch.)"""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    cols = torch.arange(k, device=scores.device).expand(*scores.shape[:-1], k)
+    return torch.gather(order, -1, cols)
 
 
 def gumbel_top_k(keys: Sequence, member: torch.Tensor, k: int) -> torch.Tensor:
@@ -32,7 +39,7 @@ def gumbel_top_k(keys: Sequence, member: torch.Tensor, k: int) -> torch.Tensor:
     `keys[c]` as `uniform((n,), 1e-9, 1)`.  Non-members score -inf, so a
     row with fewer than k members takes non-members by index order."""
     n = member.shape[-1]
-    u = torch.stack([key.uniform((n,), 1e-9, 1.0, member.device) for key in keys])
+    u = uniform_rows(keys, (n,), 1e-9, 1.0, member.device)
     g = -torch.log(-torch.log(u))
     return top_k_indices(torch.where(member, g, -torch.inf), k)
 

@@ -34,6 +34,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from msvit_tpu_torch.ops.kmeans import gumbel_top_k, top_k_indices
+from msvit_tpu_torch.utils.rng import normal_rows
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor, dtype: str) -> torch.Tensor:
@@ -79,9 +80,9 @@ def _topk_eig_subspace(
     with CholeskyQR2 re-orthonormalization, then Rayleigh-Ritz on the
     [2k, 2k] projection.  Returns ([C, m, k], [C, k] descending)."""
     m = m_norm.shape[-1]
-    k2 = min(2 * k, m)
+    k2 = torch.sym_min(2 * k, m)
     dev = m_norm.device
-    q = torch.stack([key.normal((m, k2), dev) for key in keys])
+    q = normal_rows(keys, (m, k2), dev)
     jitter = 1e-7 * torch.eye(k2, device=dev)
 
     def ortho(y):
@@ -163,7 +164,9 @@ def ncut(
     keys = list(key) if batched else [key]
     n = x.shape[0]
     x = x.float()
-    m = min(num_sample, n)
+    # under an export with a symbolic batch n is B * N: `min` would branch
+    # on B (816 tokens an image against 1024 samples flips at B = 2)
+    m = torch.sym_min(num_sample, n)
     c = len(keys)
     if mask is None:
         member = torch.ones((c, n), dtype=torch.bool, device=x.device)
@@ -203,8 +206,8 @@ def ncut_shared(
     c, n = member.shape
     x = x.float()
     dev = x.device
-    m = min(num_sample, n)
-    mc = min(anchors_per_parent, m)
+    m = torch.sym_min(num_sample, n)
+    mc = torch.sym_min(anchors_per_parent, m)
     member = member.bool()
     any_member = member.any(0)
 

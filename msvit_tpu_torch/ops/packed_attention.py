@@ -44,8 +44,9 @@ Each wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches its kernel or raises: there is no fallback.
 Each counts its kernel launches in a plain int attribute (`.launches`).
 
-K1 (the inference branch of `packed_attention`) and K3 are registered ops,
-`torch.ops.msvit.packed_attention` and `torch.ops.msvit.packed_attention_int8`
+K1 (the inference branch of `packed_attention`), K3 and K9 are registered
+ops, `torch.ops.msvit.packed_attention`, `torch.ops.msvit.packed_attention_int8`
+and `torch.ops.msvit.packed_attention_int8_masked`
 (`torch.library.custom_op`, each with a fake implementation that gives the
 output's shape and dtype), so that `torch.export` keeps each as one node of
 the graph and a reloaded program calls the same kernel (`export.py`).  The
@@ -652,32 +653,25 @@ def packed_attention_int8_masked_plain(
     return merge_heads(o)
 
 
-def packed_attention_int8_masked(
+def _packed_attention_k9(
     qkv_q: torch.Tensor,
-    section_scales,
+    section_scales: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    out_inv_scale: Optional[torch.Tensor],
     num_heads: int,
-    mask: Optional[torch.Tensor] = None,
-    out_inv_scale=None,
-    scale: Optional[float] = None,
-    int8_out: bool = False,
-    mask_value: float = DEFAULT_MASK_VALUE,
+    scale: float,
+    int8_out: bool,
+    mask_value: float,
 ) -> torch.Tensor:
-    """Fully-int8 packed self-attention with a mask, for serving (K9).
-
-    qkv_q: [B, N, 3*D] int8 (per-section quantized GEMM output).
-    section_scales: [3] f32 dequant scales of q | k | v.
-    mask: optional [B|1, 1|H, N, N], bool (True = attend) or additive (read
-    as bf16, as on the TPU).
-    out_inv_scale: scalar f32, the inverse output scale for ``int8_out``.
-    Returns [B, N, D] bf16, or int8 when ``int8_out``.  No VJP."""
-    b, n, d, dh = _dims(qkv_q, num_heads)
-    _check_mask_rank(mask)
-    if scale is None:
-        scale = 1.0 / dh**0.5
+    """K9, the body of the registered op
+    `torch.ops.msvit.packed_attention_int8_masked`: the plain version on the
+    CPU, the kernel on the card (or an exception); the scales gathered on
+    the device inside the op, as K3's."""
     if qkv_q.device.type == "cpu":
         return packed_attention_int8_masked_plain(
             qkv_q, section_scales, num_heads, mask, out_inv_scale, scale, int8_out,
             mask_value)
+    b, n, d, dh = _dims(qkv_q, num_heads)
     name = "packed_attention_int8_masked"
     _check_cuda(qkv_q, name, dh, dtypes=(torch.int8,))
     kind, m, sb, sh = _mask_args(mask, qkv_q, num_heads, name, additive=torch.bfloat16)
@@ -696,6 +690,51 @@ def packed_attention_int8_masked(
     _build.check(lib, code, name)
     packed_attention_int8_masked.launches += 1
     return out
+
+
+_packed_attention_int8_masked_op = torch.library.custom_op(
+    "msvit::packed_attention_int8_masked", _packed_attention_k9, mutates_args=())
+
+
+@_packed_attention_int8_masked_op.register_fake
+def _(qkv_q, section_scales, mask, out_inv_scale, num_heads, scale, int8_out, mask_value):
+    b, n, d3 = qkv_q.shape
+    return qkv_q.new_empty((b, n, d3 // 3),
+                           dtype=torch.int8 if int8_out else torch.bfloat16)
+
+
+def packed_attention_int8_masked(
+    qkv_q: torch.Tensor,
+    section_scales,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    out_inv_scale=None,
+    scale: Optional[float] = None,
+    int8_out: bool = False,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> torch.Tensor:
+    """Fully-int8 packed self-attention with a mask, for serving (K9;
+    through the registered op `torch.ops.msvit.packed_attention_int8_masked`
+    when traced).
+
+    qkv_q: [B, N, 3*D] int8 (per-section quantized GEMM output).
+    section_scales: [3] f32 dequant scales of q | k | v.
+    mask: optional [B|1, 1|H, N, N], bool (True = attend) or additive (read
+    as bf16, as on the TPU).
+    out_inv_scale: scalar f32, the inverse output scale for ``int8_out``.
+    Returns [B, N, D] bf16, or int8 when ``int8_out``.  No VJP."""
+    _, _, _, dh = _dims(qkv_q, num_heads)
+    _check_mask_rank(mask)
+    if scale is None:
+        scale = 1.0 / dh**0.5
+    if not _traced(qkv_q):
+        return _packed_attention_k9(qkv_q, section_scales, mask, out_inv_scale, num_heads,
+                                    float(scale), bool(int8_out), float(mask_value))
+    _off_kernel_devices(qkv_q, "packed_attention_int8_masked")
+    return torch.ops.msvit.packed_attention_int8_masked(
+        qkv_q, _scale_tensor(section_scales, qkv_q.device), mask,
+        _scale_tensor(out_inv_scale, qkv_q.device), num_heads, float(scale),
+        bool(int8_out), float(mask_value))
 
 
 packed_attention_int8_masked.launches = 0

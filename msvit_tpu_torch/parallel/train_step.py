@@ -22,8 +22,10 @@ Three modes:
   block and on the model, over the mesh's "data" axis (it gathers a
   block's weights before its forward and backward and reduce-scatters its
   gradients); gradients and moments inherit the sharding, so ``zero1`` is
-  subsumed.  The fused AdamW runs on the `DTensor` parameters; a bf16 first
-  moment (``mu_dtype``), whose update the port writes by hand, raises.
+  subsumed.  The fused AdamW runs on the `DTensor` parameters; with a bf16
+  first moment (``mu_dtype``) the port's own update runs on each rank's
+  local shards (`train/loop.py::local_tensor`), its moments the shards'
+  size.
 
 Under tensor parallelism the gradients that each "model" rank holds in part
 (`ParallelInfo.partial_grads`) are summed over "model" first.  A gradient
@@ -43,7 +45,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from msvit_tpu_torch.parallel.collectives import ModelParallel, _all_gather
 from msvit_tpu_torch.parallel.sharding import (
     ParallelInfo, all_reduce_flat, parallelize, sum_partial_grads)
-from msvit_tpu_torch.train.loop import LossFn, Optimizer, OptState
+from msvit_tpu_torch.train.loop import LossFn, Optimizer, OptState, local_tensor
 
 
 def zero1_axis(shape, data_size: int, exclude: Optional[int] = None) -> Optional[int]:
@@ -58,10 +60,6 @@ def zero1_axis(shape, data_size: int, exclude: Optional[int] = None) -> Optional
             if best is None or n > shape[best]:
                 best = i
     return best
-
-
-def _local(t: torch.Tensor) -> torch.Tensor:
-    return t.to_local() if hasattr(t, "to_local") else t
 
 
 class Zero1State:
@@ -157,10 +155,6 @@ def make_sharded_train_step(
     data_group, dp = mesh.get_group("data"), mesh["data"].size()
     model_group = mesh.get_group("model")
     if fsdp:
-        if optimizer.mu_dtype is not None:
-            raise NotImplementedError(
-                "fsdp with mu_dtype: the bf16-mu AdamW update is written in plain "
-                "tensor ops that do not take DTensor parameters; use the fused AdamW")
         from torch.distributed.fsdp import fully_shard
 
         from msvit_tpu_torch.models.base.model import BaseViTLayer
@@ -184,7 +178,7 @@ def make_sharded_train_step(
         if zero1:
             grads = opt_state.reduce_grads()
         else:
-            grads = [(_local(p.grad), fsdp, n in tp_names) for n, p in named
+            grads = [(local_tensor(p.grad), fsdp, n in tp_names) for n, p in named
                      if p.grad is not None]
             if not fsdp:  # fully_shard averages over "data" itself
                 all_reduce_flat([g for g, _, _ in grads], data_group, 1.0 / dp)

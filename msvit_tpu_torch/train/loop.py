@@ -15,7 +15,9 @@ JAX package's train step): both moments updated in f32 (b1 rounded to the
 stored mu's dtype, as optax's Python float is where it meets a bf16 array:
 0.8984375 for bf16), the bias-corrected update from that f32 mu, and only
 then mu rounded to `mu_dtype` for storage; nu stays in the parameter's
-dtype.
+dtype.  That update runs on each parameter's local tensor (`local_tensor`):
+under FSDP the parameters and gradients are `DTensor` shards, and each
+rank updates its own shard, with moments of the shard's size.
 
 Non-finite steps (`apply_if_finite`, optax semantics): a step whose
 gradients hold a NaN or an Inf leaves the params, both moments and the
@@ -100,6 +102,12 @@ def apply_if_finite(optimizer: Optimizer, max_nonfinite: int) -> Optimizer:
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A `DTensor`'s local shard (under no_grad, the tensor that holds its
+    data), any other tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 class OptState:
     """An `Optimizer`'s state for one model: a fused `torch.optim.AdamW`
     over the trainable parameters (with `mu_dtype`, the moments `mu` and
@@ -130,8 +138,9 @@ class OptState:
                 fused=True,
             )
         else:
-            self.mu = [torch.zeros_like(p, dtype=spec.mu_dtype) for p in self.params]
-            self.nu = [torch.zeros_like(p) for p in self.params]
+            local = [local_tensor(p.detach()) for p in self.params]
+            self.mu = [torch.zeros_like(p, dtype=spec.mu_dtype) for p in local]
+            self.nu = [torch.zeros_like(p) for p in local]
         dev = named[0][1].device
         # applied steps, the schedule's argument (optax's inner count)
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -169,12 +178,13 @@ class OptState:
         parameters, in optax's order (`scale_by_adam`,
         `add_decayed_weights`, `scale_by_learning_rate`, `apply_updates`).
         A skipped step (`skip` true) leaves parameters and moments as they
-        were."""
+        were.  Each parameter, gradient and moment is a local tensor (a
+        shard under FSDP)."""
         held = [i for i, p in enumerate(self.params) if p.grad is not None]
-        params = [self.params[i] for i in held]
+        params = [local_tensor(self.params[i]) for i in held]
         mu_old = [self.mu[i] for i in held]
         nu_old = [self.nu[i] for i in held]
-        g = [p.grad.float() for p in params]
+        g = [local_tensor(self.params[i].grad).float() for i in held]
         mu = torch._foreach_mul(g, 1 - _B1)
         # optax's b1 * mu: the Python float meets a bf16 array, so b1 is
         # taken in mu's dtype (bf16(0.9) = 0.8984375); under jit the product

@@ -71,6 +71,46 @@ def test_rng_streams_are_deterministic_and_distinct():
     assert abs(float(z.mean())) < 0.1 and abs(float(z.std()) - 1.0) < 0.1
 
 
+def test_rng_rows_equal_row_by_row_draws():
+    """`uniform_rows` / `normal_rows` draw every key's row in one pass: equal
+    to each key's own draw, and an element's draw does not depend on the
+    draw's size (the first rows of a larger batch draw what a smaller one
+    draws)."""
+    from msvit_tpu_torch.utils.rng import normal_rows, uniform_rows
+
+    keys = Rng(3).split(5)
+    u = uniform_rows(keys, (4, 6), 1e-9, 1.0, "cpu")
+    z = normal_rows(keys, (7,), "cpu")
+    for i, k in enumerate(keys):
+        assert torch.equal(u[i], k.uniform((4, 6), 1e-9, 1.0, "cpu"))
+        assert torch.equal(z[i], k.normal((7,), "cpu"))
+    assert torch.equal(keys[0].uniform((2, 6), 0.0, 1.0, "cpu"),
+                       keys[0].uniform((5, 6), 0.0, 1.0, "cpu")[:2])
+
+
+def test_child_counts_equal_the_scan():
+    """The closed form of the children per parent (`child_counts`) against
+    the scan it replaces (JAX's `lax.scan`: each parent's wish clamped to
+    >= 1 and to the slots still free, in order), on random parents."""
+    from msvit_tpu_torch.models.clustering.module import child_counts
+
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2000):
+        c_bound = int(torch.randint(1, 17, (), generator=gen))
+        c_max = int(torch.randint(1, 17, (), generator=gen))
+        has = torch.rand(c_bound, generator=gen) < 0.7
+        k_raw = torch.randint(0, 9, (c_bound,), generator=gen)
+        cum, want, want_cums = torch.zeros((), dtype=torch.long), [], []
+        for p in range(c_bound):
+            k = torch.where(has[p], torch.minimum(k_raw[p].clamp_min(1),
+                                                  (c_max - cum).clamp_min(1)), 0)
+            want_cums.append(cum)
+            want.append(k)
+            cum = cum + k
+        got, cums = child_counts(has, k_raw, c_max)
+        assert torch.equal(got, torch.stack(want)) and torch.equal(cums, torch.stack(want_cums))
+
+
 def test_jax_rng_adapter_draws_jax_numbers():
     key = jax.random.PRNGKey(3)
     got = JaxRng(key).split(3)[2].uniform((5,), 1e-9, 1.0, "cpu")

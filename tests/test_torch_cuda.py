@@ -1768,3 +1768,54 @@ def test_nccl_world_size_one_step(dev, tmp_path):
                 assert (t - w).abs().max().item() <= 1e-6, (mode, key)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------- the registered ops (K4-K10)
+
+
+def _op_cases(dev):
+    """(op, args) of K5, K4 and K7 (a soft, a key-only and a bool mask; bf16
+    and f32), K9 (soft mask; bf16 and int8 out) and K10 (bf16, f32) on CUDA
+    tensors at odd shapes."""
+    g = torch.Generator().manual_seed(81)
+    b, h, nq, nk, dh = 2, 3, 37, 70, 64
+    q, k, v = (torch.randn(b, h, n, dh, generator=g) for n in (nq, nk, nk))
+    masks = [torch.where(torch.rand(b, 1, nq, nk, generator=g) < 0.7, 0.0, -100.0),
+             torch.where(torch.rand(b, 1, 1, nk, generator=g) < 0.7, 0.0, -1e30),
+             torch.rand(b, h, nq, nk, generator=g) < 0.7]
+    cases = []
+    for name in ("fused_attention", "fused_attention_inference", "flash_attention"):
+        for m in masks:
+            for dt in (torch.bfloat16, torch.float32):
+                cases.append((getattr(torch.ops.msvit, name).default,
+                              (q.to(dt).to(dev), k.to(dt).to(dev), v.to(dt).to(dev),
+                               m.to(dev), dh**-0.5, -1e9)))
+    qkv_q = torch.randint(-127, 128, (b, 41, 3 * h * dh), generator=g).to(torch.int8).to(dev)
+    sec = torch.tensor([0.01, 0.02, 0.03], device=dev)
+    soft = torch.where(torch.rand(b, 1, 41, 41, generator=g) < 0.7, 0.0, -100.0).to(dev)
+    for inv in (None, torch.tensor(40.0, device=dev)):
+        cases.append((torch.ops.msvit.packed_attention_int8_masked.default,
+                      (qkv_q, sec, soft, inv, h, dh**-0.5, inv is not None, -1e9)))
+    c, n = 4, 75
+    cid = torch.sort(torch.randint(0, c, (b, n), generator=g), dim=1).values.to(dev)
+    qkv = torch.randn(b, 2 * c + n, 3 * h * dh, generator=g) * 0.5
+    for dt in (torch.bfloat16, torch.float32):
+        cases.append((torch.ops.msvit.token_rows.default, (qkv.to(dt).to(dev), cid, h, c)))
+    return cases
+
+
+def test_registered_ops_pass_opcheck_on_the_card(dev):
+    """`torch.library.opcheck` of K4, K5, K7, K9 and K10 on CUDA tensors
+    (schema, the fake against the kernel, dispatch under a trace), and each
+    fake's shape, dtype and strides against the kernel's output: K4, K5
+    and K7 write a [B, Nq, H, dh] buffer seen as [B, H, Nq, dh]."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    for op, args in _op_cases(dev):
+        torch.library.opcheck(op, args)
+        real = op(*args)
+        with FakeTensorMode() as mode:
+            fake = op(*[mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                        for a in args])
+        assert (fake.shape, fake.dtype, fake.stride()) == (real.shape, real.dtype,
+                                                           real.stride()), op

@@ -113,12 +113,12 @@ def _jax_grads_and_adamw(steps=1):
             {k: v.numpy() for k, v in conv(_np_tree(p)).items()})
 
 
-def _port_unsharded(steps=1, clip=None):
+def _port_unsharded(steps=1, clip=None, mu_dtype=None):
     """The unsharded port: gradients of the first step, params after `steps`."""
     c = _classifier()
     model = TClassifier(TCfg(policy=t_parity(), **TINY), 10)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in c["state"].items()})
-    opt = Optimizer(learning_rate=LR, weight_decay=1e-4, clip_norm=clip)
+    opt = Optimizer(learning_rate=LR, weight_decay=1e-4, clip_norm=clip, mu_dtype=mu_dtype)
     step = train_step_fn(lambda m, b, g: (F.cross_entropy(m(b[0]), b[1]), {}), opt)
     state = opt.init(model)
     batch = (torch.from_numpy(c["pix"]), torch.from_numpy(c["labels"]).long())
@@ -235,6 +235,26 @@ def test_fsdp_train_step_matches_and_shards_params(pool):
         _adamw_close(a["params1"], b["params1"])
     _, _, jparams = _jax_grads_and_adamw()
     _adamw_close(fsdp[0]["params1"], jparams)
+
+
+def test_fsdp_train_step_with_a_bf16_mu(pool):
+    """FSDP over 4 data ranks with a bf16 first moment (`mu_dtype`, the
+    port's own AdamW update on each rank's local shards): mu is bf16 and
+    sharded (a quarter of the data-parallel step's moments), the gradients
+    equal the data-parallel bf16-mu step's (1e-5), and the first step is
+    within the AdamW bar of it and of the unsharded bf16-mu step's."""
+    c = _classifier()
+    kw = dict(cfg=TINY, state=c["state"], pixels=c["pix"], labels=c["labels"], tp=1, lr=LR,
+              mu_dtype="bfloat16")
+    dp = run(pool, "train", **kw)
+    fsdp = run(pool, "train", fsdp=True, **kw)
+    _, port = _port_unsharded(mu_dtype=torch.bfloat16)
+    for a, b in zip(fsdp, dp):
+        assert a["mu_dtype"] == b["mu_dtype"] == "torch.bfloat16"
+        assert a["qkv_dtensor"] and a["moments"] <= 0.3 * b["moments"]
+        assert _max_dev(a["grads"], b["grads"]) <= 1e-5
+        _adamw_close(a["params1"], b["params1"])
+        _adamw_close(a["params1"], port)
 
 
 def test_tp_forward_matches_replicated(pool):

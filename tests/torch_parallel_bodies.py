@@ -105,15 +105,17 @@ def forward(rank, world, cfg, state, pixels, tp, mask=None, num_labels=10, train
 
 
 def train(rank, world, cfg, state, pixels, labels, tp, steps=2, lr=1e-2, zero1=False,
-          fsdp=False, clip=None):
-    """`steps` AdamW steps of the sharded step; each rank feeds its data
-    index's part of the batch.  Returns the losses, the gradients after the
-    first step and the parameters after the last (whole), and the elements
-    of AdamW's moments this rank keeps, and the parameters after the first
-    step."""
+          fsdp=False, clip=None, mu_dtype=None):
+    """`steps` AdamW steps of the sharded step (a bf16 first moment with
+    `mu_dtype="bfloat16"`); each rank feeds its data index's part of the
+    batch.  Returns the losses, the gradients after the first step and the
+    parameters after the last (whole), and the elements of AdamW's moments
+    this rank keeps (and the first moment's dtype), and the parameters
+    after the first step."""
     mesh = make_mesh(tp=tp, device_type="cpu")
     model = _classifier(cfg, state)
-    opt = Optimizer(learning_rate=lr, weight_decay=1e-4, clip_norm=clip)
+    opt = Optimizer(learning_rate=lr, weight_decay=1e-4, clip_norm=clip,
+                    mu_dtype=None if mu_dtype is None else getattr(torch, mu_dtype))
 
     def loss_fn(m, batch, gen):
         return F.cross_entropy(m(batch[0]), batch[1]), {}
@@ -132,10 +134,16 @@ def train(rank, world, cfg, state, pixels, labels, tp, steps=2, lr=1e-2, zero1=F
             params1 = {k: _np(v) for k, v in full_state_dict(model).items()}
             grads = {k: _np(v) for k, v in full_state_dict(model, grads=True).items()}
     inner = getattr(opt_state, "inner", opt_state)
-    moments = sum(_local(v).numel() for st in inner.adamw.state.values()
-                  for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
+    if inner.adamw is None:  # the port's own update: local moments
+        moments = sum(m.numel() for m in (*inner.mu, *inner.nu))
+        mu = str(inner.mu[0].dtype)
+    else:
+        moments = sum(_local(v).numel() for st in inner.adamw.state.values()
+                      for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
+        mu = str(_local(next(iter(inner.adamw.state.values()))["exp_avg"]).dtype)
     qkv = dict(model.named_parameters())["vit.encoder.layer.0.attention.qkv.weight"]
     return {"losses": losses, "grads": grads, "moments": moments, "params1": params1,
+            "mu_dtype": mu,
             "params": {k: _np(v) for k, v in full_state_dict(model).items()},
             "qkv_local": int(_local(qkv).numel()), "qkv_dtensor": hasattr(qkv, "to_local")}
 
