@@ -9,7 +9,8 @@ fails (non-zero exit, no result line) if any phase fails:
    card's name and power limit as nvidia-smi reports them;
 2. build: compiles the hand-written kernels from `msvit_tpu_torch/csrc`
    (one nvcc per source, in parallel) and prints ptxas's registers and
-   spills for the training (the bf16 pair on the tensor cores), the fused,
+   spills for the training (the bf16 pair on the tensor cores: the wgmma
+   kernels at head size 64, the mma.sync ones at every bucket), the fused,
    flash, banded and int8 kernels;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (max abs error against a stated tolerance), then
@@ -18,7 +19,9 @@ fails (non-zero exit, no result line) if any phase fails:
    `torch.profiler`, with its share bit-equal to plain, its rate, its
    blocks per SM and K1 beside it as the bf16 yardstick), K1-lse and K2
    (training; masked, f32, large-logit in f32 and bf16 and dh-128 cases
-   too; their achieved TFLOP/s and share of the bound);
+   too; their achieved TFLOP/s and share of the bound; the launches' routes,
+   wgmma at dh 64 and mma.sync at dh 128, the blocks per SM of both routes'
+   kernels and their ptxas lines);
 4. serving: ViT-B/16 @224 with seeded random weights, int8-quantized and
    calibrated, served by `BatchingServer` (int8 buckets > 2, bf16 buckets
    of 1 and 2, uint8 requests, CLS features out); checks every response,
@@ -204,7 +207,7 @@ that call (`scaled_dot_product_attention` or its backward; the port never
 calls it).  The second-to-last line is a JSON object with each kernel's
 launches in its path's run (serving for K1 and K3, with the reloaded
 artifacts' launches of phase 32, training for K1-lse and
-K2, the clustered multistate forwards for K4 and K5, multistate training
+K2 (split by route: every one on wgmma), the clustered multistate forwards for K4 and K5, multistate training
 for K5-lse and K6, the clustered 448-px bf16 forward and the deep subsample
 forwards for K7, the 224-px int8-attention forward for K9, the 448-px banded forward for K10, the
 ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows; the extras
@@ -774,12 +777,43 @@ def _lse_bwd_case(tag: str, gen, label: str, x, mask=None, heads: int = 12) -> t
     return e_o, e_d, (x, gr, wo, wl)
 
 
+def train_occupancy() -> str:
+    """Blocks per SM of K1-lse's and K2's bf16 kernels at head size 64, the
+    wgmma route against the mma.sync kernels of the dh-64 bucket that it
+    replaced there (the runtime's occupancy calculator)."""
+    import ctypes
+
+    from msvit_tpu_torch.ops import _build
+
+    lib = _build.library()
+
+    def blocks(fn, *args):
+        out = ctypes.c_int(0)
+        _build.check(lib, fn(*args, ctypes.byref(out)), fn.__name__)
+        return out.value
+
+    parts = []
+    for wgmma, route in ((1, "wgmma"), (0, "mma.sync")):
+        parts.append(f"{route}: K1-lse {blocks(lib.msvit_packed_attention_lse_occupancy, wgmma, 64)}"
+                     f", K2 dQ {blocks(lib.msvit_packed_attention_bwd_occupancy, wgmma, 0, 64)}"
+                     f", K2 dK/dV {blocks(lib.msvit_packed_attention_bwd_occupancy, wgmma, 1, 64)}")
+    return ("blocks per SM at dh 64 (" + "; ".join(parts) + "; the wgmma blocks are 384 "
+            "threads of 128 rows, the mma.sync ones 128 threads of 64)")
+
+
+def _ptxas_train() -> str:
+    """ptxas's registers and spills of K1-lse's and K2's bf16 kernels at dh 64."""
+    return "; ".join(line for line in ptxas_lines()
+                     if ("K1-lse" in line or "K2" in line) and "dh64" in line)
+
+
 def train_kernel_phase(dev, smi: str) -> dict:
     """K1-lse and K2 against their plain versions, then timed."""
     from msvit_tpu_torch.ops.packed_attention import (
         packed_attention_bwd, packed_attention_bwd_plain, packed_attention_lse,
-        packed_attention_lse_plain, unpack_qkv)
+        packed_attention_lse_plain, train_route_counts, unpack_qkv)
 
+    _reset_training_counts()
     g = torch.Generator().manual_seed(2)
 
     def case(label, x, mask=None):
@@ -831,6 +865,8 @@ def train_kernel_phase(dev, smi: str) -> dict:
     log(f"[train-kernels] K2 bf16 [64,197,2304]: kernel {b_ms!r} ms, plain "
         f"{b_plain!r} ms, library (its backward) {b_lib!r} ms, bound {b_bound}; "
         f"{rate(b_ops, b_ms, b_bound)} (median of 20, CUDA events; {smi})")
+    log(f"[train-kernels] routes of the cases above {train_route_counts()}; "
+        f"{train_occupancy()}; ptxas: {_ptxas_train()}")
     return {"K1-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **f_bound),
             "K2": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_bound)}
 
@@ -844,11 +880,27 @@ def _training_counts():
 
 
 def _reset_training_counts():
-    from msvit_tpu_torch.ops.packed_attention import (
-        packed_attention_bwd, packed_attention_lse)
+    from msvit_tpu_torch.ops.packed_attention import reset_train_counts
 
-    packed_attention_lse.launches = 0
-    packed_attention_bwd.launches = 0
+    reset_train_counts()
+
+
+# K1-lse's and K2's main-path launches by route ("wgmma", "mma.sync",
+# "cuda_cores"), by the row of the kernels line they count in (K1-lse, K2,
+# and K8a-lse, K8b for the pretrain run), read with the launches
+ROUTES: dict = {}
+
+
+def _note_routes(rows: dict) -> None:
+    """Add the route counts since the last reset to ROUTES: `rows` maps
+    "K1-lse" and "K2" to the row they count in."""
+    from msvit_tpu_torch.ops.packed_attention import train_route_counts
+
+    counts = train_route_counts()
+    for k, row in rows.items():
+        acc = ROUTES.setdefault(row, dict.fromkeys(counts[k], 0))
+        for route, n in counts[k].items():
+            acc[route] += n
 
 
 def _batch(dev, bs: int, seed: int) -> dict:
@@ -931,6 +983,7 @@ def training_phase(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _training_counts()
+        _note_routes({"K1-lse": "K1-lse", "K2": "K2"})
         with open(os.path.join(tmp, "metrics.jsonl")) as fh:
             records = [json.loads(line) for line in fh]
         losses = [r["loss"] for r in records]
@@ -2129,8 +2182,9 @@ def grouped_kernel_phase(dev, smi: str, partition) -> dict:
     from msvit_tpu_torch.ops.packed_attention import (
         packed_attention, packed_attention_bwd, packed_attention_bwd_plain,
         packed_attention_lse, packed_attention_lse_plain, packed_attention_plain,
-        unpack_qkv)
+        train_route_counts, unpack_qkv)
 
+    _reset_training_counts()
     tag = "grouped-kernels"
     g = torch.Generator().manual_seed(13)
 
@@ -2188,6 +2242,8 @@ def grouped_kernel_phase(dev, smi: str, partition) -> dict:
     log(f"[{tag}] K2 (for K8b) bf16 {shape}: kernel {b_ms!r} ms, plain {b_plain!r} ms, "
         f"library (its backward) {b_lib!r} ms, bound {b_bound}; "
         f"{rate(b_ops, b_ms, b_bound)} (median of 20, CUDA events; {smi})")
+    log(f"[{tag}] routes of the cases above {train_route_counts()}; {train_occupancy()}; "
+        f"ptxas: {_ptxas_train()}")
     return {"K8a": dict(err=e_k1, ms=k_ms, plain_ms=k_plain, library_ms=f_lib, **k_bound),
             "K8a-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **f_bound),
             "K8b": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_bound)}
@@ -2236,6 +2292,7 @@ def pretrain_phase(dev, smi: str, out: str) -> tuple:
     summary = ps.pretrain(args, data, log_every=1)
     wall = time.perf_counter() - t0
     launches = _packed_counts()
+    _note_routes({"K1-lse": "K8a-lse", "K2": "K8b"})
     run_dir = os.path.join(out, ps.run_name(args))
     rec = _metrics(run_dir)
     losses, norms = [r["loss"] for r in rec], [r["grad_norm"] for r in rec]
@@ -3669,6 +3726,80 @@ def dispatch_ab(tag: str) -> dict:
     return res
 
 
+def train_kernel_ab(tag: str) -> dict:
+    """K1-lse and K2, and the two train steps that run them most, on the
+    package beside this file, for an A/B of two trees in one call (parent,
+    change, change, parent; each run from its root after this file is
+    copied over the parent's own):
+
+        python3 -c "import chip_smoke as c; c.train_kernel_ab('change')"
+
+    K1-lse and K2 bf16 at [64,197,2304] and [64,785,2304] (median of 20,
+    CUDA events; K2 from K1-lse's residuals and a random cotangent; then
+    the kernels alone, `device_ms`: at 197 tokens the wrapper's host time
+    can exceed the kernel's), the
+    ViT-B/8 pretrain step at bs64 (`--preset b8`, the example's loss and
+    optimizer, clip 1.0, uint8 batches resident on the device) and
+    step_time_phase's ViT-B/16 step at bs256: ms/step over 5 steps after 2
+    of warm-up (host clock, synchronized).  Prints one line, "AB " and a
+    JSON object."""
+    smi = card()
+    sys.path.insert(0, ROOT)
+    from msvit_tpu_torch.examples import pretrain_synthetic as ps
+    from msvit_tpu_torch.models.base import ViTForImageClassification
+    from msvit_tpu_torch.ops import packed_attention as pa
+    from msvit_tpu_torch.train import make_optimizer, train_step_fn
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main()
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"tag": tag, "card": smi}
+    g = torch.Generator().manual_seed(0)
+    for shape in (MAIN_SHAPE, GROUPED_SHAPE):
+        x = torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+        gr = torch.randn(*shape[:2], shape[2] // 3, generator=g).to(torch.bfloat16).to(dev)
+        with torch.no_grad():
+            o, lse = pa.packed_attention_lse(x, 12)
+            fwd = lambda: pa.packed_attention_lse(x, 12)  # noqa: E731
+            bwd = lambda: pa.packed_attention_bwd(x, None, o, lse, gr, 12)  # noqa: E731
+            res[f"K1-lse_{shape[1]}_ms"] = statistics.median(time_ms(fwd, runs=20))
+            res[f"K2_{shape[1]}_ms"] = statistics.median(time_ms(bwd, runs=20))
+            # the kernels alone (either tree's names: mma.sync or wgmma)
+            res[f"K1-lse_{shape[1]}_alone_ms"] = device_ms(fwd, r"packed_lse_w?g?mma_kernel")
+            res[f"K2_{shape[1]}_alone_ms"] = device_ms(
+                bwd, r"packed_bwd_d(?:q|kv)_w?g?mma_kernel", kernels=2)
+        del x, gr, o, lse
+
+    def step_ms(model, loss, opt, batch) -> float:
+        state = opt.init(model)
+        step = train_step_fn(loss, opt)
+        for _ in range(2):  # warm-up
+            step(model, state, batch, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(model, state, batch, None)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 5 * 1e3
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ab_") as out:
+        args = _pretrain_args(out)
+        model = ViTForImageClassification(ps.model_config(args), 5,
+                                          generator=torch.Generator().manual_seed(0), device=dev)
+        opt = make_optimizer(ps.warmup_cosine(args.lr, 1, 1000),
+                             weight_decay=args.weight_decay, clip_norm=args.clip)
+        batch = {"pixel_values": torch.randint(0, 256, (64, 224, 224, 3), generator=g,
+                                               dtype=torch.uint8).to(dev),
+                 "labels": torch.randint(0, 5, (64,), generator=g).to(dev)}
+        res["b8_pretrain_bs64_ms_per_step"] = step_ms(model, ps.loss_fn, opt, batch)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    res["vit_b16_bs256_ms_per_step"] = step_ms(_classifier(dev, 0), _ce_loss,
+                                               make_optimizer(1e-4), _batch(dev, 256, 6))
+    print("AB " + json.dumps(res), flush=True)
+    return res
+
+
 # ------------------------------------------------------------ base extras
 
 
@@ -3970,6 +4101,7 @@ def moe_route(dev, smi: str) -> dict:
         losses.append(loss.item())
         times.append((time.perf_counter() - t0) * 1e3)
     counts = _all_counts()
+    _note_routes({"K1-lse": "K1-lse", "K2": "K2"})
     peak = torch.cuda.max_memory_allocated() / 2**30
     _expect("MoE ViT-B/16 3 Trainer steps", counts, {"K1-lse": 3 * LAYERS, "K2": 3 * LAYERS})
     log(f"[extras] MoE ViT-B/16 Trainer bs64: losses {losses} (cross-entropy + 0.01 x the "
@@ -4188,6 +4320,7 @@ def _sharded_steps(dev, mesh, base, batch, lr: float, steps: int, **mode) -> dic
         torch.cuda.synchronize()
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["launches"].append(_training_counts())
+        _note_routes({"K1-lse": "K1-lse", "K2": "K2"})
         out["losses"].append(float(loss))
         if i == 0:
             out["grads"] = _flat(full_state_dict(model, grads=True))
@@ -4901,12 +5034,14 @@ def ptxas_lines() -> list:
     report."""
     from msvit_tpu_torch.ops import _build
 
-    kernels = (r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8|lse)(?:_mma)?_kernel|"
+    kernels = (r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8|lse)(?:_w?gmma|_mma)?_kernel|"
                r"packed_mma_kernel|fused_attention_kernel|flash_bwd_(?:dq|dkv)(?:_mma)?_kernel|"
                r"flash_(?:forward|mma)_kernel|banded(?:_mma)?_kernel")
     # the bf16 kernels on the tensor cores (templated on the head size only)
     tags = {"packed_mma_kernel": "K1", "packed_lse_mma_kernel": "K1-lse",
             "packed_bwd_dq_mma_kernel": "K2", "packed_bwd_dkv_mma_kernel": "K2",
+            "packed_lse_wgmma_kernel": "K1-lse", "packed_bwd_dq_wgmma_kernel": "K2",
+            "packed_bwd_dkv_wgmma_kernel": "K2",
             "flash_mma_kernel": "K7/K7-lse",
             "fused_attention_kernel": None, "flash_bwd_dq_kernel": "K6",
             "flash_bwd_dkv_kernel": "K6", "flash_forward_kernel": "K7/K7-lse",
@@ -4939,9 +5074,10 @@ def ptxas_lines() -> list:
                 tag = tags.get(kern)
             if tag:
                 kern = f"{tag} {kern}"
-            dh = re.search(r"Li(\d+)E", name).group(1)
+            # the wgmma kernels are written for head size 64 alone
+            dh = "64" if "wgmma" in kern else re.search(r"Li(\d+)E", name).group(1)
             dt = ("int8" if "int8" in kern
-                  else "bf16" if "bfloat16" in name or "_mma_" in kern else "f32")
+                  else "bf16" if "bfloat16" in name or "mma_" in kern else "f32")
             out.append(f"{kern} {dt} dh{dh}: {m.group(1)} registers, {spill}")
     return out
 
@@ -5062,31 +5198,42 @@ def main() -> None:
              "K3": [("[64,197,1920] H 10 after prune_heads", "K3@H10")]}
     packed, fused = "msvit_tpu/ops/packed_attention.py:", "msvit_tpu/ops/fused_attention.py:"
     flash = "msvit_tpu/ops/flash_attention.py:"
+    row_keys = (
+        ("K1", "packed_attention", "packed_attention.cu", packed + "118"),
+        ("K3", "packed_attention_int8", "packed_attention_int8.cu", packed + "883"),
+        ("K1-lse", "packed_attention_lse", "packed_attention_lse.cu", packed + "118"),
+        ("K2", "packed_attention_bwd", "packed_attention_bwd.cu", packed + "682"),
+        ("K4", "fused_attention_inference", "fused_attention.cu", fused + "303"),
+        ("K5", "fused_attention", "fused_attention.cu", fused + "141"),
+        ("K5-lse", "fused_attention_lse", "fused_attention.cu", fused + "141"),
+        ("K6", "flash_attention_bwd", "flash_attention_bwd.cu", flash + "367"),
+        ("K7", "flash_attention", "flash_attention.cu", flash + "242"),
+        ("K9", "packed_attention_int8_masked", "packed_attention_int8.cu", packed + "1082"),
+        ("K10", "token_rows", "banded_attention.cu",
+         "msvit_tpu/ops/banded_attention.py:282"),
+        # the TPU's head-grouped functions, computed by K1, K1-lse and K2
+        ("K8a", "packed_attention (K8a)", "packed_attention.cu", packed + "288"),
+        ("K8a-lse", "packed_attention_lse (K8a, with_lse)", "packed_attention_lse.cu",
+         packed + "288"),
+        ("K8b", "packed_attention_bwd (K8b)", "packed_attention_bwd.cu", packed + "641"),
+    )
     rows = [
         dict(name=name, route="cuda", source=src + cu, replaces=tpu,
              launches=launches[k], **_summary(kernels[k]),
              **({"other_shapes": [dict(shape=tag, **_summary(kernels[key]))
                                   for tag, key in extra[k]]} if k in extra else {}))
-        for k, name, cu, tpu in (
-            ("K1", "packed_attention", "packed_attention.cu", packed + "118"),
-            ("K3", "packed_attention_int8", "packed_attention_int8.cu", packed + "883"),
-            ("K1-lse", "packed_attention_lse", "packed_attention_lse.cu", packed + "118"),
-            ("K2", "packed_attention_bwd", "packed_attention_bwd.cu", packed + "682"),
-            ("K4", "fused_attention_inference", "fused_attention.cu", fused + "303"),
-            ("K5", "fused_attention", "fused_attention.cu", fused + "141"),
-            ("K5-lse", "fused_attention_lse", "fused_attention.cu", fused + "141"),
-            ("K6", "flash_attention_bwd", "flash_attention_bwd.cu", flash + "367"),
-            ("K7", "flash_attention", "flash_attention.cu", flash + "242"),
-            ("K9", "packed_attention_int8_masked", "packed_attention_int8.cu", packed + "1082"),
-            ("K10", "token_rows", "banded_attention.cu",
-             "msvit_tpu/ops/banded_attention.py:282"),
-            # the TPU's head-grouped functions, computed by K1, K1-lse and K2
-            ("K8a", "packed_attention (K8a)", "packed_attention.cu", packed + "288"),
-            ("K8a-lse", "packed_attention_lse (K8a, with_lse)", "packed_attention_lse.cu",
-             packed + "288"),
-            ("K8b", "packed_attention_bwd (K8b)", "packed_attention_bwd.cu", packed + "641"),
-        )
+        for k, name, cu, tpu in row_keys
     ]
+    # K1-lse's and K2's rows split their launches by route: the main path's
+    # trunks are bf16 at head size 64, so every launch took the wgmma route
+    for row in rows:
+        k = next(k for k, name, *_ in row_keys if name == row["name"])
+        if k in ("K1-lse", "K2", "K8a-lse", "K8b"):
+            row["launches_by_route"] = ROUTES.get(k, {})
+            if sum(row["launches_by_route"].values()) != row["launches"] or (
+                    row["launches_by_route"].get("wgmma") != row["launches"]):
+                raise AssertionError(f"{k}: launches {row['launches']}, by route "
+                                     f"{row['launches_by_route']}: not all on wgmma")
     log(f"[total] chip_smoke.py ran in {time.perf_counter() - started:.1f} s, the kernels' "
         f"build included ({smi})")
     print(json.dumps({"kernels": rows}))

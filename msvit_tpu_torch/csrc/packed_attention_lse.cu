@@ -19,7 +19,34 @@
 // What bounds it on the card: operations, two products of N*N*dh per head
 // (4*N*N*dh FLOP) against 4*N*dh elements of q/k/v and out.
 //
-// bf16, on the tensor cores (packed_lse_mma_kernel): the FlashAttention-2
+// bf16 at head size 64 (packed_lse_wgmma_kernel; every zoo trunk but
+// vit-h14): Hopper's warpgroup products fed by TMA, warp-specialised.  The
+// mma.sync kernel below issued small synchronous products from 4 warps
+// that each stalled on ldmatrix and issued the copies they then waited on
+// (a two-stage cp.async ring): 10-17% of the bound at 785 tokens.  Here a
+// block of 384 threads takes 128 query rows of one (head, image): two
+// consumer warpgroups of 64 rows and one producer warpgroup, of which one
+// thread issues every load.  setmaxnreg hands the producer's registers (40
+// a thread) to the consumers (232), but ptxas still fits the consumers'
+// code in the launch's 168 (K2's dK/dV kernel spilled the same at 232 and
+// at 240), so each warpgroup keeps its live registers under that.  TMA copies
+// Q once and the 64-key K and V tiles through a 4-stage ring with
+// full/empty mbarriers, from a 3-D tensor map over the packed [B, N, 3D]
+// qkv (row pitch 3D*2 bytes, box (64, 64, 1) at column h*dh, D + h*dh,
+// 2D + h*dh, 128-byte swizzle): a tile past N is zero-filled inside its
+// own image.  Per tile each consumer warpgroup runs S = Q.K^T as 4
+// wgmma.m64n64k16 from shared memory (both K-major), reads the mask (bool
+// or additive, whose rows N = 197 or 785 are not 16-byte pitches TMA could
+// take) straight into the accumulator's layout while the product runs,
+// takes the online softmax on the accumulator (2^x as one ex2.approx.ftz:
+// a p below 2^-126 is 0), rounds p to bf16 in registers and feeds it as
+// the register A operand of O += P.V (V as the transposed B from shared
+// memory): P never goes through shared memory.  S of tile t is issued
+// beside P.V of tile t - 1, so one warpgroup's products run during its own
+// softmax and the other's.  The epilogue writes out packed at column h*dh
+// and the lse; rows past N are never written.
+//
+// Other bf16 head sizes (packed_lse_mma_kernel): the FlashAttention-2
 // scheme with warp-level mma.sync m16n8k16 (bf16 operands, f32
 // accumulators).  A block of 4 warps takes 64 query rows (16 a warp) of
 // one (head, image); the q fragments are loaded once (read from shared
@@ -37,7 +64,11 @@
 // head size that is not a multiple of 16 is zero-padded in shared memory to
 // its bucket (16/32/64/128): the pad columns are zeroed once, the copies
 // never touch them.  Above 48 KB (dh 128) the tiles live in dynamic shared
-// memory.  wgmma with TMA and warp specialisation is the later step.
+// memory.
+//
+// The route is the entry point's: bf16 at dh 64 takes the wgmma kernel,
+// other bf16 head sizes the mma.sync kernel, f32 the CUDA cores; there is
+// no fallback between them (a qkv TMA cannot map is refused).
 //
 // f32 (packed_attention_lse_kernel): one thread per query row on the CUDA
 // cores in f32 FMAs (TF32 would break the f32 bars).  One pass over the kv
@@ -48,6 +79,7 @@
 // (coalesced 16-byte loads) and read by all 64 query rows as broadcasts.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace msvit {
 namespace {
@@ -326,6 +358,249 @@ cudaError_t launch_mma(const void* qkv, const void* mask, void* out,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------- wgmma route --
+
+constexpr int kWgRows = 128;  // query rows a block (two warpgroups of 64)
+constexpr int kWgStages = 4;  // K/V ring depth
+
+__host__ __device__ constexpr int lse_wgmma_smem_bytes() {
+  // Q [128][64], the K and V rings, the barriers; 1 KB of alignment slack
+  return 2 * hopper::kTileBytes + 2 * kWgStages * hopper::kTileBytes +
+         (1 + 3 * kWgStages) * 8 + 1024;
+}
+
+// The online softmax of one tile on its score accumulator: scale, mask,
+// ragged edge, the new row max (m), p = exp(s - m) in place of the
+// scores, l rescaled and summed from the unrounded p; returns in corr the
+// factors O must be rescaled by.  PLAIN: no mask and every key inside the
+// image (all tiles but the last, unmasked), so no test per score.
+template <bool PLAIN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], const float (&mv)[32],
+                                             int mask_kind, int kv0, int n, int tq,
+                                             float scale, float mask_value,
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = kv0 + j * 8 + 2 * tq + (e & 1);
+      float v = sc[4 * j + e] * scale;
+      if (PLAIN) {
+      } else if (col >= n) {
+        v = -INFINITY;
+      } else if (mask_kind == kBoolMask) {
+        v = mv[4 * j + e] != 0.f ? v : mask_value;
+      } else if (mask_kind == kAddMask) {
+        v += mv[4 * j + e];
+      }
+      sc[4 * j + e] = v;
+      mx[e >> 1] = fmaxf(mx[e >> 1], v);
+    }
+  }
+  float mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    // exp(-inf) = 0 rescales the empty start; an all -inf row keeps m at
+    // -inf and subtracts 0, never -inf - -inf
+    mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+    corr[r] = hopper::ex2((m[r] - mu[r]) * kLog2e);
+    m[r] = mx[r];
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = hopper::ex2((sc[4 * j + e] - mu[e >> 1]) * kLog2e);
+      l[e >> 1] += p;  // the unrounded p
+      sc[4 * j + e] = p;
+    }
+  }
+}
+
+// One block = (128 query rows, head, image); bf16, head size 64.  Per
+// consumer warpgroup the products of two tiles overlap the softmax: S of
+// tile t runs beside O += P.V of tile t - 1 while the thread waits for S,
+// and the softmax of tile t runs while P.V of tile t - 1 finishes; only
+// O's rescale waits for it.
+__global__ void __launch_bounds__(hopper::kThreads, 1)
+packed_lse_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                        const void* __restrict__ mask, bf16* __restrict__ out,
+                        float* __restrict__ lse, int n, int h_count,
+                        int mask_kind, long long mask_sb, long long mask_sh,
+                        float scale, float mask_value) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(smem);    // [128][64]
+  bf16* ks = qs + 2 * 64 * 64;                 // [stages][64][64]
+  bf16* vs = ks + kWgStages * 64 * 64;         // [stages][64][64]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(vs + kWgStages * 64 * 64);
+  uint64_t* kfull = qfull + 1;
+  uint64_t* vfull = kfull + kWgStages;
+  uint64_t* empty = vfull + kWgStages;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.x * kWgRows;
+  const int d = h_count * 64;
+  const int tiles = (n + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(kfull + s, 1);
+      mbar_init(vfull + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, provably uniform across each warp (the role branch below)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == 2) {  // the producer: one thread issues every copy
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qfull, 2 * kTileBytes);
+      tma_load_3d(qs, &qkv_map, qfull, h * 64, row0, b);
+      tma_load_3d(qs + 64 * 64, &qkv_map, qfull, h * 64, row0 + 64, b);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % kWgStages;
+        mbar_wait(empty + s, ((t / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(kfull + s, kTileBytes);
+        tma_load_3d(ks + s * 64 * 64, &qkv_map, kfull + s, d + h * 64, t * 64, b);
+        mbar_expect_tx(vfull + s, kTileBytes);
+        tma_load_3d(vs + s * 64 * 64, &qkv_map, vfull + s, 2 * d + h * 64, t * 64, b);
+      }
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int tq = lane % 4;
+    // this thread's two accumulator rows
+    const int i_lo = row0 + wg * 64 + warp * 16 + lane / 4;
+    const int irow[2] = {i_lo, i_lo + 8};
+    const long long moff = b * mask_sb + h * mask_sh;
+    const uint64_t dq = desc(qs + wg * 64 * 64);
+
+    float o[32], sc[32], mv[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      o[e] = 0.f;
+      sc[e] = 0.f;
+      mv[e] = 0.f;
+    }
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this lane's part of the row sums
+    float corr[2];
+    uint32_t pa[4][4];  // p of the previous tile in bf16: the A operand of 4 k-steps
+    auto softmax = [&](int kv0) {
+      if (mask_kind == kNoMask && kv0 + 64 <= n)
+        softmax_tile<true>(sc, mv, mask_kind, kv0, n, tq, scale, mask_value, m, l, corr);
+      else
+        softmax_tile<false>(sc, mv, mask_kind, kv0, n, tq, scale, mask_value, m, l, corr);
+    };
+    mbar_wait(qfull, 0);
+
+    // tile 0: S, then its softmax
+    mbar_wait(kfull, 0);
+    fence_acc(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, dq + kstep_k(kk), desc(ks) + kstep_k(kk), kk);
+    wgmma_commit();
+    if (mask_kind != kNoMask) load_mask_tile(mv, mask_kind, mask, moff, irow, 0, n, tq);
+    wgmma_wait<0>();
+    fence_acc(sc);
+    softmax(0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[kk], sc, kk);
+
+    for (int t = 1; t < tiles; ++t) {
+      const int s = t % kWgStages;
+      const int sp = (t - 1) % kWgStages;  // the previous tile's stage
+      mbar_wait(kfull + s, (t / kWgStages) & 1);
+      mbar_wait(vfull + sp, ((t - 1) / kWgStages) & 1);
+      fence_acc(sc);
+      fence_acc(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(sc, dq + kstep_k(kk), desc(ks + s * 64 * 64) + kstep_k(kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_t(o, pa[kk], desc(vs + sp * 64 * 64) + kstep_mn(kk));
+      wgmma_commit();
+      if (mask_kind != kNoMask) load_mask_tile(mv, mask_kind, mask, moff, irow, t * 64, n, tq);
+      wgmma_wait<1>();  // S of tile t
+      fence_acc(sc);
+      softmax(t * 64);
+      wgmma_wait<0>();  // P.V of tile t - 1
+      fence_acc(o);
+      if (lane == 0) mbar_arrive(empty + sp);  // this warp is done with its stage
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[kk], sc, kk);
+    }
+
+    // P.V of the last tile
+    const int sl = (tiles - 1) % kWgStages;
+    mbar_wait(vfull + sl, ((tiles - 1) / kWgStages) & 1);
+    fence_acc(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_t(o, pa[kk], desc(vs + sl * 64 * 64) + kstep_mn(kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = row_sum<4>(l[r]);
+      const int i = irow[r];
+      if (i < n) {
+        bf16* orow = out + (static_cast<long long>(b) * n + i) * d + h * 64;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * tq) =
+              pack_bf16(o[4 * j + 2 * r] / lr, o[4 * j + 2 * r + 1] / lr);
+        if (tq == 0)
+          lse[(static_cast<long long>(b) * h_count + h) * n + i] = m[r] + logf(lr);
+      }
+    }
+  }
+}
+
+std::atomic<unsigned long long> lse_wgmma_smem_set{0};
+
+cudaError_t launch_wgmma(const void* qkv, const void* mask, void* out,
+                         void* lse, int b, int n, int h, int mask_kind,
+                         long long sb, long long sh, float scale,
+                         float mask_value, cudaStream_t stream) {
+  CUtensorMap map;
+  cudaError_t err = hopper::map_rows(&map, qkv, b, n, 3LL * h * 64);
+  if (err != cudaSuccess) return err;
+  constexpr int bytes = lse_wgmma_smem_bytes();
+  err = hopper::allow_smem_once(packed_lse_wgmma_kernel, bytes, lse_wgmma_smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kWgRows - 1) / kWgRows, h, b);
+  packed_lse_wgmma_kernel<<<grid, hopper::kThreads, bytes, stream>>>(
+      map, mask, static_cast<bf16*>(out), static_cast<float*>(lse), n, h,
+      mask_kind, sb, sh, scale, mask_value);
+  return cudaGetLastError();
+}
+
 template <typename T>
 void dispatch(const void* qkv, const void* mask, void* out, void* lse, int b,
               int n, int h, int dh, int mask_kind, long long sb, long long sh,
@@ -345,6 +620,8 @@ cudaError_t dispatch_mma(const void* qkv, const void* mask, void* out,
                          void* lse, int b, int n, int h, int dh,
                          int mask_kind, long long sb, long long sh,
                          float scale, float mask_value, cudaStream_t stream) {
+  if (dh == 64)
+    return launch_wgmma(qkv, mask, out, lse, b, n, h, mask_kind, sb, sh, scale, mask_value, stream);
   if (dh <= 16)
     return launch_mma<16>(qkv, mask, out, lse, b, n, h, dh, mask_kind, sb, sh, scale, mask_value, stream);
   if (dh <= 32)
@@ -354,10 +631,46 @@ cudaError_t dispatch_mma(const void* qkv, const void* mask, void* out,
   return launch_mma<128>(qkv, mask, out, lse, b, n, h, dh, mask_kind, sb, sh, scale, mask_value, stream);
 }
 
+template <int DHT>
+cudaError_t mma_blocks_per_sm(int* blocks) {
+  const int bytes = (kMmaRows + 4 * kMmaTile) * mma_ld<DHT>() *
+                    static_cast<int>(sizeof(bf16));
+  const cudaError_t err = cudaFuncSetAttribute(
+      packed_lse_mma_kernel<DHT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, packed_lse_mma_kernel<DHT>,
+                                                       kMmaThreads, bytes);
+}
+
+cudaError_t occupancy(int wgmma, int dh, int* blocks) {
+  if (wgmma) {
+    constexpr int bytes = lse_wgmma_smem_bytes();
+    const cudaError_t err =
+        hopper::allow_smem_once(packed_lse_wgmma_kernel, bytes, lse_wgmma_smem_set);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, packed_lse_wgmma_kernel, hopper::kThreads, bytes);
+  }
+  if (dh <= 16) return mma_blocks_per_sm<16>(blocks);
+  if (dh <= 32) return mma_blocks_per_sm<32>(blocks);
+  if (dh <= 64) return mma_blocks_per_sm<64>(blocks);
+  return mma_blocks_per_sm<128>(blocks);
+}
+
 }  // namespace
 }  // namespace msvit
 
 extern "C" {
+
+// Blocks of K1-lse's bf16 kernel resident on one SM, by the runtime's
+// occupancy calculator (registers and shared memory), into *blocks:
+// wgmma = 1 the wgmma kernel (head size 64), 0 the mma.sync kernel of dh's
+// bucket.
+int msvit_packed_attention_lse_occupancy(int wgmma, int dh, int* blocks) {
+  if (dh <= 0 || dh > 128 || dh % 8 != 0 || (wgmma && dh != 64) || blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(msvit::occupancy(wgmma, dh, blocks));
+}
 
 // As msvit_packed_attention, plus `lse`: [B, H, N] f32, written.  bf16 runs
 // on the tensor cores, f32 on the CUDA cores.

@@ -18,9 +18,9 @@ never importing `msvit_tpu_torch.models`.
   that the forward closes over: the seed is fixed at export (as a JAX
   forward that closes over its key) and the graph draws at the traced
   size, B x N tokens under a symbolic batch.  Per-image clustering
-  (`pool_batch=False`) loops over the batch in Python and exports at a
-  fixed batch only: under `polymorphic_batch=True` it raises a
-  `ValueError`.
+  (`pool_batch=False`) runs over an image axis, image i's stream folded
+  from the seed and i in tensor ops, so it exports at a symbolic batch
+  too.
 * Params ride outside the artifact (the default: `params` is any pytree of
   tensors, dicts and NamedTuples such as the int8 `QuantizedTensor`, passed
   at every call and checked against the exported key paths) or inside it

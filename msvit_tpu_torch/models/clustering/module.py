@@ -21,10 +21,17 @@ that most tokens resemble become centers, each token takes its most
 similar center.  The axis-align variant (`axis_align_cluster`): the
 Gumbel-perturbed argmax over the NCut axes of the demeaned tokens.  Both
 cluster globally (parents are ignored, then each child is credited to the
-parent holding most of its tokens); per image (`pool_batch=False`) they run
-the pooled function on one image at a time, image i on `key.split(B)[i]`.
-Their outputs depend on the eigensolver's column signs (the PCA's sort
-axis, the NCut axes), which LAPACK may pick otherwise than JAX's solver.
+parent holding most of its tokens).  Their outputs depend on the
+eigensolver's column signs (the PCA's sort axis, the NCut axes), which
+LAPACK may pick otherwise than JAX's solver.
+
+Per image (`pool_batch=False`) every variant runs the pooled computation
+once over an image axis, as the JAX package's vmap does: the token sets
+are [B, N] side by side, and image i draws from its own stream
+(utils/rng.py `image_streams`: the port's `Rng` folds the image index into
+the key's words in tensor ops, so a symbolic batch exports; another stream
+object gives image i `key.split(B)[i]`, JAX's keys).  Pooled mode is the
+same code with one token set of B * N.
 """
 
 from __future__ import annotations
@@ -34,10 +41,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from msvit_tpu_torch.ops.fps import farthest_point_sampling_blocked
-from msvit_tpu_torch.ops.kmeans import kmeans, top_k_indices
+from msvit_tpu_torch.ops.fps import farthest_point_sampling_blocked_images
+from msvit_tpu_torch.ops.kmeans import gather_rows, kmeans, kmeans_images, top_k_indices
 from msvit_tpu_torch.ops.linalg import pca_lowrank
-from msvit_tpu_torch.ops.ncut import ncut, ncut_shared
+from msvit_tpu_torch.ops.ncut import ncut, ncut_images, ncut_shared_images
+from msvit_tpu_torch.utils.rng import KeyRows, image_streams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,74 +126,83 @@ def child_counts(has: torch.Tensor, k_raw: torch.Tensor,
     taken against the prefix sum of the wishes before it, which is the
     scan's running sum up to the first parent that overflows the slots;
     every parent after that gets the floor of 1 in both.  Returns
-    (n_children [C], exclusive prefix sums [C])."""
+    (n_children [..., C], exclusive prefix sums [..., C]) for [..., C]
+    inputs."""
     wish = torch.where(has, k_raw.clamp_min(1), 0)
     n_children = torch.where(
-        has, torch.minimum(wish, c_max - (wish.cumsum(0) - wish)).clamp_min(1), 0)
-    return n_children, n_children.cumsum(0) - n_children
+        has, torch.minimum(wish, c_max - (wish.cumsum(-1) - wish)).clamp_min(1), 0)
+    return n_children, n_children.cumsum(-1) - n_children
 
 
-def _spectral_single(
+def _spectral_images(
     config: SpectralClusteringConfig,
-    flat_parent: torch.Tensor,  # [M] int
-    flat_x: torch.Tensor,  # [M, D]
-    key,
+    flat_parent: torch.Tensor,  # [G, M] int
+    flat_x: torch.Tensor,  # [G, M, D]
+    keys,  # a stream row: G streams
     max_parents: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-parent NCut -> threshold -> KMeans over one token set; returns
-    (child ids [M] int64, n_children [C_max] int64).  `max_parents` is a
-    static bound on the distinct parent ids present (exact: the per-parent
-    streams are sliced from the same `2 * C_max` split)."""
+    """Per-parent NCut -> threshold -> KMeans over G token sets side by
+    side; returns (child ids [G, M] int64, n_children [G, C_max] int64).
+    `max_parents` is a static bound on the distinct parent ids present
+    (exact: the per-parent streams are sliced from the same `2 * C_max`
+    split)."""
     c_max = config.max_clusters
     c_bound = c_max if max_parents is None else max(1, min(max_parents, c_max))
     flat_x = flat_x.float()
     dev = flat_x.device
 
-    member = flat_parent[None, :] == torch.arange(c_bound, device=dev)[:, None]
-    has = member.any(1)  # [Cb]
-    keys = key.split(2 * c_max)
-    k_ncut, k_km = keys[:c_bound], keys[c_max:c_max + c_bound]
+    member = flat_parent[:, None, :] == torch.arange(c_bound, device=dev)[:, None]
+    has = member.any(-1)  # [G, Cb]
+    split = keys.split(2 * c_max)
+    k_ncut, k_km = split[:c_bound], split[c_max:c_max + c_bound]
 
     num_sample = config.num_sample
     if c_bound > 1 and config.late_num_sample:
         num_sample = config.late_num_sample
 
-    common = dict(num_eig=config.ncut_dim, num_sample=num_sample,
-                  distance=config.ncut_dist, gamma=config.affinity_focal_gamma,
-                  eig_method=config.eig_method, eig_iters=config.eig_iters,
-                  matmul_dtype=_ncut_matmul_dtype(config))
+    common = dict(num_sample=num_sample, distance=config.ncut_dist,
+                  gamma=config.affinity_focal_gamma, eig_method=config.eig_method,
+                  eig_iters=config.eig_iters, matmul_dtype=_ncut_matmul_dtype(config))
     if config.shared_anchors:
-        vecs, vals = ncut_shared(flat_x, key=k_ncut[0], member=member,
-                                 anchors_per_parent=config.anchors_per_parent,
-                                 **common)
+        vecs, vals = ncut_shared_images(flat_x, config.ncut_dim, k_ncut[0], member,
+                                        anchors_per_parent=config.anchors_per_parent,
+                                        **common)
     else:
-        vecs, vals = ncut(flat_x, key=k_ncut, mask=member, **common)
-    # [Cb, M, e], [Cb, e]
+        vecs, vals = ncut_images(flat_x, config.ncut_dim, k_ncut, member, **common)
+    # [G, Cb, M, e], [G, Cb, e]
 
     n_children, cums = child_counts(has, (vals > config.eigenvalue_threshold).sum(-1), c_max)
 
     # KMeans on the top-k_p eigenvectors: inactive columns zeroed,
     # inactive centers masked
-    col_active = torch.arange(config.ncut_dim, device=dev)[None, :] < n_children[:, None]
-    labels, _ = kmeans(vecs * col_active[:, None, :], k=config.ncut_dim, key=k_km,
-                       iters=config.kmeans_iters, active=col_active, mask=member)
+    col_active = torch.arange(config.ncut_dim, device=dev) < n_children[..., None]
+    labels, _ = kmeans_images(vecs * col_active[..., None, :], config.ncut_dim, k_km,
+                              iters=config.kmeans_iters, active=col_active, mask=member)
 
     # parents partition the tokens, so a masked sum assembles global ids
-    result = torch.where(member, cums[:, None] + labels, 0).sum(0)
+    result = torch.where(member, cums[..., None] + labels, 0).sum(-2)
     n_children = torch.nn.functional.pad(n_children, (0, c_max - c_bound))
     return result.clamp(0, c_max - 1), n_children
 
 
-def _per_image_batch(b) -> int:
-    """The batch size of a per-image (`pool_batch=False`) call, which loops
-    over the images in Python: a symbolic one (an export with a symbolic
-    batch) raises."""
-    if isinstance(b, torch.SymInt):
-        raise ValueError(
-            "per-image clustering (pool_batch=False) loops over the batch in Python and "
-            "exports at a fixed batch only: export with polymorphic_batch=False, or "
-            "cluster with pool_batch=True")
-    return b
+def _token_sets(config: ClusteringConfig, parent_indices: torch.Tensor, x: torch.Tensor,
+                key):
+    """(parents [G, M], tokens [G, M, D], stream row) of a call: pooled, one
+    set of B * N tokens on `key`; per image (`pool_batch=False`), B sets of
+    N, image i on its own stream (module docstring)."""
+    b, n = parent_indices.shape
+    if config.pool_batch:
+        return parent_indices.reshape(1, b * n), x.reshape(1, b * n, -1), KeyRows([key])
+    return parent_indices, x, image_streams(key, b, x.device)
+
+
+def _per_call(config: ClusteringConfig, child: torch.Tensor, n_children: torch.Tensor,
+              shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Child ids [B, N] and n_children ([C_max] pooled, [B, C_max] per
+    image) from the [G, ...] results."""
+    if config.pool_batch:
+        return child.reshape(shape), n_children[0]
+    return child, n_children
 
 
 def spectral_cluster(
@@ -197,42 +214,26 @@ def spectral_cluster(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (child_indices [B, N], n_children): [C_max] in pooled mode
     (ids global across the batch), [B, C_max] per image
-    (`pool_batch=False`, image i draws from `key.split(B)[i]`)."""
-    b, n = parent_indices.shape
-    if config.pool_batch:
-        result, n_children = _spectral_single(
-            config, parent_indices.reshape(b * n), x.reshape(b * n, -1), key,
-            max_parents=max_parents)
-        return result.reshape(b, n), n_children
-    outs = [_spectral_single(config, pi, xi, ki, max_parents=max_parents)
-            for pi, xi, ki in zip(parent_indices, x, key.split(_per_image_batch(b)))]
-    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    (`pool_batch=False`)."""
+    parents, tokens, keys = _token_sets(config, parent_indices, x, key)
+    child, n_children = _spectral_images(config, parents, tokens, keys, max_parents)
+    return _per_call(config, child, n_children, parent_indices.shape)
 
 
 def _parent_majority(child_indices: torch.Tensor, parent_indices: torch.Tensor,
                      c_max: int) -> torch.Tensor:
-    """n_children [C_max] for the variants that ignore parents: each
-    occupied child cluster is credited to the parent owning most of its
-    tokens (the lower id among equals)."""
+    """n_children [G, C_max] for the variants that ignore parents (child
+    and parent ids [G, M]): each occupied child cluster is credited to the
+    parent owning most of its tokens (the lower id among equals)."""
     ids = torch.arange(c_max, device=child_indices.device)
 
     def one_hot(i):  # an id >= c_max gives a zero row, as jax.nn.one_hot
-        return (i.reshape(-1, 1) == ids).float()
+        return (i[..., None] == ids).float()
 
-    child_oh = one_hot(child_indices)  # [BN, C]
-    votes = child_oh.T @ one_hot(parent_indices)  # [C_child, C_parent]
-    occupied = (child_oh.sum(0) > 0).float()
-    return (one_hot(votes.argmax(-1)).T @ occupied).long()
-
-
-def _per_image(fn, config, parent_indices, x, key):
-    """Per-image mode of a variant written against pooled flat tokens: the
-    pooled function on each image alone, image i on `key.split(B)[i]`."""
-    pooled = dataclasses.replace(config, pool_batch=True)
-    b = _per_image_batch(parent_indices.shape[0])
-    outs = [fn(pooled, pi[None], xi[None], ki)
-            for pi, xi, ki in zip(parent_indices, x, key.split(b))]
-    return torch.cat([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    child_oh = one_hot(child_indices)  # [G, M, C]
+    votes = child_oh.mT @ one_hot(parent_indices)  # [G, C_child, C_parent]
+    occupied = (child_oh.sum(-2) > 0).float()  # [G, C]
+    return (one_hot(votes.argmax(-1)).mT @ occupied[..., None])[..., 0].long()
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
@@ -248,27 +249,30 @@ def fps_cluster(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The FPS variant (module docstring).  Returns (child_indices [B, N],
     n_children [C_max], or [B, C_max] per image)."""
-    b, n = parent_indices.shape
-    if not config.pool_batch:
-        return _per_image(fps_cluster, config, parent_indices, x, key)
-    flat_x = x.reshape(b * n, -1).float()
-    _, k_ncut, k_f1, k_f2 = key.split(4)
-    ncut_x, _ = ncut(flat_x, num_eig=config.ncut_dim, key=k_ncut,
-                     num_sample=config.num_sample, distance=config.ncut_dist,
-                     gamma=config.affinity_focal_gamma, eig_method=config.eig_method,
-                     eig_iters=config.eig_iters, matmul_dtype=_ncut_matmul_dtype(config))
+    parents, tokens, keys = _token_sets(config, parent_indices, x, key)
+    tokens = tokens.float()
+    _, k_ncut, k_f1, k_f2 = keys.split(4)
+    ncut_x, _ = ncut_images(tokens, config.ncut_dim, [k_ncut], torch.ones_like(parents[:, None], dtype=torch.bool),
+                            num_sample=config.num_sample, distance=config.ncut_dist,
+                            gamma=config.affinity_focal_gamma, eig_method=config.eig_method,
+                            eig_iters=config.eig_iters,
+                            matmul_dtype=_ncut_matmul_dtype(config))
+    ncut_x = ncut_x[:, 0]  # [G, M, e]
     pca_x, _, _ = pca_lowrank(ncut_x, config.fps_dim)
-    s1 = ncut_x[farthest_point_sampling_blocked(pca_x, config.fps_sample1, key=k_f1)]
-    sim = _unit(s1) @ _unit(ncut_x).T  # [s1, BN]
+    s1 = gather_rows(ncut_x, farthest_point_sampling_blocked_images(
+        pca_x, config.fps_sample1, key=k_f1))
+    sim = _unit(s1) @ _unit(ncut_x).mT  # [G, s1, M]
     sim_std = (sim - sim.mean(-1, keepdim=True)) / (
         sim.std(-1, keepdim=True, correction=0) + 1e-8)
     s1_pca, _, _ = pca_lowrank(sim_std, config.fps_dim)
-    ss2 = s1[farthest_point_sampling_blocked(s1_pca, config.fps_supersample2, key=k_f2)]
-    sim2 = _unit(ss2) @ _unit(ncut_x).T  # [ss2, BN]
+    ss2 = gather_rows(s1, farthest_point_sampling_blocked_images(
+        s1_pca, config.fps_supersample2, key=k_f2))
+    sim2 = _unit(ss2) @ _unit(ncut_x).mT  # [G, ss2, M]
     score = (sim2 > config.cosine_similarity_threshold).sum(-1)
-    centers = top_k_indices(score, config.fps_sample2)
-    child = sim2[centers].argmax(0).reshape(b, n)
-    return child, _parent_majority(child, parent_indices, config.max_clusters)
+    centers = top_k_indices(score, config.fps_sample2)  # [G, s2]
+    child = gather_rows(sim2, centers).argmax(-2)  # [G, M]
+    return _per_call(config, child, _parent_majority(child, parents, config.max_clusters),
+                     parent_indices.shape)
 
 
 def axis_align_cluster(
@@ -282,18 +286,18 @@ def axis_align_cluster(
     `eigh`, bf16 affinity products) of the demeaned tokens, then
     argmax(ncut_x / temperature + Gumbel noise) over the axes, the noise
     drawn as JAX's `random.gumbel`: -log(-log(uniform(tiny, 1)))."""
-    b, n = parent_indices.shape
-    if not config.pool_batch:
-        return _per_image(axis_align_cluster, config, parent_indices, x, key)
-    flat_x = x.reshape(b * n, -1).float()
-    _, k_ncut, k_g = key.split(3)
-    ncut_x, _ = ncut(flat_x - flat_x.mean(0, keepdim=True), num_eig=config.ncut_dim,
-                     key=k_ncut, num_sample=config.num_sample, distance=config.ncut_dist,
-                     gamma=config.affinity_focal_gamma)
-    u = k_g.uniform(ncut_x.shape, torch.finfo(torch.float32).tiny, 1.0, ncut_x.device)
+    parents, tokens, keys = _token_sets(config, parent_indices, x, key)
+    tokens = tokens.float()
+    _, k_ncut, k_g = keys.split(3)
+    ncut_x, _ = ncut_images(tokens - tokens.mean(-2, keepdim=True), config.ncut_dim,
+                            [k_ncut], torch.ones_like(parents[:, None], dtype=torch.bool),
+                            num_sample=config.num_sample, distance=config.ncut_dist,
+                            gamma=config.affinity_focal_gamma)
+    ncut_x = ncut_x[:, 0]  # [G, M, e]
+    u = k_g.uniform(ncut_x.shape[1:], torch.finfo(torch.float32).tiny, 1.0, ncut_x.device)
     child = (ncut_x / config.temperature - torch.log(-torch.log(u))).argmax(-1)
-    child = child.reshape(b, n)
-    return child, _parent_majority(child, parent_indices, config.max_clusters)
+    return _per_call(config, child, _parent_majority(child, parents, config.max_clusters),
+                     parent_indices.shape)
 
 
 CLUSTERING_CLASSES = {

@@ -80,6 +80,10 @@ _SIGNATURES = {
     # mask_sh, scale, mask_value, stream
     "msvit_packed_attention_int8_masked": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                            _I, _LL, _LL, _F, _F, _P],
+    # wgmma, dh, blocks (out): K1-lse's bf16 blocks per SM
+    "msvit_packed_attention_lse_occupancy": [_I, _I, ctypes.POINTER(_I)],
+    # wgmma, which (0 dQ, 1 dK/dV), dh, blocks (out): K2's bf16 blocks per SM
+    "msvit_packed_attention_bwd_occupancy": [_I, _I, _I, ctypes.POINTER(_I)],
     # dh, masked, mask_kind, blocks (out): K3's or K9's blocks per SM
     "msvit_packed_attention_int8_occupancy": [_I, _I, _I, ctypes.POINTER(_I)],
     # q, k, v, out, g, lse, mask, delta, dq, dk, dv, dtype, b, h, nq, nk, dh,

@@ -12,6 +12,9 @@ computes what the JAX package's vmap over parents computes, the draws
 taken in JAX's order (`uniform` for the sample, then `split(2)[1]` and
 `normal` for the subspace start).  `ncut_shared` (`shared_anchors=True`)
 draws one anchor pool for all parents and gives each its pool anchors.
+`ncut_images` and `ncut_shared_images` run G token sets side by side (the
+images of a per-image clustering call, JAX's vmap over images): x [G, n,
+d], one stream row per image (utils/rng.py `image_streams`).
 
 bf16 affinity products: JAX rounds the inputs of the [m, n] cross product
 to bf16 and accumulates in f32.  A bf16 `torch.matmul` rounds its output
@@ -33,8 +36,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from msvit_tpu_torch.ops.kmeans import gumbel_top_k, top_k_indices
-from msvit_tpu_torch.utils.rng import normal_rows
+from msvit_tpu_torch.ops.kmeans import gather_rows, gumbel_top_k, top_k_indices
+from msvit_tpu_torch.utils.rng import KeyRows, normal_rows
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor, dtype: str) -> torch.Tensor:
@@ -70,7 +73,7 @@ def _pairwise_affinity(
 
 
 def _topk_eig_subspace(
-    m_norm: torch.Tensor,  # [C, m, m] symmetric
+    m_norm: torch.Tensor,  # [(G,) C, m, m] symmetric
     k: int,
     keys: Sequence,
     iters: int,
@@ -78,7 +81,8 @@ def _topk_eig_subspace(
     """Top-k eigenpairs by randomized subspace iteration: 2k random
     directions (`normal` from each parent's stream), `iters` power steps
     with CholeskyQR2 re-orthonormalization, then Rayleigh-Ritz on the
-    [2k, 2k] projection.  Returns ([C, m, k], [C, k] descending)."""
+    [2k, 2k] projection.  Returns ([..., C, m, k], [..., C, k] descending)
+    for m_norm [..., C, m, m]."""
     m = m_norm.shape[-1]
     k2 = torch.sym_min(2 * k, m)
     dev = m_norm.device
@@ -102,12 +106,12 @@ def _topk_eig_subspace(
 
 
 def _embed(
-    x: torch.Tensor,  # [n, d]
-    xs: torch.Tensor,  # [C, m, d] each parent's samples
-    sample_valid: torch.Tensor,  # [C, m] bool
-    member: torch.Tensor,  # [C, n] bool
+    x: torch.Tensor,  # [G, n, d]
+    xs: torch.Tensor,  # [G, C, m, d] each parent's samples
+    sample_valid: torch.Tensor,  # [G, C, m] bool
+    member: torch.Tensor,  # [G, C, n] bool
     num_eig: int,
-    eig_keys: Sequence,  # one stream per parent (subspace only)
+    eig_keys: Sequence,  # one stream row per parent (subspace only)
     distance: str,
     gamma: float,
     eig_method: str,
@@ -115,14 +119,14 @@ def _embed(
     matmul_dtype: str,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per parent: the samples' normalized affinity, its top eigenpairs and
-    their Nystrom extension to all points.  Returns (eigvecs [C, n,
-    num_eig], eigvals [C, num_eig] descending)."""
+    their Nystrom extension to all points.  Returns (eigvecs [G, C, n,
+    num_eig], eigvals [G, C, num_eig] descending)."""
     a_ss = _pairwise_affinity(xs, xs, distance, gamma, matmul_dtype)
-    vmask = sample_valid[:, :, None] & sample_valid[:, None, :]
+    vmask = sample_valid[..., :, None] & sample_valid[..., None, :]
     a_ss = torch.where(vmask, a_ss, 0.0)
     d_s = a_ss.sum(-1)
     d_inv_sqrt = torch.where(d_s > 0, torch.rsqrt(d_s + 1e-8), 0.0)
-    m_norm = a_ss * d_inv_sqrt[:, :, None] * d_inv_sqrt[:, None, :]
+    m_norm = a_ss * d_inv_sqrt[..., :, None] * d_inv_sqrt[..., None, :]
 
     if eig_method == "subspace":
         v, eigvals = _topk_eig_subspace(m_norm, num_eig, eig_keys, eig_iters)
@@ -134,16 +138,44 @@ def _embed(
         raise ValueError(f"eig_method {eig_method!r}")
 
     # Nystrom extension: f = D_n^-1/2 A_nm D_s^-1/2 V Lambda^-1
-    a_nm = _pairwise_affinity(x, xs, distance, gamma, matmul_dtype)  # [C, n, m]
-    a_nm = torch.where(member[:, :, None] & sample_valid[:, None, :], a_nm, 0.0)
+    a_nm = _pairwise_affinity(x[:, None], xs, distance, gamma, matmul_dtype)  # [G, C, n, m]
+    a_nm = torch.where(member[..., :, None] & sample_valid[..., None, :], a_nm, 0.0)
     d_n = a_nm.sum(-1)
     dn_inv_sqrt = torch.where(d_n > 0, torch.rsqrt(d_n + 1e-8), 0.0)
     lam_inv = torch.where(eigvals.abs() > 1e-6, 1.0 / eigvals, 0.0)
-    f = (a_nm * dn_inv_sqrt[:, :, None]) @ (
-        v * (d_inv_sqrt[:, :, None] * lam_inv[:, None, :]))
+    f = (a_nm * dn_inv_sqrt[..., :, None]) @ (
+        v * (d_inv_sqrt[..., :, None] * lam_inv[..., None, :]))
     # column-normalize for a stable embedding scale
     f = f / (torch.linalg.vector_norm(f, dim=-2, keepdim=True) + 1e-8)
     return f, eigvals
+
+
+def ncut_images(
+    x: torch.Tensor,  # [G, n, d]
+    num_eig: int,
+    keys: Sequence,  # C stream rows (G streams each), one per mask row
+    member: torch.Tensor,  # [G, C, n] bool
+    num_sample: int = 1024,
+    distance: str = "rbf",
+    gamma: float = 3.0,
+    eig_method: str = "eigh",
+    eig_iters: int = 12,
+    matmul_dtype: str = "bfloat16",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`ncut` over G token sets side by side, C parents each.  Returns
+    (eigvecs [G, C, n, num_eig], eigvals [G, C, num_eig])."""
+    n = x.shape[1]
+    x = x.float()
+    # under an export with a symbolic batch n is B * N: `min` would branch
+    # on B (816 tokens an image against 1024 samples flips at B = 2)
+    m = torch.sym_min(num_sample, n)
+    member = member.bool()
+    sample_idx = gumbel_top_k(keys, member, m)  # [G, C, m]
+    sample_valid = torch.gather(member, -1, sample_idx)  # all-masked corner
+    k_sub = [kk.split(2)[1] for kk in keys] if eig_method == "subspace" else None
+    xs = gather_rows(x[:, None], sample_idx)  # [G, C, m, d]
+    return _embed(x, xs, sample_valid, member, num_eig, k_sub, distance, gamma,
+                  eig_method, eig_iters, matmul_dtype)
 
 
 def ncut(
@@ -161,24 +193,52 @@ def ncut(
     """Returns (eigvecs [(C,) n, num_eig] f32, rows of non-members
     arbitrary; eigvals [(C,) num_eig] descending)."""
     batched = isinstance(key, (list, tuple))
-    keys = list(key) if batched else [key]
+    keys = [KeyRows([k]) for k in (key if batched else [key])]
     n = x.shape[0]
-    x = x.float()
-    # under an export with a symbolic batch n is B * N: `min` would branch
-    # on B (816 tokens an image against 1024 samples flips at B = 2)
-    m = torch.sym_min(num_sample, n)
     c = len(keys)
     if mask is None:
         member = torch.ones((c, n), dtype=torch.bool, device=x.device)
     else:
         member = mask.bool().reshape(-1, n).expand(c, n)
+    f, eigvals = ncut_images(x[None], num_eig, keys, member[None], num_sample, distance,
+                             gamma, eig_method, eig_iters, matmul_dtype)
+    return (f[0], eigvals[0]) if batched else (f[0, 0], eigvals[0, 0])
 
-    sample_idx = gumbel_top_k(keys, member, m)  # [C, m]
-    sample_valid = torch.gather(member, 1, sample_idx)  # all-masked corner
-    k_sub = [kk.split(2)[1] for kk in keys] if eig_method == "subspace" else None
-    f, eigvals = _embed(x, x[sample_idx], sample_valid, member, num_eig, k_sub,
-                        distance, gamma, eig_method, eig_iters, matmul_dtype)
-    return (f, eigvals) if batched else (f[0], eigvals[0])
+
+def ncut_shared_images(
+    x: torch.Tensor,  # [G, n, d]
+    num_eig: int,
+    key,  # a stream row (G streams)
+    member: torch.Tensor,  # [G, C, n] bool
+    num_sample: int = 1024,
+    anchors_per_parent: int = 256,
+    distance: str = "rbf",
+    gamma: float = 3.0,
+    eig_method: str = "subspace",
+    eig_iters: int = 12,
+    matmul_dtype: str = "bfloat16",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`ncut_shared` over G token sets side by side.  Returns (eigvecs
+    [G, C, n, num_eig], eigvals [G, C, num_eig])."""
+    c, n = member.shape[-2:]
+    x = x.float()
+    dev = x.device
+    m = torch.sym_min(num_sample, n)
+    mc = torch.sym_min(anchors_per_parent, m)
+    member = member.bool()
+    any_member = member.any(-2)  # [G, n]
+
+    k_pool, k_sel = key.split(2)
+    g = -torch.log(-torch.log(k_pool.uniform((n,), 1e-9, 1.0, dev)))
+    pool_idx = top_k_indices(torch.where(any_member, g, -torch.inf), m)  # [G, m]
+    xs = gather_rows(x, pool_idx)  # [G, m, d]
+    amem = (torch.gather(member, -1, pool_idx[:, None, :].expand(-1, c, -1))
+            & torch.gather(any_member, -1, pool_idx)[:, None, :])  # [G, C, m]
+    g2 = -torch.log(-torch.log(k_sel.uniform((c, m), 1e-9, 1.0, dev)))
+    sel = top_k_indices(torch.where(amem, g2, -torch.inf), mc)  # [G, C, mc]
+    sel_valid = torch.gather(amem, -1, sel)
+    return _embed(x, gather_rows(xs[:, None], sel), sel_valid, member, num_eig,
+                  key.split(c), distance, gamma, eig_method, eig_iters, matmul_dtype)
 
 
 def ncut_shared(
@@ -203,24 +263,10 @@ def ncut_shared(
     `uniform((C, m))`), then ``key.split(C)`` for the eigensolves.
 
     Returns (eigvecs [C, n, num_eig], eigvals [C, num_eig] descending)."""
-    c, n = member.shape
-    x = x.float()
-    dev = x.device
-    m = torch.sym_min(num_sample, n)
-    mc = torch.sym_min(anchors_per_parent, m)
-    member = member.bool()
-    any_member = member.any(0)
-
-    k_pool, k_sel = key.split(2)
-    g = -torch.log(-torch.log(k_pool.uniform((n,), 1e-9, 1.0, dev)))
-    pool_idx = top_k_indices(torch.where(any_member, g, -torch.inf), m)  # [m]
-    xs = x[pool_idx]
-    amem = member[:, pool_idx] & any_member[pool_idx][None, :]  # [C, m]
-    g2 = -torch.log(-torch.log(k_sel.uniform((c, m), 1e-9, 1.0, dev)))
-    sel = top_k_indices(torch.where(amem, g2, -torch.inf), mc)  # [C, mc]
-    sel_valid = torch.gather(amem, 1, sel)
-    return _embed(x, xs[sel], sel_valid, member, num_eig, key.split(c), distance,
-                  gamma, eig_method, eig_iters, matmul_dtype)
+    f, eigvals = ncut_shared_images(x[None], num_eig, KeyRows([key]), member[None],
+                                    num_sample, anchors_per_parent, distance, gamma,
+                                    eig_method, eig_iters, matmul_dtype)
+    return f[0], eigvals[0]
 
 
 def kway_ncut(

@@ -17,6 +17,15 @@ hand-written CUDA kernel for Hopper with a plain PyTorch version beside it:
 * `packed_attention_bwd` — K2, the TPU kernel `_packed_backward`: dqkv
   [B, N, 3D] from the saved (qkv, out, lse) and the output cotangent.
   Kernel: `csrc/packed_attention_bwd.cu`.
+
+K1-lse and K2 take one of three routes, by `train_route` (the C entry
+points apply the same rule): bf16 at head size 64 (every zoo trunk but
+vit-h14) the Hopper kernels on `wgmma` fed by TMA, other bf16 head sizes
+the `mma.sync` kernels, f32 the CUDA cores.  Each wrapper counts its
+launches by route beside `.launches` (`.wgmma_launches`, `.mma_launches`,
+`.f32_launches`).  The TMA maps are 3-D over the packed tensors
+(`tma_map`): a tensor whose base or row pitch TMA cannot take raises a
+`ValueError`; it never takes another route.
 * `packed_attention_int8` — K3, the TPU kernel `packed_attention_int8`:
   int8 in, bf16 or int8 out.  Kernel: `csrc/packed_attention_int8.cu`, on
   the int8 tensor cores (s8 operands, s32 accumulators: both products
@@ -176,6 +185,83 @@ def _scores(q, k, scale, mask, mask_value, acc=torch.float32) -> torch.Tensor:
         else:
             s = s + mask.to(acc)
     return s
+
+
+# ------------------------------------------------- K1-lse / K2 routes ----
+
+ROUTES = ("wgmma", "mma.sync", "cuda_cores")
+_ROUTE_COUNTERS = {"wgmma": "wgmma_launches", "mma.sync": "mma_launches",
+                   "cuda_cores": "f32_launches"}
+TMA_BOX = (64, 64, 1)  # (head elements, rows, images) of one tile
+
+
+def train_route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel route of K1-lse and K2 on the card: "wgmma" (bf16, head
+    size 64: warpgroup products fed by TMA), "mma.sync" (bf16, any other
+    head size: the head padded to its 16/32/64/128 bucket) or
+    "cuda_cores" (f32).  The C entry points take the same rule."""
+    if dtype == torch.float32:
+        return "cuda_cores"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"K1-lse/K2: dtype {dtype} unsupported")
+    if dh % 8 or not 0 < dh <= 128:
+        raise ValueError(f"K1-lse/K2: head size {dh} unsupported (a multiple of 8, <= 128)")
+    return "wgmma" if dh == 64 else "mma.sync"
+
+
+def tma_map(shape, element_size: int, data_ptr: int) -> dict:
+    """The geometry of the 3-D TMA map the wgmma kernels build over a
+    packed row-major tensor of `shape` [B, N, W] (qkv: W = 3D, g: W = D):
+    dims (W, N, B) innermost first, pitches in bytes (W e, N W e), the box
+    `TMA_BOX`, a 128-byte swizzle (one 64-element bf16 row); rows past N
+    are zero-filled inside their image.  Raises `ValueError` where TMA
+    cannot take the tensor: a base off 16 bytes, a pitch that is not a
+    multiple of 16 bytes."""
+    b, n, w = shape
+    pitch = w * element_size
+    if data_ptr % 16:
+        raise ValueError(f"TMA: the tensor's base {data_ptr:#x} is not 16-byte aligned")
+    if pitch % 16:
+        raise ValueError(f"TMA: row pitch {pitch} bytes ([{b}, {n}, {w}]) is not a "
+                         f"multiple of 16")
+    return {"dims": (w, n, b), "pitches": (pitch, pitch * n), "box": TMA_BOX,
+            "box_bytes": TMA_BOX[0] * TMA_BOX[1] * element_size}
+
+
+def head_columns(num_heads: int, h: int, dh: int = 64) -> Tuple[int, int, int]:
+    """The first element column of head h's q, k and v boxes in a packed
+    [B, N, 3D] row (D = num_heads * dh): h dh, D + h dh, 2D + h dh."""
+    d = num_heads * dh
+    return h * dh, d + h * dh, 2 * d + h * dh
+
+
+def _count_route(fn, route: str) -> None:
+    fn.launches += 1
+    name = _ROUTE_COUNTERS[route]
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
+def reset_train_counts() -> None:
+    """Set K1-lse's and K2's launch counts, by route too, to 0."""
+    for fn in (packed_attention_lse, packed_attention_bwd):
+        fn.launches = 0
+        for name in _ROUTE_COUNTERS.values():
+            setattr(fn, name, 0)
+
+
+def train_route_counts() -> dict:
+    """{"K1-lse": {route: launches}, "K2": {...}} since the last reset."""
+    return {k: {r: getattr(fn, _ROUTE_COUNTERS[r]) for r in ROUTES}
+            for k, fn in (("K1-lse", packed_attention_lse), ("K2", packed_attention_bwd))}
+
+
+def _check_tma(name: str, *tensors: torch.Tensor) -> None:
+    """The wgmma route's TMA maps: every packed operand must map."""
+    for t in tensors:
+        try:
+            tma_map(t.shape, t.element_size(), t.data_ptr())
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
 
 
 # ---------------------------------------------------------------- K1 ----
@@ -339,6 +425,9 @@ def packed_attention_lse(
     if qkv.device.type == "cpu":
         return packed_attention_lse_plain(qkv, num_heads, mask, scale, mask_value)
     _check_cuda(qkv, "packed_attention_lse", dh)
+    route = train_route(qkv.dtype, dh)
+    if route == "wgmma":
+        _check_tma("packed_attention_lse", qkv)
     kind, m, sb, sh = _mask_args(mask, qkv, num_heads, "packed_attention_lse")
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
@@ -351,11 +440,8 @@ def packed_attention_lse(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, "packed_attention_lse")
-    packed_attention_lse.launches += 1
+    _count_route(packed_attention_lse, route)
     return out, lse
-
-
-packed_attention_lse.launches = 0
 
 
 # ---------------------------------------------------------------- K2 ----
@@ -436,6 +522,9 @@ def packed_attention_bwd(
             raise ValueError(f"{name}: residuals on another device")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: out, g and lse must be 16-byte aligned")
+    route = train_route(qkv.dtype, dh)
+    if route == "wgmma":
+        _check_tma(name, qkv, g)
     kind, m, sb, sh = _mask_args(mask, qkv, num_heads, name)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
@@ -449,11 +538,11 @@ def packed_attention_bwd(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, name)
-    packed_attention_bwd.launches += 1
+    _count_route(packed_attention_bwd, route)
     return dqkv
 
 
-packed_attention_bwd.launches = 0
+reset_train_counts()
 
 
 class PackedAttentionFunction(torch.autograd.Function):

@@ -18,6 +18,8 @@ from msvit_tpu_torch.ops.packed_attention import (
     packed_attention_lse,
     packed_attention_lse_plain,
     packed_attention_plain,
+    train_route,
+    train_route_counts,
 )
 
 pytestmark = pytest.mark.cuda
@@ -208,6 +210,7 @@ def _train_case(b, n, h, dh, dtype, dev, seed, mask=None, scale=1.0):
         x[..., : 2 * h * dh] *= scale
     g = _qkv(b, n, h * dh, dtype, dev, seed=seed + 1)[..., : h * dh].contiguous()
     n1, n2 = packed_attention_lse.launches, packed_attention_bwd.launches
+    routes = train_route_counts()
     with torch.no_grad():
         o, lse = packed_attention_lse(x, h, mask=mask)
         wo, wl = packed_attention_lse_plain(x, h, mask=mask)
@@ -215,6 +218,11 @@ def _train_case(b, n, h, dh, dtype, dev, seed, mask=None, scale=1.0):
         want = packed_attention_bwd_plain(x, mask, wo, wl, g, h)
     torch.cuda.synchronize()
     assert (packed_attention_lse.launches, packed_attention_bwd.launches) == (n1 + 1, n2 + 1)
+    # each launch took its route: wgmma for bf16 at head size 64
+    route = train_route(dtype, dh)
+    for k, counts in train_route_counts().items():
+        assert {r: c - routes[k][r] for r, c in counts.items()} == {
+            r: int(r == route) for r in counts}, k
     assert o.dtype == dtype and lse.dtype == torch.float32 and got.dtype == dtype
     assert torch.isfinite(o).all() and torch.isfinite(got).all()
     assert (o.float() - wo.float()).abs().max().item() <= _TOL[dtype]
@@ -290,6 +298,93 @@ def test_k1_lse_and_k2_bf16_large_logits(dev, n, h, dh):
     """q and k scaled by 12 (|s| in the hundreds) in bf16: exact, finite,
     equal to the plain versions."""
     _train_case(2, n, h, dh, torch.bfloat16, dev, seed=31, scale=12.0)
+
+
+# --------------------- K1-lse and K2 on wgmma fed by TMA (bf16, dh 64) ----
+# 128-row blocks of two 64-row warpgroups, 64-key (or 64-query) tiles from
+# a 3-D TMA map over the packed tensors: the cases sit on and around both
+# tile edges, with every mask form, a fully masked row, an all -inf row and
+# large logits; `_train_case` checks that each launch took the wgmma route.
+
+
+@pytest.mark.parametrize("n", [63, 64, 65, 127, 128, 129, 197, 785])
+def test_wgmma_route_tile_edges(dev, n):
+    _train_case(2, n, 2, 64, torch.bfloat16, dev, seed=50 + n)
+
+
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+@pytest.mark.parametrize("heads_in_mask", [1, 3])
+@pytest.mark.parametrize("n", [65, 197])
+def test_wgmma_route_masks(dev, kind, heads_in_mask, n):
+    """Per-head and broadcast masks; the bool one with fully masked rows
+    (mean(V), lse = mask_value + log N) on both sides of a tile edge."""
+    b, h = 2, 3
+    r = torch.rand(b, heads_in_mask, n, n, generator=torch.Generator().manual_seed(60 + n))
+    if kind == "bool":
+        m = r < 0.7
+        m[:, :, 0, :] = False
+        m[:, :, 64, :] = False
+    else:
+        m = -100.0 * (r < 0.3).float()
+    _train_case(b, n, h, 64, torch.bfloat16, dev, seed=61, mask=m.to(dev))
+    _train_case(b, n, h, 64, torch.bfloat16, dev, seed=62, mask=m[:1].to(dev))
+
+
+def test_wgmma_route_all_minus_inf_row(dev):
+    """An additive mask whose row is all -inf gives NaN there (out and the
+    row's dq), as the plain versions do; every other element agrees."""
+    b, n, h, dh = 2, 130, 2, 64
+    m = torch.zeros(b, 1, n, n)
+    m[1, 0, 70, :] = -float("inf")
+    m = m.to(dev)
+    x = _qkv(b, n, h * dh, torch.bfloat16, dev, seed=63)
+    g = _qkv(b, n, h * dh, torch.bfloat16, dev, seed=64)[..., : h * dh].contiguous()
+    with torch.no_grad():
+        o, lse = packed_attention_lse(x, h, mask=m)
+        wo, wl = packed_attention_lse_plain(x, h, mask=m)
+        got = packed_attention_bwd(x, m, wo, wl, g, h)
+        want = packed_attention_bwd_plain(x, m, wo, wl, g, h)
+    torch.cuda.synchronize()
+    for a, w in ((o, wo), (got, want)):
+        assert torch.equal(a.isnan(), w.isnan()) and a[1, 70].isnan().any()
+        assert (a.float() - w.float()).nan_to_num(0.0).abs().max().item() <= _bwd_tol(
+            torch.bfloat16, w.nan_to_num(0.0))
+    assert _lse_err(lse[0], wl[0]) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [197, 785])
+def test_wgmma_route_large_logits(dev, n):
+    """q and k scaled by 12 (|s| in the hundreds) in bf16."""
+    _train_case(2, n, 2, 64, torch.bfloat16, dev, seed=65, scale=12.0)
+
+
+@pytest.mark.parametrize("masked", [None, "bool", "additive"])
+def test_wgmma_route_deterministic(dev, masked):
+    """No atomics: two calls of each wgmma kernel give the same bits."""
+    b, n, h, dh = 2, 197, 3, 64
+    x = _qkv(b, n, h * dh, torch.bfloat16, dev, seed=66)
+    g = _qkv(b, n, h * dh, torch.bfloat16, dev, seed=67)[..., : h * dh].contiguous()
+    m = _grouped_mask(masked, b, h, n, dev, seed=68)
+    with torch.no_grad():
+        (o1, l1), (o2, l2) = (packed_attention_lse(x, h, mask=m) for _ in range(2))
+        d1, d2 = (packed_attention_bwd(x, m, o1, l1, g, h) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2) and torch.equal(d1, d2)
+
+
+@pytest.mark.parametrize("dh", [32, 80, 128])
+def test_other_head_sizes_take_mma_sync(dev, dh):
+    """dh 32, 80 (vit-h14) and 128 stay on the mma.sync kernels: the route
+    counters say so."""
+    _train_case(2, 130, 2, dh, torch.bfloat16, dev, seed=69 + dh)
+    assert train_route(torch.bfloat16, dh) == "mma.sync"
+
+
+def test_wgmma_route_refuses_a_misaligned_qkv(dev):
+    """A qkv whose base is off 16 bytes raises; it takes no other route."""
+    x = torch.zeros(1 + 2 * 5 * 192, dtype=torch.bfloat16, device=dev)[1:].view(2, 5, 192)
+    with pytest.raises(ValueError, match="aligned"):
+        packed_attention_lse(x, 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -18,8 +18,10 @@ at small shapes:
 * (d) the int8, banded and subsample artifacts: in
   `tests/test_torch_export_modes.py`, so that the two files' exports run
   on two test workers;
-* (e) per-image clustering (`pool_batch=False`) exports at a fixed batch
-  and raises a `ValueError` naming `pool_batch` under a symbolic batch.
+* (e) per-image clustering (`pool_batch=False`) exports at a symbolic
+  batch: the reloaded spectral forward equals the live model on every
+  element at batches 1, 2 and 3, and so do `fps_cluster` and
+  `axis_align_cluster` alone.
 
 Weights of (b) are drawn into `jax.eval_shape` trees (`random_tree`): one
 JAX export, compiled once, in the file.  The clustering of (c)-(e) runs
@@ -241,9 +243,9 @@ def test_polymorphic_artifact_is_bit_equal_to_live():
 
 
 def test_per_image_clustering_exports_at_a_fixed_batch_only():
-    """`pool_batch=False` loops over the images in Python: its artifact at
-    a fixed batch equals the live model; a symbolic batch raises a
-    `ValueError` that names `pool_batch`."""
+    """`pool_batch=False` runs over an image axis, each image on a stream
+    folded from the seed in tensor ops: its artifact at a symbolic batch
+    equals the live model on every element at batches 1, 2 and 3."""
     # the dense eigensolver: half the subspace solver's nodes, per image
     _, model = _port_model(clustering=dict(pool_batch=False, eig_method="eigh"))
     params = {k: v.detach() for k, v in model.named_parameters()}
@@ -251,7 +253,35 @@ def test_per_image_clustering_exports_at_a_fixed_batch_only():
     def fn(p, x):
         return _outputs(torch.func.functional_call(model, p, (x,), {"rng": Rng(11)}))
 
-    _bit_equal_at(load_forward(export_forward(fn, (params, _x(2)))), fn, params,
-                  batches=(2,))
-    with pytest.raises(ValueError, match="pool_batch"):
-        export_forward(fn, (params, _x(2)), polymorphic_batch=True)
+    g = load_forward(export_forward(fn, (params, _x(2)), polymorphic_batch=True))
+    _bit_equal_at(g, fn, params, batches=(1, 2, 3))
+    assert g(params, _x(3))[1].shape == (3,)
+
+
+@pytest.mark.parametrize("variant", ["fps", "axis"])
+def test_per_image_fps_and_axis_align_export_at_a_symbolic_batch(variant):
+    """`fps_cluster` and `axis_align_cluster` with `pool_batch=False` alone
+    (8 tokens an image): exported at a symbolic batch, the reload equals
+    the eager call on every element at batches 1, 2 and 3."""
+    from msvit_tpu_torch.models.clustering import module as cm
+
+    cfg = (cm.FPSClusteringConfig(pool_batch=False, num_sample=6, eig_method="eigh",
+                                  fps_sample1=4, fps_sample2=2, fps_supersample2=4,
+                                  fps_dim=4, ncut_dim=4, max_clusters=4)
+           if variant == "fps" else
+           cm.AxisAlignClusteringConfig(pool_batch=False, num_sample=6, ncut_dim=4,
+                                        max_clusters=4))
+    fn = cm.fps_cluster if variant == "fps" else cm.axis_align_cluster
+
+    def run(params, parents, x):
+        return fn(cfg, parents, x, Rng(5))
+
+    def inputs(b):
+        gen = torch.Generator().manual_seed(b)
+        return torch.zeros(b, 8, dtype=torch.long), torch.randn(b, 8, 6, generator=gen)
+
+    g = load_forward(export_forward(run, ({}, *inputs(2)), polymorphic_batch=True))
+    for b in (1, 2, 3):
+        want, got = run({}, *inputs(b)), g({}, *inputs(b))
+        for a, w in zip(got, want):
+            assert a.shape == w.shape and torch.equal(a, w), b
