@@ -10,14 +10,15 @@ fails (non-zero exit, no result line) if any phase fails:
 2. build: compiles the hand-written kernels from `msvit_tpu_torch/csrc`
    (one nvcc per source, in parallel) and prints ptxas's registers and
    spills for the training (the bf16 pair on the tensor cores: the wgmma
-   kernels at head size 64, the mma.sync ones at every bucket), the fused,
-   flash, banded and int8 kernels;
+   kernels at head size 64, the mma.sync ones at every bucket), K1's and
+   K7's wgmma kernel (`attention_wgmma.cuh`), the fused, flash, banded and
+   int8 kernels;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (max abs error against a stated tolerance), then
    both timed with CUDA events in turns (plain, kernel, kernel, plain):
-   K1 and K3 (serving; K3 on the int8 tensor cores also alone by
-   `torch.profiler`, with its share bit-equal to plain, its rate, its
-   blocks per SM and K1 beside it as the bf16 yardstick), K1-lse and K2
+   K1 and K3 (serving; both also alone by `torch.profiler` with their
+   rates, K3 on the int8 tensor cores with its share bit-equal to plain,
+   its blocks per SM and K1 beside it as the bf16 yardstick), K1-lse and K2
    (training; masked, f32, large-logit in f32 and bf16 and dh-128 cases
    too; their achieved TFLOP/s and share of the bound; the launches' routes,
    wgmma at dh 64 and mma.sync at dh 128, the blocks per SM of both routes'
@@ -207,7 +208,8 @@ that call (`scaled_dot_product_attention` or its backward; the port never
 calls it).  The second-to-last line is a JSON object with each kernel's
 launches in its path's run (serving for K1 and K3, with the reloaded
 artifacts' launches of phase 32, training for K1-lse and
-K2 (split by route: every one on wgmma), the clustered multistate forwards for K4 and K5, multistate training
+K2 (split by route: every one on wgmma; K1's, K8a's and K7's rows split
+theirs too, and none may take mma.sync), the clustered multistate forwards for K4 and K5, multistate training
 for K5-lse and K6, the clustered 448-px bf16 forward and the deep subsample
 forwards for K7, the 224-px int8-attention forward for K9, the 448-px banded forward for K10, the
 ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows; the extras
@@ -215,7 +217,7 @@ phase's launches added to the K1, K3, K1-lse, K2, K4, K5, K5-lse and K6
 rows, the parallel phase's to the K1, K1-lse, K2, K7 (K7-lse) and K6
 rows, the reloaded clustered families' to the K4, K5, K7, K9 and K10
 rows), its error, its time beside the plain version's, the library call's and the
-bound, and its share of the bound (K6 and K10 also at their other timed
+bound, and its share of the bound (K1, K8a, K3 and K7 also alone; K6 and K10 also at their other timed
 shapes, K4, K5, K5-lse, K6 and K7 with the key-only mask, K1 and K3 at
 the extras' shapes); the last is
 `{"ok": true, "device": {...}}`.
@@ -518,7 +520,7 @@ def kernel_phase(dev, smi: str) -> dict:
         k1_ms, k1_plain = race(lambda: packed_attention(x, 12),
                                lambda: packed_attention_plain(x, 12))
         k1_lib = library_ms(lambda: sdpa(*unpack_qkv(x, 12)))
-        k1_alone = device_ms(lambda: packed_attention(x, 12), "packed_mma_kernel")
+        k1_alone = device_ms(lambda: packed_attention(x, 12), "attention_wgmma_kernel")
         b, n, d3 = MAIN_SHAPE
         ops = attn_ops(b, 12, n, n, d3 // 36, 2)
         k1_bound = bound([x], [out], ops, torch.bfloat16)
@@ -567,7 +569,9 @@ def kernel_phase(dev, smi: str) -> dict:
     torch.cuda.synchronize()
     log(f"[kernels] K1 bf16 [64,197,2304]: kernel {k1_ms!r} ms, plain {k1_plain!r} ms, "
         f"library (scaled_dot_product_attention) {k1_lib!r} ms, bound {k1_bound}; "
-        f"{rate(ops, k1_ms, k1_bound)} (median of 20, CUDA events; {smi})")
+        f"{rate(ops, k1_ms, k1_bound)} (median of 20, CUDA events; {smi}); the kernel "
+        f"alone {k1_alone!r} ms (device time, torch.profiler; "
+        f"{rate(ops, k1_alone, k1_bound)})")
     log(f"[kernels] K3 int8-out [64,197,2304]: kernel {k3_ms!r} ms, plain {k3_plain!r} ms, "
         f"no library call, bound {k3_bound}; {rate(ops, k3_ms, k3_bound)} (median of 20, "
         f"CUDA events; {smi}); the kernel alone {k3_alone!r} ms (device time, "
@@ -801,6 +805,11 @@ def train_occupancy() -> str:
             "threads of 128 rows, the mma.sync ones 128 threads of 64)")
 
 
+def _pair_routes(counts: dict) -> dict:
+    """K1-lse's and K2's entries of a `route_counts()`."""
+    return {k: counts[k] for k in ("K1-lse", "K2")}
+
+
 def _ptxas_train() -> str:
     """ptxas's registers and spills of K1-lse's and K2's bf16 kernels at dh 64."""
     return "; ".join(line for line in ptxas_lines()
@@ -811,7 +820,7 @@ def train_kernel_phase(dev, smi: str) -> dict:
     """K1-lse and K2 against their plain versions, then timed."""
     from msvit_tpu_torch.ops.packed_attention import (
         packed_attention_bwd, packed_attention_bwd_plain, packed_attention_lse,
-        packed_attention_lse_plain, train_route_counts, unpack_qkv)
+        packed_attention_lse_plain, route_counts, unpack_qkv)
 
     _reset_training_counts()
     g = torch.Generator().manual_seed(2)
@@ -865,7 +874,7 @@ def train_kernel_phase(dev, smi: str) -> dict:
     log(f"[train-kernels] K2 bf16 [64,197,2304]: kernel {b_ms!r} ms, plain "
         f"{b_plain!r} ms, library (its backward) {b_lib!r} ms, bound {b_bound}; "
         f"{rate(b_ops, b_ms, b_bound)} (median of 20, CUDA events; {smi})")
-    log(f"[train-kernels] routes of the cases above {train_route_counts()}; "
+    log(f"[train-kernels] routes of the cases above {_pair_routes(route_counts())}; "
         f"{train_occupancy()}; ptxas: {_ptxas_train()}")
     return {"K1-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **f_bound),
             "K2": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_bound)}
@@ -875,32 +884,47 @@ def _training_counts():
     from msvit_tpu_torch.ops.packed_attention import (
         packed_attention_bwd, packed_attention_lse)
 
-    return {"K1-lse": packed_attention_lse.launches,
-            "K2": packed_attention_bwd.launches}
+    return {"K1-lse": _routed_count(packed_attention_lse),
+            "K2": _routed_count(packed_attention_bwd)}
 
 
 def _reset_training_counts():
-    from msvit_tpu_torch.ops.packed_attention import reset_train_counts
+    from msvit_tpu_torch.ops.packed_attention import (
+        packed_attention_bwd, packed_attention_lse, zero_counts)
 
-    reset_train_counts()
-
-
-# K1-lse's and K2's main-path launches by route ("wgmma", "mma.sync",
-# "cuda_cores"), by the row of the kernels line they count in (K1-lse, K2,
-# and K8a-lse, K8b for the pretrain run), read with the launches
-ROUTES: dict = {}
+    zero_counts(packed_attention_lse, packed_attention_bwd)
 
 
-def _note_routes(rows: dict) -> None:
-    """Add the route counts since the last reset to ROUTES: `rows` maps
-    "K1-lse" and "K2" to the row they count in."""
-    from msvit_tpu_torch.ops.packed_attention import train_route_counts
+class Launches(int):
+    """A launch count of K1, K1-lse, K2, K7 or K7-lse that carries its split by route
+    (`routes`: {"wgmma": n, "mma.sync": n, "cuda_cores": n}).  The phases
+    read these counts as `Launches` (`_routed_count`), and their sums keep
+    the split, so that the kernels line shows each row's launches by
+    route; adding a count without its split raises."""
 
-    counts = train_route_counts()
-    for k, row in rows.items():
-        acc = ROUTES.setdefault(row, dict.fromkeys(counts[k], 0))
-        for route, n in counts[k].items():
-            acc[route] += n
+    def __new__(cls, n: int, routes: dict):
+        if sum(routes.values()) != n:
+            raise AssertionError(f"{n} launches, by route {routes}")
+        obj = super().__new__(cls, n)
+        obj.routes = dict(routes)
+        return obj
+
+    def __add__(self, other):
+        if isinstance(other, Launches):
+            return Launches(int(self) + int(other), {r: n + other.routes[r]
+                                                     for r, n in self.routes.items()})
+        if other == 0:
+            return self
+        raise TypeError(f"{other} launches without their routes")
+
+    __radd__ = __add__
+
+
+def _routed_count(fn) -> Launches:
+    """A routed wrapper's launches since `zero_counts`, with their routes."""
+    from msvit_tpu_torch.ops.packed_attention import routes_of
+
+    return Launches(fn.launches, routes_of(fn))
 
 
 def _batch(dev, bs: int, seed: int) -> dict:
@@ -983,7 +1007,6 @@ def training_phase(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _training_counts()
-        _note_routes({"K1-lse": "K1-lse", "K2": "K2"})
         with open(os.path.join(tmp, "metrics.jsonl")) as fh:
             records = [json.loads(line) for line in fh]
         losses = [r["loss"] for r in records]
@@ -1098,9 +1121,9 @@ def _fused_counts() -> dict:
 def _reset_fused_counts() -> None:
     from msvit_tpu_torch.ops.fused_attention import (
         fused_attention, fused_attention_inference)
+    from msvit_tpu_torch.ops.packed_attention import zero_counts
 
-    fused_attention_inference.launches = 0
-    fused_attention.launches = 0
+    zero_counts(fused_attention_inference, fused_attention)
 
 
 def wall_ms(fn, runs: int = 10, warmup: int = 2) -> float:
@@ -1345,8 +1368,9 @@ def _ms_train_counts() -> dict:
 def _reset_ms_train_counts() -> None:
     from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd
     from msvit_tpu_torch.ops.fused_attention import fused_attention_lse
+    from msvit_tpu_torch.ops.packed_attention import zero_counts
 
-    fused_attention_lse.launches = 0
+    zero_counts(fused_attention_lse)
     flash_attention_bwd.launches = 0
     _reset_fused_counts()
 
@@ -1630,17 +1654,17 @@ def _attn_counts() -> dict:
     from msvit_tpu_torch.ops.flash_attention import flash_attention
     from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked
 
-    return {**_fused_counts(), "K7": flash_attention.launches,
+    return {**_fused_counts(), "K7": _routed_count(flash_attention),
             "K9": packed_attention_int8_masked.launches, "K10": token_rows.launches}
 
 
 def _reset_attn_counts() -> None:
     from msvit_tpu_torch.ops.banded_attention import token_rows
     from msvit_tpu_torch.ops.flash_attention import flash_attention
-    from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked
+    from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked, zero_counts
 
     _reset_fused_counts()
-    flash_attention.launches = 0
+    zero_counts(flash_attention)
     packed_attention_int8_masked.launches = 0
     token_rows.launches = 0
 
@@ -1958,6 +1982,7 @@ def flash_kernel_phase(dev, smi: str, partition) -> dict:
         torch.cuda.empty_cache()
         ms, plain_ms = race(lambda: flash_attention(q, k, v, mask=soft),
                             lambda: flash_attention_plain(q, k, v, mask=soft))
+        alone = device_ms(lambda: flash_attention(q, k, v, mask=soft), "attention_wgmma_kernel")
         lib = library_ms(lambda: sdpa(q, k, v, soft))
     # the Function's gradients (K7-lse forward, K6 backward) against the
     # plain versions of both on the same residuals' recipe
@@ -1979,8 +2004,10 @@ def flash_kernel_phase(dev, smi: str, partition) -> dict:
     lim = bound([q, k, v, soft], [q], ops, torch.bfloat16)
     log(f"[flash-kernels] K7 bf16 {shape} soft mask: kernel {ms!r} ms, plain {plain_ms!r} "
         f"ms, library (scaled_dot_product_attention, the mask in bf16) {lib!r} ms, bound "
-        f"{lim}; {rate(ops, ms, lim)} (median of 20, CUDA events; {smi})")
-    res = {"K7": dict(err=errs[0], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)}
+        f"{lim}; {rate(ops, ms, lim)} (median of 20, CUDA events; {smi}); the kernel alone "
+        f"{alone!r} ms (device time, torch.profiler; {rate(ops, alone, lim)})")
+    res = {"K7": dict(err=errs[0], ms=ms, plain_ms=plain_ms, library_ms=lib,
+                      kernel_alone_ms=alone, **lim)}
     # K6 at this shape, FlashAttentionFunction's backward: against plain, timed
     g = torch.randn(b, n, h, dh, generator=gen).to(dev).to(torch.bfloat16).transpose(1, 2)
     with torch.no_grad():
@@ -2161,13 +2188,13 @@ GROUPED_SHAPE = (64, 785, 2304)  # ViT-B/8 @224 pretrain: 784 patch tokens + CLS
 def _packed_counts() -> dict:
     from msvit_tpu_torch.ops.packed_attention import packed_attention
 
-    return {"K1": packed_attention.launches, **_training_counts()}
+    return {"K1": _routed_count(packed_attention), **_training_counts()}
 
 
 def _reset_packed_counts() -> None:
-    from msvit_tpu_torch.ops.packed_attention import packed_attention
+    from msvit_tpu_torch.ops.packed_attention import packed_attention, zero_counts
 
-    packed_attention.launches = 0
+    zero_counts(packed_attention)
     _reset_training_counts()
 
 
@@ -2182,9 +2209,10 @@ def grouped_kernel_phase(dev, smi: str, partition) -> dict:
     from msvit_tpu_torch.ops.packed_attention import (
         packed_attention, packed_attention_bwd, packed_attention_bwd_plain,
         packed_attention_lse, packed_attention_lse_plain, packed_attention_plain,
-        train_route_counts, unpack_qkv)
+        route_counts, unpack_qkv, zero_counts)
 
     _reset_training_counts()
+    zero_counts(packed_attention)
     tag = "grouped-kernels"
     g = torch.Generator().manual_seed(13)
 
@@ -2219,6 +2247,7 @@ def grouped_kernel_phase(dev, smi: str, partition) -> dict:
     with torch.no_grad():
         k_ms, k_plain = race(lambda: packed_attention(x, 12),
                              lambda: packed_attention_plain(x, 12))
+        k_alone = device_ms(lambda: packed_attention(x, 12), "attention_wgmma_kernel")
         f_ms, f_plain = race(lambda: packed_attention_lse(x, 12),
                              lambda: packed_attention_lse_plain(x, 12))
         b_ms, b_plain = race(lambda: packed_attention_bwd(x, None, wo, wl, gr, 12),
@@ -2235,16 +2264,21 @@ def grouped_kernel_phase(dev, smi: str, partition) -> dict:
     shape = list(GROUPED_SHAPE)
     log(f"[{tag}] K1 (for K8a) bf16 {shape}: kernel {k_ms!r} ms, plain {k_plain!r} ms, "
         f"library (scaled_dot_product_attention) {f_lib!r} ms, bound {k_bound}; "
-        f"{rate(f_ops, k_ms, k_bound)} (median of 20, CUDA events; {smi})")
+        f"{rate(f_ops, k_ms, k_bound)} (median of 20, CUDA events; {smi}); the kernel "
+        f"alone {k_alone!r} ms (device time, torch.profiler; "
+        f"{rate(f_ops, k_alone, k_bound)})")
     log(f"[{tag}] K1-lse (for K8a, with_lse) bf16 {shape}: kernel {f_ms!r} ms, plain "
         f"{f_plain!r} ms, library (scaled_dot_product_attention) {f_lib!r} ms, bound "
         f"{f_bound}; {rate(f_ops, f_ms, f_bound)} (median of 20, CUDA events; {smi})")
     log(f"[{tag}] K2 (for K8b) bf16 {shape}: kernel {b_ms!r} ms, plain {b_plain!r} ms, "
         f"library (its backward) {b_lib!r} ms, bound {b_bound}; "
         f"{rate(b_ops, b_ms, b_bound)} (median of 20, CUDA events; {smi})")
-    log(f"[{tag}] routes of the cases above {train_route_counts()}; {train_occupancy()}; "
+    routes = route_counts()
+    log(f"[{tag}] routes of the cases above {_pair_routes(routes)}, K1 {routes['K1']}; "
+        f"{train_occupancy()}; "
         f"ptxas: {_ptxas_train()}")
-    return {"K8a": dict(err=e_k1, ms=k_ms, plain_ms=k_plain, library_ms=f_lib, **k_bound),
+    return {"K8a": dict(err=e_k1, ms=k_ms, plain_ms=k_plain, library_ms=f_lib,
+                        kernel_alone_ms=k_alone, **k_bound),
             "K8a-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **f_bound),
             "K8b": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_bound)}
 
@@ -2292,7 +2326,6 @@ def pretrain_phase(dev, smi: str, out: str) -> tuple:
     summary = ps.pretrain(args, data, log_every=1)
     wall = time.perf_counter() - t0
     launches = _packed_counts()
-    _note_routes({"K1-lse": "K8a-lse", "K2": "K8b"})
     run_dir = os.path.join(out, ps.run_name(args))
     rec = _metrics(run_dir)
     losses, norms = [r["loss"] for r in rec], [r["grad_norm"] for r in rec]
@@ -2775,16 +2808,18 @@ def _all_counts() -> dict:
     from msvit_tpu_torch.ops.packed_attention import packed_attention, packed_attention_int8
 
     return {**_attn_counts(), **_training_counts(), **_ms_train_counts(),
-            "K1": packed_attention.launches, "K3": packed_attention_int8.launches}
+            "K1": _routed_count(packed_attention), "K3": packed_attention_int8.launches}
 
 
 def _reset_all_counts() -> None:
-    from msvit_tpu_torch.ops.packed_attention import packed_attention, packed_attention_int8
+    from msvit_tpu_torch.ops.packed_attention import (
+        packed_attention, packed_attention_int8, zero_counts)
 
     _reset_attn_counts()
     _reset_training_counts()
     _reset_ms_train_counts()
-    packed_attention.launches = packed_attention_int8.launches = 0
+    zero_counts(packed_attention)
+    packed_attention_int8.launches = 0
 
 
 def predictive_phase(dev, smi: str) -> None:
@@ -2975,10 +3010,10 @@ def subsample_phase(dev, smi: str) -> dict:
             f"{counts}")
         if counts != full:
             raise AssertionError(f"subsample 448 {mode}: launches {counts}, want {full}")
-        launches[mode] = want
+        launches[mode] = counts["K7"]
         fn = functools.partial(forward, model, pix)
         ms = wall_ms(fn)
-        busy, k7 = device_profile(fn, "flash_mma_kernel", want)
+        busy, k7 = device_profile(fn, "attention_wgmma_kernel", want)
         syncs, peak = _syncs(fn), _peak_gib(fn)
         # every slot split: the same tree on both paths whatever the rounding
         plain = build(dataclasses.replace(cfg, attn_implementation="xla"))
@@ -3110,6 +3145,11 @@ def key_mask_kernel_phase(dev, smi: str) -> dict:
             lib = library_ms(lambda: sdpa(q, k, v, mask))
             lim = bound([q, k, v, mask], [q], ops, torch.bfloat16)
             out[name] = dict(err=res[name], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)
+            if name == "K7":
+                alone = device_ms(lambda: fn(q, k, v, mask=mask), "attention_wgmma_kernel")
+                out[name]["kernel_alone_ms"] = alone
+                log(f"[key-mask] K7 bf16 {shape} key-only mask alone: {alone!r} ms (device "
+                    f"time, torch.profiler; {rate(ops, alone, lim)}; {smi})")
         ms, plain_ms = race(lambda: fused_attention_lse(q, k, v, mask=mask),
                             lambda: fused_attention_lse_plain(q, k, v, mask=mask))
         lim = bound([q, k, v, mask], [q, lse], ops, torch.bfloat16)
@@ -3249,18 +3289,21 @@ from msvit_tpu_torch.export import load_forward
 from msvit_tpu_torch.ops import packed_attention as pa
 d, dev = pathlib.Path(sys.argv[1]), torch.device(sys.argv[2])
 state = torch.load(d / "inputs.pt", weights_only=False)  # written by chip_smoke.py
-out, launches = {}, {}
+out, launches, routes = {}, {}, {}
 for name in ("int8", "bf16", "bf16_bundled"):
     g = load_forward((d / f"{name}.msvx").read_bytes())
     args = () if name == "bf16_bundled" else (state["params"][name],)
-    pa.packed_attention.launches = pa.packed_attention_int8.launches = 0
+    pa.zero_counts(pa.packed_attention)
+    pa.packed_attention_int8.launches = 0
     out[name] = {b: g(*args, x.to(dev)).cpu() for b, x in state["inputs"].items()}
     launches[name] = {"K1": pa.packed_attention.launches, "K3": pa.packed_attention_int8.launches}
+    routes[name] = pa.routes_of(pa.packed_attention)
 models = sorted(m for m in sys.modules if m.startswith("msvit_tpu_torch.models"))
 if models:
     raise SystemExit(f"the reload imported model code: {models}")
 torch.save(out, d / "outputs.pt")
 print("RELOAD " + json.dumps(launches))
+print("ROUTES " + json.dumps(routes))
 """
 
 
@@ -3298,7 +3341,8 @@ def _serve_through(int8_fn, bf16_fn, images: np.ndarray, tag: str) -> dict:
     `stats`, the `wall` seconds, the `lone` and `burst` img/s, the
     `launches` of the served requests alone, and the `responses` as
     (image, (features, route))."""
-    from msvit_tpu_torch.ops.packed_attention import packed_attention, packed_attention_int8
+    from msvit_tpu_torch.ops.packed_attention import (
+        packed_attention, packed_attention_int8, zero_counts)
     from msvit_tpu_torch.serve import BatchingServer
 
     n = len(images)
@@ -3309,7 +3353,8 @@ def _serve_through(int8_fn, bf16_fn, images: np.ndarray, tag: str) -> dict:
         srv.warmup()
         log(f"[{tag}] server warm-up of buckets {srv.buckets} in "
             f"{time.perf_counter() - t0:.1f} s")
-        packed_attention.launches = packed_attention_int8.launches = 0
+        zero_counts(packed_attention)
+        packed_attention_int8.launches = 0
         t0 = time.perf_counter()
         for i in range(64):  # lone requests -> bucket 1 -> bf16
             responses.append((i % n, srv.submit(images[i % n]).result(timeout=120)))
@@ -3321,7 +3366,8 @@ def _serve_through(int8_fn, bf16_fn, images: np.ndarray, tag: str) -> dict:
             responses += [(i, f.result(timeout=120)) for i, f in zip(idx, futs)]
         t_burst = time.perf_counter() - t1
         wall = time.perf_counter() - t0
-        launches = {"K1": packed_attention.launches, "K3": packed_attention_int8.launches}
+        launches = {"K1": _routed_count(packed_attention),
+                    "K3": packed_attention_int8.launches}
         stats = srv.stats()
     return dict(stats=stats, wall=wall, lone=64 / t_single, burst=448 / t_burst,
                 launches=launches, responses=responses)
@@ -3475,6 +3521,8 @@ def runtime_phase(dev, smi: str, live_served: dict) -> dict:
             raise AssertionError(f"the reload child failed:\n{res.stderr[-4000:]}")
         line = [ln for ln in res.stdout.splitlines() if ln.startswith("RELOAD ")][-1]
         child = json.loads(line[len("RELOAD "):])
+        line = [ln for ln in res.stdout.splitlines() if ln.startswith("ROUTES ")][-1]
+        child_routes = json.loads(line[len("ROUTES "):])
         outs = torch.load(os.path.join(tmp, "outputs.pt"), weights_only=True)
     live = {}
     with torch.no_grad():
@@ -3608,7 +3656,9 @@ def runtime_phase(dev, smi: str, live_served: dict) -> dict:
     if counts != {"K1-lse": 6 * LAYERS, "K2": 6 * LAYERS}:
         raise AssertionError(f"the training launches {counts}")
     log(f"[runtime] phase 32 in {time.perf_counter() - phase_t0:.1f} s ({smi})")
-    return {k: launches[k] + sum(c[k] for c in child.values()) for k in launches}
+    reloaded = {"K1": sum(Launches(c["K1"], child_routes[n]) for n, c in child.items()),
+                "K3": sum(c["K3"] for c in child.values())}
+    return {k: launches[k] + reloaded[k] for k in launches}
 
 
 def int8_ab(tag: str) -> dict:
@@ -3800,6 +3850,124 @@ def train_kernel_ab(tag: str) -> dict:
     return res
 
 
+def attention_kernel_ab(tag: str) -> dict:
+    """K1 and K7, and the two forwards that run them most, on the package
+    beside this file, for an A/B of two trees in one call (parent, change,
+    change, parent; each run from its root after this file is copied over
+    the parent's own):
+
+        python3 -c "import chip_smoke as c; c.attention_kernel_ab('change')"
+
+    The 448-px multistate bf16 forward with clustering (ms448_phase's
+    model, scene and draws: ms/batch over 5 runs after 2 of warm-up, host
+    clock; its device time and K7's part, `device_profile`) and
+    slice_phase's ViT-B/16 bf16 forward at bs64 (the same); K7 bf16 at
+    [8,12,3168,64] with that forward's partition's soft mask and at
+    [8,12,1361,64] with key_mask_kernel_phase's key-only mask; K1 bf16 at
+    [64,197,2304], [64,785,2304] and [8,1370,2304].  Each kernel through
+    its wrapper (median of 20, CUDA events), alone (`device_ms`; either
+    tree's kernel names) and its share of the bound, beside
+    `scaled_dot_product_attention` on the same views, through its call and
+    its device time (`device_profile`, every kernel of the call); at 197
+    tokens also the host time of one wrapper call and of one library call
+    (500 calls back to back, host clock, no synchronisation inside).  Prints
+    one line, "AB " and a JSON object."""
+    smi = card()
+    sys.path.insert(0, ROOT)
+    from msvit_tpu_torch.models.base import ViTModel, BaseViTConfig
+    from msvit_tpu_torch.models.multistate import MultiStateViTEncoderModel
+    from msvit_tpu_torch.models.subsample import build_quadtree
+    from msvit_tpu_torch.ops import flash_attention as fl
+    from msvit_tpu_torch.ops import packed_attention as pa
+    from msvit_tpu_torch.utils.rng import Rng
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main()
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"tag": tag, "card": smi}
+    k1_names, k7_names = "packed_mma_kernel|attention_wgmma_kernel", "flash_mma_kernel|attention_wgmma_kernel"
+
+    def host_us(fn, calls: int = 500) -> float:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / calls * 1e6
+
+    def kernel(key, fn, lib, names, ops, lim):
+        res[f"{key}_ms"] = statistics.median(time_ms(fn, runs=20))
+        res[f"{key}_alone_ms"] = device_ms(fn, names)
+        res[f"{key}_share_of_bound"] = lim["bound_ms"] / res[f"{key}_alone_ms"]
+        res[f"{key}_tflops_alone"] = ops / res[f"{key}_alone_ms"] / 1e9
+        res[f"{key}_sdpa_ms"] = statistics.median(time_ms(lib, runs=20))
+        res[f"{key}_sdpa_device_ms"] = device_profile(lib, r"^$", 0)[0]
+
+    # the dense 448 forward first: its partition gives K7's soft mask
+    cfg = ms448_config()
+    model = MultiStateViTEncoderModel(cfg, generator=torch.Generator().manual_seed(0),
+                                      device=dev).eval()
+    pix = scene_pixels(5, size=448).to(dev)
+
+    def ms448():
+        with torch.inference_mode():
+            return model(pix, rng=Rng(3))
+
+    out = ms448()
+    soft = _soft(out["last_cluster_indices"], out["num_clusters"])
+    res["ms448_bf16_ms_per_batch"] = wall_ms(ms448, runs=5)
+    res["ms448_bf16_device_ms"], res["ms448_K7_ms"] = device_profile(ms448, k7_names, LAYERS - 1)
+    del model, out
+    torch.cuda.empty_cache()
+    vit = ViTModel(BaseViTConfig(), generator=torch.Generator().manual_seed(0), device=dev).eval()
+    vpix = wire_pixels(np.concatenate([serving_images()] * 2), dev)
+    res["vit_bf16_bs64_ms_per_batch"] = wall_ms(lambda: _bf16_forward(vit, vpix), runs=5)
+    res["vit_bf16_bs64_device_ms"], res["vit_K1_ms"] = device_profile(
+        lambda: _bf16_forward(vit, vpix), k1_names, LAYERS)
+    del vit
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(10)
+    b, h, n, dh = MS448_SHAPE
+    with torch.inference_mode():
+        q, k, v = pa.unpack_qkv(torch.randn(b, n, 3 * h * dh, generator=g).to(dev)
+                                .to(torch.bfloat16), h)
+        ops = attn_ops(b, h, n, n, dh, 2)
+        kernel("K7_3168", lambda: fl.flash_attention(q, k, v, mask=soft),
+               lambda: sdpa(q, k, v, soft), k7_names, ops,
+               bound([q, k, v, soft], [q], ops, torch.bfloat16))
+        del q, k, v, soft
+        b, h, n, dh = SS_SHAPE
+        depth = torch.from_numpy(
+            build_quadtree(subsample_config(image_size=448, max_depth=3)).depth).float()
+        valid = torch.rand(b, n - 1, generator=g) < 0.6
+        key = torch.cat([torch.zeros(b, 1),
+                         torch.where(valid, 0.0, -1e30) - math.log(4) * depth], dim=-1)
+        mask = key[:, None, None, :].to(dev)
+        q, k, v = pa.unpack_qkv(torch.randn(b, n, 3 * h * dh, generator=g).to(dev)
+                                .to(torch.bfloat16), h)
+        ops = attn_ops(b, h, n, n, dh, 2)
+        kernel("K7_key_1361", lambda: fl.flash_attention(q, k, v, mask=mask),
+               lambda: sdpa(q, k, v, mask), k7_names, ops,
+               bound([q, k, v, mask], [q], ops, torch.bfloat16))
+        del q, k, v, mask
+        for shape in (MAIN_SHAPE, GROUPED_SHAPE, (8, 1370, 2304)):
+            x = torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+            qkv = pa.unpack_qkv(x, 12)
+            ops = attn_ops(shape[0], 12, shape[1], shape[1], 64, 2)
+            fn, lib = (lambda: pa.packed_attention(x, 12)), (lambda: sdpa(*qkv))
+            kernel(f"K1_{shape[1]}", fn, lib, k1_names, ops,
+                   bound([x], [x[..., :768]], ops, torch.bfloat16))
+            if shape == MAIN_SHAPE:
+                res["K1_197_host_us"], res["K1_197_sdpa_host_us"] = host_us(fn), host_us(lib)
+            del x, qkv
+    print("AB " + json.dumps(res), flush=True)
+    return res
+
+
 # ------------------------------------------------------------ base extras
 
 
@@ -3960,14 +4128,17 @@ def _k1_k3_rows(dev, smi: str, res: dict) -> None:
             err = _check("extras", f"K1 bf16 {list(shape)}",
                          max_err(out, packed_attention_plain(x, h)), K1_TOL[torch.bfloat16])
             ms, plain = race(lambda: packed_attention(x, h), lambda: packed_attention_plain(x, h))
+            alone = device_ms(lambda: packed_attention(x, h), "attention_wgmma_kernel")
             lib = library_ms(lambda: sdpa(*unpack_qkv(x, h)))
             b, n, _ = shape
             ops = attn_ops(b, h, n, n, 64, 2)
             lim = bound([x], [out], ops, torch.bfloat16)
             log(f"[extras] K1 bf16 {list(shape)}: kernel {ms!r} ms, plain {plain!r} ms, "
                 f"library {lib!r} ms, bound {lim}; {rate(ops, ms, lim)} (median of 20, CUDA "
-                f"events; {smi})")
-            res[key] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib, **lim)
+                f"events; {smi}); the kernel alone {alone!r} ms (device time, "
+                f"torch.profiler; {rate(ops, alone, lim)})")
+            res[key] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                            kernel_alone_ms=alone, **lim)
         shape = (EX_BATCH, 197, 1920)
         _, q, sec = int8_qkv(g, shape, dev, scale=0.5)
         got, want = packed_attention_int8(q, sec, 10), packed_attention_int8_plain(q, sec, 10)
@@ -4101,7 +4272,6 @@ def moe_route(dev, smi: str) -> dict:
         losses.append(loss.item())
         times.append((time.perf_counter() - t0) * 1e3)
     counts = _all_counts()
-    _note_routes({"K1-lse": "K1-lse", "K2": "K2"})
     peak = torch.cuda.max_memory_allocated() / 2**30
     _expect("MoE ViT-B/16 3 Trainer steps", counts, {"K1-lse": 3 * LAYERS, "K2": 3 * LAYERS})
     log(f"[extras] MoE ViT-B/16 Trainer bs64: losses {losses} (cross-entropy + 0.01 x the "
@@ -4279,13 +4449,14 @@ RING_SHAPE = (8, 3168, 12, 64, 4)
 def _ring_counts() -> dict:
     from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_lse
 
-    return {"K7-lse": flash_attention_lse.launches, "K6": flash_attention_bwd.launches}
+    return {"K7-lse": _routed_count(flash_attention_lse), "K6": flash_attention_bwd.launches}
 
 
 def _reset_ring_counts() -> None:
     from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_lse
+    from msvit_tpu_torch.ops.packed_attention import zero_counts
 
-    flash_attention_lse.launches = 0
+    zero_counts(flash_attention_lse)
     flash_attention_bwd.launches = 0
 
 
@@ -4320,7 +4491,6 @@ def _sharded_steps(dev, mesh, base, batch, lr: float, steps: int, **mode) -> dic
         torch.cuda.synchronize()
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["launches"].append(_training_counts())
-        _note_routes({"K1-lse": "K1-lse", "K2": "K2"})
         out["losses"].append(float(loss))
         if i == 0:
             out["grads"] = _flat(full_state_dict(model, grads=True))
@@ -4553,8 +4723,8 @@ def parallel_phase(dev, smi: str) -> tuple:
                 f"FlashAttentionFunction (out and grads) {w_err!r}; launches {one_counts}")
             if w_err > o_tol or one_counts != {"K7-lse": 1, "K6": 1}:
                 raise AssertionError("ring_attention at world size 1 is off")
-            launches["K7"] += 1
-            launches["K6"] += 1
+            launches["K7"] += one_counts["K7-lse"]
+            launches["K6"] += one_counts["K6"]
             qd, kd, vd = (x.detach() for x in (qt, kt, vt))
             big = -0.7 * float(torch.finfo(torch.float32).max)
             with torch.no_grad():
@@ -4662,8 +4832,11 @@ wrappers = {"K4": fused_attention.fused_attention_inference, "K5": fused_attenti
 def reset():
     for f in wrappers.values():
         f.launches = 0
+    packed_attention.zero_counts(flash_attention.flash_attention)
 def counts():
     return {k: f.launches for k, f in wrappers.items()}
+def k7_routes():
+    return packed_attention.routes_of(flash_attention.flash_attention)
 params = torch.load(d / f"{weights}.params.pt", weights_only=False)  # written by chip_smoke.py
 inputs = torch.load(d / f"{name}.inputs.pt")
 g = load_forward((d / f"{name}.msvx").read_bytes())
@@ -4673,12 +4846,13 @@ reset()
 t0 = time.perf_counter()
 outs = {b: call(x) for b, x in inputs.items()}
 first_s = time.perf_counter() - t0
-launches = counts()
+launches, routes = counts(), k7_routes()
 torch.save(outs, d / f"{name}.outputs.pt")
 models = sorted(m for m in sys.modules if m.startswith("msvit_tpu_torch.models"))
 if models:
     raise SystemExit(f"the reload imported model code: {models}")
-print("READY " + json.dumps({"first_calls_s": first_s, "launches": launches}), flush=True)
+print("READY " + json.dumps({"first_calls_s": first_s, "launches": launches,
+                             "k7_routes": routes}), flush=True)
 sys.stdin.readline()
 x1 = inputs[1]
 for _ in range(2):
@@ -4713,7 +4887,8 @@ if serve:
                 and torch.equal(ids, direct[i][2][0]) for i, (f, nc, ids) in alone)
     valid = all(bool(torch.isfinite(f).all()) and 0 <= int(ids.min()) and int(ids.max()) < int(nc)
                 for f, nc, ids in [r for _, r in alone] + bursts)
-    done.update(served={"stats": stats, "launches": counts(), "wall_s": wall,
+    done.update(served={"stats": stats, "launches": counts(), "k7_routes": k7_routes(),
+                        "wall_s": wall,
                         "lone_img_s": 16 / t_alone, "lone_equal": equal, "valid": valid})
 print("DONE " + json.dumps(done), flush=True)
 """
@@ -5005,11 +5180,15 @@ def export_families_phase(dev, smi: str) -> dict:
                     if pipe is not None:
                         pipe.close()
     torch.cuda.empty_cache()
+    def count(got: dict, k: str):  # K7's with its routes
+        n = got["launches"][k]
+        return Launches(n, got["k7_routes"]) if k == "K7" else n
+
     launches = {}
     for name, _, k, _ in EXPORT_FAMILIES:
-        launches[k] = launches.get(k, 0) + res[name]["reload"]["launches"][k]
+        launches[k] = launches.get(k, 0) + count(res[name]["reload"], k)
         if "served" in res[name]:
-            launches[k] += res[name]["served"]["launches"][k]
+            launches[k] += count(res[name]["served"], k)
     log(f"[families] phase 35 in {time.perf_counter() - t_phase:.1f} s ({smi})")
     print("families " + json.dumps({n: {k: v for k, v in r.items() if k != "reload"}
                                     for n, r in res.items()}), flush=True)
@@ -5034,7 +5213,8 @@ def ptxas_lines() -> list:
     report."""
     from msvit_tpu_torch.ops import _build
 
-    kernels = (r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8|lse)(?:_w?gmma|_mma)?_kernel|"
+    kernels = (r"attention_wgmma_kernel|"
+               r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8|lse)(?:_w?gmma|_mma)?_kernel|"
                r"packed_mma_kernel|fused_attention_kernel|flash_bwd_(?:dq|dkv)(?:_mma)?_kernel|"
                r"flash_(?:forward|mma)_kernel|banded(?:_mma)?_kernel")
     # the bf16 kernels on the tensor cores (templated on the head size only)
@@ -5070,6 +5250,8 @@ def ptxas_lines() -> list:
                 tag = "K4" if "Lb1E" in name else "K5/K5-lse"
             elif kern == "packed_attention_int8_kernel":
                 tag = "K9" if "Lb1E" in name else "K3"
+            elif kern == "attention_wgmma_kernel":  # SHAVED: K1, else K7 / K7-lse
+                tag = "K1" if "Lb1E" in name else "K7/K7-lse"
             else:
                 tag = tags.get(kern)
             if tag:
@@ -5224,16 +5406,18 @@ def main() -> None:
                                   for tag, key in extra[k]]} if k in extra else {}))
         for k, name, cu, tpu in row_keys
     ]
-    # K1-lse's and K2's rows split their launches by route: the main path's
-    # trunks are bf16 at head size 64, so every launch took the wgmma route
+    # the routed kernels' rows split their launches by route: the main
+    # path's trunks are at head size 64, so every bf16 launch took the wgmma
+    # route (K1 and K7 also run f32 forwards, on the CUDA cores)
     for row in rows:
         k = next(k for k, name, *_ in row_keys if name == row["name"])
-        if k in ("K1-lse", "K2", "K8a-lse", "K8b"):
-            row["launches_by_route"] = ROUTES.get(k, {})
-            if sum(row["launches_by_route"].values()) != row["launches"] or (
-                    row["launches_by_route"].get("wgmma") != row["launches"]):
-                raise AssertionError(f"{k}: launches {row['launches']}, by route "
-                                     f"{row['launches_by_route']}: not all on wgmma")
+        if k not in ("K1", "K1-lse", "K2", "K7", "K8a", "K8a-lse", "K8b"):
+            continue
+        routes = getattr(launches[k], "routes", None)
+        if routes is None or routes["mma.sync"] or not routes["wgmma"]:
+            raise AssertionError(f"{k}: launches {row['launches']}, by route "
+                                 f"{routes}: a bf16 launch off wgmma")
+        row["launches_by_route"] = routes
     log(f"[total] chip_smoke.py ran in {time.perf_counter() - started:.1f} s, the kernels' "
         f"build included ({smi})")
     print(json.dumps({"kernels": rows}))

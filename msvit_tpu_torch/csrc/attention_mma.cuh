@@ -4,7 +4,8 @@
 //
 // Replaces the bf16 branch of three TPU kernels:
 //   * `msvit_tpu/ops/flash_attention.py::_flash_forward` (K7, K7-lse): the
-//     exact online softmax over key tiles, any N;
+//     exact online softmax over key tiles, any N (at head sizes other than
+//     64: K7's head size 64 runs attention_wgmma.cuh);
 //   * `msvit_tpu/ops/fused_attention.py::_fused_forward` (K5, and K5-lse
 //     with `with_lse=True`): the exact softmax of one head's whole score
 //     row, which the online softmax computes too (SHAVED = false);
@@ -63,14 +64,15 @@
 // none): 3 blocks an SM with an f32 mask, 4 with a bool mask or none
 // (registers bound them there).  At dh 128 q stays in its own buffer.  Head
 // sizes 8/24/40 are zero-padded in shared memory to their bucket, zeroed
-// once a block.  wgmma with TMA and warp specialisation is the later step.
+// once a block.  K7 at head size 64 runs the wgmma kernel of
+// attention_wgmma.cuh; K4, K5 and K5-lse stay on this body.
 //
 // Every template here lives in an anonymous namespace, so each translation
 // unit that includes the header owns its instantiations: the objects linked
 // into one library share no kernel symbol.
 #pragma once
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace msvit {
 namespace {
@@ -301,11 +303,14 @@ int mma_smem_bytes(int mask_kind) {
          2 * kMmaRows * mask_row_bytes(mask_kind);
 }
 
+// The kernel's dynamic shared memory allowed once per device and
+// instantiation, at its largest (an f32 mask's tiles): a launch with a
+// smaller mask asks for less.
 template <int DHT, bool SHAVED>
-cudaError_t allow_smem(int bytes) {
-  return cudaFuncSetAttribute(flash_mma_kernel<DHT, SHAVED>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};
+  return hopper::allow_smem_once(flash_mma_kernel<DHT, SHAVED>,
+                                 mma_smem_bytes<DHT>(kAddMask), done);
 }
 
 template <int DHT, bool SHAVED>
@@ -315,7 +320,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        int mask_kind, long long sb, long long sh, long long sr, float scale,
                        float mask_value, cudaStream_t stream) {
   const int bytes = mma_smem_bytes<DHT>(mask_kind);
-  const cudaError_t err = allow_smem<DHT, SHAVED>(bytes);
+  const cudaError_t err = allow_smem<DHT, SHAVED>();
   if (err != cudaSuccess) return err;
   const dim3 grid(h, (nq + kMmaRows - 1) / kMmaRows, b);
   flash_mma_kernel<DHT, SHAVED><<<grid, kMmaThreads, bytes, stream>>>(
@@ -345,7 +350,7 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 template <int DHT, bool SHAVED>
 cudaError_t blocks_per_sm(int mask_kind, int* blocks) {
   const int bytes = mma_smem_bytes<DHT>(mask_kind);
-  const cudaError_t err = allow_smem<DHT, SHAVED>(bytes);
+  const cudaError_t err = allow_smem<DHT, SHAVED>();
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, flash_mma_kernel<DHT, SHAVED>, kMmaThreads, bytes);

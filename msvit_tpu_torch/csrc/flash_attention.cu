@@ -39,12 +39,24 @@
 // broadcast over the heads) 0.2494 ms of operations against 0.096 ms of
 // bytes, if the mask is read once.
 //
-// bf16 (flash_mma_kernel<DHT, false>, `attention_mma.cuh`): the tile body
-// shared with K5 and K4 -- mma.sync tiles of 64 query rows fed by a
-// cp.async ring of k/v and mask tiles, the online softmax in log2 units on
-// the accumulator fragments, p rounded into P.V's A fragments, a head-first
-// grid so that the 12 heads of a query tile meet their broadcast mask panel
-// in L2 (the header says how and why).
+// bf16 at head size 64 (attention_wgmma_kernel<false>,
+// `attention_wgmma.cuh`): Hopper's warpgroup products fed by TMA,
+// warp-specialised, K1-lse's design on 4-D maps over the strided q/k/v
+// views, the mask loaded straight into the accumulator's layout one tile
+// ahead, the head-first grid (the header says how and why).  The mma.sync
+// tile body below it took 2.36-2.51 ms at [8, 12, 3168, 64] against the
+// library's 1.20-1.24 (NVIDIA H100 80GB HBM3, 700 W): 0.1 of the bound.
+//
+// Other bf16 head sizes (flash_mma_kernel<DHT, false>,
+// `attention_mma.cuh`): the tile body shared with K5 and K4 -- mma.sync
+// tiles of 64 query rows fed by a cp.async ring of k/v and mask tiles, the
+// online softmax in log2 units on the accumulator fragments, p rounded into
+// P.V's A fragments, a head-first grid so that the 12 heads of a query tile
+// meet their broadcast mask panel in L2 (the header says how and why).
+//
+// The route is the entry point's: bf16 at dh 64 takes the wgmma kernel,
+// other bf16 head sizes the mma.sync kernel, f32 the CUDA cores; there is
+// no fallback between them (a q, k or v view TMA cannot map is refused).
 //
 // f32 (flash_forward_kernel): one thread per query row on the CUDA cores
 // in f32 FMAs (TF32 would break the f32 bars), the [Nq, Nk] scores in
@@ -56,6 +68,7 @@
 // score).
 
 #include "attention_mma.cuh"
+#include "attention_wgmma.cuh"
 
 namespace msvit {
 namespace {
@@ -222,6 +235,21 @@ void dispatch(const void* q, const void* k, const void* v, const void* mask,
   }
 }
 
+// The wgmma route (bf16, head size 64): q, k, v through their 4-D maps,
+// out through its strides.
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* mask,
+                         void* out, float* lse, const long long* st, int b, int h,
+                         int nq, int nk, int mask_kind, long long sb, long long sh,
+                         long long sr, float scale, float mask_value,
+                         cudaStream_t stream) {
+  QkvMaps maps;
+  const cudaError_t err = map_qkv(&maps, q, k, v, b, h, nq, nk, st);
+  if (err != cudaSuccess) return err;
+  const AttnArgs a{mask, static_cast<bf16*>(out), lse, st[9], st[10], st[11], sb, sh,
+                   sr, b, h, nq, nk, mask_kind, scale, mask_value};
+  return launch_attn_wgmma<false>(maps, a, stream);
+}
+
 int run(const void* q, const void* k, const void* v, const void* mask,
         void* out, float* lse, int dtype, int b, int h, int nq, int nk, int dh,
         const long long* strides, int mask_kind, long long mask_sb,
@@ -237,6 +265,10 @@ int run(const void* q, const void* k, const void* v, const void* mask,
   if (dtype == 0) {
     dispatch<float>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh, mask_kind,
                     mask_sb, mask_sh, mask_sr, scale, mask_value, s);
+  } else if (dtype == 1 && dh == 64) {
+    return static_cast<int>(launch_wgmma(q, k, v, mask, out, lse, strides, b, h, nq, nk,
+                                         mask_kind, mask_sb, mask_sh, mask_sr, scale,
+                                         mask_value, s));
   } else if (dtype == 1) {
     return static_cast<int>(dispatch_mma<false>(q, k, v, mask, out, lse, st, b, h,
                                          nq, nk, dh, mask_kind, mask_sb,

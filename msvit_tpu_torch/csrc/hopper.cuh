@@ -105,6 +105,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 4-D map (attention_wgmma.cuh's [B, H, N, 64] views): c0
+// the element column, c1 the row, c2 the head, c3 the image.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---------------------------------------------------------------- wgmma --
 
 // Bytes of one [64 rows][64 bf16] swizzled tile.
@@ -309,6 +322,41 @@ inline cudaError_t map_rows(CUtensorMap* map, const void* base, int b, int n,
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(base), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a [B, H, N, 64] bf16 view given by its element strides
+// (image sb, head sh, row sn; the head's 64 elements contiguous): dims
+// (64, N, H, B), pitches sn*2, sh*2 and sb*2 bytes, box (64, 64, 1, 1) = 64
+// rows of one (head, image), 128-byte swizzle.  A box past row N is
+// zero-filled inside its own (head, image).  A dim of size 1 is never
+// stepped: it takes the packed pitch (the dim below it times that dim's
+// size; a lone row 128 bytes), whatever its stride.  A base off 16 bytes,
+// or a pitch of a stepped dim that is not a positive multiple of 16 bytes,
+// is refused (cudaErrorInvalidValue), never read another way.
+inline cudaError_t map_heads(CUtensorMap* map, const void* base, int b, int h, int n,
+                             long long sb, long long sh, long long sn) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  if (n == 1) sn = 64;
+  if (h == 1) sh = sn * n;
+  if (b == 1) sb = sh * h;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorInvalidValue;
+  const long long pitches[3] = {sn, sh, sb};
+  for (const long long s : pitches)
+    if (s <= 0 || (s * 2) % 16 != 0) return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn * 2),
+                                 static_cast<cuuint64_t>(sh * 2),
+                                 static_cast<cuuint64_t>(sb * 2)};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                          const_cast<void*>(base), dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -18,7 +18,17 @@
 // pretrain's 785 tokens (0.1225 ms against 0.092 ms of bytes at bs64),
 // bytes at ViT-B/16's 197 (0.0231 ms against 0.0077).
 //
-// bf16, on the tensor cores (packed_mma_kernel): K1-lse's tiles
+// bf16 at head size 64 (every zoo trunk but vit-h14): the shaved
+// instantiation of the Hopper kernel in attention_wgmma.cuh, wgmma fed by
+// TMA, warp-specialised (K1-lse's design without the running max; the
+// header says how).  Its 4-D maps read the packed qkv as [B, H, N, 64] views
+// at element offsets 0, D and 2D (row pitch 3D*2 bytes, head pitch 128),
+// the boxes K1-lse's 3-D map reads at columns h*64, D + h*64, 2D + h*64.
+// The mma.sync kernel below issued small synchronous products from 4 warps
+// fed by a two-stage cp.async ring: 0.84 ms at [64, 785, 2304] against the
+// library's 0.44 (NVIDIA H100 80GB HBM3, 700 W).
+//
+// Other bf16 head sizes (packed_mma_kernel): K1-lse's mma.sync tiles
 // (packed_attention_lse.cu) without the running max.  Warp-level mma.sync
 // m16n8k16 (bf16 operands, f32 accumulators); a block of 4 warps takes 64
 // query rows (16 a warp) of one (head, image), q fragments loaded once
@@ -36,7 +46,11 @@
 // a warp whose rows all lie past N only helps copy.  Shared rows are padded by
 // 16 bytes (ldmatrix rows in distinct banks); head sizes 8/24/40 are
 // zero-padded in shared memory to their bucket (16/32/64), zeroed once a
-// block.  wgmma with TMA and warp specialisation is the later step.
+// block.
+//
+// The route is the entry point's: bf16 at dh 64 takes the wgmma kernel,
+// other bf16 head sizes the mma.sync kernel, f32 the CUDA cores; there is
+// no fallback between them (a qkv TMA cannot map is refused).
 //
 // f32 (packed_attention_kernel): one thread per query row on the CUDA
 // cores in f32 FMAs (TF32 would break the f32 bars); the [N, N] scores never
@@ -44,7 +58,7 @@
 // coalesced 16-byte loads and read by all 64 query rows as broadcasts.  In
 // f32 p needs no rounding: the plain version's cast to f32 is the identity.
 
-#include "common.cuh"
+#include "attention_wgmma.cuh"
 
 namespace msvit {
 namespace {
@@ -313,8 +327,8 @@ cudaError_t launch_mma(const void* qkv, const void* mask, void* out, int b,
                        cudaStream_t stream) {
   const int bytes = (kMmaRows + 4 * kMmaTile) * mma_ld<DHT>() *
                     static_cast<int>(sizeof(bf16));
-  const cudaError_t err = cudaFuncSetAttribute(
-      packed_mma_kernel<DHT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static std::atomic<unsigned long long> smem_set{0};  // this instantiation's
+  const cudaError_t err = hopper::allow_smem_once(packed_mma_kernel<DHT>, bytes, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kMmaRows - 1) / kMmaRows, h, b);
   packed_mma_kernel<DHT><<<grid, kMmaThreads, bytes, stream>>>(
@@ -323,10 +337,32 @@ cudaError_t launch_mma(const void* qkv, const void* mask, void* out, int b,
   return cudaGetLastError();
 }
 
+// The wgmma route (head size 64): q, k and v are the packed qkv's
+// [B, H, N, 64] views at element offsets 0, D and 2D (image stride N*3D,
+// head stride 64, row stride 3D); out is packed [B, N, D] at column h*64.
+cudaError_t launch_wgmma(const void* qkv, const void* mask, void* out, int b, int n,
+                         int h, int mask_kind, long long sb, long long sh, float scale,
+                         float mask_value, cudaStream_t stream) {
+  const long long d = 64LL * h;
+  const long long row = 3 * d;
+  const long long st[9] = {n * row, 64, row, n * row, 64, row, n * row, 64, row};
+  const bf16* base = static_cast<const bf16*>(qkv);
+  QkvMaps maps;
+  const cudaError_t err = map_qkv(&maps, base, base + d, base + 2 * d, b, h, n, n, st);
+  if (err != cudaSuccess) return err;
+  const AttnArgs a{mask, static_cast<bf16*>(out), nullptr, n * d, 64, d, sb, sh, n,
+                   b, h, n, n, mask_kind, scale, mask_value};
+  return launch_attn_wgmma<true>(maps, a, stream);
+}
+
+// bf16 on the tensor cores: wgmma at head size 64, else the mma.sync kernel
+// of dh's bucket.
 cudaError_t dispatch_mma(const void* qkv, const void* mask, void* out, int b,
                          int n, int h, int dh, int mask_kind, long long sb,
                          long long sh, float scale, float mask_value,
                          cudaStream_t stream) {
+  if (dh == 64)
+    return launch_wgmma(qkv, mask, out, b, n, h, mask_kind, sb, sh, scale, mask_value, stream);
   if (dh <= 16)
     return launch_mma<16>(qkv, mask, out, b, n, h, dh, mask_kind, sb, sh, scale, mask_value, stream);
   if (dh <= 32)

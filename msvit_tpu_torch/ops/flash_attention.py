@@ -4,8 +4,14 @@
   `_fwd_kernel`): the exact online-softmax attention that "auto" takes
   where one head's score tile outgrows the single-pass fused kernel's
   budget (`ops/attention.py::_fused_eligible`; the multistate trunk at
-  448 px, 3168 tokens).  Kernel: `csrc/flash_attention.cu` (bf16 on the
-  tensor cores, f32 on the CUDA cores).
+  448 px, 3168 tokens).  Kernel: `csrc/flash_attention.cu`; bf16 on the
+  tensor cores, at head size 64 on `wgmma` fed by TMA
+  (`csrc/attention_wgmma.cuh`), at other head sizes on `mma.sync`
+  (`csrc/attention_mma.cuh`), f32 on the CUDA cores.  K7 and K7-lse count
+  their launches by route (`ops/packed_attention.py::kernel_route`,
+  `route_counts`); on the wgmma route q, k and v are read through 4-D TMA
+  maps as they are, and a view TMA cannot map (`tma_map_heads`) raises a
+  `ValueError` naming the wrapper.
 * `flash_attention_lse` -- K7-lse, the same kernel's `with_lse` branch:
   K7 plus a compact lse ``[B, H, Nq]`` f32 (0 where l == 0).  The TPU's
   lane-replicated ``[B, H, Nq_pad, 128]`` layout, of which its VJP keeps
@@ -62,7 +68,8 @@ from msvit_tpu_torch.ops.fused_attention import (
     FusedAttentionFunction, _dims, _kernel_operands, _mask_args, _requires_grad,
     _run, _strides, attention_fake, call_op, fused_attention_lse_plain,
     fused_attention_plain)
-from msvit_tpu_torch.ops.packed_attention import _DTYPE_CODES, _acc, _ptr, _scores
+from msvit_tpu_torch.ops.packed_attention import (
+    _DTYPE_CODES, _acc, _ptr, _scores, zero_counts)
 
 
 # ----------------------------------------------------------------- K7 ----
@@ -117,9 +124,6 @@ def flash_attention(
                    q, k, v, mask, scale, mask_value)
 
 
-flash_attention.launches = 0
-
-
 def flash_attention_lse(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -136,7 +140,7 @@ def flash_attention_lse(
                 with_lse=True)
 
 
-flash_attention_lse.launches = 0
+zero_counts(flash_attention, flash_attention_lse)
 
 
 class FlashAttentionFunction(FusedAttentionFunction):

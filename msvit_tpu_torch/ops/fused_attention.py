@@ -39,7 +39,8 @@ masked one does, so a row of them is mean(V), not zeros as in K5.
 
 Each wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches its kernel or raises: there is no fallback.
-Each counts its kernel launches (`.launches`).
+Each counts its kernel launches (`.launches`), by route too (`.mma_launches`,
+`.f32_launches`; `packed_attention.py::route_counts`).
 
 K5 (the no-grad branch of `fused_attention`) and K4 are registered ops,
 `torch.ops.msvit.fused_attention` and `torch.ops.msvit.fused_attention_inference`
@@ -70,7 +71,12 @@ import torch
 from msvit_tpu_torch.ops import _build
 from msvit_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
 from msvit_tpu_torch.ops.packed_attention import (
-    _DTYPE_CODES, _acc, _off_kernel_devices, _ptr, _scores, _traced)
+    _DTYPE_CODES, _acc, _count_route, _off_kernel_devices, _ptr, _scores, _traced,
+    check_tma_heads, kernel_route, zero_counts)
+
+# the entry points with a wgmma kernel (K7, K7-lse); K4, K5 and K5-lse run
+# mma.sync at every bf16 head size
+_WGMMA_ENTRIES = ("msvit_flash_attention", "msvit_flash_attention_lse")
 
 
 def _dims(q, k, v):
@@ -163,9 +169,15 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_operands(name: str, dh: int, *ts: torch.Tensor):
-    """The [B, H, N, dh] operands of a kernel, checked (on one card, f32 or
-    bf16 alike, a head size the kernels take) and made readable through
-    their strides."""
+    """The [B, H, N, dh] operands of a kernel, checked (`_check_operands`)
+    and made readable through their strides."""
+    _check_operands(name, dh, *ts)
+    return [_operand(t) for t in ts]
+
+
+def _check_operands(name: str, dh: int, *ts: torch.Tensor) -> None:
+    """The [B, H, N, dh] operands of a kernel: on one card, f32 or bf16
+    alike, a head size the kernels take."""
     first = ts[0]
     for t in ts:
         if t.device.type != "cuda":
@@ -177,7 +189,6 @@ def _kernel_operands(name: str, dh: int, *ts: torch.Tensor):
                             "unsupported (f32 or bf16, all alike)")
     if dh % 8 or dh > 128:
         raise ValueError(f"{name}: head size {dh} unsupported (a multiple of 8, <= 128)")
-    return [_operand(t) for t in ts]
 
 
 def _strides(*ts: torch.Tensor):
@@ -216,15 +227,25 @@ def _mask_args(mask, b, h, nq, nk, device, name):
 def _run(wrapper, entry: str, plain, q, k, v, mask, scale, mask_value,
          with_lse: bool = False):
     """The plain version for CPU tensors; for CUDA tensors the kernel
-    `entry` (counted on `wrapper.launches`), or an exception.  Returns out,
-    or (out, lse) `with_lse`."""
+    `entry` (counted on `wrapper.launches` and by route), or an exception.
+    The route is `kernel_route`'s, with mma.sync for wgmma where `entry`
+    has no wgmma kernel; on the wgmma route q, k and v are read through
+    4-D TMA maps as they are, and a view TMA cannot map raises.  Returns
+    out, or (out, lse) `with_lse`."""
     name = wrapper.__name__
     b, h, nq, nk, dh = _dims(q, k, v)
     if scale is None:
         scale = 1.0 / dh**0.5
     if q.device.type == "cpu":
         return plain(q, k, v, mask, scale, mask_value)
-    q, k, v = _kernel_operands(name, dh, q, k, v)
+    _check_operands(name, dh, q, k, v)
+    route = kernel_route(q.dtype, dh)
+    if route == "wgmma" and entry not in _WGMMA_ENTRIES:
+        route = "mma.sync"
+    if route == "wgmma":
+        check_tma_heads(name, q, k, v)
+    else:
+        q, k, v = (_operand(t) for t in (q, k, v))
     kind, m, sb, sh, sr = _mask_args(mask, b, h, nq, nk, q.device, name)
     out = torch.empty((b, nq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
@@ -239,7 +260,7 @@ def _run(wrapper, entry: str, plain, q, k, v, mask, scale, mask_value,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, name)
-    wrapper.launches += 1
+    _count_route(wrapper, route)
     return (out, lse) if with_lse else out
 
 
@@ -318,9 +339,6 @@ def fused_attention(
                    q, k, v, mask, scale, mask_value)
 
 
-fused_attention.launches = 0
-
-
 def fused_attention_lse(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -336,9 +354,6 @@ def fused_attention_lse(
     return _run(fused_attention_lse, "msvit_fused_attention_lse",
                 fused_attention_lse_plain, q, k, v, mask, scale, mask_value,
                 with_lse=True)
-
-
-fused_attention_lse.launches = 0
 
 
 def fused_attention_inference(
@@ -362,7 +377,7 @@ def fused_attention_inference(
                    "fused_attention_inference", q, k, v, mask, scale, mask_value)
 
 
-fused_attention_inference.launches = 0
+zero_counts(fused_attention, fused_attention_lse, fused_attention_inference)
 
 
 class FusedAttentionFunction(torch.autograd.Function):

@@ -18,14 +18,18 @@ hand-written CUDA kernel for Hopper with a plain PyTorch version beside it:
   [B, N, 3D] from the saved (qkv, out, lse) and the output cotangent.
   Kernel: `csrc/packed_attention_bwd.cu`.
 
-K1-lse and K2 take one of three routes, by `train_route` (the C entry
-points apply the same rule): bf16 at head size 64 (every zoo trunk but
-vit-h14) the Hopper kernels on `wgmma` fed by TMA, other bf16 head sizes
-the `mma.sync` kernels, f32 the CUDA cores.  Each wrapper counts its
-launches by route beside `.launches` (`.wgmma_launches`, `.mma_launches`,
-`.f32_launches`).  The TMA maps are 3-D over the packed tensors
-(`tma_map`): a tensor whose base or row pitch TMA cannot take raises a
-`ValueError`; it never takes another route.
+K1, K1-lse and K2 (and K7 and K7-lse, `ops/flash_attention.py`) take one
+of three routes, by `kernel_route` (the C entry points apply the same
+rule): bf16 at head size 64 (every zoo trunk but vit-h14) the Hopper
+kernels on `wgmma` fed by TMA, other bf16 head sizes the `mma.sync`
+kernels, f32 the CUDA cores.  Each wrapper counts its launches by route
+beside `.launches` (`.wgmma_launches`, `.mma_launches`, `.f32_launches`;
+`route_counts`; K4, K5 and K5-lse, which have no wgmma kernel, count
+theirs the same way).  K1-lse's and K2's TMA maps are 3-D over the packed
+tensors (`tma_map`), K1's and K7's 4-D over [B, H, N, 64] views
+(`tma_map_heads`; K1 reads the packed qkv's q, k and v views): a tensor
+whose base or pitches TMA cannot take raises a `ValueError`; it never
+takes another route.
 * `packed_attention_int8` — K3, the TPU kernel `packed_attention_int8`:
   int8 in, bf16 or int8 out.  Kernel: `csrc/packed_attention_int8.cu`, on
   the int8 tensor cores (s8 operands, s32 accumulators: both products
@@ -187,25 +191,27 @@ def _scores(q, k, scale, mask, mask_value, acc=torch.float32) -> torch.Tensor:
     return s
 
 
-# ------------------------------------------------- K1-lse / K2 routes ----
+# ---------------------------------------------------- kernel routes ----
 
 ROUTES = ("wgmma", "mma.sync", "cuda_cores")
 _ROUTE_COUNTERS = {"wgmma": "wgmma_launches", "mma.sync": "mma_launches",
                    "cuda_cores": "f32_launches"}
 TMA_BOX = (64, 64, 1)  # (head elements, rows, images) of one tile
+TMA_BOX_HEADS = (64, 64, 1, 1)  # (head elements, rows, heads, images)
 
 
-def train_route(dtype: torch.dtype, dh: int) -> str:
-    """The kernel route of K1-lse and K2 on the card: "wgmma" (bf16, head
-    size 64: warpgroup products fed by TMA), "mma.sync" (bf16, any other
-    head size: the head padded to its 16/32/64/128 bucket) or
-    "cuda_cores" (f32).  The C entry points take the same rule."""
+def kernel_route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel route of K1, K1-lse, K2, K7 and K7-lse on the card:
+    "wgmma" (bf16, head size 64: warpgroup products fed by TMA),
+    "mma.sync" (bf16, any other head size: the head padded to its
+    16/32/64/128 bucket) or "cuda_cores" (f32).  The C entry points take
+    the same rule."""
     if dtype == torch.float32:
         return "cuda_cores"
     if dtype != torch.bfloat16:
-        raise TypeError(f"K1-lse/K2: dtype {dtype} unsupported")
+        raise TypeError(f"dtype {dtype} unsupported (f32 or bf16)")
     if dh % 8 or not 0 < dh <= 128:
-        raise ValueError(f"K1-lse/K2: head size {dh} unsupported (a multiple of 8, <= 128)")
+        raise ValueError(f"head size {dh} unsupported (a multiple of 8, <= 128)")
     return "wgmma" if dh == 64 else "mma.sync"
 
 
@@ -228,6 +234,38 @@ def tma_map(shape, element_size: int, data_ptr: int) -> dict:
             "box_bytes": TMA_BOX[0] * TMA_BOX[1] * element_size}
 
 
+def tma_map_heads(shape, strides, element_size: int, data_ptr: int) -> dict:
+    """The geometry of the 4-D TMA map the wgmma kernels of K1 and K7
+    build over a [B, H, N, 64] view of `shape` and element `strides`
+    (`csrc/hopper.cuh::map_heads`): dims (64, N, H, B) innermost first,
+    pitches in bytes of a row, a head and an image, the box
+    `TMA_BOX_HEADS`, a 128-byte swizzle; rows past N are zero-filled inside
+    their (head, image).  A dim of size 1 is never stepped: it takes the
+    pitch of the dim below it times that dim's size.  Raises `ValueError`
+    where TMA cannot take the view: the head's elements not contiguous, a
+    base off 16 bytes, a stepped pitch that is not a positive multiple of
+    16 bytes."""
+    b, h, n, dh = shape
+    sb, sh, sn, se = strides
+    if se != 1:
+        raise ValueError(f"TMA: the head's elements are {se} apart, not contiguous")
+    if data_ptr % 16:
+        raise ValueError(f"TMA: the view's base {data_ptr:#x} is not 16-byte aligned")
+    if n == 1:
+        sn = dh
+    if h == 1:
+        sh = sn * n
+    if b == 1:
+        sb = sh * h
+    pitches = tuple(s * element_size for s in (sn, sh, sb))
+    for what, p in zip(("row", "head", "image"), pitches):
+        if p <= 0 or p % 16:
+            raise ValueError(f"TMA: {what} pitch {p} bytes ({tuple(shape)} strides "
+                             f"{tuple(strides)}) is not a positive multiple of 16")
+    return {"dims": (dh, n, h, b), "pitches": pitches, "box": TMA_BOX_HEADS,
+            "box_bytes": TMA_BOX_HEADS[0] * TMA_BOX_HEADS[1] * element_size}
+
+
 def head_columns(num_heads: int, h: int, dh: int = 64) -> Tuple[int, int, int]:
     """The first element column of head h's q, k and v boxes in a packed
     [B, N, 3D] row (D = num_heads * dh): h dh, D + h dh, 2D + h dh."""
@@ -241,25 +279,52 @@ def _count_route(fn, route: str) -> None:
     setattr(fn, name, getattr(fn, name) + 1)
 
 
-def reset_train_counts() -> None:
-    """Set K1-lse's and K2's launch counts, by route too, to 0."""
-    for fn in (packed_attention_lse, packed_attention_bwd):
+def zero_counts(*fns) -> None:
+    """Set each wrapper's launch count, and its counts by route, to 0."""
+    for fn in fns:
         fn.launches = 0
         for name in _ROUTE_COUNTERS.values():
             setattr(fn, name, 0)
 
 
-def train_route_counts() -> dict:
-    """{"K1-lse": {route: launches}, "K2": {...}} since the last reset."""
-    return {k: {r: getattr(fn, _ROUTE_COUNTERS[r]) for r in ROUTES}
-            for k, fn in (("K1-lse", packed_attention_lse), ("K2", packed_attention_bwd))}
+def routes_of(fn) -> dict:
+    """{route: launches} of a wrapper since its counts were set to 0."""
+    return {r: getattr(fn, _ROUTE_COUNTERS[r]) for r in ROUTES}
+
+
+def _routed() -> dict:
+    """The wrappers that count their launches by route, by kernel."""
+    from msvit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_lse
+    from msvit_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_inference, fused_attention_lse)
+
+    return {"K1": packed_attention, "K1-lse": packed_attention_lse,
+            "K2": packed_attention_bwd, "K4": fused_attention_inference,
+            "K5": fused_attention, "K5-lse": fused_attention_lse,
+            "K7": flash_attention, "K7-lse": flash_attention_lse}
+
+
+def route_counts() -> dict:
+    """{"K1": {route: launches}, "K1-lse": ..., "K2", "K4", "K5", "K5-lse",
+    "K7", "K7-lse"} since each wrapper's `zero_counts`."""
+    return {k: routes_of(fn) for k, fn in _routed().items()}
 
 
 def _check_tma(name: str, *tensors: torch.Tensor) -> None:
-    """The wgmma route's TMA maps: every packed operand must map."""
+    """K1-lse's and K2's 3-D TMA maps over packed operands: every one
+    must map."""
     for t in tensors:
         try:
             tma_map(t.shape, t.element_size(), t.data_ptr())
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+
+
+def check_tma_heads(name: str, *views: torch.Tensor) -> None:
+    """K1's and K7's TMA maps: every [B, H, N, 64] view must map."""
+    for t in views:
+        try:
+            tma_map_heads(t.shape, t.stride(), t.element_size(), t.data_ptr())
         except ValueError as e:
             raise ValueError(f"{name}: {e}") from None
 
@@ -320,6 +385,9 @@ def _packed_attention_k1(
         return packed_attention_plain(qkv, num_heads, mask, scale, mask_value)
     b, n, d, dh = _dims(qkv, num_heads)
     _check_cuda(qkv, "packed_attention", dh)
+    route = kernel_route(qkv.dtype, dh)
+    if route == "wgmma":
+        check_tma_heads("packed_attention", *unpack_qkv(qkv, num_heads))
     kind, m, sb, sh = _mask_args(mask, qkv, num_heads, "packed_attention")
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
     lib = _build.library()
@@ -330,7 +398,7 @@ def _packed_attention_k1(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, "packed_attention")
-    packed_attention.launches += 1
+    _count_route(packed_attention, route)
     return out
 
 
@@ -375,9 +443,6 @@ def packed_attention(
     _off_kernel_devices(qkv, "packed_attention")
     return torch.ops.msvit.packed_attention(
         qkv, mask, num_heads, float(scale), float(mask_value))
-
-
-packed_attention.launches = 0
 
 
 # ------------------------------------------------------------ K1-lse ----
@@ -425,7 +490,7 @@ def packed_attention_lse(
     if qkv.device.type == "cpu":
         return packed_attention_lse_plain(qkv, num_heads, mask, scale, mask_value)
     _check_cuda(qkv, "packed_attention_lse", dh)
-    route = train_route(qkv.dtype, dh)
+    route = kernel_route(qkv.dtype, dh)
     if route == "wgmma":
         _check_tma("packed_attention_lse", qkv)
     kind, m, sb, sh = _mask_args(mask, qkv, num_heads, "packed_attention_lse")
@@ -522,7 +587,7 @@ def packed_attention_bwd(
             raise ValueError(f"{name}: residuals on another device")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: out, g and lse must be 16-byte aligned")
-    route = train_route(qkv.dtype, dh)
+    route = kernel_route(qkv.dtype, dh)
     if route == "wgmma":
         _check_tma(name, qkv, g)
     kind, m, sb, sh = _mask_args(mask, qkv, num_heads, name)
@@ -542,7 +607,7 @@ def packed_attention_bwd(
     return dqkv
 
 
-reset_train_counts()
+zero_counts(packed_attention, packed_attention_lse, packed_attention_bwd)
 
 
 class PackedAttentionFunction(torch.autograd.Function):

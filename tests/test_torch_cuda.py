@@ -6,6 +6,8 @@ run time).  Run on a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import math
+
 import pytest
 import torch
 
@@ -18,8 +20,9 @@ from msvit_tpu_torch.ops.packed_attention import (
     packed_attention_lse,
     packed_attention_lse_plain,
     packed_attention_plain,
-    train_route,
-    train_route_counts,
+    kernel_route,
+    route_counts,
+    unpack_qkv,
 )
 
 pytestmark = pytest.mark.cuda
@@ -210,7 +213,7 @@ def _train_case(b, n, h, dh, dtype, dev, seed, mask=None, scale=1.0):
         x[..., : 2 * h * dh] *= scale
     g = _qkv(b, n, h * dh, dtype, dev, seed=seed + 1)[..., : h * dh].contiguous()
     n1, n2 = packed_attention_lse.launches, packed_attention_bwd.launches
-    routes = train_route_counts()
+    routes = route_counts()
     with torch.no_grad():
         o, lse = packed_attention_lse(x, h, mask=mask)
         wo, wl = packed_attention_lse_plain(x, h, mask=mask)
@@ -219,10 +222,11 @@ def _train_case(b, n, h, dh, dtype, dev, seed, mask=None, scale=1.0):
     torch.cuda.synchronize()
     assert (packed_attention_lse.launches, packed_attention_bwd.launches) == (n1 + 1, n2 + 1)
     # each launch took its route: wgmma for bf16 at head size 64
-    route = train_route(dtype, dh)
-    for k, counts in train_route_counts().items():
-        assert {r: c - routes[k][r] for r, c in counts.items()} == {
-            r: int(r == route) for r in counts}, k
+    route = kernel_route(dtype, dh)
+    now = route_counts()
+    for k in ("K1-lse", "K2"):
+        assert {r: c - routes[k][r] for r, c in now[k].items()} == {
+            r: int(r == route) for r in now[k]}, k
     assert o.dtype == dtype and lse.dtype == torch.float32 and got.dtype == dtype
     assert torch.isfinite(o).all() and torch.isfinite(got).all()
     assert (o.float() - wo.float()).abs().max().item() <= _TOL[dtype]
@@ -377,7 +381,7 @@ def test_other_head_sizes_take_mma_sync(dev, dh):
     """dh 32, 80 (vit-h14) and 128 stay on the mma.sync kernels: the route
     counters say so."""
     _train_case(2, 130, 2, dh, torch.bfloat16, dev, seed=69 + dh)
-    assert train_route(torch.bfloat16, dh) == "mma.sync"
+    assert kernel_route(torch.bfloat16, dh) == "mma.sync"
 
 
 def test_wgmma_route_refuses_a_misaligned_qkv(dev):
@@ -385,6 +389,224 @@ def test_wgmma_route_refuses_a_misaligned_qkv(dev):
     x = torch.zeros(1 + 2 * 5 * 192, dtype=torch.bfloat16, device=dev)[1:].view(2, 5, 192)
     with pytest.raises(ValueError, match="aligned"):
         packed_attention_lse(x, 1)
+
+
+# ------------------------ K1, K7 and K7-lse on wgmma fed by TMA (bf16, dh 64) ----
+# The same 128-row blocks over 4-D TMA maps of [B, H, N, 64] views (K1:
+# the packed qkv's; K7: strided or contiguous q/k/v, Nq != Nk), the mask
+# loaded straight into the accumulators' layout: the cases sit on and
+# around the tile edges, at the main path's lengths (197, 785, 1370; 3168
+# and the key-only 1361), with every mask form; each launch's route is read
+# from the route counters.
+
+
+def _took(before: dict, want: dict) -> None:
+    """Since `before` (a `route_counts()`), each kernel named in `want`
+    launched once, on that route, and no other routed kernel launched."""
+    now = route_counts()
+    for k, counts in now.items():
+        got = {r: c - before[k][r] for r, c in counts.items()}
+        assert got == {r: int(r == want.get(k)) for r in counts}, (k, got)
+
+
+def _k1_wgmma_case(x, h, mask=None):
+    """K1 against its plain version, one launch on the wgmma route."""
+    before = route_counts()
+    with torch.inference_mode():
+        got = packed_attention(x, h, mask=mask)
+        want = packed_attention_plain(x, h, mask=mask)
+    torch.cuda.synchronize()
+    _took(before, {"K1": "wgmma"})
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= _TOL[torch.bfloat16]
+    return got
+
+
+@pytest.mark.parametrize("n", [5, 63, 64, 65, 127, 128, 129, 197, 785, 1370])
+def test_k1_wgmma_tile_edges(dev, n):
+    _k1_wgmma_case(_qkv(2, n, 2 * 64, torch.bfloat16, dev, seed=80 + n), 2)
+
+
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+@pytest.mark.parametrize("heads_in_mask", [1, 3])
+@pytest.mark.parametrize("n", [65, 197])
+def test_k1_wgmma_masks(dev, kind, heads_in_mask, n):
+    """Per-head and broadcast masks; the bool one with fully masked rows on
+    both sides of a tile edge, each mean(V) over the N real keys."""
+    b, h = 2, 3
+    x = _qkv(b, n, h * 64, torch.bfloat16, dev, seed=81)
+    r = torch.rand(b, heads_in_mask, n, n, generator=torch.Generator().manual_seed(82 + n))
+    if kind == "bool":
+        m = r < 0.7
+        m[:, :, 0, :] = False
+        m[:, :, 64, :] = False
+    else:
+        m = -100.0 * (r < 0.3).float()
+    m = m.to(dev)
+    for mask in (m, m[:1]):  # per image, and broadcast over the images
+        got = _k1_wgmma_case(x, h, mask)
+    if kind == "bool":
+        mean_v = x[..., 2 * h * 64:].float().mean(1)  # [B, D]
+        for row in (0, 64):
+            assert (got[:, row].float() - mean_v).abs().max().item() <= _TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("n", [197, 785])
+def test_k1_wgmma_large_logits_flatten_like_plain(dev, n):
+    """q and k x 12 in bf16 (|s| in the hundreds): the clip at +-80
+    flattens the rows, in the kernel as in the plain version."""
+    h = 2
+    x = _qkv(2, n, h * 64, torch.bfloat16, dev, seed=83).float()
+    x[..., : 2 * h * 64] *= 12.0
+    x = x.to(torch.bfloat16)
+    q, k, _ = (t.float() for t in unpack_qkv(x, h))
+    assert (torch.matmul(q, k.transpose(-1, -2)) * 0.125).abs().max().item() > 150
+    _k1_wgmma_case(x, h)
+
+
+@pytest.mark.parametrize("masked", [None, "bool", "additive"])
+def test_k1_wgmma_deterministic(dev, masked):
+    """No atomics: two calls give the same bits."""
+    b, n, h = 2, 197, 12
+    x = _qkv(b, n, h * 64, torch.bfloat16, dev, seed=84)
+    m = _grouped_mask(masked, b, h, n, dev, seed=85)
+    with torch.inference_mode():
+        o1, o2 = (packed_attention(x, h, mask=m) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+
+
+def test_k1_wgmma_refuses_a_misaligned_qkv(dev):
+    """A qkv whose base is off 16 bytes raises; it takes no other route."""
+    x = torch.zeros(1 + 2 * 5 * 192, dtype=torch.bfloat16, device=dev)[1:].view(2, 5, 192)
+    before = route_counts()
+    with torch.inference_mode(), pytest.raises(ValueError, match="packed_attention"):
+        packed_attention(x, 1)
+    _took(before, {})
+
+
+def _k7_wgmma_case(q, k, v, mask=None, route="wgmma"):
+    """K7 and K7-lse against their plain version, one launch each on
+    `route`; K7's out is K7-lse's.  Returns (out, lse, plain out, plain
+    lse)."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    before = route_counts()
+    with torch.inference_mode():
+        got = fl.flash_attention(q, k, v, mask=mask)
+        o, lse = fl.flash_attention_lse(q, k, v, mask=mask)
+        want, wl = fl.flash_attention_lse_plain(q, k, v, mask=mask)
+    torch.cuda.synchronize()
+    _took(before, {"K7": route, "K7-lse": route})
+    assert got.shape == want.shape and got.dtype == q.dtype
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+    assert torch.equal(got, o)
+    tol = _TOL[q.dtype] * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert _lse_err(lse, wl) <= 1e-5
+    return got, lse, want, wl
+
+
+@pytest.mark.parametrize("b,nq,nk,h,mask,packed", [
+    (1, 3168, 3168, 2, "additive", True),  # the 448-px trunk's soft mask, broadcast
+    (2, 197, 3168, 2, "additive", True),  # Nq != Nk, as the CPU tests take
+    (2, 3168, 197, 2, "bool_per_head", False),  # Q longer than K/V
+    (2, 63, 65, 3, "bool", True),
+    (2, 129, 127, 3, "additive_per_head", False),
+    (2, 128, 64, 2, None, True),
+    (2, 5, 9, 2, "bool_per_head", False),
+    (2, 600, 1100, 2, None, False),
+])
+def test_k7_wgmma_shapes(dev, b, nq, nk, h, mask, packed):
+    """Strided views of packed QKV outputs or contiguous tensors, every mask
+    form; a bool mask's row 0 is fully masked: mean(V)."""
+    q, k, v = _heads(b, nq, nk, h, 64, torch.bfloat16, dev, seed=86, packed=packed)
+    m = _fused_mask(mask, b, h, nq, nk, dev, seed=87)
+    got, _, want, _ = _k7_wgmma_case(q, k, v, m)
+    if mask is not None and mask.startswith("bool"):
+        tol = _TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+        assert (got[:, :, 0].float() - v.float().mean(2)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+@pytest.mark.parametrize("nq", [1025, 1361])
+def test_k7_wgmma_key_only_masks(dev, kind, nq):
+    """The depth-3 subsample trunk's key-only masks ([B, 1, 1, 1361]: one
+    row at pitch 0, 1361-entry rows off every alignment): bit-equal to the
+    mask expanded in memory."""
+    q, k, v = _heads(2, nq, 1361, 2, 64, torch.bfloat16, dev, seed=88, packed=True)
+    m = _key_mask(kind, 2, 1361, dev, seed=89)
+    got, lse, _, _ = _k7_wgmma_case(q, k, v, m)
+    full, full_lse, _, _ = _k7_wgmma_case(q, k, v, m.expand(-1, -1, nq, -1).contiguous())
+    assert torch.equal(got, full) and torch.equal(lse, full_lse)
+
+
+def test_k7_wgmma_zero_l_row_and_fully_masked_row(dev):
+    """At Nq 197 x Nk 3168: an additive row of -inf has l == 0 and gives
+    zeros and lse 0 (K7's guard, where K1-lse gives NaN); a fully masked
+    bool row gives mean(V) and lse = mask_value + log Nk."""
+    from msvit_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
+
+    b, nq, nk, h = 2, 197, 3168, 2
+    q, k, v = _heads(b, nq, nk, h, 64, torch.bfloat16, dev, seed=90, packed=True)
+    m = -100.0 * (torch.rand(b, 1, nq, nk, generator=torch.Generator().manual_seed(91))
+                  < 0.3).float()
+    m[1, 0, 3] = -torch.inf
+    got, lse, _, _ = _k7_wgmma_case(q, k, v, m.to(dev))
+    assert torch.equal(got[1, :, 3], torch.zeros_like(got[1, :, 3]))
+    assert torch.equal(lse[1, :, 3], torch.zeros_like(lse[1, :, 3]))
+    mb = torch.rand(b, h, nq, nk, generator=torch.Generator().manual_seed(92)) < 0.7
+    mb[:, :, 130] = False
+    got, lse, want, _ = _k7_wgmma_case(q, k, v, mb.to(dev))
+    tol = _TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+    assert (got[:, :, 130].float() - v.float().mean(2)).abs().max().item() <= tol
+    full = torch.full_like(lse[:, :, 130], DEFAULT_MASK_VALUE + math.log(nk))
+    assert _lse_err(lse[:, :, 130], full) <= 1e-5
+
+
+def test_k7_wgmma_large_logits_are_exact(dev):
+    """q and k x 12 (|s| in the hundreds): the online max keeps every row
+    exact, as the plain version."""
+    q, k, v = _heads(2, 197, 300, 2, 64, torch.float32, dev, seed=93, packed=True)
+    _k7_wgmma_case((q * 12).to(torch.bfloat16), (k * 12).to(torch.bfloat16),
+                   v.to(torch.bfloat16))
+
+
+def test_k7_wgmma_refuses_a_view_tma_cannot_map(dev):
+    """A q view whose row pitch is 136 bytes (not a multiple of 16) raises
+    on the wgmma route, naming the wrapper; nothing launches, nothing is
+    copied to another route."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    base = torch.zeros(2, 70, 68, dtype=torch.bfloat16, device=dev)
+    q = base[..., :64].unsqueeze(1)  # [2, 1, 70, 64], rows 68 elements apart
+    k = v = torch.zeros(2, 1, 70, 64, dtype=torch.bfloat16, device=dev)
+    before = route_counts()
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="flash_attention: TMA"):
+            fl.flash_attention(q, k, v)
+        with pytest.raises(ValueError, match="flash_attention_lse: TMA"):
+            fl.flash_attention_lse(q, k, v)
+    _took(before, {})
+
+
+@pytest.mark.parametrize("dh", [32, 128])
+def test_k1_and_k7_other_head_sizes_take_mma_sync(dev, dh):
+    """Head sizes other than 64 stay on the mma.sync kernels, f32 on the
+    CUDA cores: the route counters say so."""
+    before = route_counts()
+    x = _qkv(2, 130, 2 * dh, torch.bfloat16, dev, seed=94)
+    with torch.inference_mode():
+        got = packed_attention(x, 2)
+    torch.cuda.synchronize()
+    _took(before, {"K1": "mma.sync"})
+    assert (got.float() - packed_attention_plain(x, 2).float()).abs().max().item() <= _TOL[
+        torch.bfloat16]
+    q, k, v = _heads(2, 130, 150, 2, dh, torch.bfloat16, dev, seed=95, packed=True)
+    _k7_wgmma_case(q, k, v, route="mma.sync")
+    q, k, v = _heads(2, 130, 150, 2, 64, torch.float32, dev, seed=96, packed=True)
+    _k7_wgmma_case(q, k, v, route="cuda_cores")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -603,15 +825,17 @@ def test_k4_k5_round_p_like_plain(dev, kernel):
 
 
 def _fused_case(kernel, q, k, v, m):
-    """One call of K4, K5 or K5-lse (one launch) against its plain version:
+    """One call of K4, K5 or K5-lse (one launch, on mma.sync for bf16 at
+    every head size, on the CUDA cores for f32) against its plain version:
     out within the K1 bar of max(1, max |plain|), K5-lse's lse within 1e-5
     of max(1, |lse|) and its out K5's bits.  Returns the kernel's out and
     the bar."""
     from msvit_tpu_torch.ops import fused_attention as fa
+    from msvit_tpu_torch.ops.packed_attention import routes_of
 
     fn = {"K4": fa.fused_attention_inference, "K5": fa.fused_attention,
           "K5-lse": fa.fused_attention_lse}[kernel]
-    before = fn.launches
+    before, routes = fn.launches, routes_of(fn)
     with torch.inference_mode():
         if kernel == "K5-lse":
             got, lse = fn(q, k, v, mask=m)
@@ -624,6 +848,9 @@ def _fused_case(kernel, q, k, v, m):
             want = plain(q, k, v, mask=m)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
+    route = "mma.sync" if q.dtype == torch.bfloat16 else "cuda_cores"
+    assert {r: c - routes[r] for r, c in routes_of(fn).items()} == {
+        r: int(r == route) for r in routes}
     assert got.shape == q.shape and got.dtype == q.dtype
     assert torch.isfinite(got).all()
     tol = _TOL[q.dtype] * max(1.0, want.float().abs().max().item())

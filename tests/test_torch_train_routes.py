@@ -1,9 +1,11 @@
-"""The route rule of K1-lse and K2 and the geometry of the wgmma route's TMA
-maps (`msvit_tpu_torch/ops/packed_attention.py`), kept in Python so that
-the CPU can check them: bf16 at head size 64 takes the wgmma kernels,
-other bf16 head sizes the mma.sync kernels, f32 the CUDA cores; the maps
-are 3-D over the packed [B, N, W] tensors with a (64, 64, 1) box at each
-head's q, k and v columns.  No JAX, no kernel: a few milliseconds."""
+"""The route rule of K1, K1-lse, K2, K7 and K7-lse and the geometry of the
+wgmma route's TMA maps (`msvit_tpu_torch/ops/packed_attention.py`), kept in
+Python so that the CPU can check them: bf16 at head size 64 takes the wgmma
+kernels, other bf16 head sizes the mma.sync kernels, f32 the CUDA cores;
+K1-lse's and K2's maps are 3-D over the packed [B, N, W] tensors with a
+(64, 64, 1) box at each head's q, k and v columns, K1's and K7's 4-D over
+[B, H, N, 64] views through their strides with a (64, 64, 1, 1) box.  No
+JAX, no kernel: a few milliseconds."""
 
 import pytest
 import torch
@@ -21,7 +23,7 @@ from msvit_tpu_torch.ops import packed_attention as pa
     (torch.float32, 128, "cuda_cores"),
 ])
 def test_train_route(dtype, dh, route):
-    assert pa.train_route(dtype, dh) == route
+    assert pa.kernel_route(dtype, dh) == route
 
 
 @pytest.mark.parametrize("dtype,dh,error", [
@@ -33,7 +35,7 @@ def test_train_route(dtype, dh, route):
 ])
 def test_train_route_refuses(dtype, dh, error):
     with pytest.raises(error):
-        pa.train_route(dtype, dh)
+        pa.kernel_route(dtype, dh)
 
 
 @pytest.mark.parametrize("shape,pitch", [((64, 197, 2304), 4608), ((64, 785, 2304), 4608),
@@ -75,12 +77,98 @@ def test_head_columns_address_the_packed_sections(h):
 
 def test_route_counters_and_the_cpu_path():
     """The wrappers take the plain versions on the CPU and count no launch;
-    `reset_train_counts` zeroes every route's count."""
+    `zero_counts` zeroes every route's count of the eight kernels."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    routed = (pa.packed_attention, pa.packed_attention_lse, pa.packed_attention_bwd,
+              fa.fused_attention_inference, fa.fused_attention, fa.fused_attention_lse,
+              fl.flash_attention, fl.flash_attention_lse)
     pa.packed_attention_lse.wgmma_launches = 3
-    pa.reset_train_counts()
+    fl.flash_attention.mma_launches = 2
+    fa.fused_attention.mma_launches = 4
+    pa.zero_counts(*routed)
     x = torch.randn(1, 7, 3 * 2 * 64)
     out, lse = pa.packed_attention_lse(x, 2)
     pa.packed_attention_bwd(x, None, out, lse, torch.randn(1, 7, 128), 2)
+    with torch.no_grad():
+        pa.packed_attention(x, 2)
+        q, k, v = pa.unpack_qkv(x, 2)
+        fl.flash_attention(q, k, v)
+        fl.flash_attention_lse(q, k, v)
+        fa.fused_attention_inference(q, k, v)
+        fa.fused_attention(q, k, v)
+        fa.fused_attention_lse(q, k, v)
     zero = {r: 0 for r in pa.ROUTES}
-    assert pa.train_route_counts() == {"K1-lse": zero, "K2": zero}
-    assert pa.packed_attention_lse.launches == pa.packed_attention_bwd.launches == 0
+    assert pa.route_counts() == {k: zero for k in ("K1", "K1-lse", "K2", "K4", "K5",
+                                                   "K5-lse", "K7", "K7-lse")}
+    assert all(fn.launches == 0 for fn in routed)
+
+
+def _view(kind, b=2, n=197, h=3):
+    """A [B, H, N, 64] bf16 view of each layout the wgmma route of K1 and
+    K7 reads: K1's and the 448-px trunk's q/k/v of a packed [B, N, 3D] QKV
+    output, a contiguous tensor (tests, the ring's q), the ring's k and v
+    ([B, N, H, 64] transposed)."""
+    if kind == "packed":
+        return pa.unpack_qkv(torch.zeros(b, n, 3 * h * 64, dtype=torch.bfloat16), h)[1]
+    if kind == "contiguous":
+        return torch.zeros(b, h, n, 64, dtype=torch.bfloat16)
+    return torch.zeros(b, n, h, 64, dtype=torch.bfloat16).transpose(1, 2)
+
+
+@pytest.mark.parametrize("kind,pitches", [
+    ("packed", (3 * 3 * 128, 128, 197 * 3 * 3 * 128)),
+    ("contiguous", (128, 197 * 128, 3 * 197 * 128)),
+    ("transposed", (3 * 128, 128, 197 * 3 * 128)),
+])
+def test_tma_map_heads_geometry(kind, pitches):
+    """Dims (64, N, H, B) innermost first, the row, head and image pitches
+    of each layout (the packed views' head pitch is 128 bytes, below the
+    row pitch), the (64, 64, 1, 1) box of 8 KB."""
+    t = _view(kind)
+    got = pa.tma_map_heads(t.shape, t.stride(), 2, 4096)
+    assert got == {"dims": (64, 197, 3, 2), "pitches": pitches, "box": (64, 64, 1, 1),
+                   "box_bytes": 8192}
+
+
+def test_tma_map_heads_size_one_dims_are_not_stepped():
+    """A dim of size 1 takes the pitch below it times that dim's size,
+    whatever its stride (here 0 and 8 elements), as `map_heads` does."""
+    got = pa.tma_map_heads((1, 1, 5, 64), (8, 0, 64, 1), 2, 4096)
+    assert got["pitches"] == (128, 5 * 128, 5 * 128)
+    assert pa.tma_map_heads((2, 3, 1, 64), (3 * 64, 64, 0, 1), 2, 4096)["pitches"] == (
+        128, 128, 3 * 128)
+
+
+@pytest.mark.parametrize("shape,strides,ptr,what", [
+    ((2, 3, 5, 64), (960, 320, 64, 1), 4104, "base"),  # off 16 bytes
+    ((2, 3, 5, 64), (1020, 340, 68, 1), 4096, "row pitch"),  # 136 bytes
+    ((2, 3, 5, 64), (960, 0, 64, 1), 4096, "head pitch"),  # expanded over heads
+    ((2, 3, 5, 64), (960, 64, 192, 2), 4096, "contiguous"),  # every other element
+])
+def test_tma_map_heads_refuses(shape, strides, ptr, what):
+    with pytest.raises(ValueError, match=f"TMA: .*{what}"):
+        pa.tma_map_heads(shape, strides, 2, ptr)
+
+
+def test_check_tma_heads_names_the_wrapper():
+    x = torch.zeros(1 + 2 * 3 * 5 * 64, dtype=torch.bfloat16)[1:].view(2, 3, 5, 64)
+    assert x.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="flash_attention: TMA"):
+        pa.check_tma_heads("flash_attention", x)
+
+
+@pytest.mark.parametrize("h", [0, 5, 11])
+def test_k1_views_read_the_packed_columns(h):
+    """K1's 4-D maps over the q, k and v views of a packed qkv address the
+    columns of K1-lse's 3-D map: a row of head h's view at image i is the
+    packed row's 64 elements at h*64, D + h*64, 2D + h*64, and the views'
+    pitches are the packed row's (3D*2 bytes) and image's."""
+    heads, n = 12, 7
+    x = torch.arange(2 * n * 3 * heads * 64, dtype=torch.float32).reshape(2, n, -1)
+    views = pa.unpack_qkv(x, heads)
+    for c, t in zip(pa.head_columns(heads, h), views):
+        assert t.stride() == (n * 3 * heads * 64, 64, 3 * heads * 64, 1)
+        assert t.data_ptr() - x.data_ptr() == (c - h * 64) * x.element_size()
+        assert torch.equal(t[:, h], x[..., c:c + 64])
