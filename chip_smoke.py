@@ -10,9 +10,10 @@ fails (non-zero exit, no result line) if any phase fails:
 2. build: compiles the hand-written kernels from `msvit_tpu_torch/csrc`
    (one nvcc per source, in parallel) and prints ptxas's registers and
    spills for the training (the bf16 pair on the tensor cores: the wgmma
-   kernels at head size 64, the mma.sync ones at every bucket), K1's and
-   K7's wgmma kernel (`attention_wgmma.cuh`), the fused, flash, banded and
-   int8 kernels;
+   kernels at head size 64, the mma.sync ones at every bucket), the wgmma
+   kernel of K1, K5 and K7 (`attention_wgmma.cuh`), K6's wgmma pair
+   (`attention_bwd_wgmma.cuh`), the fused, flash, banded and int8 kernels,
+   and every line where ptxas serialized a kernel's wgmma products;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (max abs error against a stated tolerance), then
    both timed with CUDA events in turns (plain, kernel, kernel, plain):
@@ -43,7 +44,7 @@ fails (non-zero exit, no result line) if any phase fails:
    calibrated on 8 images: without clustering events the int8 (K4) and
    bf16 (K5) forwards against the plain attention path and int8 against
    bf16; with them, valid outputs, K4 and K5 launched 11 times per forward
-   of their own, the partition's agreement with the plain path, ms/batch,
+   of their own (K5 on wgmma), the partition's agreement with the plain path, ms/batch,
    img/s, clustering's share, peak memory and host syncs; each forward's
    device time and K4's or K5's share of it (`torch.profiler`);
 9. fused kernels: K4 and K5 against their plain versions at [8,12,816,64]
@@ -55,14 +56,16 @@ fails (non-zero exit, no result line) if any phase fails:
    at [8,12,816,64] (the served partition's soft mask in bf16 and f32, a
    bool mask with a fully masked row, cross-context K/V, large logits, 6
    heads of 128, mask rows that are not 16-byte aligned: Nk 813 bool and
-   814 f32), then timed (each also alone, with its TFLOP/s);
+   814 f32), each case's route (wgmma at bf16 dh 64, mma.sync at dh 128,
+   the CUDA cores in f32), two K6 calls bit for bit, then timed (each also
+   alone, with its TFLOP/s);
 11. multistate gradient: `MultiStateViTForImageClassification` at
    `benchmarks/bench_multistate_train_r3.py`'s config (shared-anchor NCut,
    bs8) on the kernel path against the plain attention path, the loss and
    the TX/RX/classifier gradients, without and with clustering events;
 12. multistate training: `Trainer` takes 10 steps of the TX/RX tokens and
    the classifier; the loss falls, frozen weights stay bit-equal, K5-lse
-   and K6 run 11 times a step; ms/step, memory, host syncs, the step's
+   and K6 run 11 times a step, every launch on wgmma; ms/step, memory, host syncs, the step's
    device time and K5-lse and K6's share of it (`torch.profiler`);
 13. the fine-tune example (`python -m msvit_tpu_torch.examples.train_multistate
    --steps 3`, patch 16: K1-lse and K2 with the soft mask);
@@ -208,8 +211,8 @@ that call (`scaled_dot_product_attention` or its backward; the port never
 calls it).  The second-to-last line is a JSON object with each kernel's
 launches in its path's run (serving for K1 and K3, with the reloaded
 artifacts' launches of phase 32, training for K1-lse and
-K2 (split by route: every one on wgmma; K1's, K8a's and K7's rows split
-theirs too, and none may take mma.sync), the clustered multistate forwards for K4 and K5, multistate training
+K2 (split by route: every one on wgmma; the K1, K5, K5-lse, K6, K7 and
+K8a rows split theirs too, and none may take mma.sync), the clustered multistate forwards for K4 and K5, multistate training
 for K5-lse and K6, the clustered 448-px bf16 forward and the deep subsample
 forwards for K7, the 224-px int8-attention forward for K9, the 448-px banded forward for K10, the
 ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows; the extras
@@ -308,6 +311,14 @@ MS_GRAD_COS = 0.999
 # operations over the peak rate of their type (H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+
+# profiler names.  K4 and K5 / K5-lse: K4 on mma.sync (flash_mma_kernel),
+# K5 and K5-lse at bf16 head size 64 on the kernel K7 runs
+# (attention_wgmma_kernel, tagged FusedUnit), at other head sizes on
+# flash_mma_kernel, f32 on fused_attention_kernel.  K6: its two wgmma or
+# mma.sync kernels (either tree's names in an A/B).
+K45_KERNELS = "flash_mma_kernel|fused_attention_kernel|attention_wgmma_kernel"
+K6_KERNELS = r"flash_bwd_d(?:q|kv)_w?g?mma_kernel"
 
 
 def log(msg: str) -> None:
@@ -896,7 +907,7 @@ def _reset_training_counts():
 
 
 class Launches(int):
-    """A launch count of K1, K1-lse, K2, K7 or K7-lse that carries its split by route
+    """A launch count of K1, K1-lse, K2, K5, K5-lse, K6, K7 or K7-lse that carries its split by route
     (`routes`: {"wgmma": n, "mma.sync": n, "cuda_cores": n}).  The phases
     read these counts as `Launches` (`_routed_count`), and their sums keep
     the split, so that the kernels line shows each row's launches by
@@ -1115,7 +1126,7 @@ def _fused_counts() -> dict:
     from msvit_tpu_torch.ops.fused_attention import (
         fused_attention, fused_attention_inference)
 
-    return {"K4": fused_attention_inference.launches, "K5": fused_attention.launches}
+    return {"K4": fused_attention_inference.launches, "K5": _routed_count(fused_attention)}
 
 
 def _reset_fused_counts() -> None:
@@ -1225,6 +1236,7 @@ def multistate_phase(dev, smi: str) -> tuple:
     if n_int8 != {"K4": LAYERS - 1, "K5": 0} or n_bf16 != {"K4": 0, "K5": LAYERS - 1}:
         raise AssertionError(f"launches int8 {n_int8}, bf16 {n_bf16}: want K4 and K5 "
                              f"{LAYERS - 1} times each in its own forward")
+    _on_wgmma("multistate bf16 forward", n_bf16, ("K5",))
     launches = {"K4": n_int8["K4"], "K5": n_bf16["K5"]}
     _check_multistate_out("int8", ci, cfg)
     _check_multistate_out("bf16", cb, cfg)
@@ -1255,9 +1267,10 @@ def multistate_phase(dev, smi: str) -> tuple:
         f"peak memory {peak!r} GiB during an int8 forward (bf16 and int8 weights "
         f"resident); host syncs per forward {syncs} (10 runs after 2 of warm-up, "
         f"host clock; {smi})")
-    # K4's and K5's kernel (and the CUDA-core kernel, which ran them in bf16
-    # before the tensor-core one, so that an older tree reads the same way)
-    attn = "flash_mma_kernel|fused_attention_kernel"
+    # K4's and K5's kernels (K4 on mma.sync, K5 at head size 64 on wgmma; and the
+    # CUDA-core kernel, which ran them in bf16 before the tensor-core ones, so
+    # that an older tree reads the same way)
+    attn = K45_KERNELS
     d_int8, k4 = device_profile(lambda: int8(cfg), attn, LAYERS - 1)
     d_bf16, k5 = device_profile(lambda: bf16(model), attn, LAYERS - 1)
     log(f"[multistate] device time per forward with clustering (every kernel, copy and "
@@ -1318,7 +1331,7 @@ def fused_kernel_phase(dev, smi: str, partition) -> dict:
             ms, plain_ms = race(lambda: fn(q, k, v, mask=soft),
                                 lambda: plain(q, k, v, mask=soft))
             lib = library_ms(lambda: sdpa(q, k, v, soft))
-            alone = device_ms(lambda: fn(q, k, v, mask=soft), "flash_mma_kernel")
+            alone = device_ms(lambda: fn(q, k, v, mask=soft), K45_KERNELS)
             ops = attn_ops(b, h, n, n, dh, 2)
             lim = bound([q, k, v, soft], [q], ops, torch.bfloat16)
             torch.cuda.synchronize()
@@ -1361,8 +1374,8 @@ def _ms_train_counts() -> dict:
     from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd
     from msvit_tpu_torch.ops.fused_attention import fused_attention_lse
 
-    return {"K5-lse": fused_attention_lse.launches, "K6": flash_attention_bwd.launches,
-            **_fused_counts()}
+    return {"K5-lse": _routed_count(fused_attention_lse),
+            "K6": _routed_count(flash_attention_bwd), **_fused_counts()}
 
 
 def _reset_ms_train_counts() -> None:
@@ -1370,9 +1383,26 @@ def _reset_ms_train_counts() -> None:
     from msvit_tpu_torch.ops.fused_attention import fused_attention_lse
     from msvit_tpu_torch.ops.packed_attention import zero_counts
 
-    zero_counts(fused_attention_lse)
-    flash_attention_bwd.launches = 0
+    zero_counts(fused_attention_lse, flash_attention_bwd)
     _reset_fused_counts()
+
+
+def _k56_routes() -> dict:
+    """K5's, K5-lse's and K6's launches by route since their counts were
+    set to 0."""
+    from msvit_tpu_torch.ops.packed_attention import route_counts
+
+    return {k: v for k, v in route_counts().items() if k in ("K5", "K5-lse", "K6")}
+
+
+def _on_wgmma(label: str, counts: dict, keys) -> None:
+    """Every launch of the kernels `keys` in `counts` (`Launches`) took the
+    wgmma route: the main path's trunks are bf16 at head size 64."""
+    for k in keys:
+        routes = counts[k].routes
+        if routes["wgmma"] != counts[k] or not counts[k]:
+            raise AssertionError(f"{label}: {k} launched {int(counts[k])} times, by route "
+                                 f"{routes}: want every launch on wgmma")
 
 
 def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
@@ -1425,6 +1455,7 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
          soft[..., :814], g),
     ]
     errs = []
+    _reset_ms_train_counts()
     with torch.no_grad():
         for label, (qq, kk, vv), m, gg in cases:
             o, lse = fused_attention_lse(qq, kk, vv, mask=m)
@@ -1446,6 +1477,12 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
             if not ok:
                 raise AssertionError(f"{label}: K5-lse/K6 disagree with plain")
             errs.append((e_o, e_d))
+        # bf16 at head size 64 on wgmma (5 cases), [8,6,816,128] on mma.sync,
+        # f32 on the CUDA cores (2)
+        routes = _k56_routes()
+        want = {"wgmma": 5, "mma.sync": 1, "cuda_cores": 2}
+        if routes != {"K5": dict.fromkeys(want, 0), "K5-lse": want, "K6": want}:
+            raise AssertionError(f"K5-lse/K6 routes of the cases {routes}")
         wo, wl = fused_attention_lse_plain(q, k, v, mask=soft)
         same = (fused_attention_lse(q, k, v, mask=soft)[0] == wo).float().mean().item()
         log(f"[ms-train-kernels] K5-lse bf16 {list(MS_SHAPE)} soft mask: out bit-equal to "
@@ -1459,8 +1496,18 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
         f_lib = library_ms(lambda: sdpa(q, k, v, soft))
         b_lib = library_ms(sdpa_bwd(q, k, v, gb, soft))
         b_alone = device_ms(lambda: flash_attention_bwd(q, k, v, wo, gb, wl, soft),
-                            "flash_bwd_d(?:q|kv)_mma_kernel", kernels=2)
-        f_alone = device_ms(lambda: fused_attention_lse(q, k, v, mask=soft), "flash_mma_kernel")
+                            K6_KERNELS, kernels=2)
+        # each of its two kernels alone
+        b_split = {which: device_ms(lambda: flash_attention_bwd(q, k, v, wo, gb, wl, soft),
+                                    rf"flash_bwd_{which}_w?g?mma_kernel")
+                   for which in ("dq", "dkv")}
+        f_alone = device_ms(lambda: fused_attention_lse(q, k, v, mask=soft), K45_KERNELS)
+        # no atomics: two calls, the same bits
+        same_bits = all(torch.equal(a, c) for a, c in zip(
+            flash_attention_bwd(q, k, v, wo, gb, wl, soft),
+            flash_attention_bwd(q, k, v, wo, gb, wl, soft)))
+        if not same_bits:
+            raise AssertionError("K6: two calls gave different bits")
     torch.cuda.synchronize()
     f_ops = attn_ops(b, h, n, n, dh, 2)
     f_bound = bound([q, k, v, soft], [wo, wl], f_ops, torch.bfloat16)
@@ -1477,7 +1524,9 @@ def ms_train_kernel_phase(dev, smi: str, partition) -> dict:
         f"plain {b_plain!r} ms, library (the backward of that call) {b_lib!r} ms, bound "
         f"{b_bound}; {rate(b_ops, b_ms, b_bound)} (5 products; median of 20, CUDA "
         f"events; {smi}); its two kernels alone {b_alone!r} ms (device time, "
-        f"torch.profiler)")
+        f"torch.profiler; {rate(b_ops, b_alone, b_bound)}; dQ {b_split['dq']!r} ms, dK/dV "
+        f"{b_split['dkv']!r} ms); two calls the same bits "
+        f"{same_bits}; routes of the eight cases {routes}")
     return {"K5-lse": dict(err=errs[0][0], ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
                            kernel_alone_ms=f_alone, bit_equal=same, **f_bound),
             "K6": dict(err=errs[0][1], ms=b_ms, plain_ms=b_plain, library_ms=b_lib,
@@ -1591,10 +1640,8 @@ def ms_train_phase(dev, smi: str) -> dict:
 
     # K5-lse's and K6's kernels (and the CUDA-core kernels that ran K5-lse in
     # bf16 before the tensor-core one, so that an older tree reads the same):
-    # a step launches K5-lse and K6's two kernels once a layer
-    d_step, attn = device_profile(
-        one_step, "flash_mma_kernel|fused_attention_kernel|flash_bwd_d(?:q|kv)",
-        3 * (LAYERS - 1))
+    # a step launches K5-lse and K6's two kernels once a layer (no K1 or K7)
+    d_step, attn = device_profile(one_step, f"{K45_KERNELS}|{K6_KERNELS}", 3 * (LAYERS - 1))
     unchanged = all(torch.equal(p.detach(), frozen[n]) for n, p in model.named_parameters()
                     if n in frozen)
     log(f"[ms-train] 10 Trainer steps bs{MS_BATCH} (TX/RX + classifier trainable, "
@@ -1611,6 +1658,7 @@ def ms_train_phase(dev, smi: str) -> dict:
     want = {"K5-lse": 10 * (LAYERS - 1), "K6": 10 * (LAYERS - 1), "K4": 0, "K5": 0}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
+    _on_wgmma("multistate fine-tune step", launches, ("K5-lse", "K6"))
     return {"K5-lse": launches["K5-lse"], "K6": launches["K6"]}
 
 
@@ -2772,7 +2820,7 @@ def clustering_phase(dev, smi: str) -> None:
         _check_global_partition(f"{name} bf16", ob, cfg)
         syncs = _syncs(int8)
         t_int8, t_bf16 = wall_ms(int8), wall_ms(bf16)
-        attn = "flash_mma_kernel|fused_attention_kernel"
+        attn = K45_KERNELS
         d_int8, k4 = device_profile(int8, attn, LAYERS - 1)
         d_bf16, k5 = device_profile(bf16, attn, LAYERS - 1)
         log(f"[clustering] {name}: num_clusters int8 {int(oi['num_clusters'])}, bf16 "
@@ -3968,6 +4016,129 @@ def attention_kernel_ab(tag: str) -> dict:
     return res
 
 
+def backward_kernel_ab(tag: str) -> dict:
+    """K6 and K5 / K5-lse, and the two multistate runs that launch them, on
+    the package beside this file, for an A/B of two trees in one call
+    (parent, change, change, parent; each run from its root after this file
+    is copied over the parent's own):
+
+        python3 -c "import chip_smoke as c; c.backward_kernel_ab('change')"
+
+    The bf16 224-px multistate forward with clustering (multistate_phase's
+    model, scene and draws: its device time and K5's part,
+    `device_profile`) and the fine-tune step (ms_train_phase's model,
+    optimizer and batch: ms/step over 5 steps after 2, host clock, and its
+    device time with the part of K5-lse and K6); K5 and K5-lse bf16 at
+    [8,12,816,64] with that forward's partition's soft mask and at
+    [8,12,1361,64] with key_mask_kernel_phase's key-only mask; K6 bf16 at
+    those two (from K5-lse's residuals and a strided cotangent) and at
+    [8,12,3168,64] with the soft mask of a random 9-cluster partition (K7-lse's
+    residuals).  Each kernel through its wrapper (median of 20, CUDA
+    events), alone (`device_ms`; either tree's kernel names) and its share
+    of the bound, beside `scaled_dot_product_attention` (its backward for
+    K6) on the same views, through its call and its device time
+    (`device_profile`, every kernel of the call).  Prints one line, "AB "
+    and a JSON object."""
+    smi = card()
+    sys.path.insert(0, ROOT)
+    from msvit_tpu_torch.examples.train_multistate import loss_fn, trainable
+    from msvit_tpu_torch.models.multistate import MultiStateViTEncoderModel
+    from msvit_tpu_torch.models.subsample import build_quadtree
+    from msvit_tpu_torch.ops import flash_attention as fl
+    from msvit_tpu_torch.ops import fused_attention as fa
+    from msvit_tpu_torch.ops import packed_attention as pa
+    from msvit_tpu_torch.train import Trainer, make_optimizer
+    from msvit_tpu_torch.utils.rng import Rng
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main()
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"tag": tag, "card": smi}
+    bf = torch.bfloat16
+
+    def kernel(key, fn, lib, names, kernels, ops, lim):
+        res[f"{key}_ms"] = statistics.median(time_ms(fn, runs=20))
+        res[f"{key}_alone_ms"] = device_ms(fn, names, kernels=kernels)
+        res[f"{key}_share_of_bound"] = lim["bound_ms"] / res[f"{key}_alone_ms"]
+        res[f"{key}_tflops_alone"] = ops / res[f"{key}_alone_ms"] / 1e9
+        res[f"{key}_sdpa_ms"] = statistics.median(time_ms(lib, runs=20))
+        res[f"{key}_sdpa_device_ms"] = device_profile(lib, r"^$", 0)[0]
+
+    # the bf16 224-px forward first: its partition gives the soft mask
+    model = MultiStateViTEncoderModel(multistate_config(),
+                                      generator=torch.Generator().manual_seed(0),
+                                      device=dev).eval()
+    pix = scene_pixels(2).to(dev)
+
+    def ms224():
+        with torch.inference_mode():
+            return model(pix, rng=Rng(3))
+
+    out = ms224()
+    soft = _soft(out["last_cluster_indices"], out["num_clusters"])
+    res["ms224_bf16_ms_per_batch"] = wall_ms(ms224, runs=5)
+    res["ms224_bf16_device_ms"], res["ms224_K5_ms"] = device_profile(ms224, K45_KERNELS,
+                                                                      LAYERS - 1)
+    del model, out
+    torch.cuda.empty_cache()
+    clf = ms_classifier(dev, ms_train_config())
+    tr = Trainer(loss_fn, make_optimizer(1e-3, trainable=trainable), clf)
+    batch = (pix, torch.arange(MS_BATCH, device=dev) % MS_LABELS)
+    step = [0]
+
+    def one_step():
+        step[0] += 1
+        tr.fit(itertools.repeat(batch), num_steps=step[0], seed=0)
+
+    for _ in range(2):
+        one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    res["finetune_ms_per_step"] = (time.perf_counter() - t0) / 5 * 1e3
+    res["finetune_device_ms"], res["finetune_K5-lse_K6_ms"] = device_profile(
+        one_step, f"{K45_KERNELS}|{K6_KERNELS}", 3 * (LAYERS - 1))
+    del clf, tr, batch
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(12)
+    b, h, n, dh = MS_SHAPE
+    depth = torch.from_numpy(
+        build_quadtree(subsample_config(image_size=448, max_depth=3)).depth).float()
+    nk = SS_SHAPE[2]
+    valid = torch.rand(b, nk - 1, generator=g) < 0.6
+    key = torch.cat([torch.zeros(b, 1), torch.where(valid, 0.0, -1e30) - math.log(4) * depth],
+                    dim=-1)[:, None, None, :].to(dev)
+    ids = torch.randint(0, 9, (b, MS448_SHAPE[2] - 2 * MS_CLUSTERS), generator=g).to(dev)
+    for label, n, mask in (("816", MS_SHAPE[2], soft), ("key_1361", nk, key),
+                           ("3168", MS448_SHAPE[2], None)):
+        if mask is None:
+            mask = _soft(ids, 9)
+        q, k, v = pa.unpack_qkv(torch.randn(b, n, 3 * h * dh, generator=g).to(dev).to(bf), h)
+        gr = torch.randn(b, n, h, dh, generator=g).to(dev).to(bf).transpose(1, 2)
+        f_ops, b_ops = attn_ops(b, h, n, n, dh, 2), attn_ops(b, h, n, n, dh, 5)
+        with torch.no_grad():
+            if label != "3168":
+                kernel(f"K5_{label}", lambda: fa.fused_attention(q, k, v, mask=mask),
+                       lambda: sdpa(q, k, v, mask), K45_KERNELS, 1, f_ops,
+                       bound([q, k, v, mask], [q], f_ops, bf))
+                o, lse = fa.fused_attention_lse(q, k, v, mask=mask)
+                kernel(f"K5-lse_{label}", lambda: fa.fused_attention_lse(q, k, v, mask=mask),
+                       lambda: sdpa(q, k, v, mask), K45_KERNELS, 1, f_ops,
+                       bound([q, k, v, mask], [o, lse], f_ops, bf))
+            else:
+                o, lse = fl.flash_attention_lse(q, k, v, mask=mask)
+            kernel(f"K6_{label}", lambda: fl.flash_attention_bwd(q, k, v, o, gr, lse, mask),
+                   sdpa_bwd(q, k, v, gr, mask), K6_KERNELS, 2, b_ops,
+                   bound([q, k, v, o, gr, lse, mask], [q, k, v], b_ops, bf))
+        del q, k, v, gr, o, lse, mask
+        torch.cuda.empty_cache()
+    print("AB " + json.dumps(res), flush=True)
+    return res
+
+
 # ------------------------------------------------------------ base extras
 
 
@@ -4449,15 +4620,15 @@ RING_SHAPE = (8, 3168, 12, 64, 4)
 def _ring_counts() -> dict:
     from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_lse
 
-    return {"K7-lse": _routed_count(flash_attention_lse), "K6": flash_attention_bwd.launches}
+    return {"K7-lse": _routed_count(flash_attention_lse),
+            "K6": _routed_count(flash_attention_bwd)}
 
 
 def _reset_ring_counts() -> None:
     from msvit_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_lse
     from msvit_tpu_torch.ops.packed_attention import zero_counts
 
-    zero_counts(flash_attention_lse)
-    flash_attention_bwd.launches = 0
+    zero_counts(flash_attention_lse, flash_attention_bwd)
 
 
 def _flat(state: dict) -> torch.Tensor:
@@ -4705,6 +4876,7 @@ def parallel_phase(dev, smi: str) -> tuple:
                 raise AssertionError("the ring's blocks are off dense attention")
             if ring_counts != {"K7-lse": s * s, "K6": s * s}:
                 raise AssertionError(f"ring launches {ring_counts}")
+            _on_wgmma("ring attention", ring_counts, ("K7-lse", "K6"))
             launches["K7"] += ring_counts["K7-lse"]
             launches["K6"] += ring_counts["K6"]
             del plain_out, plain_grads
@@ -4723,6 +4895,7 @@ def parallel_phase(dev, smi: str) -> tuple:
                 f"FlashAttentionFunction (out and grads) {w_err!r}; launches {one_counts}")
             if w_err > o_tol or one_counts != {"K7-lse": 1, "K6": 1}:
                 raise AssertionError("ring_attention at world size 1 is off")
+            _on_wgmma("ring_attention at world size 1", one_counts, ("K7-lse", "K6"))
             launches["K7"] += one_counts["K7-lse"]
             launches["K6"] += one_counts["K6"]
             qd, kd, vd = (x.detach() for x in (qt, kt, vt))
@@ -4832,11 +5005,11 @@ wrappers = {"K4": fused_attention.fused_attention_inference, "K5": fused_attenti
 def reset():
     for f in wrappers.values():
         f.launches = 0
-    packed_attention.zero_counts(flash_attention.flash_attention)
+    packed_attention.zero_counts(flash_attention.flash_attention, fused_attention.fused_attention)
 def counts():
     return {k: f.launches for k, f in wrappers.items()}
-def k7_routes():
-    return packed_attention.routes_of(flash_attention.flash_attention)
+def k7_routes():  # the routes of K7's and of K5's launches
+    return {k: packed_attention.routes_of(wrappers[k]) for k in ("K5", "K7")}
 params = torch.load(d / f"{weights}.params.pt", weights_only=False)  # written by chip_smoke.py
 inputs = torch.load(d / f"{name}.inputs.pt")
 g = load_forward((d / f"{name}.msvx").read_bytes())
@@ -5180,9 +5353,9 @@ def export_families_phase(dev, smi: str) -> dict:
                     if pipe is not None:
                         pipe.close()
     torch.cuda.empty_cache()
-    def count(got: dict, k: str):  # K7's with its routes
+    def count(got: dict, k: str):  # K5's and K7's with their routes
         n = got["launches"][k]
-        return Launches(n, got["k7_routes"]) if k == "K7" else n
+        return Launches(n, got["k7_routes"][k]) if k in ("K5", "K7") else n
 
     launches = {}
     for name, _, k, _ in EXPORT_FAMILIES:
@@ -5208,14 +5381,15 @@ def ptxas_lines() -> list:
     """Registers and spills of the packed (bf16 K1, K1-lse and K2 on the
     tensor cores, f32 on the CUDA cores), the fused and flash (bf16 K4, K5,
     K7 and K6 on the tensor cores: K4, K5 and K7 are instantiations of one
-    tile body, told apart by their source and the SHAVED flag), the banded
-    (bf16 K10 on the tensor cores) and the int8 kernels from ptxas's
-    report."""
+    mma.sync tile body, K1, K5 and K7 of one wgmma kernel, told apart by
+    their source and the SHAVED flag), the banded (bf16 K10 on the tensor
+    cores) and the int8 kernels from ptxas's report; then every line where
+    ptxas says that it serialized a kernel's wgmma products."""
     from msvit_tpu_torch.ops import _build
 
     kernels = (r"attention_wgmma_kernel|"
                r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8|lse)(?:_w?gmma|_mma)?_kernel|"
-               r"packed_mma_kernel|fused_attention_kernel|flash_bwd_(?:dq|dkv)(?:_mma)?_kernel|"
+               r"packed_mma_kernel|fused_attention_kernel|flash_bwd_(?:dq|dkv)(?:_w?g?mma)?_kernel|"
                r"flash_(?:forward|mma)_kernel|banded(?:_mma)?_kernel")
     # the bf16 kernels on the tensor cores (templated on the head size only)
     tags = {"packed_mma_kernel": "K1", "packed_lse_mma_kernel": "K1-lse",
@@ -5226,13 +5400,16 @@ def ptxas_lines() -> list:
             "fused_attention_kernel": None, "flash_bwd_dq_kernel": "K6",
             "flash_bwd_dkv_kernel": "K6", "flash_forward_kernel": "K7/K7-lse",
             "flash_bwd_dq_mma_kernel": "K6", "flash_bwd_dkv_mma_kernel": "K6",
+            "flash_bwd_dq_wgmma_kernel": "K6", "flash_bwd_dkv_wgmma_kernel": "K6",
             "banded_kernel": "K10", "banded_mma_kernel": "K10",
             "packed_attention_int8_kernel": None}
-    out, name, unit = [], None, None
+    out, name, unit, serialized = [], None, None, []
     for line in _build.ptxas_report().read_text().splitlines():
         if line.startswith("$ "):  # the nvcc command of the next source
             unit = re.search(r"(\w+)\.cu$", line).group(1)
             continue
+        if "serialized" in line:
+            serialized.append(f"{unit}: {line.strip()}")
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name, spill = m.group(1), "spills not reported"
@@ -5250,8 +5427,9 @@ def ptxas_lines() -> list:
                 tag = "K4" if "Lb1E" in name else "K5/K5-lse"
             elif kern == "packed_attention_int8_kernel":
                 tag = "K9" if "Lb1E" in name else "K3"
-            elif kern == "attention_wgmma_kernel":  # SHAVED: K1, else K7 / K7-lse
-                tag = "K1" if "Lb1E" in name else "K7/K7-lse"
+            elif kern == "attention_wgmma_kernel":  # SHAVED: K1, else K7 or K5
+                tag = ("K1" if "Lb1E" in name else
+                       "K5/K5-lse" if unit == "fused_attention" else "K7/K7-lse")
             else:
                 tag = tags.get(kern)
             if tag:
@@ -5261,7 +5439,7 @@ def ptxas_lines() -> list:
             dt = ("int8" if "int8" in kern
                   else "bf16" if "bfloat16" in name or "mma_" in kern else "f32")
             out.append(f"{kern} {dt} dh{dh}: {m.group(1)} registers, {spill}")
-    return out
+    return out + (serialized or ["no wgmma products serialized"])
 
 
 def main() -> None:
@@ -5408,10 +5586,11 @@ def main() -> None:
     ]
     # the routed kernels' rows split their launches by route: the main
     # path's trunks are at head size 64, so every bf16 launch took the wgmma
-    # route (K1 and K7 also run f32 forwards, on the CUDA cores)
+    # route (K1, K5, K5-lse, K6 and K7 also run f32 calls, on the CUDA cores)
     for row in rows:
         k = next(k for k, name, *_ in row_keys if name == row["name"])
-        if k not in ("K1", "K1-lse", "K2", "K7", "K8a", "K8a-lse", "K8b"):
+        if k not in ("K1", "K1-lse", "K2", "K5", "K5-lse", "K6", "K7", "K8a", "K8a-lse",
+                     "K8b"):
             continue
         routes = getattr(launches[k], "routes", None)
         if routes is None or routes["mma.sync"] or not routes["wgmma"]:

@@ -1,7 +1,9 @@
 // The Hopper attention forward on [B, H, N, 64] bf16 operands, shared by
-// K1 (`packed_attention.cu`, the shaved serving softmax) and K7 / K7-lse
-// (`flash_attention.cu`, the exact online softmax): warpgroup products
-// (wgmma) fed by TMA, warp-specialised.  It is K1-lse's design
+// K1 (`packed_attention.cu`, the shaved serving softmax), K7 / K7-lse
+// (`flash_attention.cu`, the exact online softmax) and K5 / K5-lse
+// (`fused_attention.cu`, the same exact softmax: the TPU's two kernels
+// compute one function): warpgroup products (wgmma) fed by TMA,
+// warp-specialised.  It is K1-lse's design
 // (`packed_attention_lse.cu`, packed_lse_wgmma_kernel), generalised to
 // operands read through strides, Nq != Nk and broadcast masks.
 //
@@ -62,9 +64,9 @@
 //   masked bool row is mean(V) over the real keys.  l >= Nk * e^-80 > 0: no
 //   zero guard.  The clip keeps every p >= 2^-115.4 > 2^-126, so the
 //   flush of ex2.approx.ftz never acts here.
-// * Exact (K7 / K7-lse, SHAVED = false): the online row max m; p = 2^(x -
-//   m), l summed from the unrounded p, p rounded to bf16 into P.V; a new
-//   max rescales l and O.  A -inf score weighs nothing; keys past Nk are
+// * Exact (K7 / K7-lse and K5 / K5-lse, SHAVED = false): the online row
+//   max m; p = 2^(x - m), l summed from the unrounded p, p rounded to bf16
+//   into P.V; a new max rescales l and O.  A -inf score weighs nothing; keys past Nk are
 //   -inf; a row with l == 0 (every score -inf) gives zeros and lse 0 (the
 //   TPU's l_inv guard).  A false bool entry sits at mask_value * log2e, or
 //   at the most negative finite float where that overflows: a fully masked
@@ -74,7 +76,10 @@
 //   null; out is the same bits either way.
 //
 // Every template lives in an anonymous namespace: each translation unit
-// that includes the header owns its instantiations.
+// that includes the header owns its instantiations.  `Unit` tags the
+// kernel's name with the entry point that launches it, so that a profile
+// tells K5 (`fused_attention.cu`, Unit = FusedUnit) from K7 (void); it
+// changes nothing else.
 #pragma once
 
 #include "hopper.cuh"
@@ -236,7 +241,7 @@ __device__ __forceinline__ void exact_tile(float (&sc)[32], const float (&mv)[32
 // g % kAttnStages); Q is loaded again once both consumer warpgroups have
 // issued their last S of the item before (qempty), so the next item's Q
 // and first tiles arrive while they finish this one.
-template <bool SHAVED, int KIND>
+template <bool SHAVED, int KIND, typename Unit>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
 attention_wgmma_kernel(const __grid_constant__ QkvMaps maps, const AttnArgs a) {
   using namespace hopper;
@@ -475,10 +480,10 @@ inline cudaError_t map_qkv(QkvMaps* maps, const void* q, const void* k, const vo
 
 // The kernel's dynamic shared memory, allowed once per device and
 // instantiation.
-template <bool SHAVED, int KIND>
+template <bool SHAVED, int KIND, typename Unit>
 cudaError_t allow_attn_smem() {
   static std::atomic<unsigned long long> done{0};
-  return hopper::allow_smem_once(attention_wgmma_kernel<SHAVED, KIND>,
+  return hopper::allow_smem_once(attention_wgmma_kernel<SHAVED, KIND, Unit>,
                                  attn_wgmma_smem_bytes(), done);
 }
 
@@ -495,9 +500,9 @@ inline cudaError_t sm_count(int* sms) {
   return err;
 }
 
-template <bool SHAVED, int KIND>
+template <bool SHAVED, int KIND, typename Unit>
 cudaError_t launch_kind(const QkvMaps& maps, const AttnArgs& a, cudaStream_t stream) {
-  cudaError_t err = allow_attn_smem<SHAVED, KIND>();
+  cudaError_t err = allow_attn_smem<SHAVED, KIND, Unit>();
   if (err != cudaSuccess) return err;
   int sms = 0;
   err = sm_count(&sms);
@@ -505,18 +510,18 @@ cudaError_t launch_kind(const QkvMaps& maps, const AttnArgs& a, cudaStream_t str
   const long long items =
       static_cast<long long>(a.h) * ((a.nq + kAttnRows - 1) / kAttnRows) * a.b;
   const int grid = static_cast<int>(items < sms ? items : sms);
-  attention_wgmma_kernel<SHAVED, KIND>
+  attention_wgmma_kernel<SHAVED, KIND, Unit>
       <<<grid, hopper::kThreads, attn_wgmma_smem_bytes(), stream>>>(maps, a);
   return cudaGetLastError();
 }
 
 // One launch on `stream`, the instantiation of a.mask_kind; returns
 // cudaGetLastError() after it.
-template <bool SHAVED>
+template <bool SHAVED, typename Unit = void>
 cudaError_t launch_attn_wgmma(const QkvMaps& maps, const AttnArgs& a, cudaStream_t stream) {
-  if (a.mask_kind == kBoolMask) return launch_kind<SHAVED, kBoolMask>(maps, a, stream);
-  if (a.mask_kind == kAddMask) return launch_kind<SHAVED, kAddMask>(maps, a, stream);
-  return launch_kind<SHAVED, kNoMask>(maps, a, stream);
+  if (a.mask_kind == kBoolMask) return launch_kind<SHAVED, kBoolMask, Unit>(maps, a, stream);
+  if (a.mask_kind == kAddMask) return launch_kind<SHAVED, kAddMask, Unit>(maps, a, stream);
+  return launch_kind<SHAVED, kNoMask, Unit>(maps, a, stream);
 }
 
 }  // namespace

@@ -44,18 +44,28 @@
 // trunk, [8, 12, 816, 64] with an f32 mask, that is 41 GFLOP against
 // 102 MB: operations (0.0414 ms at the bf16 peak).
 //
-// bf16, on the tensor cores (flash_bwd_dq_mma_kernel,
-// flash_bwd_dkv_mma_kernel): K2's pair (packed_attention_bwd.cu) on
-// strided [B, H, N, dh] operands, with Nq != Nk, K7's staged mask tile and
-// K6's own rounding.  Warp-level mma.sync m16n8k16 (bf16 operands, f32
-// accumulators), 4 warps of 16 rows a block, tiles of 64 rows streamed
-// through a two-stage ring in dynamic shared memory filled by cp.async
-// (the next tile in flight while this one is multiplied), rows padded by
-// 16 bytes (ldmatrix rows in distinct banks), a head size below its bucket
-// (16/32/64/128) zero-padded there.  The grids are (H, 64-row tiles, B),
-// the head fastest, so the 12 heads of one tile run together and meet a
-// broadcast mask panel in L2; the [64 x 64] mask tile rides the ring at
-// 16, 4 or 1 bytes a copy as its rows' alignment allows (`MaskStage`).
+// bf16 at head size 64 (flash_bwd_dq_wgmma_kernel,
+// flash_bwd_dkv_wgmma_kernel; `attention_bwd_wgmma.cuh`): Hopper's
+// warpgroup products fed by TMA, warp-specialised, on K2's wgmma design
+// (`packed_attention_bwd.cu`) with 4-D TMA maps over the strided q, k, v and
+// g views, Nq != Nk, the mask read straight into the accumulators' layout
+// (transposed in dK/dV), K6's own rounding and persistent blocks walking
+// the items head-first (the header says how and why).  The mma.sync pair
+// below took 0.62-0.65 ms at [8, 12, 816, 64] with the soft mask, against
+// the library's backward at 0.35 (NVIDIA H100 80GB HBM3, 700 W): 6.5% of
+// the bound.
+//
+// Other bf16 head sizes (flash_bwd_dq_mma_kernel, flash_bwd_dkv_mma_kernel):
+// K2's mma.sync pair on strided [B, H, N, dh] operands, with Nq != Nk, K7's
+// staged mask tile and K6's own rounding.  Warp-level mma.sync m16n8k16
+// (bf16 operands, f32 accumulators), 4 warps of 16 rows a block, tiles of
+// 64 rows streamed through a two-stage ring in dynamic shared memory filled
+// by cp.async (the next tile in flight while this one is multiplied), rows
+// padded by 16 bytes (ldmatrix rows in distinct banks), a head size below
+// its bucket (16/32/64/128) zero-padded there.  The grids are (H, 64-row
+// tiles, B), the head fastest, so the 12 heads of one tile run together and
+// meet a broadcast mask panel in L2; the [64 x 64] mask tile rides the ring
+// at 16, 4 or 1 bytes a copy as its rows' alignment allows (`MaskStage`).
 // * dQ: q and g fragments kept (at dh <= 64 staged in stage 1 of the ring
 //   until they are in registers), delta written once per row; per key tile
 //   S = Q.K^T and dP = G.V^T, then in registers p = exp2((s' - lse) *
@@ -76,7 +86,12 @@
 // and skips its 16-row blocks past the edge.  A row whose scores are all
 // -inf has lse 0 and p = 0.  Each output element is written by one thread:
 // two calls give the same bits.  At dh 128 the resident fragments are read
-// from shared memory at each use.  wgmma with TMA is the later step.
+// from shared memory at each use.
+//
+// The route is the entry point's: bf16 at dh 64 takes the wgmma kernels,
+// other bf16 head sizes the mma.sync kernels, f32 the CUDA cores; there is
+// no fallback between them (a q, k, v or g view TMA cannot map is
+// refused).
 //
 // f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): the CUDA cores in f32
 // FMAs (TF32 would break the f32 bars).  k/v (dQ) and q/g (dK/dV) tiles are
@@ -87,6 +102,7 @@
 // v, dk and dv stay in registers, and the two dot products per (query,
 // key) pair are summed across a row's threads with shuffles.
 
+#include "attention_bwd_wgmma.cuh"
 #include "common.cuh"
 
 namespace msvit {
@@ -658,7 +674,39 @@ int launch_mma(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The wgmma route (bf16, head size 64): q, k, v and g through their 4-D
+// maps, out read and dq, dk, dv written through their strides.
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  BwdMaps maps;
+  cudaError_t err = hopper::map_heads(&maps.q, a.q, a.b, a.h, a.nq, a.st.q[0], a.st.q[1],
+                                      a.st.q[2]);
+  if (err == cudaSuccess)
+    err = hopper::map_heads(&maps.k, a.k, a.b, a.h, a.nk, a.st.k[0], a.st.k[1], a.st.k[2]);
+  if (err == cudaSuccess)
+    err = hopper::map_heads(&maps.v, a.v, a.b, a.h, a.nk, a.st.v[0], a.st.v[1], a.st.v[2]);
+  if (err == cudaSuccess)
+    err = hopper::map_heads(&maps.g, a.g, a.b, a.h, a.nq, a.st.g[0], a.st.g[1], a.st.g[2]);
+  if (err != cudaSuccess) return err;
+  BwdArgs w{a.mask, static_cast<const bf16*>(a.out), static_cast<const bf16*>(a.g),
+            static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
+            static_cast<bf16*>(a.dq), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+            {}, {}, {}, {}, {},
+            a.mask_sb, a.mask_sh, a.mask_sr, a.b, a.h, a.nq, a.nk, a.mask_kind,
+            a.scale, a.mask_value};
+  for (int d = 0; d < 3; ++d) {
+    w.so[d] = a.st.o[d];
+    w.sg[d] = a.st.g[d];
+    w.sdq[d] = a.st.dq[d];
+    w.sdk[d] = a.st.dk[d];
+    w.sdv[d] = a.st.dv[d];
+  }
+  return launch_bwd_wgmma(maps, w, stream);
+}
+
+// bf16 on the tensor cores: wgmma at head size 64, else the mma.sync
+// kernels of dh's bucket.
 int dispatch_mma(const Args& a, cudaStream_t stream) {
+  if (a.dh == 64) return static_cast<int>(launch_wgmma(a, stream));
   if (a.dh <= 16) return launch_mma<16>(a, stream);
   if (a.dh <= 32) return launch_mma<32>(a, stream);
   if (a.dh <= 64) return launch_mma<64>(a, stream);
@@ -679,8 +727,10 @@ int dispatch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // K6.  q, k, v, out, g in `dtype` (0 = float32 on the CUDA cores,
-// 1 = bfloat16 on the tensor cores), g already in
-// q's dtype; lse [B, H, Nq] f32 from the forward (contiguous); delta
+// 1 = bfloat16 on the tensor cores: wgmma at dh 64, else mma.sync), g
+// already in q's dtype (at dh 64 in bf16 q, k, v and g must each map to a
+// TMA tensor map: a base on 16 bytes, every stepped pitch a positive
+// multiple of 16 bytes; anything else is refused); lse [B, H, Nq] f32 from the forward (contiguous); delta
 // [B, H, Nq] f32 scratch (written by the dQ kernel, read by the dK/dV
 // kernel); dq [B, H, Nq, dh], dk and dv [B, H, Nk, dh] in `dtype`, written.
 // strides: 24 element strides (host memory), (image, head, row) of q, k,

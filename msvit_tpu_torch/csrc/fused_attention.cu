@@ -31,18 +31,31 @@
 // of bytes, with the mask read once: the tensor cores' rate and the mask's
 // reads, shared by 12 heads, both count.
 //
-// bf16, on the tensor cores: `flash_mma_kernel` of `attention_mma.cuh`, the
-// tile body K7 runs, instantiated here with SHAVED = false for K5 and K5-lse
-// (the exact online softmax: at one head's whole score row it computes the
-// TPU's single-pass softmax; the lse a pointer that may be null) and
-// SHAVED = true for K4 (no max, x clamped to +-80 log2e, o / l).  What the
-// design does about the bounds: mma.sync tiles of 64 query rows, k/v and
+// bf16 at head size 64, K5 and K5-lse (attention_wgmma_kernel<false, KIND,
+// FusedUnit>, `attention_wgmma.cuh`): the kernel K7 runs, the exact online
+// softmax on Hopper's warpgroup products fed by TMA, warp-specialised, with
+// 4-D maps over the strided q/k/v views, the mask read straight into the
+// accumulator's layout one tile ahead and a persistent head-first walk so
+// that the 12 heads of a query tile meet their broadcast mask panel in L2
+// (the header says how and why).  At one head's whole score row the online
+// softmax is the TPU's single-pass one.  The tag FusedUnit names the launch
+// apart from K7's in a profile.  The lse is a pointer that may be null.  At
+// 816 tokens: 7 items of 128 query rows a (head, image), 13 key tiles (the
+// last 48 keys).  The mma.sync tile body below took 0.1864-0.1888 ms alone
+// at [8, 12, 816, 64] with the soft mask, against the library's 0.1674.
+//
+// Other bf16 head sizes, and K4 at every head size: `flash_mma_kernel` of
+// `attention_mma.cuh`, the tile body K7 runs there, instantiated here with
+// SHAVED = false for K5 and K5-lse and SHAVED = true for K4 (no max, x
+// clamped to +-80 log2e, o / l): mma.sync tiles of 64 query rows, k/v and
 // mask tiles streamed through a cp.async ring, the scores never leave
 // registers, p rounded into P.V's A fragments; the grid is (H, q tiles, B),
-// head fastest, so that the 12 heads of a query tile meet their broadcast
-// mask panel in L2 (the header has the details).  At 816 tokens: 13 query
-// tiles (the last with 3 active warps of 4) and 13 key tiles (the last 48
-// keys, three 16-key blocks).
+// head fastest (the header has the details).
+//
+// The route is the entry point's: bf16 at dh 64 takes the wgmma kernel for
+// K5 and K5-lse, any other bf16 call the mma.sync kernel, f32 the CUDA
+// cores; there is no fallback between them (a q, k or v view TMA cannot map
+// is refused).
 //
 // f32, on the CUDA cores (fused_attention_kernel; TF32 would break the f32
 // bars): one thread per query row holding q and the output accumulator in
@@ -70,6 +83,7 @@
 // product can land one bf16 step apart.
 
 #include "attention_mma.cuh"
+#include "attention_wgmma.cuh"
 
 namespace msvit {
 namespace {
@@ -225,6 +239,24 @@ void dispatch(const void* q, const void* k, const void* v, const void* mask,
   }
 }
 
+// The tag of K5's and K5-lse's wgmma launches (a profile's kernel name).
+struct FusedUnit {};
+
+// The wgmma route (K5 and K5-lse, bf16, head size 64): q, k, v through
+// their 4-D maps, out through its strides.
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* mask,
+                         void* out, float* lse, const long long* st, int b, int h,
+                         int nq, int nk, int mask_kind, long long sb, long long sh,
+                         long long sr, float scale, float mask_value,
+                         cudaStream_t stream) {
+  QkvMaps maps;
+  const cudaError_t err = map_qkv(&maps, q, k, v, b, h, nq, nk, st);
+  if (err != cudaSuccess) return err;
+  const AttnArgs a{mask, static_cast<bf16*>(out), lse, st[9], st[10], st[11], sb, sh,
+                   sr, b, h, nq, nk, mask_kind, scale, mask_value};
+  return launch_attn_wgmma<false, FusedUnit>(maps, a, stream);
+}
+
 template <bool SHAVED>
 int run(const void* q, const void* k, const void* v, const void* mask,
         void* out, float* lse, int dtype, int b, int h, int nq, int nk, int dh,
@@ -241,6 +273,10 @@ int run(const void* q, const void* k, const void* v, const void* mask,
   if (dtype == 0) {
     dispatch<float, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh,
                             mask_kind, mask_sb, mask_sh, mask_sr, scale, mask_value, s);
+  } else if (dtype == 1 && dh == 64 && !SHAVED) {
+    return static_cast<int>(launch_wgmma(q, k, v, mask, out, lse, strides, b, h, nq, nk,
+                                         mask_kind, mask_sb, mask_sh, mask_sr, scale,
+                                         mask_value, s));
   } else if (dtype == 1) {
     return static_cast<int>(dispatch_mma<SHAVED>(q, k, v, mask, out, lse, st,
                                                  b, h, nq, nk, dh, mask_kind,
@@ -258,7 +294,7 @@ int run(const void* q, const void* k, const void* v, const void* mask,
 extern "C" {
 
 // K5's forward.  dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores).  strides: 12 element strides (host memory) of q, k, v, out, each
+// cores: wgmma at dh 64, else mma.sync).  strides: 12 element strides (host memory) of q, k, v, out, each
 // (image, head, row); every row's dh elements contiguous and 16-byte
 // aligned.  mask_kind: 0 none, 1 bool (one byte per entry), 2 additive
 // float32; mask_sb / mask_sh / mask_sr the mask's image, head and
@@ -276,7 +312,8 @@ int msvit_fused_attention(const void* q, const void* k, const void* v,
                            mask_value, stream);
 }
 
-// K4, the shaved serving softmax; arguments as msvit_fused_attention.
+// K4, the shaved serving softmax; arguments as msvit_fused_attention (bf16
+// on mma.sync at every head size).
 int msvit_fused_attention_inference(const void* q, const void* k,
                                     const void* v, const void* mask,
                                     void* out, int dtype, int b, int h,
@@ -304,8 +341,8 @@ int msvit_fused_attention_lse(const void* q, const void* k, const void* v,
                            mask_sb, mask_sh, mask_sr, scale, mask_value, stream);
 }
 
-// Blocks of the bf16 tensor-core kernel of K4 (shaved = 1) or K5/K5-lse
-// (shaved = 0) resident on one SM at head size dh (a multiple of 8, <= 128)
+// Blocks of the bf16 mma.sync kernel of K4 (shaved = 1) or K5/K5-lse
+// (shaved = 0; their head sizes other than 64) resident on one SM at head size dh (a multiple of 8, <= 128)
 // and mask_kind, by the runtime's occupancy calculator, into *blocks.
 int msvit_fused_attention_occupancy(int dh, int mask_kind, int shaved,
                                     int* blocks) {

@@ -19,9 +19,15 @@
 * `flash_attention_bwd` -- K6, the TPU kernel `flash_attention_bwd` (its
   dQ and dK/dV pallas_calls): dq, dk, dv from the forward's residuals (q,
   k, v, mask, out and the compact lse) and the cotangent of out.  Kernel:
-  `csrc/flash_attention_bwd.cu` (bf16 on the tensor cores, f32 on the CUDA
-  cores; two kernels, no atomics).  As in the JAX package it is the backward
-  of both custom VJPs: `FlashAttentionFunction` here and
+  `csrc/flash_attention_bwd.cu`: bf16 on the tensor cores, at head size 64
+  on `wgmma` fed by TMA (`csrc/attention_bwd_wgmma.cuh`), at other head
+  sizes on `mma.sync`; f32 on the CUDA cores; two kernels, no atomics.  It
+  counts its launches by route, as K7 does.  On the wgmma route q, k, v
+  and the cotangent are read through 4-D TMA maps: a q, k or v view TMA
+  cannot map raises, the cotangent is copied where TMA cannot take it as
+  autograd hands it over (`tma_heads_operand`: an expanded gradient of
+  ``(out * w).sum()``).  As in the JAX package it is the backward of both
+  custom VJPs: `FlashAttentionFunction` here and
   `ops/fused_attention.py::FusedAttentionFunction`.
 
 `flash_attention` splits as the JAX `custom_vjp` `_flash` does: under
@@ -32,7 +38,8 @@ additive masks ``[B|1, 1|H, 1|Nq, Nk]``, q/k/v read through their strides).
 
 The wrappers take the plain version for a tensor on the CPU, and for a
 tensor on the card launch the kernel or raise: there is no fallback.  Each
-counts its launches (`.launches`; K6 one per call of both its kernels).
+counts its launches (`.launches`; K6 one per call of both its kernels), by
+route too (`ops/packed_attention.py::route_counts`).
 K7 (the no-grad branch of `flash_attention`) is the registered op
 `torch.ops.msvit.flash_attention`, as K4 and K5 are
 (`ops/fused_attention.py`), so that an exported 448-px or subsample
@@ -65,11 +72,12 @@ import torch
 from msvit_tpu_torch.ops import _build
 from msvit_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
 from msvit_tpu_torch.ops.fused_attention import (
-    FusedAttentionFunction, _dims, _kernel_operands, _mask_args, _requires_grad,
-    _run, _strides, attention_fake, call_op, fused_attention_lse_plain,
-    fused_attention_plain)
+    FusedAttentionFunction, _check_operands, _dims, _mask_args, _operand,
+    _requires_grad, _run, _strides, attention_fake, call_op,
+    fused_attention_lse_plain, fused_attention_plain)
 from msvit_tpu_torch.ops.packed_attention import (
-    _DTYPE_CODES, _acc, _ptr, _scores, zero_counts)
+    _DTYPE_CODES, _acc, _count_route, _ptr, _scores, check_tma_heads, kernel_route,
+    tma_heads_operand, zero_counts)
 
 
 # ----------------------------------------------------------------- K7 ----
@@ -220,7 +228,14 @@ def flash_attention_bwd(
         raise ValueError(f"{name}: lse {tuple(lse.shape)} must be {(b, h, nq)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, g, lse, mask, scale, mask_value)
-    q, k, v, out, g = _kernel_operands(name, dh, q, k, v, out, g.to(q.dtype))
+    g = g.to(q.dtype)
+    _check_operands(name, dh, q, k, v, out, g)
+    route = kernel_route(q.dtype, dh)
+    if route == "wgmma":  # q, k, v mapped as they are; the cotangent as TMA takes it
+        check_tma_heads(name, q, k, v)
+        g, out = tma_heads_operand(g), _operand(out)
+    else:
+        q, k, v, out, g = (_operand(t) for t in (q, k, v, out, g))
     if lse.device != q.device:
         raise ValueError(f"{name}: lse on another device")
     lse = lse.to(torch.float32).contiguous()
@@ -241,8 +256,8 @@ def flash_attention_bwd(
             float(mask_value), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, name)
-    flash_attention_bwd.launches += 1
+    _count_route(flash_attention_bwd, route)
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+zero_counts(flash_attention_bwd)

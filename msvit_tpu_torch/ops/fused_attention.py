@@ -6,10 +6,12 @@ allowed: cross-context K/V), bool (True = attend) or additive f32 masks
 mask, read by every query row through a row stride of 0).  Three kernels, one
 hand-written CUDA source for Hopper (`csrc/fused_attention.cu`) with three
 entry points, each with a plain PyTorch version beside it.  In bf16 all
-three run on the tensor cores in the tile body K7 runs
+three run on the tensor cores: K5 and K5-lse at head size 64 in the kernel
+K7 runs there (`csrc/attention_wgmma.cuh`: `wgmma` fed by TMA, the exact
+online softmax), at other head sizes in the tile body K7 runs there
 (`csrc/attention_mma.cuh`: `mma.sync` tiles fed by a `cp.async` ring of k/v
-and mask tiles), K5 and K5-lse with its exact online softmax and K4 with
-the shaved one; f32 runs a kernel on the CUDA cores (TF32 would not keep
+and mask tiles); K4 runs that `mma.sync` body with the shaved softmax at
+every head size.  f32 runs a kernel on the CUDA cores (TF32 would not keep
 the f32 bars):
 
 * `fused_attention` -- K5, the TPU kernel `_fused_forward` without its lse
@@ -28,8 +30,10 @@ autograd (grad enabled and q, k or v requiring grad) it runs
 gradient (the TPU function has no VJP): under autograd on the card it
 raises.
 
-The kernels read q, k, v through their strides (the last dim contiguous),
-so views of the QKV GEMM output need no copy, and write the output
+The kernels read q, k, v through their strides (the last dim contiguous;
+on the wgmma route through 4-D TMA maps, where a view TMA cannot map
+raises, as for K7), so views of the QKV GEMM output need no copy, and
+write the output
 ``[B, Nq, H, dh]`` in memory, returned as the ``[B, H, Nq, dh]`` view.
 As the TPU kernels, they round p to the compute dtype into P.V and sum the
 unrounded p into l; K5 and K5-lse round p against the running max of 64-key
@@ -39,8 +43,9 @@ masked one does, so a row of them is mean(V), not zeros as in K5.
 
 Each wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches its kernel or raises: there is no fallback.
-Each counts its kernel launches (`.launches`), by route too (`.mma_launches`,
-`.f32_launches`; `packed_attention.py::route_counts`).
+Each counts its kernel launches (`.launches`), by route too
+(`.wgmma_launches`, `.mma_launches`, `.f32_launches`;
+`packed_attention.py::route_counts`).
 
 K5 (the no-grad branch of `fused_attention`) and K4 are registered ops,
 `torch.ops.msvit.fused_attention` and `torch.ops.msvit.fused_attention_inference`
@@ -74,9 +79,18 @@ from msvit_tpu_torch.ops.packed_attention import (
     _DTYPE_CODES, _acc, _count_route, _off_kernel_devices, _ptr, _scores, _traced,
     check_tma_heads, kernel_route, zero_counts)
 
-# the entry points with a wgmma kernel (K7, K7-lse); K4, K5 and K5-lse run
+# the entry points with a wgmma kernel (K5, K5-lse, K7, K7-lse); K4 runs
 # mma.sync at every bf16 head size
-_WGMMA_ENTRIES = ("msvit_flash_attention", "msvit_flash_attention_lse")
+_WGMMA_ENTRIES = ("msvit_fused_attention", "msvit_fused_attention_lse",
+                  "msvit_flash_attention", "msvit_flash_attention_lse")
+
+
+def entry_route(entry: str, dtype: torch.dtype, dh: int) -> str:
+    """The route a launch of the C entry point `entry` takes on the card,
+    as the entry point decides it: `kernel_route`'s, with mma.sync for
+    wgmma where `entry` has no wgmma kernel (K4's)."""
+    route = kernel_route(dtype, dh)
+    return "mma.sync" if route == "wgmma" and entry not in _WGMMA_ENTRIES else route
 
 
 def _dims(q, k, v):
@@ -168,13 +182,6 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def _kernel_operands(name: str, dh: int, *ts: torch.Tensor):
-    """The [B, H, N, dh] operands of a kernel, checked (`_check_operands`)
-    and made readable through their strides."""
-    _check_operands(name, dh, *ts)
-    return [_operand(t) for t in ts]
-
-
 def _check_operands(name: str, dh: int, *ts: torch.Tensor) -> None:
     """The [B, H, N, dh] operands of a kernel: on one card, f32 or bf16
     alike, a head size the kernels take."""
@@ -228,10 +235,9 @@ def _run(wrapper, entry: str, plain, q, k, v, mask, scale, mask_value,
          with_lse: bool = False):
     """The plain version for CPU tensors; for CUDA tensors the kernel
     `entry` (counted on `wrapper.launches` and by route), or an exception.
-    The route is `kernel_route`'s, with mma.sync for wgmma where `entry`
-    has no wgmma kernel; on the wgmma route q, k and v are read through
-    4-D TMA maps as they are, and a view TMA cannot map raises.  Returns
-    out, or (out, lse) `with_lse`."""
+    The route is `entry_route`'s; on the wgmma route q, k and v are read
+    through 4-D TMA maps as they are, and a view TMA cannot map raises.
+    Returns out, or (out, lse) `with_lse`."""
     name = wrapper.__name__
     b, h, nq, nk, dh = _dims(q, k, v)
     if scale is None:
@@ -239,9 +245,7 @@ def _run(wrapper, entry: str, plain, q, k, v, mask, scale, mask_value,
     if q.device.type == "cpu":
         return plain(q, k, v, mask, scale, mask_value)
     _check_operands(name, dh, q, k, v)
-    route = kernel_route(q.dtype, dh)
-    if route == "wgmma" and entry not in _WGMMA_ENTRIES:
-        route = "mma.sync"
+    route = entry_route(entry, q.dtype, dh)
     if route == "wgmma":
         check_tma_heads(name, q, k, v)
     else:

@@ -18,18 +18,19 @@ hand-written CUDA kernel for Hopper with a plain PyTorch version beside it:
   [B, N, 3D] from the saved (qkv, out, lse) and the output cotangent.
   Kernel: `csrc/packed_attention_bwd.cu`.
 
-K1, K1-lse and K2 (and K7 and K7-lse, `ops/flash_attention.py`) take one
-of three routes, by `kernel_route` (the C entry points apply the same
-rule): bf16 at head size 64 (every zoo trunk but vit-h14) the Hopper
-kernels on `wgmma` fed by TMA, other bf16 head sizes the `mma.sync`
-kernels, f32 the CUDA cores.  Each wrapper counts its launches by route
-beside `.launches` (`.wgmma_launches`, `.mma_launches`, `.f32_launches`;
-`route_counts`; K4, K5 and K5-lse, which have no wgmma kernel, count
-theirs the same way).  K1-lse's and K2's TMA maps are 3-D over the packed
-tensors (`tma_map`), K1's and K7's 4-D over [B, H, N, 64] views
-(`tma_map_heads`; K1 reads the packed qkv's q, k and v views): a tensor
-whose base or pitches TMA cannot take raises a `ValueError`; it never
-takes another route.
+K1, K1-lse and K2 (and K5, K5-lse, K6, K7 and K7-lse,
+`ops/fused_attention.py`, `ops/flash_attention.py`) take one of three
+routes, by `kernel_route` (the C entry points apply the same rule): bf16
+at head size 64 (every zoo trunk but vit-h14) the Hopper kernels on
+`wgmma` fed by TMA, other bf16 head sizes the `mma.sync` kernels, f32 the
+CUDA cores.  Each wrapper counts its launches by route beside `.launches`
+(`.wgmma_launches`, `.mma_launches`, `.f32_launches`; `route_counts`; K4,
+which has no wgmma kernel, counts its own the same way).  K1-lse's and
+K2's TMA maps are 3-D over the packed tensors (`tma_map`), those of K1,
+K5, K6 and K7 4-D over [B, H, N, 64] views (`tma_map_heads`; K1 reads the
+packed qkv's q, k and v views): a q, k or v whose base or pitches TMA
+cannot take raises a `ValueError`; it never takes another route.  K6's
+cotangent alone is copied where TMA cannot take it (`tma_heads_operand`).
 * `packed_attention_int8` — K3, the TPU kernel `packed_attention_int8`:
   int8 in, bf16 or int8 out.  Kernel: `csrc/packed_attention_int8.cu`, on
   the int8 tensor cores (s8 operands, s32 accumulators: both products
@@ -201,7 +202,8 @@ TMA_BOX_HEADS = (64, 64, 1, 1)  # (head elements, rows, heads, images)
 
 
 def kernel_route(dtype: torch.dtype, dh: int) -> str:
-    """The kernel route of K1, K1-lse, K2, K7 and K7-lse on the card:
+    """The kernel route of K1, K1-lse, K2, K5, K5-lse, K6, K7 and K7-lse
+    on the card (K4 takes "mma.sync" for every bf16 head size):
     "wgmma" (bf16, head size 64: warpgroup products fed by TMA),
     "mma.sync" (bf16, any other head size: the head padded to its
     16/32/64/128 bucket) or "cuda_cores" (f32).  The C entry points take
@@ -234,9 +236,35 @@ def tma_map(shape, element_size: int, data_ptr: int) -> dict:
             "box_bytes": TMA_BOX[0] * TMA_BOX[1] * element_size}
 
 
+def _tma_heads_geometry(shape, strides, element_size: int, data_ptr: int):
+    """(dims, pitches, refusal) of the 4-D TMA map of `tma_map_heads`:
+    refusal is None where TMA takes the view, else the reason it does not."""
+    b, h, n, dh = shape
+    sb, sh, sn, se = strides
+    if n == 1:
+        sn = dh
+    if h == 1:
+        sh = sn * n
+    if b == 1:
+        sb = sh * h
+    pitches = tuple(s * element_size for s in (sn, sh, sb))
+    refusal = None
+    if se != 1:
+        refusal = f"TMA: the head's elements are {se} apart, not contiguous"
+    elif data_ptr % 16:
+        refusal = f"TMA: the view's base {data_ptr:#x} is not 16-byte aligned"
+    else:
+        for what, p in zip(("row", "head", "image"), pitches):
+            if p <= 0 or p % 16:
+                refusal = (f"TMA: {what} pitch {p} bytes ({tuple(shape)} strides "
+                           f"{tuple(strides)}) is not a positive multiple of 16")
+                break
+    return (dh, n, h, b), pitches, refusal
+
+
 def tma_map_heads(shape, strides, element_size: int, data_ptr: int) -> dict:
-    """The geometry of the 4-D TMA map the wgmma kernels of K1 and K7
-    build over a [B, H, N, 64] view of `shape` and element `strides`
+    """The geometry of the 4-D TMA map the wgmma kernels of K1, K5, K7 and
+    K6 build over a [B, H, N, 64] view of `shape` and element `strides`
     (`csrc/hopper.cuh::map_heads`): dims (64, N, H, B) innermost first,
     pitches in bytes of a row, a head and an image, the box
     `TMA_BOX_HEADS`, a 128-byte swizzle; rows past N are zero-filled inside
@@ -245,25 +273,23 @@ def tma_map_heads(shape, strides, element_size: int, data_ptr: int) -> dict:
     where TMA cannot take the view: the head's elements not contiguous, a
     base off 16 bytes, a stepped pitch that is not a positive multiple of
     16 bytes."""
-    b, h, n, dh = shape
-    sb, sh, sn, se = strides
-    if se != 1:
-        raise ValueError(f"TMA: the head's elements are {se} apart, not contiguous")
-    if data_ptr % 16:
-        raise ValueError(f"TMA: the view's base {data_ptr:#x} is not 16-byte aligned")
-    if n == 1:
-        sn = dh
-    if h == 1:
-        sh = sn * n
-    if b == 1:
-        sb = sh * h
-    pitches = tuple(s * element_size for s in (sn, sh, sb))
-    for what, p in zip(("row", "head", "image"), pitches):
-        if p <= 0 or p % 16:
-            raise ValueError(f"TMA: {what} pitch {p} bytes ({tuple(shape)} strides "
-                             f"{tuple(strides)}) is not a positive multiple of 16")
-    return {"dims": (dh, n, h, b), "pitches": pitches, "box": TMA_BOX_HEADS,
+    dims, pitches, refusal = _tma_heads_geometry(shape, strides, element_size, data_ptr)
+    if refusal is not None:
+        raise ValueError(refusal)
+    return {"dims": dims, "pitches": pitches, "box": TMA_BOX_HEADS,
             "box_bytes": TMA_BOX_HEADS[0] * TMA_BOX_HEADS[1] * element_size}
+
+
+def tma_heads_operand(t: torch.Tensor) -> torch.Tensor:
+    """`t` where the 4-D TMA map of `tma_map_heads` takes it as it is, else
+    a fresh contiguous copy, which it always takes: K6's cotangent, which
+    autograd can hand over expanded (the gradient of ``(out * w).sum()``,
+    strides (0, 0, 0, 1): pitch 0) or at a pitch off 16 bytes.  Only the
+    cotangent is copied; q, k and v views that TMA cannot take raise
+    (`check_tma_heads`)."""
+    if _tma_heads_geometry(t.shape, t.stride(), t.element_size(), t.data_ptr())[2] is None:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def head_columns(num_heads: int, h: int, dh: int = 64) -> Tuple[int, int, int]:
@@ -294,19 +320,21 @@ def routes_of(fn) -> dict:
 
 def _routed() -> dict:
     """The wrappers that count their launches by route, by kernel."""
-    from msvit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_lse
+    from msvit_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_lse)
     from msvit_tpu_torch.ops.fused_attention import (
         fused_attention, fused_attention_inference, fused_attention_lse)
 
     return {"K1": packed_attention, "K1-lse": packed_attention_lse,
             "K2": packed_attention_bwd, "K4": fused_attention_inference,
             "K5": fused_attention, "K5-lse": fused_attention_lse,
-            "K7": flash_attention, "K7-lse": flash_attention_lse}
+            "K6": flash_attention_bwd, "K7": flash_attention,
+            "K7-lse": flash_attention_lse}
 
 
 def route_counts() -> dict:
     """{"K1": {route: launches}, "K1-lse": ..., "K2", "K4", "K5", "K5-lse",
-    "K7", "K7-lse"} since each wrapper's `zero_counts`."""
+    "K6", "K7", "K7-lse"} since each wrapper's `zero_counts`."""
     return {k: routes_of(fn) for k, fn in _routed().items()}
 
 
@@ -321,7 +349,8 @@ def _check_tma(name: str, *tensors: torch.Tensor) -> None:
 
 
 def check_tma_heads(name: str, *views: torch.Tensor) -> None:
-    """K1's and K7's TMA maps: every [B, H, N, 64] view must map."""
+    """The 4-D TMA maps of K1, K5, K6 and K7: every [B, H, N, 64] view
+    must map."""
     for t in views:
         try:
             tma_map_heads(t.shape, t.stride(), t.element_size(), t.data_ptr())

@@ -825,8 +825,9 @@ def test_k4_k5_round_p_like_plain(dev, kernel):
 
 
 def _fused_case(kernel, q, k, v, m):
-    """One call of K4, K5 or K5-lse (one launch, on mma.sync for bf16 at
-    every head size, on the CUDA cores for f32) against its plain version:
+    """One call of K4, K5 or K5-lse (one launch: bf16 K5 and K5-lse on wgmma
+    at head size 64 and on mma.sync at the others, bf16 K4 on mma.sync at
+    every head size, f32 on the CUDA cores) against its plain version:
     out within the K1 bar of max(1, max |plain|), K5-lse's lse within 1e-5
     of max(1, |lse|) and its out K5's bits.  Returns the kernel's out and
     the bar."""
@@ -848,7 +849,9 @@ def _fused_case(kernel, q, k, v, m):
             want = plain(q, k, v, mask=m)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    route = "mma.sync" if q.dtype == torch.bfloat16 else "cuda_cores"
+    entry = {"K4": "msvit_fused_attention_inference", "K5": "msvit_fused_attention",
+             "K5-lse": "msvit_fused_attention_lse"}[kernel]
+    route = fa.entry_route(entry, q.dtype, q.shape[-1])
     assert {r: c - routes[r] for r, c in routes_of(fn).items()} == {
         r: int(r == route) for r in routes}
     assert got.shape == q.shape and got.dtype == q.dtype
@@ -1145,6 +1148,176 @@ def test_fused_function_grads_match_plain_function(dev, dtype):
         grads.append(xd.grad.cpu())
     torch.cuda.synchronize()
     tol = _K6_TOL[dtype] * max(1.0, grads[1].float().abs().max().item())
+    assert (grads[0].float() - grads[1].float()).abs().max().item() <= tol
+
+
+# K5, K5-lse and K6 on the wgmma route (bf16, head size 64).
+
+
+@pytest.mark.parametrize("b,nq,nk,h,mask,packed", [
+    (2, 816, 816, 12, "additive", True),  # the multistate trunk's soft mask, broadcast
+    (8, 816, 816, 12, "additive", True),  # its whole shape: 672 items on 132 blocks
+    (2, 197, 816, 3, "bool", True),  # cross-context; row 0 fully masked: mean(V)
+    (2, 300, 130, 2, "bool_per_head", False),  # Q longer than K/V
+    (2, 5, 9, 2, "additive_per_head", False),
+])
+def test_k5_k5_lse_wgmma_shapes(dev, b, nq, nk, h, mask, packed):
+    """K5 and K5-lse take the kernel K7 runs at bf16 head size 64 (one
+    wgmma launch each; `_fused_case`): out within the K1 bar, lse within
+    1e-5 of max(1, |lse|), K5-lse's out K5's bits."""
+    q, k, v = _heads(b, nq, nk, h, 64, torch.bfloat16, dev, seed=60, packed=packed)
+    m = _fused_mask(mask, b, h, nq, nk, dev, seed=61)
+    for kernel in ("K5", "K5-lse"):
+        got, tol = _fused_case(kernel, q, k, v, m)
+        if mask is not None and mask.startswith("bool"):
+            assert (got[:, :, 0].float() - v.float().mean(2)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+def test_k5_k5_lse_wgmma_key_only_masks(dev, kind):
+    """The depth-3 subsample trunk's key-only masks at [2, 2, 1361, 64]:
+    K5 and K5-lse on wgmma, bit-equal to the mask expanded in memory."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    q, k, v = _heads(2, 1361, 1361, 2, 64, torch.bfloat16, dev, seed=62, packed=True)
+    m = _key_mask(kind, 2, 1361, dev, seed=63)
+    full = m.expand(-1, -1, 1361, -1).contiguous()
+    for kernel in ("K5", "K5-lse"):
+        got, _ = _fused_case(kernel, q, k, v, m)
+        with torch.inference_mode():
+            assert torch.equal(got, fa.fused_attention(q, k, v, mask=full))
+            assert torch.equal(fa.fused_attention_lse(q, k, v, mask=m)[1],
+                               fa.fused_attention_lse(q, k, v, mask=full)[1])
+
+
+def _k6_wgmma_case(q, k, v, m, seed, route="wgmma", g=None):
+    """K6 from the plain forward's residuals and a cotangent (default: the
+    strided [B, H, Nq, 64] view autograd hands over) against its plain
+    version at K6's bar: one launch on `route`, and a second call gives the
+    same bits.  Returns dq, dk, dv."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    b, h, nq, dh = q.shape
+    if g is None:
+        g = torch.randn(b, nq, h, dh, generator=torch.Generator().manual_seed(seed))
+        g = g.to(q.dtype).to(q.device).transpose(1, 2)
+    with torch.no_grad():
+        wo, wl = fl.flash_attention_lse_plain(q, k, v, mask=m)
+        before = route_counts()
+        got = fl.flash_attention_bwd(q, k, v, wo, g, wl, m)
+        torch.cuda.synchronize()
+        _took(before, {"K6": route})
+        again = fl.flash_attention_bwd(q, k, v, wo, g, wl, m)
+        want = fl.flash_attention_bwd_plain(q, k, v, wo, g, wl, m)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    _k6_check(got, want, q.dtype)
+    return got
+
+
+@pytest.mark.parametrize("b,nq,nk,h,mask,packed", [
+    (2, 816, 816, 12, "additive", True),  # the multistate trunk's soft mask, broadcast
+    (8, 816, 816, 12, "additive", True),  # its whole shape: 672 items on 132 blocks
+    (2, 197, 300, 3, "bool", True),  # row 0 fully masked: p = 1 on every key
+    (2, 197, 816, 3, "additive", True),  # cross-context Nq 197, Nk 816
+    (2, 816, 813, 2, "bool", True),  # bool rows of 813 bytes: not pair-aligned
+    (2, 816, 814, 2, "additive_per_head", False),  # f32 rows off 16 bytes
+    (2, 300, 130, 2, "bool_per_head", False),  # Q longer than K/V
+    (2, 5, 9, 2, None, False),  # one ragged tile each way
+    (2, 129, 63, 3, "additive", True),
+])
+def test_k6_wgmma_shapes(dev, b, nq, nk, h, mask, packed):
+    """K6 on wgmma at bf16 head size 64: strided views of packed QKV outputs
+    or contiguous tensors, every mask form, Nq != Nk both ways, ragged
+    tiles; against its plain version at K6's bar, two calls the same
+    bits."""
+    q, k, v = _heads(b, nq, nk, h, 64, torch.bfloat16, dev, seed=64, packed=packed)
+    _k6_wgmma_case(q, k, v, _fused_mask(mask, b, h, nq, nk, dev, seed=65), seed=66)
+
+
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+@pytest.mark.parametrize("nq", [1025, 1361])
+def test_k6_wgmma_key_only_masks(dev, kind, nq):
+    """The depth-3 subsample trunk's key-only masks ([B, 1, 1, 1361], read
+    at row pitch 0, never expanded): K6 on wgmma, bit-equal to K6 given the
+    mask expanded in memory."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    q, k, v = _heads(2, nq, 1361, 2, 64, torch.bfloat16, dev, seed=67, packed=True)
+    m = _key_mask(kind, 2, 1361, dev, seed=68)
+    got = _k6_wgmma_case(q, k, v, m, seed=69)
+    g = torch.randn(2, nq, 2, 64, generator=torch.Generator().manual_seed(69))
+    g = g.to(torch.bfloat16).to(dev).transpose(1, 2)
+    with torch.no_grad():
+        wo, wl = fl.flash_attention_lse_plain(q, k, v, mask=m)
+        full = fl.flash_attention_bwd(q, k, v, wo, g, wl, m.expand(-1, -1, nq, -1).contiguous())
+    assert all(torch.equal(a, c) for a, c in zip(got, full))
+
+
+def test_k6_wgmma_expanded_cotangent_is_copied(dev):
+    """A cotangent with strides (0, 0, 0, 1), which no TMA map takes: the
+    wrapper copies it and the wgmma kernels run (one launch); the result is
+    the plain version's on the expanded tensor."""
+    q, k, v = _heads(2, 197, 197, 3, 64, torch.bfloat16, dev, seed=70, packed=True)
+    w = torch.randn(64, generator=torch.Generator().manual_seed(71)).to(torch.bfloat16)
+    g = w.to(dev).expand(2, 3, 197, 64)
+    assert g.stride() == (0, 0, 0, 1)
+    _k6_wgmma_case(q, k, v, _fused_mask("additive", 2, 3, 197, 197, dev, seed=72),
+                   seed=0, g=g)
+
+
+def test_k6_wgmma_refuses_a_view_tma_cannot_map(dev):
+    """A q view whose row pitch is 136 bytes raises on K6's wgmma route,
+    naming the wrapper; nothing launches, nothing goes to another route."""
+    from msvit_tpu_torch.ops import flash_attention as fl
+
+    base = torch.zeros(2, 70, 68, dtype=torch.bfloat16, device=dev)
+    q = base[..., :64].unsqueeze(1)  # [2, 1, 70, 64], rows 68 elements apart
+    k = v = o = torch.zeros(2, 1, 70, 64, dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros(2, 1, 70, device=dev)
+    before = route_counts()
+    with pytest.raises(ValueError, match="flash_attention_bwd: TMA"):
+        fl.flash_attention_bwd(q, k, v, o, o, lse)
+    _took(before, {})
+
+
+@pytest.mark.parametrize("dh,dtype,route", [(128, torch.bfloat16, "mma.sync"),
+                                            (32, torch.bfloat16, "mma.sync"),
+                                            (64, torch.float32, "cuda_cores")])
+def test_k6_other_routes(dev, dh, dtype, route):
+    """bf16 head sizes other than 64 keep K6's mma.sync kernels, f32 the
+    CUDA cores: the route counters say so."""
+    q, k, v = _heads(2, 130, 150, 2, dh, dtype, dev, seed=73, packed=True)
+    _k6_wgmma_case(q, k, v, _fused_mask("bool", 2, 2, 130, 150, dev, seed=74), seed=75,
+                   route=route)
+
+
+@pytest.mark.parametrize("loss", ["sum", "w64"])
+def test_fused_function_grads_of_broadcast_cotangents(dev, loss):
+    """Autograd through `fused_attention` on the card (K5-lse forward, K6
+    backward, both on wgmma) for out.sum() and (out * w).sum() with w of
+    shape [64], whose cotangents arrive expanded, against the same Function
+    on CPU copies (the plain versions): the QKV output's gradient within
+    K6's bar."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    b, n, h, dh = 2, 197, 3, 64
+    gen = torch.Generator().manual_seed(76)
+    x = torch.randn(b, n, 3 * h * dh, generator=gen).to(torch.bfloat16)
+    m = -100.0 * (torch.rand(b, 1, n, n, generator=gen) < 0.3).float()
+    w = torch.randn(dh, generator=gen).to(torch.bfloat16)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xd = x.to(d).requires_grad_()
+        q, k, v = unpack_qkv(xd, h)
+        before = route_counts() if d.type == "cuda" else None
+        out = fa.fused_attention(q, k, v, mask=m.to(d))
+        (out.sum() if loss == "sum" else (out * w.to(d)).sum()).backward()
+        if before is not None:
+            torch.cuda.synchronize()
+            _took(before, {"K5-lse": "wgmma", "K6": "wgmma"})
+        grads.append(xd.grad.cpu())
+    tol = _K6_TOL[torch.bfloat16] * max(1.0, grads[1].float().abs().max().item())
     assert (grads[0].float() - grads[1].float()).abs().max().item() <= tol
 
 

@@ -1,11 +1,13 @@
-"""The route rule of K1, K1-lse, K2, K7 and K7-lse and the geometry of the
-wgmma route's TMA maps (`msvit_tpu_torch/ops/packed_attention.py`), kept in
-Python so that the CPU can check them: bf16 at head size 64 takes the wgmma
-kernels, other bf16 head sizes the mma.sync kernels, f32 the CUDA cores;
-K1-lse's and K2's maps are 3-D over the packed [B, N, W] tensors with a
-(64, 64, 1) box at each head's q, k and v columns, K1's and K7's 4-D over
-[B, H, N, 64] views through their strides with a (64, 64, 1, 1) box.  No
-JAX, no kernel: a few milliseconds."""
+"""The route rule of K1, K1-lse, K2, K5, K5-lse, K6, K7 and K7-lse and the
+geometry of the wgmma route's TMA maps
+(`msvit_tpu_torch/ops/packed_attention.py`), kept in Python so that the CPU
+can check them: bf16 at head size 64 takes the wgmma kernels, other bf16
+head sizes the mma.sync kernels, f32 the CUDA cores (K4 takes mma.sync at
+every bf16 head size); K1-lse's and K2's maps are 3-D over the packed
+[B, N, W] tensors with a (64, 64, 1) box at each head's q, k and v
+columns, those of K1, K5, K6 and K7 4-D over [B, H, N, 64] views through
+their strides with a (64, 64, 1, 1) box; K6's cotangent is copied where
+that map cannot take it.  No JAX, no kernel: a few milliseconds."""
 
 import pytest
 import torch
@@ -24,6 +26,24 @@ from msvit_tpu_torch.ops import packed_attention as pa
 ])
 def test_train_route(dtype, dh, route):
     assert pa.kernel_route(dtype, dh) == route
+
+
+@pytest.mark.parametrize("dtype,dh,k4,others", [
+    (torch.bfloat16, 64, "mma.sync", "wgmma"),
+    (torch.bfloat16, 32, "mma.sync", "mma.sync"),
+    (torch.bfloat16, 128, "mma.sync", "mma.sync"),
+    (torch.float32, 64, "cuda_cores", "cuda_cores"),
+])
+def test_fused_and_flash_entry_routes(dtype, dh, k4, others):
+    """The route of each C entry point of K4, K5, K5-lse, K7 and K7-lse:
+    K5 and K5-lse take wgmma at bf16 head size 64, as K7 and K7-lse do;
+    K4 stays on mma.sync there."""
+    from msvit_tpu_torch.ops.fused_attention import entry_route
+
+    assert entry_route("msvit_fused_attention_inference", dtype, dh) == k4
+    for entry in ("msvit_fused_attention", "msvit_fused_attention_lse",
+                  "msvit_flash_attention", "msvit_flash_attention_lse"):
+        assert entry_route(entry, dtype, dh) == others, entry
 
 
 @pytest.mark.parametrize("dtype,dh,error", [
@@ -77,16 +97,17 @@ def test_head_columns_address_the_packed_sections(h):
 
 def test_route_counters_and_the_cpu_path():
     """The wrappers take the plain versions on the CPU and count no launch;
-    `zero_counts` zeroes every route's count of the eight kernels."""
+    `zero_counts` zeroes every route's count of the nine kernels."""
     from msvit_tpu_torch.ops import flash_attention as fl
     from msvit_tpu_torch.ops import fused_attention as fa
 
     routed = (pa.packed_attention, pa.packed_attention_lse, pa.packed_attention_bwd,
               fa.fused_attention_inference, fa.fused_attention, fa.fused_attention_lse,
-              fl.flash_attention, fl.flash_attention_lse)
+              fl.flash_attention_bwd, fl.flash_attention, fl.flash_attention_lse)
     pa.packed_attention_lse.wgmma_launches = 3
     fl.flash_attention.mma_launches = 2
     fa.fused_attention.mma_launches = 4
+    fl.flash_attention_bwd.wgmma_launches = 5
     pa.zero_counts(*routed)
     x = torch.randn(1, 7, 3 * 2 * 64)
     out, lse = pa.packed_attention_lse(x, 2)
@@ -98,10 +119,11 @@ def test_route_counters_and_the_cpu_path():
         fl.flash_attention_lse(q, k, v)
         fa.fused_attention_inference(q, k, v)
         fa.fused_attention(q, k, v)
-        fa.fused_attention_lse(q, k, v)
+        o, lse = fa.fused_attention_lse(q, k, v)
+        fl.flash_attention_bwd(q, k, v, o, torch.randn_like(o), lse)
     zero = {r: 0 for r in pa.ROUTES}
     assert pa.route_counts() == {k: zero for k in ("K1", "K1-lse", "K2", "K4", "K5",
-                                                   "K5-lse", "K7", "K7-lse")}
+                                                   "K5-lse", "K6", "K7", "K7-lse")}
     assert all(fn.launches == 0 for fn in routed)
 
 
@@ -172,3 +194,34 @@ def test_k1_views_read_the_packed_columns(h):
         assert t.stride() == (n * 3 * heads * 64, 64, 3 * heads * 64, 1)
         assert t.data_ptr() - x.data_ptr() == (c - h * 64) * x.element_size()
         assert torch.equal(t[:, h], x[..., c:c + 64])
+
+
+def _cotangent(kind):
+    """K6's cotangent [2, 3, 5, 64] bf16 as autograd can hand it over."""
+    if kind == "transposed":  # the gradient through the [B, N, H, 64] output
+        return torch.randn(2, 5, 3, 64).to(torch.bfloat16).transpose(1, 2)
+    if kind == "contiguous":
+        return torch.randn(2, 3, 5, 64).to(torch.bfloat16)
+    if kind == "expanded":  # the gradient of (out * w).sum(), w of shape [64]
+        return torch.randn(64).to(torch.bfloat16).expand(2, 3, 5, 64)
+    # rows 68 elements apart: a 136-byte pitch
+    return torch.randn(2, 3, 5, 68).to(torch.bfloat16)[..., :64]
+
+
+@pytest.mark.parametrize("kind,copied", [("transposed", False), ("contiguous", False),
+                                         ("expanded", True), ("unaligned_rows", True)])
+def test_k6_cotangent_is_copied_only_where_tma_refuses_it(kind, copied):
+    """`tma_heads_operand` hands K6's wgmma route the cotangent as it is
+    where the 4-D TMA map takes it, and a contiguous copy, which the map
+    takes, where it does not: strides (0, 0, 0, 1) (pitch 0) or a pitch off
+    16 bytes.  The values never change."""
+    g = _cotangent(kind)
+    refused = False
+    try:
+        pa.tma_map_heads(g.shape, g.stride(), 2, g.data_ptr())
+    except ValueError:
+        refused = True
+    got = pa.tma_heads_operand(g)
+    assert refused == copied and (got is not g) == copied
+    assert torch.equal(got, g)
+    pa.tma_map_heads(got.shape, got.stride(), 2, got.data_ptr())
