@@ -11,7 +11,8 @@ fails (non-zero exit, no result line) if any phase fails:
    (one nvcc per source, in parallel) and prints ptxas's registers and
    spills for the training (the bf16 pair on the tensor cores: the wgmma
    kernels at head size 64, the mma.sync ones at every bucket), the wgmma
-   kernel of K1, K5 and K7 (`attention_wgmma.cuh`), K6's wgmma pair
+   kernel of K1, K4, K5 and K7 (`attention_wgmma.cuh`), K10's
+   (`banded_wgmma_kernel`), K6's wgmma pair
    (`attention_bwd_wgmma.cuh`), the fused, flash, banded and int8 kernels,
    and every line where ptxas serialized a kernel's wgmma products;
 3. kernels: each kernel against its plain PyTorch version on the card at
@@ -44,14 +45,16 @@ fails (non-zero exit, no result line) if any phase fails:
    calibrated on 8 images: without clustering events the int8 (K4) and
    bf16 (K5) forwards against the plain attention path and int8 against
    bf16; with them, valid outputs, K4 and K5 launched 11 times per forward
-   of their own (K5 on wgmma), the partition's agreement with the plain path, ms/batch,
+   of their own (both on wgmma), the partition's agreement with the plain path, ms/batch,
    img/s, clustering's share, peak memory and host syncs; each forward's
    device time and K4's or K5's share of it (`torch.profiler`);
 9. fused kernels: K4 and K5 against their plain versions at [8,12,816,64]
    with the soft mask of the served partition (also a bool mask with a
    fully masked row, f32, and cross-context K/V), the share of elements
    bit-equal to plain, then timed through the wrapper and alone, with the
-   achieved TFLOP/s and share of the bound; the kernel's blocks per SM;
+   achieved TFLOP/s and share of the bound, beside SDPA through its call
+   and by its device time; the mma.sync kernel's blocks per SM (the route
+   of the other head sizes);
 10. multistate training kernels: K5-lse and K6 against their plain versions
    at [8,12,816,64] (the served partition's soft mask in bf16 and f32, a
    bool mask with a fully masked row, cross-context K/V, large logits, 6
@@ -78,7 +81,8 @@ fails (non-zero exit, no result line) if any phase fails:
    `i448:shared1024/256`: 3168 tokens, shared-anchor NCut), the seeded
    scene at 448: the bf16 and int8 forwards (K7 in 11 layers, K4 and K5 in
    none) against the plain attention path without clustering events; with
-   them valid outputs; the banded forward (K10 in 11 layers) against the
+   them valid outputs; the banded forward (K10 in 11 layers, every launch
+   on wgmma) against the
    dense one, the same weights and draws (in bf16 the partitions'
    agreement and the patch-token cosine, in f32 equal partitions);
    ms/batch, img/s, peak memory, host syncs of each;
@@ -89,7 +93,10 @@ fails (non-zero exit, no result line) if any phase fails:
    against its plain version at [8,12,3168,64], timed;
 17. banded kernel: K10 against its plain version on the token rows of the
    448 partition ([8, 32+3136, 2304]; also one cluster, the layers before
-   the first event) and the 224 one ([8, 32+784, 2304]), then timed;
+   the first event) and the 224 one ([8, 32+784, 2304]), then timed through
+   the wrapper and alone, beside SDPA over the equivalent mask through its
+   call and by its device time, with the 64-key tiles the band walks
+   beside the pairs the partition needs;
 18. masked int8 kernel: K9 against its plain version at [8,816,2304] with
    the 224 partition's soft mask and a bool mask (its fully masked row
    mean(V)), bf16 and int8 out, the share bit-equal to plain, then timed
@@ -211,8 +218,9 @@ that call (`scaled_dot_product_attention` or its backward; the port never
 calls it).  The second-to-last line is a JSON object with each kernel's
 launches in its path's run (serving for K1 and K3, with the reloaded
 artifacts' launches of phase 32, training for K1-lse and
-K2 (split by route: every one on wgmma; the K1, K5, K5-lse, K6, K7 and
-K8a rows split theirs too, and none may take mma.sync), the clustered multistate forwards for K4 and K5, multistate training
+K2 (split by route: every one on wgmma; the K1, K4, K5, K5-lse, K6, K7,
+K8a and K10 rows split theirs too, and none may take mma.sync), the
+clustered multistate forwards for K4 and K5, multistate training
 for K5-lse and K6, the clustered 448-px bf16 forward and the deep subsample
 forwards for K7, the 224-px int8-attention forward for K9, the 448-px banded forward for K10, the
 ViT-B/8 pretrain run for the K8a, K8a-lse and K8b rows; the extras
@@ -312,13 +320,15 @@ MS_GRAD_COS = 0.999
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
-# profiler names.  K4 and K5 / K5-lse: K4 on mma.sync (flash_mma_kernel),
-# K5 and K5-lse at bf16 head size 64 on the kernel K7 runs
-# (attention_wgmma_kernel, tagged FusedUnit), at other head sizes on
-# flash_mma_kernel, f32 on fused_attention_kernel.  K6: its two wgmma or
-# mma.sync kernels (either tree's names in an A/B).
+# profiler names.  K4 and K5 / K5-lse at bf16 head size 64 on the kernel K7
+# runs (attention_wgmma_kernel, tagged FusedInferenceUnit and FusedUnit), at
+# other head sizes on flash_mma_kernel (K4's route at every head size before
+# its wgmma instantiation), f32 on fused_attention_kernel.  K6: its two
+# wgmma or mma.sync kernels; K10: banded_wgmma_kernel or banded_mma_kernel
+# (either tree's names in an A/B).
 K45_KERNELS = "flash_mma_kernel|fused_attention_kernel|attention_wgmma_kernel"
 K6_KERNELS = r"flash_bwd_d(?:q|kv)_w?g?mma_kernel"
+K10_KERNELS = r"banded_w?g?mma_kernel"
 
 
 def log(msg: str) -> None:
@@ -1126,7 +1136,8 @@ def _fused_counts() -> dict:
     from msvit_tpu_torch.ops.fused_attention import (
         fused_attention, fused_attention_inference)
 
-    return {"K4": fused_attention_inference.launches, "K5": _routed_count(fused_attention)}
+    return {"K4": _routed_count(fused_attention_inference),
+            "K5": _routed_count(fused_attention)}
 
 
 def _reset_fused_counts() -> None:
@@ -1236,6 +1247,7 @@ def multistate_phase(dev, smi: str) -> tuple:
     if n_int8 != {"K4": LAYERS - 1, "K5": 0} or n_bf16 != {"K4": 0, "K5": LAYERS - 1}:
         raise AssertionError(f"launches int8 {n_int8}, bf16 {n_bf16}: want K4 and K5 "
                              f"{LAYERS - 1} times each in its own forward")
+    _on_wgmma("multistate int8 forward", n_int8, ("K4",))
     _on_wgmma("multistate bf16 forward", n_bf16, ("K5",))
     launches = {"K4": n_int8["K4"], "K5": n_bf16["K5"]}
     _check_multistate_out("int8", ci, cfg)
@@ -1267,9 +1279,9 @@ def multistate_phase(dev, smi: str) -> tuple:
         f"peak memory {peak!r} GiB during an int8 forward (bf16 and int8 weights "
         f"resident); host syncs per forward {syncs} (10 runs after 2 of warm-up, "
         f"host clock; {smi})")
-    # K4's and K5's kernels (K4 on mma.sync, K5 at head size 64 on wgmma; and the
-    # CUDA-core kernel, which ran them in bf16 before the tensor-core ones, so
-    # that an older tree reads the same way)
+    # K4's and K5's kernels (at head size 64 on wgmma; and the mma.sync and
+    # CUDA-core kernels, which ran them in bf16 before, so that an older tree
+    # reads the same way)
     attn = K45_KERNELS
     d_int8, k4 = device_profile(lambda: int8(cfg), attn, LAYERS - 1)
     d_bf16, k5 = device_profile(lambda: bf16(model), attn, LAYERS - 1)
@@ -1331,18 +1343,23 @@ def fused_kernel_phase(dev, smi: str, partition) -> dict:
             ms, plain_ms = race(lambda: fn(q, k, v, mask=soft),
                                 lambda: plain(q, k, v, mask=soft))
             lib = library_ms(lambda: sdpa(q, k, v, soft))
+            lib_dev = device_profile(lambda: sdpa(q, k, v, soft), r"^$", 0)[0]
             alone = device_ms(lambda: fn(q, k, v, mask=soft), K45_KERNELS)
             ops = attn_ops(b, h, n, n, dh, 2)
             lim = bound([q, k, v, soft], [q], ops, torch.bfloat16)
             torch.cuda.synchronize()
             log(f"[fused-kernels] {name} bf16 {list(MS_SHAPE)} soft mask: kernel {ms!r} ms, "
                 f"plain {plain_ms!r} ms, library (scaled_dot_product_attention, the mask "
-                f"in bf16) {lib!r} ms, bound {lim}; {rate(ops, ms, lim)} (median of 20, "
-                f"CUDA events; {smi}); the kernel alone {alone!r} ms (device time, "
-                f"torch.profiler; {rate(ops, alone, lim)})")
+                f"in bf16) {lib!r} ms ({lib_dev!r} ms device time, every kernel of the "
+                f"call), bound {lim}; {rate(ops, ms, lim)} (median of 20, CUDA events; "
+                f"{smi}); the kernel alone {alone!r} ms (device time, torch.profiler; "
+                f"{rate(ops, alone, lim)})")
             res[name] = dict(err=errs[0], ms=ms, plain_ms=plain_ms, library_ms=lib,
-                             kernel_alone_ms=alone, bit_equal=same, **lim)
-    log(f"[fused-kernels] {occupancy(dh, (b, h, n))} ({smi})")
+                             library_device_ms=lib_dev, kernel_alone_ms=alone,
+                             bit_equal=same, **lim)
+    log(f"[fused-kernels] the mma.sync kernel of K4 and K5, the route of head sizes other "
+        f"than 64 (at 64 both run the persistent wgmma kernel, one block an SM): "
+        f"{occupancy(dh, (b, h, n))} ({smi})")
     return res
 
 
@@ -1703,7 +1720,7 @@ def _attn_counts() -> dict:
     from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked
 
     return {**_fused_counts(), "K7": _routed_count(flash_attention),
-            "K9": packed_attention_int8_masked.launches, "K10": token_rows.launches}
+            "K9": packed_attention_int8_masked.launches, "K10": _routed_count(token_rows)}
 
 
 def _reset_attn_counts() -> None:
@@ -1712,9 +1729,8 @@ def _reset_attn_counts() -> None:
     from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked, zero_counts
 
     _reset_fused_counts()
-    zero_counts(flash_attention)
+    zero_counts(flash_attention, token_rows)
     packed_attention_int8_masked.launches = 0
-    token_rows.launches = 0
 
 
 def _launched(label: str, want: dict) -> None:
@@ -1857,6 +1873,7 @@ def ms448_phase(dev, smi: str) -> tuple:
     cd = bf16(banded)
     _launched("ms448 banded bf16 with clustering", {"K10": LAYERS - 1})
     launches["K10"] = _attn_counts()["K10"]
+    _on_wgmma("ms448 banded bf16 forward", launches, ("K10",))
     _check_multistate_out("ms448 banded", cd, cfg)
     cx = bf16(twin(dataclasses.replace(cfg, attn_implementation="xla")))
     ids_b, ids_d, ids_x = (o["last_cluster_indices"] for o in (cd, cb, cx))
@@ -2084,6 +2101,49 @@ def flash_kernel_phase(dev, smi: str, partition) -> dict:
     return res
 
 
+def k10_inputs(gen, cid, h: int, dh: int, dev) -> torch.Tensor:
+    """K10's packed qkv [B, 2C + N, 3 h dh] in f32 for the sorted ids `cid`
+    [B, N], drawn at 0.5 from `gen`, the q third pre-scaled (the kernel's
+    scale is 1) to scores of std 2: a row weighs a few dozen keys of its
+    cluster, not their flat mean, so that a dropped key tile or RX key
+    moves the output by more than K1's bar of max |plain|."""
+    b, n = cid.shape
+    x = torch.randn(b, 2 * MS_CLUSTERS + n, 3 * h * dh, generator=gen) * 0.5
+    x[..., :h * dh] *= 8 * dh**-0.5
+    return x.to(dev)
+
+
+def k10_sdpa(x, cid, h: int):
+    """The library yardstick of K10 on the packed qkv `x`: one
+    `scaled_dot_product_attention` call of the token rows' queries over
+    every key with the equivalent mask (a token's own cluster and its RX
+    key) in x's dtype, scale 1.  Returns the call as a function."""
+    b, n = cid.shape
+    pfx = x.shape[1] - n
+    cols = torch.arange(pfx + n, device=x.device)
+    key_cid = F.pad(cid, (pfx, 0), value=-1)
+    keep = (cols[None, None] == 2 * cid[:, :, None] + 1) | (
+        (cols[None, None] >= pfx) & (cid[:, :, None] == key_cid[:, None, :]))
+    add = torch.where(keep, 0.0, float("-inf")).to(x.dtype)[:, None]
+    t = x.reshape(b, pfx + n, 3, h, -1).permute(2, 0, 3, 1, 4)
+    return lambda: F.scaled_dot_product_attention(t[0][:, :, pfx:], t[1], t[2],
+                                                  attn_mask=add, scale=1.0)
+
+
+def k10_work(cid) -> tuple:
+    """The work of K10 on the sorted ids `cid` [B, N]: the cluster sizes
+    [B, C], the query-key pairs the partition needs (same-cluster keys and
+    each token's RX key) and the pairs its band's 64-key tiles hold (what
+    the wgmma kernel multiplies, the RX tile aside)."""
+    from msvit_tpu_torch.ops.banded_attention import BAND_KEYS, BAND_ROWS, band_limits
+
+    sizes = torch.stack([torch.bincount(r, minlength=MS_CLUSTERS) for r in cid]).double()
+    pairs = (sizes**2).sum().item() + cid.numel()
+    band = band_limits(cid.to(torch.int32), MS_CLUSTERS)
+    walked = ((band[:, 1] - band[:, 0] + 1).double() * BAND_ROWS * BAND_KEYS).sum().item()
+    return sizes, pairs, walked
+
+
 def banded_kernel_phase(dev, smi: str, part448, part224) -> dict:
     """K10 against its plain version on the token rows of each partition
     (sorted by cluster id, a stable sort): [8, 32+3136, 2304] at 448 px (and
@@ -2092,11 +2152,9 @@ def banded_kernel_phase(dev, smi: str, part448, part224) -> dict:
     depends on the partition: the bound counts the pairs of tokens in one
     cluster plus each token's RX key, the work this data needs (the band's
     tiles and the dense N x S are logged as upper bounds)."""
-    from msvit_tpu_torch.ops.banded_attention import (
-        BAND_KEYS, BAND_ROWS, band_limits, token_rows, token_rows_plain)
+    from msvit_tpu_torch.ops.banded_attention import token_rows, token_rows_plain
 
     h, dh = 12, 64
-    pfx = 2 * MS_CLUSTERS
     gen = torch.Generator().manual_seed(11)
     res = {}
     one = torch.zeros_like(part448[0])  # the layers before the first event
@@ -2104,10 +2162,9 @@ def banded_kernel_phase(dev, smi: str, part448, part224) -> dict:
                           ("448 one-cluster", (one, None))):
         cid = torch.sort(ids, dim=1, stable=True).values
         b, n = cid.shape
-        x = (torch.randn(b, pfx + n, 3 * h * dh, generator=gen) * 0.5).to(dev)
-        x[..., :h * dh] *= dh**-0.5  # the q third pre-scaled
+        x = k10_inputs(gen, cid, h, dh, dev)
         xb = x.to(torch.bfloat16)
-        shape = f"[{b}, {pfx}+{n}, {3 * h * dh}]"
+        shape = f"[{b}, {2 * MS_CLUSTERS}+{n}, {3 * h * dh}]"
         cases = [(f"bf16 {shape}, the {tag} partition", xb)]
         if tag == "224":
             cases.append((f"f32 {shape}, the {tag} partition (tf32 off)", x))
@@ -2118,43 +2175,40 @@ def banded_kernel_phase(dev, smi: str, part448, part224) -> dict:
                 torch.cuda.synchronize()
                 if not torch.isfinite(got).all():
                     raise AssertionError(f"K10 {label}: non-finite output")
-                tol = K1_TOL[xx.dtype] * max(1.0, want.float().abs().max().item())
-                err = _check("banded-kernels", f"K10 {label}", max_err(got, want), tol)
+                # the bar scales with the output: no floor of 1
+                tol = K1_TOL[xx.dtype] * want.float().abs().max().item()
+                err = _check("banded-kernels", f"K10 {label} (bar: K1's of max |plain|)",
+                             max_err(got, want), tol)
                 if xx is xb:
                     e_bf16 = err
                 del got, want
             torch.cuda.empty_cache()
             ms, plain_ms = race(lambda: token_rows(xb, cid, h, MS_CLUSTERS),
                                 lambda: token_rows_plain(xb, cid, h, MS_CLUSTERS))
-            alone = device_ms(lambda: token_rows(xb, cid, h, MS_CLUSTERS), "banded_mma_kernel")
+            alone = device_ms(lambda: token_rows(xb, cid, h, MS_CLUSTERS), K10_KERNELS)
             # the library yardstick: SDPA over the token rows' queries and
             # every key, the equivalent mask (own cluster, own RX) in bf16
-            cols = torch.arange(pfx + n, device=dev)
-            key_cid = F.pad(cid, (pfx, 0), value=-1)
-            keep = (cols[None, None] == 2 * cid[:, :, None] + 1) | (
-                (cols[None, None] >= pfx) & (cid[:, :, None] == key_cid[:, None, :]))
-            add = torch.where(keep, 0.0, float("-inf")).to(torch.bfloat16)[:, None]
-            t = xb.reshape(b, pfx + n, 3, h, dh).permute(2, 0, 3, 1, 4)
-            lib = library_ms(lambda: F.scaled_dot_product_attention(
-                t[0][:, :, pfx:], t[1], t[2], attn_mask=add, scale=1.0))
-            del add, keep
-        sizes = torch.stack([torch.bincount(r, minlength=MS_CLUSTERS) for r in cid]).double()
-        pairs = (sizes**2).sum().item() + b * n  # same-cluster keys + the RX key
-        band = band_limits(cid.to(torch.int32), MS_CLUSTERS)
-        walked = ((band[:, 1] - band[:, 0] + 1).double() * BAND_ROWS * BAND_KEYS).sum().item()
+            lib_fn = k10_sdpa(xb, cid, h)
+            lib = library_ms(lib_fn)
+            lib_dev = device_profile(lib_fn, r"^$", 0)[0]
+            del lib_fn
+        sizes, pairs, walked = k10_work(cid)
         out = torch.empty(b, n, h * dh, dtype=torch.bfloat16, device=dev)
         lim = bound([xb, cid.to(torch.int32)], [out], 4.0 * h * dh * pairs, torch.bfloat16)
         log(f"[banded-kernels] K10 bf16 {shape} ({tag} partition, cluster sizes "
             f"{sizes.sum(0).long().tolist()}): kernel {ms!r} ms, plain {plain_ms!r} ms, "
-            f"library (scaled_dot_product_attention, the equivalent mask in bf16) {lib!r} ms, "
-            f"bound {lim} for the {pairs:.0f} query-key pairs this partition needs; "
-            f"{rate(4.0 * h * dh * pairs, ms, lim)}; upper bounds: the band's tiles "
-            f"{walked:.0f} pairs, dense {b * n * (pfx + n)} (median of 20, CUDA events; "
-            f"{smi}); the kernel alone {alone!r} ms ({rate(4.0 * h * dh * pairs, alone, lim)}; "
-            f"device time, torch.profiler), the rest the wrapper's band table and launch")
+            f"library (scaled_dot_product_attention, the equivalent mask in bf16) {lib!r} ms "
+            f"({lib_dev!r} ms device time, every kernel of the call), bound {lim} for the "
+            f"{pairs:.0f} query-key pairs this partition needs; "
+            f"{rate(4.0 * h * dh * pairs, ms, lim)}; the band's 64-key tiles (what the "
+            f"wgmma kernel multiplies, the RX tile aside) {walked:.0f} pairs, "
+            f"{walked / pairs!r} of the needed; dense {b * n * (2 * MS_CLUSTERS + n)} "
+            f"(median of 20, CUDA events; {smi}); the kernel alone {alone!r} ms "
+            f"({rate(4.0 * h * dh * pairs, alone, lim)}; device time, torch.profiler), the "
+            f"rest the wrapper's band table and launch")
         res["K10" if tag == "448" else f"K10@{tag}"] = dict(
-            err=e_bf16, ms=ms, plain_ms=plain_ms, library_ms=lib, kernel_alone_ms=alone,
-            **lim)
+            err=e_bf16, ms=ms, plain_ms=plain_ms, library_ms=lib, library_device_ms=lib_dev,
+            kernel_alone_ms=alone, walked_over_needed=walked / pairs, **lim)
     return res
 
 
@@ -2214,7 +2268,7 @@ def int8_attn_kernel_phase(dev, smi: str, partition) -> dict:
         k4_ms = statistics.median(time_ms(
             lambda: fused_attention_inference(qb, kb, vb, mask=soft), runs=20))
         k4_alone = device_ms(lambda: fused_attention_inference(qb, kb, vb, mask=soft),
-                             "flash_mma_kernel")
+                             K45_KERNELS)
     torch.cuda.synchronize()
     # the additive mask rides bf16, as the kernel reads it
     ops = attn_ops(b, h, n, n, dh, 2)
@@ -3193,11 +3247,13 @@ def key_mask_kernel_phase(dev, smi: str) -> dict:
             lib = library_ms(lambda: sdpa(q, k, v, mask))
             lim = bound([q, k, v, mask], [q], ops, torch.bfloat16)
             out[name] = dict(err=res[name], ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)
-            if name == "K7":
+            if name in ("K4", "K7"):
                 alone = device_ms(lambda: fn(q, k, v, mask=mask), "attention_wgmma_kernel")
-                out[name]["kernel_alone_ms"] = alone
-                log(f"[key-mask] K7 bf16 {shape} key-only mask alone: {alone!r} ms (device "
-                    f"time, torch.profiler; {rate(ops, alone, lim)}; {smi})")
+                lib_dev = device_profile(lambda: sdpa(q, k, v, mask), r"^$", 0)[0]
+                out[name].update(kernel_alone_ms=alone, library_device_ms=lib_dev)
+                log(f"[key-mask] {name} bf16 {shape} key-only mask alone: {alone!r} ms "
+                    f"(device time, torch.profiler; {rate(ops, alone, lim)}); the library "
+                    f"{lib_dev!r} ms device time ({smi})")
         ms, plain_ms = race(lambda: fused_attention_lse(q, k, v, mask=mask),
                             lambda: fused_attention_lse_plain(q, k, v, mask=mask))
         lim = bound([q, k, v, mask], [q, lse], ops, torch.bfloat16)
@@ -3898,6 +3954,23 @@ def train_kernel_ab(tag: str) -> dict:
     return res
 
 
+def ab_kernel(res: dict, key: str, fn, lib, names: str, ops: float, lim: dict,
+              kernels: int = 1) -> None:
+    """One kernel's entries of an A/B under `key` in `res`: through its
+    wrapper `fn` (median of 20, CUDA events), alone (`device_ms` of the
+    kernels `names`, `kernels` launches a call), its bound `lim`, its share
+    and its rate alone from `ops`, beside the library call `lib` through
+    its call and by its device time (`device_profile`, every kernel of the
+    call)."""
+    res[f"{key}_ms"] = statistics.median(time_ms(fn, runs=20))
+    res[f"{key}_alone_ms"] = device_ms(fn, names, kernels=kernels)
+    res[f"{key}_share_of_bound"] = lim["bound_ms"] / res[f"{key}_alone_ms"]
+    res[f"{key}_tflops_alone"] = ops / res[f"{key}_alone_ms"] / 1e9
+    res[f"{key}_bound_ms"] = lim["bound_ms"]
+    res[f"{key}_sdpa_ms"] = statistics.median(time_ms(lib, runs=20))
+    res[f"{key}_sdpa_device_ms"] = device_profile(lib, r"^$", 0)[0]
+
+
 def attention_kernel_ab(tag: str) -> dict:
     """K1 and K7, and the two forwards that run them most, on the package
     beside this file, for an A/B of two trees in one call (parent, change,
@@ -3946,14 +4019,6 @@ def attention_kernel_ab(tag: str) -> dict:
         torch.cuda.synchronize()
         return t / calls * 1e6
 
-    def kernel(key, fn, lib, names, ops, lim):
-        res[f"{key}_ms"] = statistics.median(time_ms(fn, runs=20))
-        res[f"{key}_alone_ms"] = device_ms(fn, names)
-        res[f"{key}_share_of_bound"] = lim["bound_ms"] / res[f"{key}_alone_ms"]
-        res[f"{key}_tflops_alone"] = ops / res[f"{key}_alone_ms"] / 1e9
-        res[f"{key}_sdpa_ms"] = statistics.median(time_ms(lib, runs=20))
-        res[f"{key}_sdpa_device_ms"] = device_profile(lib, r"^$", 0)[0]
-
     # the dense 448 forward first: its partition gives K7's soft mask
     cfg = ms448_config()
     model = MultiStateViTEncoderModel(cfg, generator=torch.Generator().manual_seed(0),
@@ -3984,9 +4049,9 @@ def attention_kernel_ab(tag: str) -> dict:
         q, k, v = pa.unpack_qkv(torch.randn(b, n, 3 * h * dh, generator=g).to(dev)
                                 .to(torch.bfloat16), h)
         ops = attn_ops(b, h, n, n, dh, 2)
-        kernel("K7_3168", lambda: fl.flash_attention(q, k, v, mask=soft),
-               lambda: sdpa(q, k, v, soft), k7_names, ops,
-               bound([q, k, v, soft], [q], ops, torch.bfloat16))
+        ab_kernel(res, "K7_3168", lambda: fl.flash_attention(q, k, v, mask=soft),
+                  lambda: sdpa(q, k, v, soft), k7_names, ops,
+                  bound([q, k, v, soft], [q], ops, torch.bfloat16))
         del q, k, v, soft
         b, h, n, dh = SS_SHAPE
         depth = torch.from_numpy(
@@ -3998,17 +4063,17 @@ def attention_kernel_ab(tag: str) -> dict:
         q, k, v = pa.unpack_qkv(torch.randn(b, n, 3 * h * dh, generator=g).to(dev)
                                 .to(torch.bfloat16), h)
         ops = attn_ops(b, h, n, n, dh, 2)
-        kernel("K7_key_1361", lambda: fl.flash_attention(q, k, v, mask=mask),
-               lambda: sdpa(q, k, v, mask), k7_names, ops,
-               bound([q, k, v, mask], [q], ops, torch.bfloat16))
+        ab_kernel(res, "K7_key_1361", lambda: fl.flash_attention(q, k, v, mask=mask),
+                  lambda: sdpa(q, k, v, mask), k7_names, ops,
+                  bound([q, k, v, mask], [q], ops, torch.bfloat16))
         del q, k, v, mask
         for shape in (MAIN_SHAPE, GROUPED_SHAPE, (8, 1370, 2304)):
             x = torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
             qkv = pa.unpack_qkv(x, 12)
             ops = attn_ops(shape[0], 12, shape[1], shape[1], 64, 2)
             fn, lib = (lambda: pa.packed_attention(x, 12)), (lambda: sdpa(*qkv))
-            kernel(f"K1_{shape[1]}", fn, lib, k1_names, ops,
-                   bound([x], [x[..., :768]], ops, torch.bfloat16))
+            ab_kernel(res, f"K1_{shape[1]}", fn, lib, k1_names, ops,
+                      bound([x], [x[..., :768]], ops, torch.bfloat16))
             if shape == MAIN_SHAPE:
                 res["K1_197_host_us"], res["K1_197_sdpa_host_us"] = host_us(fn), host_us(lib)
             del x, qkv
@@ -4055,14 +4120,6 @@ def backward_kernel_ab(tag: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     res = {"tag": tag, "card": smi}
     bf = torch.bfloat16
-
-    def kernel(key, fn, lib, names, kernels, ops, lim):
-        res[f"{key}_ms"] = statistics.median(time_ms(fn, runs=20))
-        res[f"{key}_alone_ms"] = device_ms(fn, names, kernels=kernels)
-        res[f"{key}_share_of_bound"] = lim["bound_ms"] / res[f"{key}_alone_ms"]
-        res[f"{key}_tflops_alone"] = ops / res[f"{key}_alone_ms"] / 1e9
-        res[f"{key}_sdpa_ms"] = statistics.median(time_ms(lib, runs=20))
-        res[f"{key}_sdpa_device_ms"] = device_profile(lib, r"^$", 0)[0]
 
     # the bf16 224-px forward first: its partition gives the soft mask
     model = MultiStateViTEncoderModel(multistate_config(),
@@ -4121,20 +4178,144 @@ def backward_kernel_ab(tag: str) -> dict:
         f_ops, b_ops = attn_ops(b, h, n, n, dh, 2), attn_ops(b, h, n, n, dh, 5)
         with torch.no_grad():
             if label != "3168":
-                kernel(f"K5_{label}", lambda: fa.fused_attention(q, k, v, mask=mask),
-                       lambda: sdpa(q, k, v, mask), K45_KERNELS, 1, f_ops,
-                       bound([q, k, v, mask], [q], f_ops, bf))
+                ab_kernel(res, f"K5_{label}", lambda: fa.fused_attention(q, k, v, mask=mask),
+                          lambda: sdpa(q, k, v, mask), K45_KERNELS, f_ops,
+                          bound([q, k, v, mask], [q], f_ops, bf))
                 o, lse = fa.fused_attention_lse(q, k, v, mask=mask)
-                kernel(f"K5-lse_{label}", lambda: fa.fused_attention_lse(q, k, v, mask=mask),
-                       lambda: sdpa(q, k, v, mask), K45_KERNELS, 1, f_ops,
-                       bound([q, k, v, mask], [o, lse], f_ops, bf))
+                ab_kernel(res, f"K5-lse_{label}",
+                          lambda: fa.fused_attention_lse(q, k, v, mask=mask),
+                          lambda: sdpa(q, k, v, mask), K45_KERNELS, f_ops,
+                          bound([q, k, v, mask], [o, lse], f_ops, bf))
             else:
                 o, lse = fl.flash_attention_lse(q, k, v, mask=mask)
-            kernel(f"K6_{label}", lambda: fl.flash_attention_bwd(q, k, v, o, gr, lse, mask),
-                   sdpa_bwd(q, k, v, gr, mask), K6_KERNELS, 2, b_ops,
-                   bound([q, k, v, o, gr, lse, mask], [q, k, v], b_ops, bf))
+            ab_kernel(res, f"K6_{label}",
+                      lambda: fl.flash_attention_bwd(q, k, v, o, gr, lse, mask),
+                      sdpa_bwd(q, k, v, gr, mask), K6_KERNELS, b_ops,
+                      bound([q, k, v, o, gr, lse, mask], [q, k, v], b_ops, bf), kernels=2)
         del q, k, v, gr, o, lse, mask
         torch.cuda.empty_cache()
+    print("AB " + json.dumps(res), flush=True)
+    return res
+
+
+def serving_kernel_ab(tag: str) -> dict:
+    """K4 and K10, and the two serving forwards that run them, on the
+    package beside this file, for an A/B of two trees in one call (parent,
+    change, change, parent; each run from its root after this file is
+    copied over the parent's own):
+
+        python3 -c "import chip_smoke as c; c.serving_kernel_ab('change')"
+
+    The int8 224-px multistate forward with clustering (`ms224_int8`:
+    multistate_phase's weights, scales, scene and draws; K4 in 11 layers)
+    and the banded 448-px bf16 forward with clustering (ms448_phase's
+    weights, scene and draws; K10 in 11 layers): ms/batch over 5 runs after
+    2 of warm-up (host clock), device time and the kernel's part
+    (`device_profile`).  K4 bf16 at [8,12,816,64] with the int8 forward's
+    partition's soft mask and at [8,12,1361,64] with key_mask_kernel_phase's
+    key-only mask; K10 bf16 on the token rows of the banded forward's
+    partition ([8,32+3136,2304]), of the int8 224 forward's ([8,32+784,2304])
+    and of one cluster, the q third pre-scaled; K1 on that one cluster's
+    3136 token rows (the same pipeline with no segment compare).  Each
+    through its wrapper
+    (median of 20, CUDA events), alone (`device_ms`; either tree's kernel
+    names), its share of the bound, beside `scaled_dot_product_attention`
+    (K10: over the token rows' queries, every key and the equivalent mask)
+    through its call and its device time (`device_profile`, every kernel
+    of the call); K10 also with the pairs its band's 64-key tiles hold over
+    the pairs its partition needs.  Prints one line, "AB " and a JSON
+    object."""
+    smi = card()
+    sys.path.insert(0, ROOT)
+    from msvit_tpu_torch.models.multistate import MultiStateViTEncoderModel
+    from msvit_tpu_torch.models.subsample import build_quadtree
+    from msvit_tpu_torch.ops import banded_attention as ba
+    from msvit_tpu_torch.ops import fused_attention as fa
+    from msvit_tpu_torch.ops import packed_attention as pa
+    from msvit_tpu_torch.utils.rng import Rng
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main()
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"tag": tag, "card": smi}
+    bf = torch.bfloat16
+
+    # the int8 224 forward first: its partition gives K4's soft mask and
+    # K10's 224 partition
+    cfg, run = ms224_int8(dev)
+    out = run(cfg, "bf16")
+    part224 = out["last_cluster_indices"]
+    soft = _soft(part224, out["num_clusters"])
+    res["ms224_int8_ms_per_batch"] = wall_ms(lambda: run(cfg, "bf16"), runs=5)
+    res["ms224_int8_device_ms"], res["ms224_K4_ms"] = device_profile(
+        lambda: run(cfg, "bf16"), K45_KERNELS, LAYERS - 1)
+    del run, out
+    torch.cuda.empty_cache()
+    cfg = ms448_config(banded_attention=True)
+    model = MultiStateViTEncoderModel(cfg, generator=torch.Generator().manual_seed(0),
+                                      device=dev).eval()
+    pix = scene_pixels(5, size=448).to(dev)
+
+    def banded():
+        with torch.inference_mode():
+            return model(pix, rng=Rng(3))
+
+    out = banded()
+    part448 = out["last_cluster_indices"]
+    res["ms448_banded_clusters"] = int(out["num_clusters"])
+    res["ms448_banded_ms_per_batch"] = wall_ms(banded, runs=5)
+    res["ms448_banded_device_ms"], res["ms448_K10_ms"] = device_profile(
+        banded, K10_KERNELS, LAYERS - 1)
+    del model, out
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(13)
+    b, h, n, dh = MS_SHAPE
+    with torch.inference_mode():
+        q, k, v = pa.unpack_qkv(torch.randn(b, n, 3 * h * dh, generator=g).to(dev).to(bf), h)
+        ops = attn_ops(b, h, n, n, dh, 2)
+        ab_kernel(res, "K4_816", lambda: fa.fused_attention_inference(q, k, v, mask=soft),
+                  lambda: sdpa(q, k, v, soft), K45_KERNELS, ops,
+                  bound([q, k, v, soft], [q], ops, bf))
+        b, h, n, dh = SS_SHAPE
+        depth = torch.from_numpy(
+            build_quadtree(subsample_config(image_size=448, max_depth=3)).depth).float()
+        valid = torch.rand(b, n - 1, generator=g) < 0.6
+        key = torch.cat([torch.zeros(b, 1),
+                         torch.where(valid, 0.0, -1e30) - math.log(4) * depth], dim=-1)
+        mask = key[:, None, None, :].to(dev)
+        q, k, v = pa.unpack_qkv(torch.randn(b, n, 3 * h * dh, generator=g).to(dev).to(bf), h)
+        ops = attn_ops(b, h, n, n, dh, 2)
+        ab_kernel(res, "K4_key_1361", lambda: fa.fused_attention_inference(q, k, v, mask=mask),
+                  lambda: sdpa(q, k, v, mask), K45_KERNELS, ops,
+                  bound([q, k, v, mask], [q], ops, bf))
+        del q, k, v, mask, soft
+
+        h, dh = 12, 64
+        pfx = 2 * MS_CLUSTERS
+        for label, ids in (("448", part448), ("224", part224),
+                           ("448_one", torch.zeros_like(part448))):
+            cid = torch.sort(ids, dim=1, stable=True).values
+            b, n = cid.shape
+            x = k10_inputs(g, cid, h, dh, dev).to(bf)
+            sizes, pairs, walked = k10_work(cid)
+            res[f"K10_{label}_clusters"] = int((sizes.sum(0) > 0).sum())
+            res[f"K10_{label}_walked_over_needed"] = walked / pairs
+            ops = 4.0 * h * dh * pairs
+            ab_kernel(res, f"K10_{label}", lambda: ba.token_rows(x, cid, h, MS_CLUSTERS),
+                      k10_sdpa(x, cid, h), K10_KERNELS, ops,
+                      bound([x, cid.to(torch.int32)], [x[:, pfx:, :h * dh]], ops, bf))
+            if label == "448_one":  # K1 on the same 3136 keys: the pipeline, no compare
+                xt = x[:, pfx:].contiguous()
+                ops = attn_ops(b, h, n, n, dh, 2)
+                ab_kernel(res, "K1_3136", lambda: pa.packed_attention(xt, h, scale=1.0),
+                          lambda: F.scaled_dot_product_attention(*pa.unpack_qkv(xt, h),
+                                                                 scale=1.0),
+                          "packed_mma_kernel|attention_wgmma_kernel", ops,
+                          bound([xt], [xt[..., :h * dh]], ops, bf))
+                del xt
+            del x
+            torch.cuda.empty_cache()
     print("AB " + json.dumps(res), flush=True)
     return res
 
@@ -5002,14 +5183,15 @@ serve, runs = sys.argv[5] == "1", int(sys.argv[6])
 wrappers = {"K4": fused_attention.fused_attention_inference, "K5": fused_attention.fused_attention,
             "K7": flash_attention.flash_attention,
             "K9": packed_attention.packed_attention_int8_masked, "K10": banded_attention.token_rows}
+ROUTED = ("K4", "K5", "K7", "K10")
 def reset():
     for f in wrappers.values():
         f.launches = 0
-    packed_attention.zero_counts(flash_attention.flash_attention, fused_attention.fused_attention)
+    packed_attention.zero_counts(*(wrappers[k] for k in ROUTED))
 def counts():
     return {k: f.launches for k, f in wrappers.items()}
-def k7_routes():  # the routes of K7's and of K5's launches
-    return {k: packed_attention.routes_of(wrappers[k]) for k in ("K5", "K7")}
+def k7_routes():  # the routes of the launches of K4, K5, K7 and K10
+    return {k: packed_attention.routes_of(wrappers[k]) for k in ROUTED}
 params = torch.load(d / f"{weights}.params.pt", weights_only=False)  # written by chip_smoke.py
 inputs = torch.load(d / f"{name}.inputs.pt")
 g = load_forward((d / f"{name}.msvx").read_bytes())
@@ -5353,9 +5535,9 @@ def export_families_phase(dev, smi: str) -> dict:
                     if pipe is not None:
                         pipe.close()
     torch.cuda.empty_cache()
-    def count(got: dict, k: str):  # K5's and K7's with their routes
+    def count(got: dict, k: str):  # K4's, K5's, K7's and K10's with their routes
         n = got["launches"][k]
-        return Launches(n, got["k7_routes"][k]) if k in ("K5", "K7") else n
+        return Launches(n, got["k7_routes"][k]) if k in got["k7_routes"] else n
 
     launches = {}
     for name, _, k, _ in EXPORT_FAMILIES:
@@ -5374,23 +5556,25 @@ def _summary(r: dict) -> dict:
     return dict(max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 share_of_bound=r["bound_ms"] / r["ms"],
-                **{k: r[k] for k in ("kernel_alone_ms", "bit_equal") if k in r})
+                **{k: r[k] for k in ("kernel_alone_ms", "library_device_ms", "bit_equal")
+                   if k in r})
 
 
 def ptxas_lines() -> list:
     """Registers and spills of the packed (bf16 K1, K1-lse and K2 on the
     tensor cores, f32 on the CUDA cores), the fused and flash (bf16 K4, K5,
     K7 and K6 on the tensor cores: K4, K5 and K7 are instantiations of one
-    mma.sync tile body, K1, K5 and K7 of one wgmma kernel, told apart by
-    their source and the SHAVED flag), the banded (bf16 K10 on the tensor
-    cores) and the int8 kernels from ptxas's report; then every line where
-    ptxas says that it serialized a kernel's wgmma products."""
+    mma.sync tile body, K1, K4, K5 and K7 of one wgmma kernel, told apart
+    by their source and their tag), the banded (bf16 K10 on the tensor
+    cores: banded_wgmma_kernel at dh 64) and the int8 kernels from ptxas's
+    report; then every line where ptxas says that it serialized a kernel's
+    wgmma products."""
     from msvit_tpu_torch.ops import _build
 
     kernels = (r"attention_wgmma_kernel|"
                r"packed_(?:bwd_dq|bwd_dkv|attention_lse|attention_int8|lse)(?:_w?gmma|_mma)?_kernel|"
                r"packed_mma_kernel|fused_attention_kernel|flash_bwd_(?:dq|dkv)(?:_w?g?mma)?_kernel|"
-               r"flash_(?:forward|mma)_kernel|banded(?:_mma)?_kernel")
+               r"flash_(?:forward|mma)_kernel|banded(?:_w?g?mma)?_kernel")
     # the bf16 kernels on the tensor cores (templated on the head size only)
     tags = {"packed_mma_kernel": "K1", "packed_lse_mma_kernel": "K1-lse",
             "packed_bwd_dq_mma_kernel": "K2", "packed_bwd_dkv_mma_kernel": "K2",
@@ -5401,7 +5585,7 @@ def ptxas_lines() -> list:
             "flash_bwd_dkv_kernel": "K6", "flash_forward_kernel": "K7/K7-lse",
             "flash_bwd_dq_mma_kernel": "K6", "flash_bwd_dkv_mma_kernel": "K6",
             "flash_bwd_dq_wgmma_kernel": "K6", "flash_bwd_dkv_wgmma_kernel": "K6",
-            "banded_kernel": "K10", "banded_mma_kernel": "K10",
+            "banded_kernel": "K10", "banded_mma_kernel": "K10", "banded_wgmma_kernel": "K10",
             "packed_attention_int8_kernel": None}
     out, name, unit, serialized = [], None, None, []
     for line in _build.ptxas_report().read_text().splitlines():
@@ -5427,9 +5611,9 @@ def ptxas_lines() -> list:
                 tag = "K4" if "Lb1E" in name else "K5/K5-lse"
             elif kern == "packed_attention_int8_kernel":
                 tag = "K9" if "Lb1E" in name else "K3"
-            elif kern == "attention_wgmma_kernel":  # SHAVED: K1, else K7 or K5
-                tag = ("K1" if "Lb1E" in name else
-                       "K5/K5-lse" if unit == "fused_attention" else "K7/K7-lse")
+            elif kern == "attention_wgmma_kernel":  # by its source and its tag
+                tag = {"packed_attention": "K1", "flash_attention": "K7/K7-lse"}.get(
+                    unit, "K4" if "FusedInferenceUnit" in name else "K5/K5-lse")
             else:
                 tag = tags.get(kern)
             if tag:
@@ -5586,11 +5770,12 @@ def main() -> None:
     ]
     # the routed kernels' rows split their launches by route: the main
     # path's trunks are at head size 64, so every bf16 launch took the wgmma
-    # route (K1, K5, K5-lse, K6 and K7 also run f32 calls, on the CUDA cores)
+    # route (K1, K5, K5-lse, K6, K7 and K10 also run f32 calls, on the CUDA
+    # cores)
     for row in rows:
         k = next(k for k, name, *_ in row_keys if name == row["name"])
-        if k not in ("K1", "K1-lse", "K2", "K5", "K5-lse", "K6", "K7", "K8a", "K8a-lse",
-                     "K8b"):
+        if k not in ("K1", "K1-lse", "K2", "K4", "K5", "K5-lse", "K6", "K7", "K8a",
+                     "K8a-lse", "K8b", "K10"):
             continue
         routes = getattr(launches[k], "routes", None)
         if routes is None or routes["mma.sync"] or not routes["wgmma"]:

@@ -1,11 +1,16 @@
 // The Hopper attention forward on [B, H, N, 64] bf16 operands, shared by
-// K1 (`packed_attention.cu`, the shaved serving softmax), K7 / K7-lse
-// (`flash_attention.cu`, the exact online softmax) and K5 / K5-lse
+// K1 (`packed_attention.cu`, the shaved serving softmax), K4
+// (`fused_attention.cu`, the shaved softmax with l summed in f32), K7 /
+// K7-lse (`flash_attention.cu`, the exact online softmax) and K5 / K5-lse
 // (`fused_attention.cu`, the same exact softmax: the TPU's two kernels
 // compute one function): warpgroup products (wgmma) fed by TMA,
-// warp-specialised.  It is K1-lse's design
-// (`packed_attention_lse.cu`, packed_lse_wgmma_kernel), generalised to
-// operands read through strides, Nq != Nk and broadcast masks.
+// warp-specialised.  It is K1-lse's design (`packed_attention_lse.cu`,
+// packed_lse_wgmma_kernel), generalised to operands read through strides,
+// Nq != Nk and broadcast masks.  K10's cluster-banded token rows run a
+// sibling kernel on the same pipeline and K1's softmax,
+// `banded_wgmma_kernel` in `banded_attention.cu` (it has one user, and a
+// kernel that is not a template, written here, would be compiled into
+// every source that includes this header).
 //
 // What bounds it on the card: operations, 4*Nq*Nk*64 FLOP per head against
 // 2*(Nq + 2*Nk)*64 bytes of q/k/v/out plus the mask's entries (0.2494 ms of
@@ -55,16 +60,20 @@
 // checks its keys against Nk.
 //
 // Softmax (in log2 units: x = s * scale * log2e plus the additive mask
-// times log2e; 2^x as one ex2.approx.ftz):
-// * Shaved (K1, SHAVED = true): a false bool entry at mask_value * log2e
+// times log2e; 2^x as one ex2.approx.ftz), the template's SOFTMAX:
+// * Shaved (K1, kShaved): a false bool entry at mask_value * log2e
 //   clipped; x clipped to +-80 * log2e; p = 2^x with no row max and no
 //   rescale, rounded to bf16 into P.V, and l summed from the rounded p (the
-//   TPU's column of ones through the MXU).  Keys past Nk weigh exactly 0,
+//   TPU's column of ones through the MXU).  An additive -inf entry clips
+//   to -80 * log2e (fmaf(-inf, log2e, x) is -inf, fmaxf clips it, no NaN).
+//   K4 (kShavedF32Sum) is the same softmax with l summed from the
+//   unrounded p in f32, as the TPU's `jnp.sum(p)` before `_pv_transposed`
+//   rounds p for P.V.  Keys past Nk weigh exactly 0,
 //   not e^-80 (TMA's zero-filled rows would give s = 0, p = 1): a fully
 //   masked bool row is mean(V) over the real keys.  l >= Nk * e^-80 > 0: no
 //   zero guard.  The clip keeps every p >= 2^-115.4 > 2^-126, so the
 //   flush of ex2.approx.ftz never acts here.
-// * Exact (K7 / K7-lse and K5 / K5-lse, SHAVED = false): the online row
+// * Exact (K7 / K7-lse and K5 / K5-lse, kExact): the online row
 //   max m; p = 2^(x - m), l summed from the unrounded p, p rounded to bf16
 //   into P.V; a new max rescales l and O.  A -inf score weighs nothing; keys past Nk are
 //   -inf; a row with l == 0 (every score -inf) gives zeros and lse 0 (the
@@ -78,8 +87,8 @@
 // Every template lives in an anonymous namespace: each translation unit
 // that includes the header owns its instantiations.  `Unit` tags the
 // kernel's name with the entry point that launches it, so that a profile
-// tells K5 (`fused_attention.cu`, Unit = FusedUnit) from K7 (void); it
-// changes nothing else.
+// tells K5 (`fused_attention.cu`, Unit = FusedUnit) and K4
+// (FusedInferenceUnit) from K7 and K1 (void); it changes nothing else.
 #pragma once
 
 #include "hopper.cuh"
@@ -89,6 +98,11 @@ namespace {
 
 constexpr int kAttnRows = 128;  // query rows a block (two warpgroups of 64)
 constexpr int kAttnStages = 4;  // K/V ring depth
+
+// The softmax of an instantiation (the header note).
+constexpr int kExact = 0;         // K7 / K7-lse, K5 / K5-lse
+constexpr int kShaved = 1;        // K1: l from the rounded p (K10 rounds as K1)
+constexpr int kShavedF32Sum = 2;  // K4: l from the unrounded p
 
 // q, k and v as 4-D TMA maps ([B, H, N, 64] through strides).
 struct QkvMaps {
@@ -158,9 +172,9 @@ __device__ __forceinline__ void attn_mask_tile(float (&mv)[32],
 
 // The shaved probabilities of one tile in place of its scores, rounded to
 // bf16 (kept as floats: acc_to_a packs them again, exactly), and l summed
-// from the rounded p.  KIND: the mask's; EDGE: the last tile, whose keys
-// past Nk weigh 0.
-template <int KIND, bool EDGE>
+// from the rounded p (kShaved) or the unrounded one (kShavedF32Sum).
+// KIND: the mask's; EDGE: the last tile, whose keys past Nk weigh 0.
+template <int KIND, bool EDGE, int SOFTMAX>
 __device__ __forceinline__ void shaved_tile(float (&sc)[32], const float (&mv)[32],
                                             int kv0, int nk, int tq, float c2,
                                             float masked, float (&l)[2]) {
@@ -182,7 +196,7 @@ __device__ __forceinline__ void shaved_tile(float (&sc)[32], const float (&mv)[3
       const uint32_t pr = pack_bf16(p[0], p[1]);  // lo: the lower key
       const float lo = __uint_as_float(pr << 16);
       const float hi = __uint_as_float(pr & 0xffff0000u);
-      l[r] += lo + hi;  // the rounded p
+      l[r] += SOFTMAX == kShaved ? lo + hi : p[0] + p[1];  // the rounded p, or not
       sc[4 * j + 2 * r] = lo;
       sc[4 * j + 2 * r + 1] = hi;
     }
@@ -240,8 +254,9 @@ __device__ __forceinline__ void exact_tile(float (&sc)[32], const float (&mv)[32
 // K/V ring runs on across items (tile g of the block sits in stage
 // g % kAttnStages); Q is loaded again once both consumer warpgroups have
 // issued their last S of the item before (qempty), so the next item's Q
-// and first tiles arrive while they finish this one.
-template <bool SHAVED, int KIND, typename Unit>
+// and first tiles arrive while they finish this one.  SOFTMAX: kExact,
+// kShaved or kShavedF32Sum.
+template <int SOFTMAX, int KIND, typename Unit>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
 attention_wgmma_kernel(const __grid_constant__ QkvMaps maps, const AttnArgs a) {
   using namespace hopper;
@@ -302,6 +317,7 @@ attention_wgmma_kernel(const __grid_constant__ QkvMaps maps, const AttnArgs a) {
   const int lane = threadIdx.x % 32;
   const int warp = (threadIdx.x / 32) % 4;
   const int tq = lane % 4;
+  constexpr bool SHAVED = SOFTMAX != kExact;
   const int esize = KIND == kAddMask ? 4 : 1;
   const float c2 = a.scale * kLog2e;
   // a false bool entry in log2 units.  Shaved: mask_value clipped, as every
@@ -357,9 +373,9 @@ attention_wgmma_kernel(const __grid_constant__ QkvMaps maps, const AttnArgs a) {
       const int kv0 = t * 64;
       if (SHAVED) {
         if (kv0 + 64 > a.nk)
-          shaved_tile<KIND, true>(sc, mv, kv0, a.nk, tq, c2, masked, l);
+          shaved_tile<KIND, true, SOFTMAX>(sc, mv, kv0, a.nk, tq, c2, masked, l);
         else
-          shaved_tile<KIND, false>(sc, mv, kv0, a.nk, tq, c2, masked, l);
+          shaved_tile<KIND, false, SOFTMAX>(sc, mv, kv0, a.nk, tq, c2, masked, l);
       } else {
         if (kv0 + 64 > a.nk)
           exact_tile<KIND, true>(sc, mv, kv0, a.nk, tq, c2, masked, m, l, corr);
@@ -480,10 +496,10 @@ inline cudaError_t map_qkv(QkvMaps* maps, const void* q, const void* k, const vo
 
 // The kernel's dynamic shared memory, allowed once per device and
 // instantiation.
-template <bool SHAVED, int KIND, typename Unit>
+template <int SOFTMAX, int KIND, typename Unit>
 cudaError_t allow_attn_smem() {
   static std::atomic<unsigned long long> done{0};
-  return hopper::allow_smem_once(attention_wgmma_kernel<SHAVED, KIND, Unit>,
+  return hopper::allow_smem_once(attention_wgmma_kernel<SOFTMAX, KIND, Unit>,
                                  attn_wgmma_smem_bytes(), done);
 }
 
@@ -500,9 +516,9 @@ inline cudaError_t sm_count(int* sms) {
   return err;
 }
 
-template <bool SHAVED, int KIND, typename Unit>
+template <int SOFTMAX, int KIND, typename Unit>
 cudaError_t launch_kind(const QkvMaps& maps, const AttnArgs& a, cudaStream_t stream) {
-  cudaError_t err = allow_attn_smem<SHAVED, KIND, Unit>();
+  cudaError_t err = allow_attn_smem<SOFTMAX, KIND, Unit>();
   if (err != cudaSuccess) return err;
   int sms = 0;
   err = sm_count(&sms);
@@ -510,18 +526,18 @@ cudaError_t launch_kind(const QkvMaps& maps, const AttnArgs& a, cudaStream_t str
   const long long items =
       static_cast<long long>(a.h) * ((a.nq + kAttnRows - 1) / kAttnRows) * a.b;
   const int grid = static_cast<int>(items < sms ? items : sms);
-  attention_wgmma_kernel<SHAVED, KIND, Unit>
+  attention_wgmma_kernel<SOFTMAX, KIND, Unit>
       <<<grid, hopper::kThreads, attn_wgmma_smem_bytes(), stream>>>(maps, a);
   return cudaGetLastError();
 }
 
 // One launch on `stream`, the instantiation of a.mask_kind; returns
 // cudaGetLastError() after it.
-template <bool SHAVED, typename Unit = void>
+template <int SOFTMAX, typename Unit = void>
 cudaError_t launch_attn_wgmma(const QkvMaps& maps, const AttnArgs& a, cudaStream_t stream) {
-  if (a.mask_kind == kBoolMask) return launch_kind<SHAVED, kBoolMask, Unit>(maps, a, stream);
-  if (a.mask_kind == kAddMask) return launch_kind<SHAVED, kAddMask, Unit>(maps, a, stream);
-  return launch_kind<SHAVED, kNoMask, Unit>(maps, a, stream);
+  if (a.mask_kind == kBoolMask) return launch_kind<SOFTMAX, kBoolMask, Unit>(maps, a, stream);
+  if (a.mask_kind == kAddMask) return launch_kind<SOFTMAX, kAddMask, Unit>(maps, a, stream);
+  return launch_kind<SOFTMAX, kNoMask, Unit>(maps, a, stream);
 }
 
 }  // namespace

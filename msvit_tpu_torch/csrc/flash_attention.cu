@@ -247,7 +247,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   if (err != cudaSuccess) return err;
   const AttnArgs a{mask, static_cast<bf16*>(out), lse, st[9], st[10], st[11], sb, sh,
                    sr, b, h, nq, nk, mask_kind, scale, mask_value};
-  return launch_attn_wgmma<false>(maps, a, stream);
+  return launch_attn_wgmma<kExact>(maps, a, stream);
 }
 
 int run(const void* q, const void* k, const void* v, const void* mask,

@@ -31,7 +31,7 @@
 // of bytes, with the mask read once: the tensor cores' rate and the mask's
 // reads, shared by 12 heads, both count.
 //
-// bf16 at head size 64, K5 and K5-lse (attention_wgmma_kernel<false, KIND,
+// bf16 at head size 64, K5 and K5-lse (attention_wgmma_kernel<kExact, KIND,
 // FusedUnit>, `attention_wgmma.cuh`): the kernel K7 runs, the exact online
 // softmax on Hopper's warpgroup products fed by TMA, warp-specialised, with
 // 4-D maps over the strided q/k/v views, the mask read straight into the
@@ -44,7 +44,14 @@
 // last 48 keys).  The mma.sync tile body below took 0.1864-0.1888 ms alone
 // at [8, 12, 816, 64] with the soft mask, against the library's 0.1674.
 //
-// Other bf16 head sizes, and K4 at every head size: `flash_mma_kernel` of
+// bf16 at head size 64, K4 (attention_wgmma_kernel<kShavedF32Sum, KIND,
+// FusedInferenceUnit>): the same kernel with K1's shaved softmax (no max,
+// x clipped to +-80 log2e, keys past Nk weigh 0, o / l divided), l summed
+// from the unrounded p in f32 as the TPU's `jnp.sum(p)`.  The mma.sync
+// body took 0.184 ms alone at [8, 12, 816, 64] with the soft mask (NVIDIA
+// H100 80GB HBM3, 700 W).
+//
+// Other bf16 head sizes: `flash_mma_kernel` of
 // `attention_mma.cuh`, the tile body K7 runs there, instantiated here with
 // SHAVED = false for K5 and K5-lse and SHAVED = true for K4 (no max, x
 // clamped to +-80 log2e, o / l): mma.sync tiles of 64 query rows, k/v and
@@ -53,7 +60,7 @@
 // head fastest (the header has the details).
 //
 // The route is the entry point's: bf16 at dh 64 takes the wgmma kernel for
-// K5 and K5-lse, any other bf16 call the mma.sync kernel, f32 the CUDA
+// K4, K5 and K5-lse, any other bf16 call the mma.sync kernel, f32 the CUDA
 // cores; there is no fallback between them (a q, k or v view TMA cannot map
 // is refused).
 //
@@ -81,6 +88,8 @@
 // unrounded p (the identity in f32).  K5 and K5-lse round p against the
 // running max, where the plain version rounds it against the row's max: a
 // product can land one bf16 step apart.
+
+#include <type_traits>
 
 #include "attention_mma.cuh"
 #include "attention_wgmma.cuh"
@@ -239,11 +248,14 @@ void dispatch(const void* q, const void* k, const void* v, const void* mask,
   }
 }
 
-// The tag of K5's and K5-lse's wgmma launches (a profile's kernel name).
+// The tags of K5's and K5-lse's, and of K4's, wgmma launches (a profile's
+// kernel name).
 struct FusedUnit {};
+struct FusedInferenceUnit {};
 
-// The wgmma route (K5 and K5-lse, bf16, head size 64): q, k, v through
-// their 4-D maps, out through its strides.
+// The wgmma route (bf16, head size 64; K5 and K5-lse kExact, K4
+// kShavedF32Sum): q, k, v through their 4-D maps, out through its strides.
+template <int SOFTMAX, typename Unit>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* mask,
                          void* out, float* lse, const long long* st, int b, int h,
                          int nq, int nk, int mask_kind, long long sb, long long sh,
@@ -254,7 +266,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   if (err != cudaSuccess) return err;
   const AttnArgs a{mask, static_cast<bf16*>(out), lse, st[9], st[10], st[11], sb, sh,
                    sr, b, h, nq, nk, mask_kind, scale, mask_value};
-  return launch_attn_wgmma<false, FusedUnit>(maps, a, stream);
+  return launch_attn_wgmma<SOFTMAX, Unit>(maps, a, stream);
 }
 
 template <bool SHAVED>
@@ -273,10 +285,11 @@ int run(const void* q, const void* k, const void* v, const void* mask,
   if (dtype == 0) {
     dispatch<float, SHAVED>(q, k, v, mask, out, lse, st, b, h, nq, nk, dh,
                             mask_kind, mask_sb, mask_sh, mask_sr, scale, mask_value, s);
-  } else if (dtype == 1 && dh == 64 && !SHAVED) {
-    return static_cast<int>(launch_wgmma(q, k, v, mask, out, lse, strides, b, h, nq, nk,
-                                         mask_kind, mask_sb, mask_sh, mask_sr, scale,
-                                         mask_value, s));
+  } else if (dtype == 1 && dh == 64) {
+    using Unit = typename std::conditional<SHAVED, FusedInferenceUnit, FusedUnit>::type;
+    return static_cast<int>(launch_wgmma<SHAVED ? kShavedF32Sum : kExact, Unit>(
+        q, k, v, mask, out, lse, strides, b, h, nq, nk, mask_kind, mask_sb, mask_sh,
+        mask_sr, scale, mask_value, s));
   } else if (dtype == 1) {
     return static_cast<int>(dispatch_mma<SHAVED>(q, k, v, mask, out, lse, st,
                                                  b, h, nq, nk, dh, mask_kind,
@@ -313,7 +326,7 @@ int msvit_fused_attention(const void* q, const void* k, const void* v,
 }
 
 // K4, the shaved serving softmax; arguments as msvit_fused_attention (bf16
-// on mma.sync at every head size).
+// on wgmma at dh 64, else mma.sync).
 int msvit_fused_attention_inference(const void* q, const void* k,
                                     const void* v, const void* mask,
                                     void* out, int dtype, int b, int h,
@@ -342,7 +355,8 @@ int msvit_fused_attention_lse(const void* q, const void* k, const void* v,
 }
 
 // Blocks of the bf16 mma.sync kernel of K4 (shaved = 1) or K5/K5-lse
-// (shaved = 0; their head sizes other than 64) resident on one SM at head size dh (a multiple of 8, <= 128)
+// (shaved = 0), the route of head sizes other than 64, resident on one SM
+// at head size dh (a multiple of 8, <= 128)
 // and mask_kind, by the runtime's occupancy calculator, into *blocks.
 int msvit_fused_attention_occupancy(int dh, int mask_kind, int shaved,
                                     int* blocks) {

@@ -352,7 +352,7 @@ cudaError_t launch_wgmma(const void* qkv, const void* mask, void* out, int b, in
   if (err != cudaSuccess) return err;
   const AttnArgs a{mask, static_cast<bf16*>(out), nullptr, n * d, 64, d, sb, sh, n,
                    b, h, n, n, mask_kind, scale, mask_value};
-  return launch_attn_wgmma<true>(maps, a, stream);
+  return launch_attn_wgmma<kShaved>(maps, a, stream);
 }
 
 // bf16 on the tensor cores: wgmma at head size 64, else the mma.sync kernel

@@ -13,9 +13,10 @@ from typing import Optional
 
 from msvit_tpu_torch.settings import Policy
 
-# field -> the ROADMAP.md item that ports it
+# field -> why the port leaves it out
 _NOT_PORTED = {
-    "scan_layers": "ROADMAP.md 'Not ported, by decision' (scan_layers)",
+    "scan_layers": "an XLA compile-time tool; the converter unstacks scanned params "
+                   "(README.md, 'Not ported, by decision')",
 }
 
 
@@ -77,11 +78,11 @@ class BaseViTConfig:
 
     def check_supported(self) -> None:
         """Raise `NotImplementedError` naming every field set to a value
-        this port cannot build yet."""
+        this port does not build, by decision."""
         bad = [f for f in _NOT_PORTED if getattr(self, f)]
         if bad:
             raise NotImplementedError(
-                "not ported yet: "
+                "not ported, by decision: "
                 + "; ".join(f"{f}={getattr(self, f)!r} -> {_NOT_PORTED[f]}"
                             for f in bad)
             )

@@ -12,8 +12,12 @@ prefix, then the sorted tokens; the q third pre-scaled) and never builds an
   rows, walking only the key tiles of each row block's band (the band
   table `band_limits`, torch `searchsorted`), the shaved softmax
   exp(clip(s, +-80)) with no row max, o / max(l, 1e-30).  Kernel:
-  `csrc/banded_attention.cu` (bf16 on the tensor cores, skipping the
-  16-key blocks of other clusters; f32 on the CUDA cores).  Under
+  `csrc/banded_attention.cu`: bf16 at head size 64 on `wgmma` fed by TMA
+  (`banded_wgmma_kernel` in the same file, on the pipeline of
+  `csrc/attention_wgmma.cuh`, skipping the 64-key tiles outside each
+  64-row block's band), at other head sizes on
+  `mma.sync` (skipping the 16-key blocks of other clusters); f32 on the
+  CUDA cores.  Under
   autograd it is `TokenRowsFunction`, whose backward differentiates the
   plain version, as the JAX VJP differentiates `_token_rows_xla`.
 * `prefix_rows` -- the 2C TX/RX rows, dense over every key with the exact
@@ -30,7 +34,11 @@ instead of e^{-100} (at most e^{-80} after the clip).
 
 The wrapper takes the plain version for a tensor on the CPU, and for a
 tensor on the card launches the kernel or raises: there is no fallback.  It
-counts its launches (`token_rows.launches`).  K10's forward is the
+counts its launches (`token_rows.launches`), by route too
+(`.wgmma_launches`, `.mma_launches`, `.f32_launches`; the route is
+`kernel_route`'s).  On the wgmma route the qkv is read through TMA maps as
+it is (`tma_views`), and a qkv they cannot take raises; the other routes
+read it through its strides, copied where they cannot.  K10's forward is the
 registered op `torch.ops.msvit.token_rows` (as K1's, in
 `ops/packed_attention.py`): an exported banded forward keeps it as one
 node, and the band table, which reads the ids' layout, is built inside the
@@ -46,7 +54,8 @@ import torch.nn.functional as F
 
 from msvit_tpu_torch.ops import _build
 from msvit_tpu_torch.ops.packed_attention import (
-    _DTYPE_CODES, _acc, _dims, _off_kernel_devices, _traced)
+    _DTYPE_CODES, _acc, _count_route, _dims, _off_kernel_devices, _traced,
+    check_tma_heads, kernel_route, zero_counts)
 
 _CLIP = 80.0
 BAND_ROWS = 64  # query rows per block of the band table (the kernel's block)
@@ -110,10 +119,25 @@ def token_rows_plain(qkv: torch.Tensor, cid: torch.Tensor, num_heads: int,
     return o.transpose(1, 2).reshape(b, n, -1).to(qkv.dtype)
 
 
+def tma_views(qkv: torch.Tensor, num_heads: int, max_clusters: int) -> tuple:
+    """The [B, H, rows, dh] views of a packed qkv [B, 2C + N, 3D] that
+    K10's wgmma route maps with TMA (`csrc/banded_attention.cu::
+    launch_wgmma`): q, k and v of the N token rows (from row 2C), then k and
+    v of the C RX rows (prefix rows 1, 3, .., 2C - 1: row stride twice
+    qkv's)."""
+    pfx = 2 * max_clusters
+
+    def heads(x):
+        return x.unflatten(2, (3, num_heads, -1)).permute(2, 0, 3, 1, 4)
+
+    tok, rx = heads(qkv[:, pfx:]), heads(qkv[:, 1:pfx:2])
+    return tok[0], tok[1], tok[2], rx[1], rx[2]
+
+
 def _token_rows_forward(qkv: torch.Tensor, cid: torch.Tensor, num_heads: int,
                         max_clusters: int) -> torch.Tensor:
-    """K10 for a CUDA tensor (counted on `token_rows.launches`), the plain
-    version for a CPU one: the body of the registered op
+    """K10 for a CUDA tensor (counted on `token_rows.launches` and by
+    route), the plain version for a CPU one: the body of the registered op
     `torch.ops.msvit.token_rows`."""
     b, s, d, dh = _dims(qkv, num_heads)
     pfx = 2 * max_clusters
@@ -131,10 +155,13 @@ def _token_rows_forward(qkv: torch.Tensor, cid: torch.Tensor, num_heads: int,
         raise ValueError(f"{name}: head size {dh} unsupported (a multiple of 8, <= 128)")
     if cid.device != qkv.device:
         raise ValueError(f"{name}: cid on another device")
+    route = kernel_route(qkv.dtype, dh)
     es = qkv.element_size()
-    if not (qkv.stride(2) == 1 and qkv.data_ptr() % 16 == 0
-            and (qkv.stride(0) * es) % 16 == 0 and (qkv.stride(1) * es) % 16 == 0):
-        qkv = qkv.contiguous()
+    if route == "wgmma":
+        check_tma_heads(name, *tma_views(qkv, num_heads, max_clusters))
+    elif not (qkv.stride(2) == 1 and qkv.data_ptr() % 16 == 0
+              and (qkv.stride(0) * es) % 16 == 0 and (qkv.stride(1) * es) % 16 == 0):
+        qkv = qkv.clone(memory_format=torch.contiguous_format)  # a fresh base
     cid32 = cid.to(torch.int32).contiguous()
     band = band_limits(cid32, max_clusters)
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
@@ -146,7 +173,7 @@ def _token_rows_forward(qkv: torch.Tensor, cid: torch.Tensor, num_heads: int,
             qkv.stride(1), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, name)
-    token_rows.launches += 1
+    _count_route(token_rows, route)
     return out
 
 
@@ -177,7 +204,7 @@ def token_rows(qkv: torch.Tensor, cid: torch.Tensor, num_heads: int,
     return torch.ops.msvit.token_rows(qkv, cid, num_heads, max_clusters)
 
 
-token_rows.launches = 0
+zero_counts(token_rows)
 
 
 class TokenRowsFunction(torch.autograd.Function):

@@ -6,13 +6,12 @@ allowed: cross-context K/V), bool (True = attend) or additive f32 masks
 mask, read by every query row through a row stride of 0).  Three kernels, one
 hand-written CUDA source for Hopper (`csrc/fused_attention.cu`) with three
 entry points, each with a plain PyTorch version beside it.  In bf16 all
-three run on the tensor cores: K5 and K5-lse at head size 64 in the kernel
-K7 runs there (`csrc/attention_wgmma.cuh`: `wgmma` fed by TMA, the exact
-online softmax), at other head sizes in the tile body K7 runs there
-(`csrc/attention_mma.cuh`: `mma.sync` tiles fed by a `cp.async` ring of k/v
-and mask tiles); K4 runs that `mma.sync` body with the shaved softmax at
-every head size.  f32 runs a kernel on the CUDA cores (TF32 would not keep
-the f32 bars):
+three run on the tensor cores: at head size 64 in the kernel K1 and K7 run
+there (`csrc/attention_wgmma.cuh`: `wgmma` fed by TMA; K5 and K5-lse with
+the exact online softmax, K4 with the shaved one), at other head sizes in
+the tile body K7 runs there (`csrc/attention_mma.cuh`: `mma.sync` tiles fed
+by a `cp.async` ring of k/v and mask tiles).  f32 runs a kernel on the CUDA
+cores (TF32 would not keep the f32 bars):
 
 * `fused_attention` -- K5, the TPU kernel `_fused_forward` without its lse
   branch: the exact, max-subtracted softmax (the bf16 eval forward of the
@@ -78,20 +77,6 @@ from msvit_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
 from msvit_tpu_torch.ops.packed_attention import (
     _DTYPE_CODES, _acc, _count_route, _off_kernel_devices, _ptr, _scores, _traced,
     check_tma_heads, kernel_route, zero_counts)
-
-# the entry points with a wgmma kernel (K5, K5-lse, K7, K7-lse); K4 runs
-# mma.sync at every bf16 head size
-_WGMMA_ENTRIES = ("msvit_fused_attention", "msvit_fused_attention_lse",
-                  "msvit_flash_attention", "msvit_flash_attention_lse")
-
-
-def entry_route(entry: str, dtype: torch.dtype, dh: int) -> str:
-    """The route a launch of the C entry point `entry` takes on the card,
-    as the entry point decides it: `kernel_route`'s, with mma.sync for
-    wgmma where `entry` has no wgmma kernel (K4's)."""
-    route = kernel_route(dtype, dh)
-    return "mma.sync" if route == "wgmma" and entry not in _WGMMA_ENTRIES else route
-
 
 def _dims(q, k, v):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
@@ -160,8 +145,8 @@ def fused_attention_inference_plain(
 ) -> torch.Tensor:
     """Plain version of K4, the TPU kernel `_kernel_inference` step for
     step: f32 scores times `scale`, the mask after the upcast,
-    p = exp(clip(s, -80, 80)), l = sum p in f32, P.V with p rounded to v's
-    dtype, then / l."""
+    p = exp(clip(s, -80, 80)), l = sum p in f32 (the unrounded p), P.V with
+    p rounded to v's dtype, then / l."""
     if scale is None:
         scale = 1.0 / q.shape[-1] ** 0.5
     s = _scores(q, k, scale, mask, mask_value)
@@ -175,11 +160,13 @@ def fused_attention_inference_plain(
 
 def _operand(t: torch.Tensor) -> torch.Tensor:
     """`t` if the kernel can read it through its strides (last dim
-    contiguous, every row 16-byte aligned), else a contiguous copy."""
+    contiguous, every row 16-byte aligned), else a fresh contiguous copy (a
+    fresh one: `contiguous()` hands back a contiguous view at a base off
+    16 bytes as it is)."""
     es = t.element_size()
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
           and all((s * es) % 16 == 0 for s in t.stride()[:3]))
-    return t if ok else t.contiguous()
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_operands(name: str, dh: int, *ts: torch.Tensor) -> None:
@@ -235,7 +222,7 @@ def _run(wrapper, entry: str, plain, q, k, v, mask, scale, mask_value,
          with_lse: bool = False):
     """The plain version for CPU tensors; for CUDA tensors the kernel
     `entry` (counted on `wrapper.launches` and by route), or an exception.
-    The route is `entry_route`'s; on the wgmma route q, k and v are read
+    The route is `kernel_route`'s; on the wgmma route q, k and v are read
     through 4-D TMA maps as they are, and a view TMA cannot map raises.
     Returns out, or (out, lse) `with_lse`."""
     name = wrapper.__name__
@@ -245,7 +232,7 @@ def _run(wrapper, entry: str, plain, q, k, v, mask, scale, mask_value,
     if q.device.type == "cpu":
         return plain(q, k, v, mask, scale, mask_value)
     _check_operands(name, dh, q, k, v)
-    route = entry_route(entry, q.dtype, dh)
+    route = kernel_route(q.dtype, dh)
     if route == "wgmma":
         check_tma_heads(name, q, k, v)
     else:

@@ -18,17 +18,17 @@ hand-written CUDA kernel for Hopper with a plain PyTorch version beside it:
   [B, N, 3D] from the saved (qkv, out, lse) and the output cotangent.
   Kernel: `csrc/packed_attention_bwd.cu`.
 
-K1, K1-lse and K2 (and K5, K5-lse, K6, K7 and K7-lse,
-`ops/fused_attention.py`, `ops/flash_attention.py`) take one of three
-routes, by `kernel_route` (the C entry points apply the same rule): bf16
-at head size 64 (every zoo trunk but vit-h14) the Hopper kernels on
-`wgmma` fed by TMA, other bf16 head sizes the `mma.sync` kernels, f32 the
-CUDA cores.  Each wrapper counts its launches by route beside `.launches`
-(`.wgmma_launches`, `.mma_launches`, `.f32_launches`; `route_counts`; K4,
-which has no wgmma kernel, counts its own the same way).  K1-lse's and
-K2's TMA maps are 3-D over the packed tensors (`tma_map`), those of K1,
-K5, K6 and K7 4-D over [B, H, N, 64] views (`tma_map_heads`; K1 reads the
-packed qkv's q, k and v views): a q, k or v whose base or pitches TMA
+K1, K1-lse and K2 (and K4, K5, K5-lse, K6, K7, K7-lse and K10,
+`ops/fused_attention.py`, `ops/flash_attention.py`,
+`ops/banded_attention.py`) take one of three routes, by `kernel_route`
+(the C entry points apply the same rule): bf16 at head size 64 (every zoo
+trunk but vit-h14) the Hopper kernels on `wgmma` fed by TMA, other bf16
+head sizes the `mma.sync` kernels, f32 the CUDA cores.  Each wrapper
+counts its launches by route beside `.launches` (`.wgmma_launches`,
+`.mma_launches`, `.f32_launches`; `route_counts`).  K1-lse's and K2's TMA
+maps are 3-D over the packed tensors (`tma_map`), those of K1, K4, K5, K6,
+K7 and K10 4-D over [B, H, N, 64] views (`tma_map_heads`; K1 and K10 read
+the packed qkv's q, k and v views): a q, k or v whose base or pitches TMA
 cannot take raises a `ValueError`; it never takes another route.  K6's
 cotangent alone is copied where TMA cannot take it (`tma_heads_operand`).
 * `packed_attention_int8` — K3, the TPU kernel `packed_attention_int8`:
@@ -202,8 +202,8 @@ TMA_BOX_HEADS = (64, 64, 1, 1)  # (head elements, rows, heads, images)
 
 
 def kernel_route(dtype: torch.dtype, dh: int) -> str:
-    """The kernel route of K1, K1-lse, K2, K5, K5-lse, K6, K7 and K7-lse
-    on the card (K4 takes "mma.sync" for every bf16 head size):
+    """The kernel route of K1, K1-lse, K2, K4, K5, K5-lse, K6, K7, K7-lse
+    and K10 on the card:
     "wgmma" (bf16, head size 64: warpgroup products fed by TMA),
     "mma.sync" (bf16, any other head size: the head padded to its
     16/32/64/128 bucket) or "cuda_cores" (f32).  The C entry points take
@@ -320,6 +320,7 @@ def routes_of(fn) -> dict:
 
 def _routed() -> dict:
     """The wrappers that count their launches by route, by kernel."""
+    from msvit_tpu_torch.ops.banded_attention import token_rows
     from msvit_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_lse)
     from msvit_tpu_torch.ops.fused_attention import (
@@ -329,12 +330,12 @@ def _routed() -> dict:
             "K2": packed_attention_bwd, "K4": fused_attention_inference,
             "K5": fused_attention, "K5-lse": fused_attention_lse,
             "K6": flash_attention_bwd, "K7": flash_attention,
-            "K7-lse": flash_attention_lse}
+            "K7-lse": flash_attention_lse, "K10": token_rows}
 
 
 def route_counts() -> dict:
     """{"K1": {route: launches}, "K1-lse": ..., "K2", "K4", "K5", "K5-lse",
-    "K6", "K7", "K7-lse"} since each wrapper's `zero_counts`."""
+    "K6", "K7", "K7-lse", "K10"} since each wrapper's `zero_counts`."""
     return {k: routes_of(fn) for k, fn in _routed().items()}
 
 
@@ -349,8 +350,8 @@ def _check_tma(name: str, *tensors: torch.Tensor) -> None:
 
 
 def check_tma_heads(name: str, *views: torch.Tensor) -> None:
-    """The 4-D TMA maps of K1, K5, K6 and K7: every [B, H, N, 64] view
-    must map."""
+    """The 4-D TMA maps of K1, K4, K5, K6, K7 and K10: every
+    [B, H, N, 64] view must map."""
     for t in views:
         try:
             tma_map_heads(t.shape, t.stride(), t.element_size(), t.data_ptr())

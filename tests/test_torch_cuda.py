@@ -825,9 +825,8 @@ def test_k4_k5_round_p_like_plain(dev, kernel):
 
 
 def _fused_case(kernel, q, k, v, m):
-    """One call of K4, K5 or K5-lse (one launch: bf16 K5 and K5-lse on wgmma
-    at head size 64 and on mma.sync at the others, bf16 K4 on mma.sync at
-    every head size, f32 on the CUDA cores) against its plain version:
+    """One call of K4, K5 or K5-lse (one launch: bf16 on wgmma at head size
+    64 and on mma.sync at the others, f32 on the CUDA cores) against its plain version:
     out within the K1 bar of max(1, max |plain|), K5-lse's lse within 1e-5
     of max(1, |lse|) and its out K5's bits.  Returns the kernel's out and
     the bar."""
@@ -849,9 +848,7 @@ def _fused_case(kernel, q, k, v, m):
             want = plain(q, k, v, mask=m)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    entry = {"K4": "msvit_fused_attention_inference", "K5": "msvit_fused_attention",
-             "K5-lse": "msvit_fused_attention_lse"}[kernel]
-    route = fa.entry_route(entry, q.dtype, q.shape[-1])
+    route = kernel_route(q.dtype, q.shape[-1])
     assert {r: c - routes[r] for r, c in routes_of(fn).items()} == {
         r: int(r == route) for r in routes}
     assert got.shape == q.shape and got.dtype == q.dtype
@@ -1188,6 +1185,98 @@ def test_k5_k5_lse_wgmma_key_only_masks(dev, kind):
             assert torch.equal(got, fa.fused_attention(q, k, v, mask=full))
             assert torch.equal(fa.fused_attention_lse(q, k, v, mask=m)[1],
                                fa.fused_attention_lse(q, k, v, mask=full)[1])
+
+
+# K4 on the wgmma route (bf16, head size 64): the kernel K1 runs, with l
+# summed from the unrounded p.
+
+
+def _k4_wgmma_mask(kind, b, h, nq, nk, dev, seed):
+    """K4's masks on the wgmma route: kind "bool", "additive", "minus_inf"
+    (an additive mask whose row 0 is all -inf) or "key_only" (an additive
+    [., ., 1, Nk] row read at pitch 0), `b` and `h` its image and head
+    extents (1 where broadcast).  Row 0 of the bool mask is fully masked."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "key_only":
+        return _key_mask("additive", b, nk, dev, seed).expand(b, h, 1, nk)
+    if kind == "bool":
+        m = torch.rand(b, h, nq, nk, generator=g) < 0.7
+        m[:, :, 0] = False
+        return m.to(dev)
+    m = -100.0 * (torch.rand(b, h, nq, nk, generator=g) < 0.3).float()
+    if kind == "minus_inf":
+        m[:, :, 0] = -torch.inf
+    return m.to(dev)
+
+
+@pytest.mark.parametrize("kind", ["bool", "additive", "minus_inf", "key_only"])
+@pytest.mark.parametrize("over", ["images", "heads"])
+@pytest.mark.parametrize("nq,nk", [(197, 130), (70, 816)])
+def test_k4_wgmma_masks(dev, kind, over, nq, nk):
+    """K4 on the wgmma route (one launch, `_fused_case`) against its plain
+    version with every mask kind, broadcast over the images ([1, H, ., Nk])
+    or over the heads ([B, 1, ., Nk]), Nq and Nk off 64 and 128 and
+    unequal: at the K1 bar; a fully masked bool row and an all -inf row are
+    mean(V) over the Nk real keys (keys past Nk weigh 0, not e^-80)."""
+    b, h = 2, 3
+    q, k, v = _heads(b, nq, nk, h, 64, torch.bfloat16, dev, seed=64 + nq, packed=True)
+    m = _k4_wgmma_mask(kind, 1 if over == "images" else b, h if over == "images" else 1,
+                       nq, nk, dev, seed=65 + nk)
+    got, tol = _fused_case("K4", q, k, v, m)
+    if kind in ("bool", "minus_inf"):
+        assert (got[:, :, 0].float() - v.float().mean(2)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("b,nq,nk,h,mask,packed", [
+    (8, 816, 816, 12, "additive", True),  # the int8 serving trunk's shape
+    (2, 300, 130, 2, "bool_per_head", False),  # Q longer than K/V
+    (2, 5, 9, 2, "additive_per_head", False),
+])
+def test_k4_wgmma_shapes(dev, b, nq, nk, h, mask, packed):
+    """K4 on the wgmma route at the serving trunk's whole shape (672 items
+    on the persistent grid) and at small and ragged ones, against its plain
+    version; two calls give the same bits."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    q, k, v = _heads(b, nq, nk, h, 64, torch.bfloat16, dev, seed=66, packed=packed)
+    m = _fused_mask(mask, b, h, nq, nk, dev, seed=67)
+    got, tol = _fused_case("K4", q, k, v, m)
+    if mask.startswith("bool"):
+        assert (got[:, :, 0].float() - v.float().mean(2)).abs().max().item() <= tol
+    with torch.inference_mode():
+        assert torch.equal(got, fa.fused_attention_inference(q, k, v, mask=m))
+
+
+def test_k4_wgmma_refuses_a_view_tma_cannot_map(dev):
+    """A q view whose row pitch is 136 bytes raises on K4's wgmma route,
+    naming the wrapper; nothing launches."""
+    from msvit_tpu_torch.ops import fused_attention as fa
+
+    base = torch.zeros(2, 70, 68, dtype=torch.bfloat16, device=dev)
+    q = base[..., :64].unsqueeze(1)
+    k = v = torch.zeros(2, 1, 70, 64, dtype=torch.bfloat16, device=dev)
+    before = route_counts()
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="fused_attention_inference: TMA"):
+            fa.fused_attention_inference(q, k, v)
+    _took(before, {})
+
+
+@pytest.mark.parametrize("dtype,dh,route", [(torch.bfloat16, 32, "mma.sync"),
+                                            (torch.float32, 64, "cuda_cores")])
+def test_fused_misaligned_contiguous_views_are_copied(dev, dtype, dh, route):
+    """Off the wgmma route, a q, k or v that is contiguous but starts off 16
+    bytes is copied into fresh storage (`contiguous()` would hand the same
+    view back, and the kernels' 16-byte loads fault on it): K4 and K5 then
+    match their plain versions, one launch each on their route."""
+    b, h, n = 2, 2, 70
+    flat = torch.randn(1 + 3 * b * h * n * dh, generator=torch.Generator().manual_seed(68))
+    q, k, v = flat.to(dtype).to(dev)[1:].view(3, b, h, n, dh).unbind(0)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    for kernel in ("K4", "K5"):
+        before = route_counts()
+        _fused_case(kernel, q, k, v, None)
+        _took(before, {kernel: route})
 
 
 def _k6_wgmma_case(q, k, v, m, seed, route="wgmma", g=None):
@@ -1789,27 +1878,38 @@ _K10_EDGES = [
 ]
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
-@pytest.mark.parametrize("case", range(len(_K10_EDGES)))
-def test_k10_bf16_tile_edges(dev, case, dh):
-    """bf16 K10 on the tensor cores where its tiles have edges (rows and
-    keys past N, the band's first and last tiles, 16-key blocks that a warp
-    skips or takes, the RX tile of C = 16 keys), at head sizes 16-128,
-    against its plain version: K1's bar of max(1, max |plain|)."""
+def _k10_case(qkv, cid, h, c):
+    """K10 against its plain version: one launch, on `kernel_route`'s route
+    (wgmma at bf16 head size 64), within K1's bar of max(1, max |plain|).
+    Returns the kernel's output."""
     from msvit_tpu_torch.ops import banded_attention as ba
 
-    partitions, c, h = _K10_EDGES[case]
-    qkv, cid = _banded_images(partitions, c, h, dh, torch.bfloat16, dev, seed=87 + case)
-    before = ba.token_rows.launches
+    before = route_counts()
     with torch.inference_mode():
         got = ba.token_rows(qkv, cid, h, c)
         want = ba.token_rows_plain(qkv, cid, h, c)
     torch.cuda.synchronize()
-    assert ba.token_rows.launches == before + 1
-    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _took(before, {"K10": kernel_route(qkv.dtype, qkv.shape[-1] // (3 * h))})
+    assert got.shape == want.shape and got.dtype == qkv.dtype
     assert torch.isfinite(got).all()
-    tol = _TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+    tol = _TOL[qkv.dtype] * max(1.0, want.float().abs().max().item())
     assert (got.float() - want.float()).abs().max().item() <= tol
+    return got
+
+
+@pytest.mark.parametrize("dh", [16, 32, 40, 64, 128])
+@pytest.mark.parametrize("case", range(len(_K10_EDGES)))
+def test_k10_bf16_tile_edges(dev, case, dh):
+    """bf16 K10 on the tensor cores where its tiles have edges (rows and
+    keys past N, the band's first and last tiles, 16-key blocks that a warp
+    skips or takes, 64-key tiles that one warpgroup of an item skips and
+    the other takes, the RX tile of C = 16 keys), at head sizes 16-128 (64
+    on wgmma, the others on mma.sync; 40 runs the mma.sync kernel of the
+    64 bucket, which serves head sizes 33-63), against its plain version:
+    K1's bar of max(1, max |plain|)."""
+    partitions, c, h = _K10_EDGES[case]
+    qkv, cid = _banded_images(partitions, c, h, dh, torch.bfloat16, dev, seed=87 + case)
+    _k10_case(qkv, cid, h, c)
 
 
 def test_k10_bf16_one_cluster_at_448(dev):
@@ -1838,6 +1938,62 @@ def test_k10_deterministic(dev, dtype):
         a, b = (ba.token_rows(qkv, cid, 3, 8) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+def _k10_sizes(n, k, seed):
+    """`k` cluster sizes (each >= 1) summing to n, drawn from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    cuts = torch.randperm(n - 1, generator=g)[:k - 1].sort().values + 1
+    return torch.diff(torch.cat([torch.zeros(1), cuts.float(), torch.full((1,), n)])).long().tolist()
+
+
+# (partition of each image, clusters C, heads) on K10's wgmma route: 9
+# clusters at 448 px and at 224 px, different partitions per image, one
+# cluster, one-token clusters, N off 128 (3136 is 24.5 items of 128 rows),
+# C = 65 (two RX tiles, ids past 64 in use), C = 16 with 3 clusters used
+_K10_WGMMA = [
+    ([_k10_sizes(3136, 9, 1), _k10_sizes(3136, 9, 2)], 16, 12),
+    ([_k10_sizes(784, 9, 3), _k10_sizes(784, 5, 4)], 16, 12),
+    ([[3136], [3136]], 16, 12),
+    ([[1] * 40 + [60, 1, 1, 98], [200]], 48, 2),
+    ([_k10_sizes(300, 65, 5), [1] * 64 + [236]], 65, 2),
+    ([[100, 1, 9], [1, 1, 108]], 16, 3),
+]
+
+
+@pytest.mark.parametrize("case", range(len(_K10_WGMMA)))
+def test_k10_wgmma_partitions(dev, case):
+    """K10 on the wgmma route (bf16, head size 64) against its plain
+    version at the trunk's partitions and its edges (`_K10_WGMMA`); two
+    calls give the same bits."""
+    from msvit_tpu_torch.ops import banded_attention as ba
+
+    partitions, c, h = _K10_WGMMA[case]
+    qkv, cid = _banded_images(partitions, c, h, 64, torch.bfloat16, dev, seed=70 + case)
+    got = _k10_case(qkv, cid, h, c)
+    with torch.inference_mode():
+        assert torch.equal(got, ba.token_rows(qkv, cid, h, c))
+
+
+def test_k10_wgmma_refuses_a_qkv_tma_cannot_map(dev):
+    """A bf16 qkv whose base is off 16 bytes raises on K10's wgmma route,
+    naming the wrapper; nothing launches.  At head size 32 (mma.sync) the
+    same layout is copied and runs."""
+    from msvit_tpu_torch.ops import banded_attention as ba
+
+    for dh, refused in ((64, True), (32, False)):
+        flat = torch.zeros(1 + 2 * (2 + 70) * 3 * 2 * dh, dtype=torch.bfloat16, device=dev)
+        qkv = flat[1:].view(2, 2 + 70, 3 * 2 * dh)
+        cid = torch.zeros(2, 70, dtype=torch.long, device=dev)
+        before = route_counts()
+        with torch.inference_mode():
+            if refused:
+                with pytest.raises(ValueError, match="token_rows: TMA"):
+                    ba.token_rows(qkv, cid, 2, 1)
+            else:
+                ba.token_rows(qkv, cid, 2, 1)
+        torch.cuda.synchronize()
+        _took(before, {} if refused else {"K10": "mma.sync"})
 
 
 def test_k10_grad_and_bad_inputs(dev):

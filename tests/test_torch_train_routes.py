@@ -1,13 +1,14 @@
-"""The route rule of K1, K1-lse, K2, K5, K5-lse, K6, K7 and K7-lse and the
-geometry of the wgmma route's TMA maps
+"""The route rule of K1, K1-lse, K2, K4, K5, K5-lse, K6, K7, K7-lse and K10
+and the geometry of the wgmma route's TMA maps
 (`msvit_tpu_torch/ops/packed_attention.py`), kept in Python so that the CPU
 can check them: bf16 at head size 64 takes the wgmma kernels, other bf16
-head sizes the mma.sync kernels, f32 the CUDA cores (K4 takes mma.sync at
-every bf16 head size); K1-lse's and K2's maps are 3-D over the packed
-[B, N, W] tensors with a (64, 64, 1) box at each head's q, k and v
-columns, those of K1, K5, K6 and K7 4-D over [B, H, N, 64] views through
-their strides with a (64, 64, 1, 1) box; K6's cotangent is copied where
-that map cannot take it.  No JAX, no kernel: a few milliseconds."""
+head sizes the mma.sync kernels, f32 the CUDA cores; K1-lse's and K2's
+maps are 3-D over the packed [B, N, W] tensors with a (64, 64, 1) box at
+each head's q, k and v columns, those of K1, K4, K5, K6, K7 and K10 4-D
+over [B, H, N, 64] views through their strides with a (64, 64, 1, 1) box
+(K10's over the token rows and the RX rows of its packed qkv); K6's
+cotangent is copied where that map cannot take it.  No JAX, no kernel: a
+few milliseconds."""
 
 import pytest
 import torch
@@ -28,22 +29,21 @@ def test_train_route(dtype, dh, route):
     assert pa.kernel_route(dtype, dh) == route
 
 
-@pytest.mark.parametrize("dtype,dh,k4,others", [
-    (torch.bfloat16, 64, "mma.sync", "wgmma"),
-    (torch.bfloat16, 32, "mma.sync", "mma.sync"),
-    (torch.bfloat16, 128, "mma.sync", "mma.sync"),
-    (torch.float32, 64, "cuda_cores", "cuda_cores"),
+@pytest.mark.parametrize("dtype,dh,route", [
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "mma.sync"),
+    (torch.bfloat16, 128, "mma.sync"),
+    (torch.float32, 64, "cuda_cores"),
 ])
-def test_fused_and_flash_entry_routes(dtype, dh, k4, others):
+def test_fused_and_flash_entry_routes(dtype, dh, route):
     """The route of each C entry point of K4, K5, K5-lse, K7 and K7-lse:
-    K5 and K5-lse take wgmma at bf16 head size 64, as K7 and K7-lse do;
-    K4 stays on mma.sync there."""
-    from msvit_tpu_torch.ops.fused_attention import entry_route
+    the one rule `kernel_route`, which `fused_attention._run` calls for all
+    five (K4 with the shaved softmax): wgmma at bf16 head size 64, mma.sync
+    at the other bf16 head sizes, the CUDA cores in f32."""
+    from msvit_tpu_torch.ops import fused_attention as fa
 
-    assert entry_route("msvit_fused_attention_inference", dtype, dh) == k4
-    for entry in ("msvit_fused_attention", "msvit_fused_attention_lse",
-                  "msvit_flash_attention", "msvit_flash_attention_lse"):
-        assert entry_route(entry, dtype, dh) == others, entry
+    assert fa.kernel_route is pa.kernel_route
+    assert fa.kernel_route(dtype, dh) == route
 
 
 @pytest.mark.parametrize("dtype,dh,error", [
@@ -97,17 +97,20 @@ def test_head_columns_address_the_packed_sections(h):
 
 def test_route_counters_and_the_cpu_path():
     """The wrappers take the plain versions on the CPU and count no launch;
-    `zero_counts` zeroes every route's count of the nine kernels."""
+    `zero_counts` zeroes every route's count of the ten kernels."""
+    from msvit_tpu_torch.ops import banded_attention as ba
     from msvit_tpu_torch.ops import flash_attention as fl
     from msvit_tpu_torch.ops import fused_attention as fa
 
     routed = (pa.packed_attention, pa.packed_attention_lse, pa.packed_attention_bwd,
               fa.fused_attention_inference, fa.fused_attention, fa.fused_attention_lse,
-              fl.flash_attention_bwd, fl.flash_attention, fl.flash_attention_lse)
+              fl.flash_attention_bwd, fl.flash_attention, fl.flash_attention_lse,
+              ba.token_rows)
     pa.packed_attention_lse.wgmma_launches = 3
     fl.flash_attention.mma_launches = 2
     fa.fused_attention.mma_launches = 4
     fl.flash_attention_bwd.wgmma_launches = 5
+    ba.token_rows.wgmma_launches = 6
     pa.zero_counts(*routed)
     x = torch.randn(1, 7, 3 * 2 * 64)
     out, lse = pa.packed_attention_lse(x, 2)
@@ -121,9 +124,11 @@ def test_route_counters_and_the_cpu_path():
         fa.fused_attention(q, k, v)
         o, lse = fa.fused_attention_lse(q, k, v)
         fl.flash_attention_bwd(q, k, v, o, torch.randn_like(o), lse)
+        ba.token_rows(torch.randn(1, 2 + 7, 3 * 2 * 64), torch.zeros(1, 7, dtype=torch.long),
+                      2, 1)
     zero = {r: 0 for r in pa.ROUTES}
     assert pa.route_counts() == {k: zero for k in ("K1", "K1-lse", "K2", "K4", "K5",
-                                                   "K5-lse", "K6", "K7", "K7-lse")}
+                                                   "K5-lse", "K6", "K7", "K7-lse", "K10")}
     assert all(fn.launches == 0 for fn in routed)
 
 
@@ -225,3 +230,61 @@ def test_k6_cotangent_is_copied_only_where_tma_refuses_it(kind, copied):
     assert refused == copied and (got is not g) == copied
     assert torch.equal(got, g)
     pa.tma_map_heads(got.shape, got.stride(), 2, got.data_ptr())
+
+
+@pytest.mark.parametrize("dtype,dh,route", [
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "mma.sync"),
+    (torch.bfloat16, 128, "mma.sync"),
+    (torch.float32, 64, "cuda_cores"),
+])
+def test_k10_route(dtype, dh, route):
+    """K10's wrapper takes `kernel_route`'s route, as its C entry point
+    does (bf16 at head size 64: banded_wgmma_kernel), and a launch counted
+    on it shows in `route_counts()["K10"]` under that route alone."""
+    from msvit_tpu_torch.ops import banded_attention as ba
+
+    assert pa.kernel_route(dtype, dh) == route
+    pa.zero_counts(ba.token_rows)
+    try:
+        pa._count_route(ba.token_rows, pa.kernel_route(dtype, dh))
+        assert pa.route_counts()["K10"] == {r: int(r == route) for r in pa.ROUTES}
+        assert ba.token_rows.launches == 1
+    finally:
+        pa.zero_counts(ba.token_rows)
+
+
+@pytest.mark.parametrize("c,n,h", [(16, 3136, 12), (1, 65, 2), (9, 130, 3)])
+def test_k10_tma_views_address_the_token_and_rx_rows(c, n, h):
+    """The five [B, H, rows, 64] views K10's wgmma route maps: q, k and v of
+    the N token rows (from row 2C) at the packed row's pitch 3D*2 bytes, k
+    and v of the C RX rows (prefix rows 1, 3, ..) at twice that pitch; each
+    view's base is its first row's element column h*64, D + h*64 or
+    2D + h*64, and each maps with the 64-row box."""
+    from msvit_tpu_torch.ops import banded_attention as ba
+
+    b, d = 2, h * 64
+    x = torch.arange(b * (2 * c + n) * 3 * d, dtype=torch.float32).reshape(b, 2 * c + n, 3 * d)
+    q, k, v, rk, rv = ba.tma_views(x, h, c)
+    row = 3 * d * 2  # the packed row's pitch in bf16 bytes
+    for t, first, col, rows in ((q, 2 * c, 0, n), (k, 2 * c, d, n), (v, 2 * c, 2 * d, n),
+                                (rk, 1, d, c), (rv, 1, 2 * d, c)):
+        assert t.shape == (b, h, rows, 64)
+        assert t.data_ptr() - x.data_ptr() == (first * 3 * d + col) * x.element_size()
+        step = 1 if rows == n else 2
+        assert torch.equal(t[:, 1], x[:, first:first + step * rows:step, col + 64:col + 128])
+        got = pa.tma_map_heads(t.shape, t.stride(), 2, 4096)
+        assert got["dims"] == (64, rows, h, b)
+        if rows > 1:
+            assert got["pitches"][0] == row * step
+    assert torch.equal(rk[:, :, -1], x[:, 2 * c - 1, d:2 * d].reshape(b, h, 64))
+
+
+def test_k10_tma_views_refuse_a_misaligned_qkv():
+    """A bf16 qkv whose base is off 16 bytes cannot be mapped: the wgmma
+    route raises, naming the wrapper, where the other routes copied it."""
+    from msvit_tpu_torch.ops import banded_attention as ba
+
+    x = torch.zeros(1 + 2 * 34 * 3 * 128, dtype=torch.bfloat16)[1:].view(2, 34, 384)
+    with pytest.raises(ValueError, match="token_rows: TMA"):
+        pa.check_tma_heads("token_rows", *ba.tma_views(x, 2, 1))
