@@ -13,18 +13,21 @@ fails (non-zero exit, no result line) if any phase fails:
    kernels at head size 64, the mma.sync ones at every bucket), the wgmma
    kernel of K1, K4, K5 and K7 (`attention_wgmma.cuh`), K10's
    (`banded_wgmma_kernel`), K6's wgmma pair
-   (`attention_bwd_wgmma.cuh`), the fused, flash, banded and int8 kernels,
+   (`attention_bwd_wgmma.cuh`), the fused, flash, banded and int8 kernels
+   (K3's and K9's wgmma kernel at head size 64, `attention_int8_wgmma.cuh`),
    and every line where ptxas serialized a kernel's wgmma products;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (max abs error against a stated tolerance), then
    both timed with CUDA events in turns (plain, kernel, kernel, plain):
    K1 and K3 (serving; both also alone by `torch.profiler` with their
-   rates, K3 on the int8 tensor cores with its share bit-equal to plain,
-   its blocks per SM and K1 beside it as the bf16 yardstick), K1-lse and K2
+   rates, K3 on s8 wgmma fed by TMA with its share bit-equal to plain, its
+   launches by route, its blocks per SM and K1 beside it as the bf16
+   yardstick; K3 also at the tile edges N 63, 64, 65, 127, 129), K1-lse and K2
    (training; masked, f32, large-logit in f32 and bf16 and dh-128 cases
-   too; their achieved TFLOP/s and share of the bound; the launches' routes,
-   wgmma at dh 64 and mma.sync at dh 128, the blocks per SM of both routes'
-   kernels and their ptxas lines);
+   too; their achieved TFLOP/s and share of the bound, beside
+   `scaled_dot_product_attention` and its backward through the call and by
+   device time; the launches' routes, wgmma at dh 64 and mma.sync at dh
+   128, the blocks per SM of both routes' kernels and their ptxas lines);
 4. serving: ViT-B/16 @224 with seeded random weights, int8-quantized and
    calibrated, served by `BatchingServer` (int8 buckets > 2, bf16 buckets
    of 1 and 2, uint8 requests, CLS features out); checks every response,
@@ -97,11 +100,13 @@ fails (non-zero exit, no result line) if any phase fails:
    the wrapper and alone, beside SDPA over the equivalent mask through its
    call and by its device time, with the 64-key tiles the band walks
    beside the pairs the partition needs;
-18. masked int8 kernel: K9 against its plain version at [8,816,2304] with
-   the 224 partition's soft mask and a bool mask (its fully masked row
-   mean(V)), bf16 and int8 out, the share bit-equal to plain, then timed
-   through the wrapper and alone, beside bf16 K4 at the same shape and
-   mask; its blocks per SM;
+18. masked int8 kernel: K9 at the tile edges N 63, 64, 65, 127, 129 (a
+   bool mask whose last row is fully masked, mean(V), and the additive 0 /
+   -100 mask), then against its plain version at [8,816,2304] with the 224
+   partition's soft mask and a bool mask (its fully masked row mean(V)),
+   bf16 and int8 out, the share bit-equal to plain, every launch on
+   wgmma, then timed through the wrapper and alone, beside bf16 K4 at the
+   same shape and mask; its blocks per SM;
 19. grouped kernels: K1, K1-lse and K2 at the shapes of the TPU's
    head-grouped functions K8a and K8b, which they stand for: bf16
    [64,785,2304], f32 [16,785,2304], the soft-masked [8,816,2304], masked
@@ -218,8 +223,8 @@ that call (`scaled_dot_product_attention` or its backward; the port never
 calls it).  The second-to-last line is a JSON object with each kernel's
 launches in its path's run (serving for K1 and K3, with the reloaded
 artifacts' launches of phase 32, training for K1-lse and
-K2 (split by route: every one on wgmma; the K1, K4, K5, K5-lse, K6, K7,
-K8a and K10 rows split theirs too, and none may take mma.sync), the
+K2 (split by route: every one on wgmma; the K1, K3, K4, K5, K5-lse, K6,
+K7, K8a, K9 and K10 rows split theirs too, and none may take mma.sync), the
 clustered multistate forwards for K4 and K5, multistate training
 for K5-lse and K6, the clustered 448-px bf16 forward and the deep subsample
 forwards for K7, the 224-px int8-attention forward for K9, the 448-px banded forward for K10, the
@@ -329,6 +334,10 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979
 K45_KERNELS = "flash_mma_kernel|fused_attention_kernel|attention_wgmma_kernel"
 K6_KERNELS = r"flash_bwd_d(?:q|kv)_w?g?mma_kernel"
 K10_KERNELS = r"banded_w?g?mma_kernel"
+# K3 and K9: the wgmma kernel at head size 64 (`attention_int8_wgmma.cuh`),
+# packed_attention_int8_kernel (mma.sync) at other head sizes, and at dh 64
+# in a tree before it (either tree's names in an A/B)
+K39_KERNELS = r"packed_attention_int8_(?:wgmma_)?kernel"
 
 
 def log(msg: str) -> None:
@@ -524,7 +533,7 @@ def sdpa_bwd(q, k, v, g, mask=None):
 def kernel_phase(dev, smi: str) -> dict:
     from msvit_tpu_torch.ops.packed_attention import (
         packed_attention, packed_attention_int8,
-        packed_attention_int8_plain, packed_attention_plain, unpack_qkv)
+        packed_attention_int8_plain, packed_attention_plain, route_counts, unpack_qkv)
 
     g = torch.Generator().manual_seed(0)
     res = {}
@@ -564,28 +573,25 @@ def kernel_phase(dev, smi: str) -> dict:
 
         # K3, main path shape: per-section quantized qkv
         _, q, sec = int8_qkv(g, MAIN_SHAPE, dev, scale=0.5)
+        k3_before = route_counts()["K3"]
         got, want = packed_attention_int8(q, sec, 12), packed_attention_int8_plain(q, sec, 12)
-        e_k3 = check("K3 int8 [64,197,2304] bf16 out", max_err(got, want),
-                     K3_BF16_REL_TOL * want.float().abs().max().item())
         inv = 127.0 / want.float().abs().amax()
         gq = packed_attention_int8(q, sec, 12, out_inv_scale=inv, int8_out=True)
         wq = packed_attention_int8_plain(q, sec, 12, out_inv_scale=inv, int8_out=True)
-        delta = (gq.int() - wq.int()).abs()
-        same = (delta == 0).float().mean().item()
-        same_bf16 = (got == want).float().mean().item()
-        log(f"[kernels] K3 int8 [64,197,2304] int8 out: max |delta| "
-            f"{delta.max().item()} (tolerance 1), exactly equal {same!r} "
-            f"(tolerance >= 0.99); bf16 out bit-equal to plain on {same_bf16!r} "
-            f"of the elements")
-        if delta.max().item() > 1 or same < 0.99:
-            raise AssertionError("K3 int8 out disagrees with its plain version")
+        e_k3, same, _ = _int8_bars("kernels", "K3 int8 [64,197,2304]", got, want, gq, wq)
+        k3_routes = {r: c - k3_before[r] for r, c in route_counts()["K3"].items()}
+        log(f"[kernels] K3 int8 [64,197,2304]: launches by route {k3_routes}")
+        if k3_routes != {"wgmma": 2, "mma.sync": 0, "cuda_cores": 0}:
+            raise AssertionError(f"K3 at [64,197,2304]: launches by route {k3_routes}")
+    int8_edge_cases(dev, "kernels", masked=False)
+    with torch.inference_mode():
         k3_ms, k3_plain = race(
             lambda: packed_attention_int8(q, sec, 12, out_inv_scale=inv, int8_out=True),
             lambda: packed_attention_int8_plain(q, sec, 12, out_inv_scale=inv,
                                                 int8_out=True))
         k3_alone = device_ms(
             lambda: packed_attention_int8(q, sec, 12, out_inv_scale=inv, int8_out=True),
-            "packed_attention_int8_kernel")
+            K39_KERNELS)
         k3_bound = bound([q, sec], [gq], ops, torch.int8)
     torch.cuda.synchronize()
     log(f"[kernels] K1 bf16 [64,197,2304]: kernel {k1_ms!r} ms, plain {k1_plain!r} ms, "
@@ -617,10 +623,88 @@ def int8_qkv(gen, shape: tuple, dev, scale: float = 1.0) -> tuple:
     return xf, q, sec
 
 
+def _int8_bars(tag: str, label: str, got, want, gq, wq) -> tuple:
+    """K3's and K9's bars against their plain versions: bf16 out within
+    K3_BF16_REL_TOL x max |plain|, int8 out within one step with at least
+    99% of the elements equal.  Returns (the bf16 error, the int8 share
+    equal, the bf16 share bit-equal), printed."""
+    err = _check(tag, f"{label}, bf16 out", max_err(got, want),
+                 K3_BF16_REL_TOL * want.float().abs().max().item())
+    delta = (gq.int() - wq.int()).abs()
+    same = (delta == 0).float().mean().item()
+    same_bf16 = (got == want).float().mean().item()
+    log(f"[{tag}] {label}, int8 out: max |delta| {delta.max().item()} (tolerance 1), "
+        f"exactly equal {same!r} (tolerance >= 0.99); bf16 out bit-equal to plain on "
+        f"{same_bf16!r} of the elements")
+    if delta.max().item() > 1 or same < 0.99:
+        raise AssertionError(f"{label}: int8 out disagrees with its plain version")
+    return err, same, same_bf16
+
+
+INT8_EDGE_NS = (63, 64, 65, 127, 129)  # around the 64-key tiles and 128-row items
+
+
+def int8_edge_cases(dev, tag: str, masked: bool) -> None:
+    """K3, or K9 with a bool mask [2,1,N,N] whose last row is fully masked
+    (mean(V)) and the additive 0 / -100 mask [2,12,N,N], at head size 64
+    ([2, N, 2304]) against the plain version at the tile edges
+    `INT8_EDGE_NS`, bf16 and int8 out (`_int8_bars`); every launch on the
+    wgmma route."""
+    from msvit_tpu_torch.ops import packed_attention as pa
+
+    k = "K9" if masked else "K3"
+    g = torch.Generator().manual_seed(21 + int(masked))
+    before = pa.route_counts()[k]
+    calls = 0
+    for n in INT8_EDGE_NS:
+        _, q, sec = int8_qkv(g, (2, n, 2304), dev)
+        if masked:
+            mb = torch.rand(2, 1, n, n, generator=g) < 0.7
+            mb[1, 0, n - 1, :] = False
+            ma = -100.0 * (torch.rand(2, 12, n, n, generator=g) < 0.5).float()
+            cases = [("bool mask [2,1,N,N], the last row fully masked", mb.to(dev)),
+                     ("additive 0/-100 mask [2,12,N,N]", ma.to(dev))]
+        else:
+            cases = [("no mask", None)]
+        for mlabel, m in cases:
+            def kernel(inv=None, m=m):
+                if masked:
+                    return pa.packed_attention_int8_masked(q, sec, 12, mask=m, out_inv_scale=inv,
+                                                           int8_out=inv is not None)
+                return pa.packed_attention_int8(q, sec, 12, out_inv_scale=inv,
+                                                int8_out=inv is not None)
+
+            def plain(inv=None, m=m):
+                if masked:
+                    return pa.packed_attention_int8_masked_plain(
+                        q, sec, 12, mask=m, out_inv_scale=inv, int8_out=inv is not None)
+                return pa.packed_attention_int8_plain(q, sec, 12, out_inv_scale=inv,
+                                                      int8_out=inv is not None)
+
+            with torch.inference_mode():
+                got, want = kernel(), plain()
+                inv = 127.0 / want.float().abs().amax()
+                gq, wq = kernel(inv), plain(inv)
+            calls += 2
+            label = f"{k} int8 [2,{n},2304] {mlabel}"
+            _int8_bars(tag, label, got, want, gq, wq)
+            if m is not None and m.dtype == torch.bool:  # mean(V): s_v times the mean of v
+                mean = q[1, :, 2 * 768:].float().mean(0) * sec[2]
+                _check(tag, f"{label}: the fully masked row vs mean(V)", max_err(got[1, n - 1], mean),
+                       K3_BF16_REL_TOL * want.float().abs().max().item())
+    took = {r: c - before[r] for r, c in pa.route_counts()[k].items()}
+    log(f"[{tag}] {k} at the tile edges N {list(INT8_EDGE_NS)}: launches by route {took}")
+    if took != {"wgmma": calls, "mma.sync": 0, "cuda_cores": 0}:
+        raise AssertionError(f"{k}: the tile edges' launches by route {took}, want {calls} "
+                             f"on wgmma")
+
+
 def int8_occupancy(dh: int, shape: tuple, masked: bool) -> str:
     """Blocks per SM of the int8 kernel (K3, or K9 with a bf16, a bool and
-    no mask; the runtime's occupancy calculator), and the waves of a
-    [B, H, N] call's (H, N / 64, B) grid."""
+    no mask; the runtime's occupancy calculator) and how a [B, H, N] call
+    fills the card: at head size 64 the wgmma kernel's persistent blocks
+    over items of 128 query rows, else the mma.sync kernel's (H, N / 64, B)
+    grid in waves."""
     import ctypes
 
     from msvit_tpu_torch.ops import _build
@@ -633,9 +717,17 @@ def int8_occupancy(dh: int, shape: tuple, masked: bool) -> str:
             dh, int(masked), kind, ctypes.byref(got)), "msvit_packed_attention_int8_occupancy")
         per_sm[f"{'K9' if masked else 'K3'} {mask} mask"] = got.value
     b, h, n = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if dh == 64:
+        qtiles = -(-n // 128)
+        items = b * h * qtiles
+        return (f"int8 wgmma kernel blocks per SM at dh {dh} (384 threads): {per_sm}; {items} "
+                f"items of 128 query rows of [{b},{h},{n},{dh}] over {min(items, sms)} "
+                f"persistent blocks: {items / sms!r} items an SM; {-(-n // 16)} of "
+                f"{8 * qtiles} warps of a head's items hold rows")
     tiles = -(-n // 64)
     blocks = b * h * tiles
-    slots = torch.cuda.get_device_properties(0).multi_processor_count * list(per_sm.values())[0]
+    slots = sms * list(per_sm.values())[0]
     return (f"int8 kernel blocks per SM at dh {dh}: {per_sm}; {blocks} blocks of "
             f"[{b},{h},{n},{dh}] over {slots} slots: {blocks / slots!r} waves; "
             f"{-(-n // 16)} of {4 * tiles} warps of a head's blocks hold rows")
@@ -767,7 +859,7 @@ def int8_forward_profile(qparams, cfg, scales, pix) -> tuple:
         with torch.inference_mode():
             quantized_vit_apply(qparams, cfg, pix, act_scales=scales)
 
-    return device_profile(fwd, "packed_attention_int8_kernel", cfg.num_hidden_layers)
+    return device_profile(fwd, K39_KERNELS, cfg.num_hidden_layers)
 
 
 
@@ -881,8 +973,11 @@ def train_kernel_phase(dev, smi: str) -> dict:
                              lambda: packed_attention_bwd_plain(x, None, wo, wl, gr, 12))
         qkv = unpack_qkv(x, 12)
         f_lib = library_ms(lambda: sdpa(*qkv))
-        b_lib = library_ms(sdpa_bwd(*qkv, gr.reshape(x.shape[0], x.shape[1], 12, -1)
-                                    .transpose(1, 2)))
+        lib_bwd = sdpa_bwd(*qkv, gr.reshape(x.shape[0], x.shape[1], 12, -1).transpose(1, 2))
+        b_lib = library_ms(lib_bwd)
+        # the library calls by device time: every kernel of the call
+        f_lib_dev = device_profile(lambda: sdpa(*qkv), r"^$", 0)[0]
+        b_lib_dev = device_profile(lib_bwd, r"^$", 0)[0]
     torch.cuda.synchronize()
     b, n, d3 = MAIN_SHAPE
     f_ops, b_ops = (attn_ops(b, 12, n, n, d3 // 36, k) for k in (2, 5))
@@ -890,15 +985,19 @@ def train_kernel_phase(dev, smi: str) -> dict:
     # K2 writes dqkv, x's shape and dtype
     b_bound = bound([x, wo, wl, gr], [x], b_ops, torch.bfloat16)
     log(f"[train-kernels] K1-lse bf16 [64,197,2304]: kernel {f_ms!r} ms, plain "
-        f"{f_plain!r} ms, library (scaled_dot_product_attention) {f_lib!r} ms, bound "
-        f"{f_bound}; {rate(f_ops, f_ms, f_bound)} (median of 20, CUDA events; {smi})")
+        f"{f_plain!r} ms, library (scaled_dot_product_attention) {f_lib!r} ms (device "
+        f"time {f_lib_dev!r} ms), bound {f_bound}; {rate(f_ops, f_ms, f_bound)} (median of "
+        f"20, CUDA events; {smi})")
     log(f"[train-kernels] K2 bf16 [64,197,2304]: kernel {b_ms!r} ms, plain "
-        f"{b_plain!r} ms, library (its backward) {b_lib!r} ms, bound {b_bound}; "
-        f"{rate(b_ops, b_ms, b_bound)} (median of 20, CUDA events; {smi})")
+        f"{b_plain!r} ms, library (its backward) {b_lib!r} ms (device time {b_lib_dev!r} "
+        f"ms), bound {b_bound}; {rate(b_ops, b_ms, b_bound)} (median of 20, CUDA events; "
+        f"{smi})")
     log(f"[train-kernels] routes of the cases above {_pair_routes(route_counts())}; "
         f"{train_occupancy()}; ptxas: {_ptxas_train()}")
-    return {"K1-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **f_bound),
-            "K2": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_bound)}
+    return {"K1-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
+                           library_device_ms=f_lib_dev, **f_bound),
+            "K2": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib,
+                       library_device_ms=b_lib_dev, **b_bound)}
 
 
 def _training_counts():
@@ -1720,7 +1819,7 @@ def _attn_counts() -> dict:
     from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked
 
     return {**_fused_counts(), "K7": _routed_count(flash_attention),
-            "K9": packed_attention_int8_masked.launches, "K10": _routed_count(token_rows)}
+            "K9": _routed_count(packed_attention_int8_masked), "K10": _routed_count(token_rows)}
 
 
 def _reset_attn_counts() -> None:
@@ -1729,8 +1828,7 @@ def _reset_attn_counts() -> None:
     from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked, zero_counts
 
     _reset_fused_counts()
-    zero_counts(flash_attention, token_rows)
-    packed_attention_int8_masked.launches = 0
+    zero_counts(flash_attention, token_rows, packed_attention_int8_masked)
 
 
 def _launched(label: str, want: dict) -> None:
@@ -1982,8 +2080,7 @@ def ms224_int8(dev) -> tuple:
 def ms224_int8_profile(cfg, run) -> tuple:
     """Device time per attn_mode="int8" forward with clustering and the
     part of it in K9 (`device_profile`)."""
-    return device_profile(lambda: run(cfg, "int8"), "packed_attention_int8_kernel",
-                          LAYERS - 1)
+    return device_profile(lambda: run(cfg, "int8"), K39_KERNELS, LAYERS - 1)
 
 
 def _soft(ids, n_clusters):
@@ -2220,8 +2317,11 @@ def int8_attn_kernel_phase(dev, smi: str, partition) -> dict:
     bf16 K4 at the same shape and mask; the kernel's blocks per SM."""
     from msvit_tpu_torch.ops.fused_attention import fused_attention_inference
     from msvit_tpu_torch.ops.packed_attention import (
-        packed_attention_int8_masked, packed_attention_int8_masked_plain, unpack_qkv)
+        packed_attention_int8_masked, packed_attention_int8_masked_plain, route_counts,
+        unpack_qkv, zero_counts)
 
+    int8_edge_cases(dev, "int8-attn-kernels", masked=True)
+    zero_counts(packed_attention_int8_masked)
     b, h, n, dh = MS_SHAPE
     d = h * dh
     gen = torch.Generator().manual_seed(12)
@@ -2235,20 +2335,12 @@ def int8_attn_kernel_phase(dev, smi: str, partition) -> dict:
                          ("bool mask, one row fully masked", mb)):
             got = packed_attention_int8_masked(q, sec, h, mask=m)
             want = packed_attention_int8_masked_plain(q, sec, h, mask=m)
-            e_b = _check("int8-attn-kernels", f"K9 int8 [8,816,2304] {label}, bf16 out",
-                         max_err(got, want), K3_BF16_REL_TOL * want.float().abs().max().item())
             inv = 127.0 / want.float().abs().amax()
             gq = packed_attention_int8_masked(q, sec, h, mask=m, out_inv_scale=inv, int8_out=True)
             wq = packed_attention_int8_masked_plain(q, sec, h, mask=m, out_inv_scale=inv,
                                                     int8_out=True)
-            delta = (gq.int() - wq.int()).abs()
-            same = (delta == 0).float().mean().item()
-            same_bf16 = (got == want).float().mean().item()
-            log(f"[int8-attn-kernels] K9 int8 [8,816,2304] {label}, int8 out: max |delta| "
-                f"{delta.max().item()} (tolerance 1), exactly equal {same!r} (tolerance >= "
-                f"0.99); bf16 out bit-equal to plain on {same_bf16!r} of the elements")
-            if delta.max().item() > 1 or same < 0.99:
-                raise AssertionError("K9 int8 out disagrees with its plain version")
+            e_b, same, _ = _int8_bars("int8-attn-kernels", f"K9 int8 [8,816,2304] {label}",
+                                      got, want, gq, wq)
             if m is soft:
                 err, args = e_b, (inv, gq, same)
             else:  # the fully masked row is mean(V): s_v times the mean of v
@@ -2256,13 +2348,17 @@ def int8_attn_kernel_phase(dev, smi: str, partition) -> dict:
                 _check("int8-attn-kernels", "K9 bool mask: the fully masked row vs mean(V)",
                        max_err(got[0, 5], mean), K3_BF16_REL_TOL * want.float().abs().max().item())
         inv, gq, same = args
+        routes = route_counts()["K9"]
+        log(f"[int8-attn-kernels] K9 at [8,816,2304]: launches by route {routes}")
+        if routes != {"wgmma": 4, "mma.sync": 0, "cuda_cores": 0}:
+            raise AssertionError(f"K9 at [8,816,2304]: launches by route {routes}")
         ms, plain_ms = race(
             lambda: packed_attention_int8_masked(q, sec, h, mask=soft, out_inv_scale=inv,
                                                  int8_out=True),
             lambda: packed_attention_int8_masked_plain(q, sec, h, mask=soft,
                                                        out_inv_scale=inv, int8_out=True))
         alone = device_ms(lambda: packed_attention_int8_masked(
-            q, sec, h, mask=soft, out_inv_scale=inv, int8_out=True), "packed_attention_int8_kernel")
+            q, sec, h, mask=soft, out_inv_scale=inv, int8_out=True), K39_KERNELS)
         # the yardstick: bf16 K4 on the same shape and mask, from this run
         qb, kb, vb = unpack_qkv(xf.to(torch.bfloat16), h)
         k4_ms = statistics.median(time_ms(
@@ -2356,7 +2452,11 @@ def grouped_kernel_phase(dev, smi: str, partition) -> dict:
                              lambda: packed_attention_bwd_plain(x, None, wo, wl, gr, 12))
         qkv = unpack_qkv(x, 12)
         f_lib = library_ms(lambda: sdpa(*qkv))
-        b_lib = library_ms(sdpa_bwd(*qkv, gr.reshape(b, n, 12, -1).transpose(1, 2)))
+        lib_bwd = sdpa_bwd(*qkv, gr.reshape(b, n, 12, -1).transpose(1, 2))
+        b_lib = library_ms(lib_bwd)
+        # the library calls by device time: every kernel of the call
+        f_lib_dev = device_profile(lambda: sdpa(*qkv), r"^$", 0)[0]
+        b_lib_dev = device_profile(lib_bwd, r"^$", 0)[0]
     torch.cuda.synchronize()
     dh = d3 // 36
     f_ops, b_ops = (attn_ops(b, 12, n, n, dh, k) for k in (2, 5))
@@ -2370,19 +2470,22 @@ def grouped_kernel_phase(dev, smi: str, partition) -> dict:
         f"alone {k_alone!r} ms (device time, torch.profiler; "
         f"{rate(f_ops, k_alone, k_bound)})")
     log(f"[{tag}] K1-lse (for K8a, with_lse) bf16 {shape}: kernel {f_ms!r} ms, plain "
-        f"{f_plain!r} ms, library (scaled_dot_product_attention) {f_lib!r} ms, bound "
-        f"{f_bound}; {rate(f_ops, f_ms, f_bound)} (median of 20, CUDA events; {smi})")
+        f"{f_plain!r} ms, library (scaled_dot_product_attention) {f_lib!r} ms (device time "
+        f"{f_lib_dev!r} ms), bound {f_bound}; {rate(f_ops, f_ms, f_bound)} (median of 20, "
+        f"CUDA events; {smi})")
     log(f"[{tag}] K2 (for K8b) bf16 {shape}: kernel {b_ms!r} ms, plain {b_plain!r} ms, "
-        f"library (its backward) {b_lib!r} ms, bound {b_bound}; "
-        f"{rate(b_ops, b_ms, b_bound)} (median of 20, CUDA events; {smi})")
+        f"library (its backward) {b_lib!r} ms (device time {b_lib_dev!r} ms), bound "
+        f"{b_bound}; {rate(b_ops, b_ms, b_bound)} (median of 20, CUDA events; {smi})")
     routes = route_counts()
     log(f"[{tag}] routes of the cases above {_pair_routes(routes)}, K1 {routes['K1']}; "
         f"{train_occupancy()}; "
         f"ptxas: {_ptxas_train()}")
     return {"K8a": dict(err=e_k1, ms=k_ms, plain_ms=k_plain, library_ms=f_lib,
-                        kernel_alone_ms=k_alone, **k_bound),
-            "K8a-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **f_bound),
-            "K8b": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib, **b_bound)}
+                        library_device_ms=f_lib_dev, kernel_alone_ms=k_alone, **k_bound),
+            "K8a-lse": dict(err=e_fwd, ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
+                            library_device_ms=f_lib_dev, **f_bound),
+            "K8b": dict(err=e_bwd, ms=b_ms, plain_ms=b_plain, library_ms=b_lib,
+                        library_device_ms=b_lib_dev, **b_bound)}
 
 
 def _pretrain_args(out: str, *extra):
@@ -2620,7 +2723,8 @@ def interp_phase(dev, smi: str) -> None:
     path on the same weights; ms/batch at bs16."""
     from msvit_tpu_torch.models.base import ViTModel
     from msvit_tpu_torch.models.base.quantized import calibrate_act_scales, quantized_vit_apply
-    from msvit_tpu_torch.ops.packed_attention import packed_attention, packed_attention_int8
+    from msvit_tpu_torch.ops.packed_attention import (
+        packed_attention, packed_attention_int8, zero_counts)
 
     cfg, model, qparams, _ = vit_int8(dev)
     pix = torch.randn(16, 384, 384, 3, generator=torch.Generator().manual_seed(7)).to(dev)
@@ -2635,7 +2739,7 @@ def interp_phase(dev, smi: str) -> None:
     def int8(use_kernels=None):
         return quantized_vit_apply(qparams, cfg, pix, act_scales=scales, use_kernels=use_kernels)
 
-    packed_attention.launches = packed_attention_int8.launches = 0
+    zero_counts(packed_attention, packed_attention_int8)
     bk = bf16(model)
     ik = int8()
     counts = {"K1": packed_attention.launches, "K3": packed_attention_int8.launches}
@@ -2910,7 +3014,7 @@ def _all_counts() -> dict:
     from msvit_tpu_torch.ops.packed_attention import packed_attention, packed_attention_int8
 
     return {**_attn_counts(), **_training_counts(), **_ms_train_counts(),
-            "K1": _routed_count(packed_attention), "K3": packed_attention_int8.launches}
+            "K1": _routed_count(packed_attention), "K3": _routed_count(packed_attention_int8)}
 
 
 def _reset_all_counts() -> None:
@@ -2920,8 +3024,7 @@ def _reset_all_counts() -> None:
     _reset_attn_counts()
     _reset_training_counts()
     _reset_ms_train_counts()
-    zero_counts(packed_attention)
-    packed_attention_int8.launches = 0
+    zero_counts(packed_attention, packed_attention_int8)
 
 
 def predictive_phase(dev, smi: str) -> None:
@@ -3397,11 +3500,11 @@ out, launches, routes = {}, {}, {}
 for name in ("int8", "bf16", "bf16_bundled"):
     g = load_forward((d / f"{name}.msvx").read_bytes())
     args = () if name == "bf16_bundled" else (state["params"][name],)
-    pa.zero_counts(pa.packed_attention)
-    pa.packed_attention_int8.launches = 0
+    pa.zero_counts(pa.packed_attention, pa.packed_attention_int8)
     out[name] = {b: g(*args, x.to(dev)).cpu() for b, x in state["inputs"].items()}
     launches[name] = {"K1": pa.packed_attention.launches, "K3": pa.packed_attention_int8.launches}
-    routes[name] = pa.routes_of(pa.packed_attention)
+    routes[name] = {"K1": pa.routes_of(pa.packed_attention),
+                    "K3": pa.routes_of(pa.packed_attention_int8)}
 models = sorted(m for m in sys.modules if m.startswith("msvit_tpu_torch.models"))
 if models:
     raise SystemExit(f"the reload imported model code: {models}")
@@ -3457,8 +3560,7 @@ def _serve_through(int8_fn, bf16_fn, images: np.ndarray, tag: str) -> dict:
         srv.warmup()
         log(f"[{tag}] server warm-up of buckets {srv.buckets} in "
             f"{time.perf_counter() - t0:.1f} s")
-        zero_counts(packed_attention)
-        packed_attention_int8.launches = 0
+        zero_counts(packed_attention, packed_attention_int8)
         t0 = time.perf_counter()
         for i in range(64):  # lone requests -> bucket 1 -> bf16
             responses.append((i % n, srv.submit(images[i % n]).result(timeout=120)))
@@ -3471,7 +3573,7 @@ def _serve_through(int8_fn, bf16_fn, images: np.ndarray, tag: str) -> dict:
         t_burst = time.perf_counter() - t1
         wall = time.perf_counter() - t0
         launches = {"K1": _routed_count(packed_attention),
-                    "K3": packed_attention_int8.launches}
+                    "K3": _routed_count(packed_attention_int8)}
         stats = srv.stats()
     return dict(stats=stats, wall=wall, lone=64 / t_single, burst=448 / t_burst,
                 launches=launches, responses=responses)
@@ -3760,8 +3862,8 @@ def runtime_phase(dev, smi: str, live_served: dict) -> dict:
     if counts != {"K1-lse": 6 * LAYERS, "K2": 6 * LAYERS}:
         raise AssertionError(f"the training launches {counts}")
     log(f"[runtime] phase 32 in {time.perf_counter() - phase_t0:.1f} s ({smi})")
-    reloaded = {"K1": sum(Launches(c["K1"], child_routes[n]) for n, c in child.items()),
-                "K3": sum(c["K3"] for c in child.values())}
+    reloaded = {k: sum(Launches(c[k], child_routes[n][k]) for n, c in child.items())
+                for k in ("K1", "K3")}
     return {k: launches[k] + reloaded[k] for k in launches}
 
 
@@ -3776,9 +3878,10 @@ def int8_ab(tag: str) -> dict:
     on int8_attn_kernel_phase's with the soft mask of the served partition
     (the same weights, scene and draws as multistate_phase's), int8 out,
     through the wrapper (median of 20, CUDA events) and alone
-    (`device_ms`); the device time of ms224_attn_modes_phase's int8
-    forward and of slice_phase's int8 ViT-B/16 bs64 forward, and K9's and
-    K3's part of each.  Prints one line, "AB " and a JSON object."""
+    (`device_ms`), with the bound and the share of it alone; the device
+    time of ms224_attn_modes_phase's int8 forward and of slice_phase's int8
+    ViT-B/16 bs64 forward, and K9's and K3's part of each.  Prints one
+    line, "AB " and a JSON object."""
     smi = card()
     sys.path.insert(0, ROOT)
     from msvit_tpu_torch.ops import packed_attention as pa
@@ -3797,10 +3900,16 @@ def int8_ab(tag: str) -> dict:
                                                     int8_out=True),
              "K9": lambda: pa.packed_attention_int8_masked(q9, sec9, 12, mask=soft,
                                                            out_inv_scale=inv, int8_out=True)}
+    # the bound: the function's one q.k and one P.V against the int8
+    # q/k/v/out bytes (K9 also the mask in bf16, as the kernel reads it)
+    ops = {"K3": attn_ops(64, 12, 197, 197, 64, 2), "K9": attn_ops(MS_BATCH, 12, 816, 816, 64, 2)}
+    inputs = {"K3": [q, sec], "K9": [q9, sec9, soft.to(torch.bfloat16)]}
     with torch.inference_mode():
         for k, fn in calls.items():
             res[f"{k}_ms"] = statistics.median(time_ms(fn, runs=20))
-            res[f"{k}_alone_ms"] = device_ms(fn, "packed_attention_int8_kernel")
+            res[f"{k}_alone_ms"] = device_ms(fn, K39_KERNELS)
+            res[f"{k}_bound_ms"] = bound(inputs[k], [fn()], ops[k], torch.int8)["bound_ms"]
+            res[f"{k}_share_of_bound"] = res[f"{k}_bound_ms"] / res[f"{k}_alone_ms"]
     res["ms224_int8_attn_device_ms"], res["ms224_K9_ms"] = ms224_int8_profile(cfg, run)
     del run
     vcfg, _, qparams, scales = vit_int8(dev)
@@ -3891,7 +4000,8 @@ def train_kernel_ab(tag: str) -> dict:
     K1-lse and K2 bf16 at [64,197,2304] and [64,785,2304] (median of 20,
     CUDA events; K2 from K1-lse's residuals and a random cotangent; then
     the kernels alone, `device_ms`: at 197 tokens the wrapper's host time
-    can exceed the kernel's), the
+    can exceed the kernel's; `scaled_dot_product_attention` and its
+    backward by device time beside them), the
     ViT-B/8 pretrain step at bs64 (`--preset b8`, the example's loss and
     optimizer, clip 1.0, uint8 batches resident on the device) and
     step_time_phase's ViT-B/16 step at bs256: ms/step over 5 steps after 2
@@ -3918,6 +4028,12 @@ def train_kernel_ab(tag: str) -> dict:
             bwd = lambda: pa.packed_attention_bwd(x, None, o, lse, gr, 12)  # noqa: E731
             res[f"K1-lse_{shape[1]}_ms"] = statistics.median(time_ms(fwd, runs=20))
             res[f"K2_{shape[1]}_ms"] = statistics.median(time_ms(bwd, runs=20))
+            # the library's forward and backward by device time (every kernel)
+            qkv = pa.unpack_qkv(x, 12)
+            res[f"K1-lse_{shape[1]}_sdpa_device_ms"] = device_profile(
+                lambda: sdpa(*qkv), r"^$", 0)[0]
+            res[f"K2_{shape[1]}_sdpa_device_ms"] = device_profile(
+                sdpa_bwd(*qkv, gr.reshape(*shape[:2], 12, -1).transpose(1, 2)), r"^$", 0)[0]
             # the kernels alone (either tree's names: mma.sync or wgmma)
             res[f"K1-lse_{shape[1]}_alone_ms"] = device_ms(fwd, r"packed_lse_w?g?mma_kernel")
             res[f"K2_{shape[1]}_alone_ms"] = device_ms(
@@ -5183,14 +5299,14 @@ serve, runs = sys.argv[5] == "1", int(sys.argv[6])
 wrappers = {"K4": fused_attention.fused_attention_inference, "K5": fused_attention.fused_attention,
             "K7": flash_attention.flash_attention,
             "K9": packed_attention.packed_attention_int8_masked, "K10": banded_attention.token_rows}
-ROUTED = ("K4", "K5", "K7", "K10")
+ROUTED = ("K4", "K5", "K7", "K9", "K10")
 def reset():
     for f in wrappers.values():
         f.launches = 0
     packed_attention.zero_counts(*(wrappers[k] for k in ROUTED))
 def counts():
     return {k: f.launches for k, f in wrappers.items()}
-def k7_routes():  # the routes of the launches of K4, K5, K7 and K10
+def k7_routes():  # the routes of the launches of K4, K5, K7, K9 and K10
     return {k: packed_attention.routes_of(wrappers[k]) for k in ROUTED}
 params = torch.load(d / f"{weights}.params.pt", weights_only=False)  # written by chip_smoke.py
 inputs = torch.load(d / f"{name}.inputs.pt")
@@ -5535,7 +5651,7 @@ def export_families_phase(dev, smi: str) -> dict:
                     if pipe is not None:
                         pipe.close()
     torch.cuda.empty_cache()
-    def count(got: dict, k: str):  # K4's, K5's, K7's and K10's with their routes
+    def count(got: dict, k: str):  # K4's, K5's, K7's, K9's and K10's with their routes
         n = got["launches"][k]
         return Launches(n, got["k7_routes"][k]) if k in got["k7_routes"] else n
 
@@ -5566,9 +5682,10 @@ def ptxas_lines() -> list:
     K7 and K6 on the tensor cores: K4, K5 and K7 are instantiations of one
     mma.sync tile body, K1, K4, K5 and K7 of one wgmma kernel, told apart
     by their source and their tag), the banded (bf16 K10 on the tensor
-    cores: banded_wgmma_kernel at dh 64) and the int8 kernels from ptxas's
-    report; then every line where ptxas says that it serialized a kernel's
-    wgmma products."""
+    cores: banded_wgmma_kernel at dh 64) and the int8 kernels (K3 and K9:
+    packed_attention_int8_wgmma_kernel at dh 64, packed_attention_int8_kernel
+    at the other head sizes) from ptxas's report; then every line where
+    ptxas says that it serialized a kernel's wgmma products."""
     from msvit_tpu_torch.ops import _build
 
     kernels = (r"attention_wgmma_kernel|"
@@ -5585,8 +5702,7 @@ def ptxas_lines() -> list:
             "flash_bwd_dkv_kernel": "K6", "flash_forward_kernel": "K7/K7-lse",
             "flash_bwd_dq_mma_kernel": "K6", "flash_bwd_dkv_mma_kernel": "K6",
             "flash_bwd_dq_wgmma_kernel": "K6", "flash_bwd_dkv_wgmma_kernel": "K6",
-            "banded_kernel": "K10", "banded_mma_kernel": "K10", "banded_wgmma_kernel": "K10",
-            "packed_attention_int8_kernel": None}
+            "banded_kernel": "K10", "banded_mma_kernel": "K10", "banded_wgmma_kernel": "K10"}
     out, name, unit, serialized = [], None, None, []
     for line in _build.ptxas_report().read_text().splitlines():
         if line.startswith("$ "):  # the nvcc command of the next source
@@ -5609,7 +5725,7 @@ def ptxas_lines() -> list:
                     kern == "flash_mma_kernel" and unit == "fused_attention"):
                 # K5-lse is K5 with an lse pointer; K4 is the SHAVED one
                 tag = "K4" if "Lb1E" in name else "K5/K5-lse"
-            elif kern == "packed_attention_int8_kernel":
+            elif kern.startswith("packed_attention_int8"):  # mma.sync or wgmma
                 tag = "K9" if "Lb1E" in name else "K3"
             elif kern == "attention_wgmma_kernel":  # by its source and its tag
                 tag = {"packed_attention": "K1", "flash_attention": "K7/K7-lse"}.get(
@@ -5769,18 +5885,18 @@ def main() -> None:
         for k, name, cu, tpu in row_keys
     ]
     # the routed kernels' rows split their launches by route: the main
-    # path's trunks are at head size 64, so every bf16 launch took the wgmma
-    # route (K1, K5, K5-lse, K6, K7 and K10 also run f32 calls, on the CUDA
-    # cores)
+    # path's trunks are at head size 64, so every bf16 and int8 launch took
+    # the wgmma route (K1, K5, K5-lse, K6, K7 and K10 also run f32 calls, on
+    # the CUDA cores)
     for row in rows:
         k = next(k for k, name, *_ in row_keys if name == row["name"])
-        if k not in ("K1", "K1-lse", "K2", "K4", "K5", "K5-lse", "K6", "K7", "K8a",
-                     "K8a-lse", "K8b", "K10"):
+        if k not in ("K1", "K1-lse", "K2", "K3", "K4", "K5", "K5-lse", "K6", "K7", "K8a",
+                     "K8a-lse", "K8b", "K9", "K10"):
             continue
         routes = getattr(launches[k], "routes", None)
         if routes is None or routes["mma.sync"] or not routes["wgmma"]:
             raise AssertionError(f"{k}: launches {row['launches']}, by route "
-                                 f"{routes}: a bf16 launch off wgmma")
+                                 f"{routes}: a bf16 or int8 launch off wgmma")
         row["launches_by_route"] = routes
     log(f"[total] chip_smoke.py ran in {time.perf_counter() - started:.1f} s, the kernels' "
         f"build included ({smi})")

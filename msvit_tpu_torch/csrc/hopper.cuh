@@ -199,6 +199,83 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// ------------------------------------------------------- 8-bit (s8) --
+//
+// An s8 head row is 64 bytes, half a bf16 one: its tiles take the 64-byte
+// swizzle (CU_TENSOR_MAP_SWIZZLE_64B, descriptor layout 2), whose atom is
+// 8 rows of 64 bytes (512 bytes): the 16-byte chunk c of row r sits at
+// chunk c ^ ((r / 2) % 4) (address bits 4-5 XOR bits 7-8).  A tile of 64
+// rows is 4096 bytes and starts on a 512-byte boundary (base offset 0).
+// 8-bit wgmma has no transpose: both operands are K-major, the k-step of
+// 32 bytes is +32 bytes on the start address, inside the atom.
+
+// Bytes of one [64 rows][64 s8] swizzled tile.
+constexpr int kTileBytesS8 = 64 * 64;
+
+__device__ __forceinline__ uint64_t desc_s8(const void* tile) {
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |  // leading: 16 B (unused)
+         (uint64_t{512 >> 4} << 32) |                    // stride: 8-row groups
+         (uint64_t{2} << 62);                            // 64-byte swizzle
+}
+
+// The byte offset of (row r, byte c) of a 64-byte-swizzled s8 tile.
+__host__ __device__ __forceinline__ int swizzle64(int r, int c) {
+  return r * 64 + ((((c >> 4) ^ (r >> 1)) & 3) << 4) + (c & 15);
+}
+
+#define MSVIT_I32(d)                                                          \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),     \
+      "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),            \
+      "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),        \
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),        \
+      "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),        \
+      "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),        \
+      "+r"(d[31])
+
+// d[64 x 64] (+)= A[64 x 32] . B[32 x 64] in s8 with s32 sums (exact),
+// both from shared memory, K-major; `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " MSVIT_R32
+      ", %32, %33, p;\n"
+      "}\n"
+      : MSVIT_I32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 32] . B[32 x 64] in s8: A from registers (four s8
+// a register, mma.m16n8k32's A layout within each warp's 16 rows), B from
+// shared memory, K-major.
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " MSVIT_R32
+      ", {%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : MSVIT_I32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void fence_acc(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before the
+// async proxy's reads of them (a wgmma operand written by threads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+#undef MSVIT_I32
 #undef MSVIT_D32
 #undef MSVIT_R32
 
@@ -361,6 +438,63 @@ inline cudaError_t map_heads(CUtensorMap* map, const void* base, int b, int h, i
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a packed int8 tensor [B, N, W] (qkv_q: W = 3D): dims (W, N,
+// B), pitches W and N*W bytes, box (64, 64, 1) = one head's 64 bytes of 64
+// rows, 64-byte swizzle.  A box past row N is zero-filled inside its own
+// image.  A base off 16 bytes or a pitch that is not a multiple of 16
+// bytes is refused (cudaErrorInvalidValue), never read another way.
+inline cudaError_t map_rows_s8(CUtensorMap* map, const void* base, int b, int n,
+                               long long w) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || w % 16 != 0)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(w),
+                                 static_cast<cuuint64_t>(w) * n};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base),
+                         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of an attention mask [Bm, Hm, N, N] (bool bytes, esize 1, or
+// bf16 entries, esize 2) through its element strides (image sb, head sh,
+// row sr; the keys contiguous): dims (N keys, N rows, Hm, Bm), box (64
+// keys, `rows`, 1, 1), the 64-byte swizzle for bool's 64-byte box rows and
+// the 128-byte one for bf16's.  Keys and rows past N are zero-filled.  A
+// dim of size 1 is never stepped and takes the packed pitch.  A base off 16
+// bytes, or a pitch that is not a positive multiple of 16 bytes, is refused
+// (cudaErrorInvalidValue).
+inline cudaError_t map_mask(CUtensorMap* map, const void* base, int esize, int bm, int hm,
+                            int n, long long sb, long long sh, long long sr, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  if (hm == 1) sh = sr * n;
+  if (bm == 1) sb = sh * hm;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorInvalidValue;
+  const long long pitches[3] = {sr, sh, sb};
+  for (const long long p : pitches)
+    if (p <= 0 || (p * esize) % 16 != 0) return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(hm), static_cast<cuuint64_t>(bm)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sr * esize),
+                                 static_cast<cuuint64_t>(sh * esize),
+                                 static_cast<cuuint64_t>(sb * esize)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
+      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      esize == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

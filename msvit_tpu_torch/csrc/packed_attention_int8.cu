@@ -1,5 +1,5 @@
 // Fully-int8 packed self-attention for the serving path: K3 and K9, on the
-// int8 tensor cores.
+// int8 tensor cores (head size 64: `attention_int8_wgmma.cuh`).
 //
 // K3 replaces the TPU kernel `msvit_tpu/ops/packed_attention.py::
 // packed_attention_int8` (body `_kernel_int8`).  Same contract: int8 q|k|v
@@ -39,7 +39,8 @@
 // truncating cast, the max) runs on the CUDA cores and is what the kernel
 // spends most of its time on.
 //
-// The design (packed_attention_int8_kernel, both kernels, MASKED for K9):
+// The design at head sizes other than 64 (packed_attention_int8_kernel,
+// both kernels, MASKED for K9):
 // warp-level mma.sync m16n8k32 with s8 operands and s32 accumulators, so
 // both products are exact integers whatever the order of their sums.  A
 // block of 4 warps takes 64 query rows (16 a warp) of one (head, image); q
@@ -107,19 +108,27 @@
 //      templated on <int DHT, bool MASKED>: K9's instantiations carry
 //      MASKED's mangled `Lb1E`, which `chip_smoke.py` reads.
 // Shared memory at dh 64: q 5 KB, two stages of k and v rows 20 KB, and
-// K9's two mask tiles (bool 10 KB, bf16 18 KB).  wgmma with TMA and warp
-// specialisation is the later step.
+// K9's two mask tiles (bool 10 KB, bf16 18 KB).
+//
+// The route is the entry point's: head size 64 (every zoo trunk but
+// vit-h14) takes `packed_attention_int8_wgmma_kernel`
+// (`attention_int8_wgmma.cuh`: s8 wgmma fed by TMA, warp-specialised and
+// persistent, the same contract; its note has the design), every other
+// head size the mma.sync kernel below.  There is no fallback between them:
+// a qkv_q that TMA cannot map is refused.  The mma.sync kernel took
+// 0.1061-0.1080 ms alone at [64, 197, 2304] and 0.2197-0.2220 ms at
+// [8, 816, 2304] with the 224 partition's soft mask (int8 out; NVIDIA H100
+// 80GB HBM3, 700 W).
 
 #include <limits.h>
 
 #include <atomic>
 
-#include "common.cuh"
+#include "attention_int8_wgmma.cuh"
 
 namespace msvit {
 namespace {
 
-constexpr float kLn127 = 4.8441870864585885f;  // exp(s - m + ln 127) = 127 p
 constexpr uint32_t kOnes8 = 0x01010101u;       // an s8 B fragment of ones
 
 // Bytes per shared row of an int8 head tile (q, k and the staged v rows):
@@ -159,8 +168,8 @@ packed_attention_int8_kernel(const int8_t* __restrict__ qkv,
                              const void* __restrict__ mask,
                              void* __restrict__ out, int int8_out, int n,
                              int h_count, int dh, int mask_kind,
-                             long long mask_sb, long long mask_sh, float scale,
-                             float mask_value) {
+                             long long mask_sb, long long mask_sh, long long mask_sr,
+                             float scale, float mask_value) {
   constexpr int LDB = s8_ld<DHT>();
   constexpr int KT = kMmaTile;  // keys per staged tile
   constexpr int NT = KT / 8;    // score n-tiles per tile
@@ -182,7 +191,7 @@ packed_attention_int8_kernel(const int8_t* __restrict__ qkv,
   const int8_t* img = qkv + static_cast<long long>(b) * n * row;
   const bool wide = dh % 16 == 0;
   const int mrow = MASKED ? mask_row_bytes(mask_kind, false, 2) : 0;
-  const MaskStage mstage(mask, MASKED ? mask_kind : kNoMask, n, mask_sb, mask_sh, n,
+  const MaskStage mstage(mask, MASKED ? mask_kind : kNoMask, n, mask_sb, mask_sh, mask_sr,
                          b, h, 2);
 
   if (dh < DHT) {  // q's pad columns: zero once
@@ -432,7 +441,7 @@ cudaError_t allow_smem() {
 template <int DHT, bool MASKED>
 cudaError_t launch(const void* qkv, const float* sc, const void* mask, void* out,
                    int int8_out, int b, int n, int h, int dh, int mask_kind,
-                   long long sb, long long sh, float scale, float mask_value,
+                   long long sb, long long sh, long long sr, float scale, float mask_value,
                    cudaStream_t stream) {
   const cudaError_t err = allow_smem<DHT, MASKED>();
   if (err != cudaSuccess) return err;
@@ -440,26 +449,31 @@ cudaError_t launch(const void* qkv, const float* sc, const void* mask, void* out
   const dim3 grid(h, (n + kMmaRows - 1) / kMmaRows, b);
   packed_attention_int8_kernel<DHT, MASKED><<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const int8_t*>(qkv), sc, mask, out, int8_out, n, h, dh, mask_kind,
-      sb, sh, scale, mask_value);
+      sb, sh, sr, scale, mask_value);
   return cudaGetLastError();
 }
 
 template <bool MASKED>
 int run(const void* qkv, const void* sc, const void* mask, void* out,
         int int8_out, int b, int n, int h, int dh, int mask_kind,
-        long long mask_sb, long long mask_sh, float scale, float mask_value,
-        void* stream) {
+        long long mask_sb, long long mask_sh, long long mask_sr, float scale,
+        float mask_value, void* stream) {
   if (dh <= 0 || dh > 128 || dh % 8 != 0 || n <= 0 || b <= 0 || h <= 0 ||
       b > 65535 || (n + kMmaRows - 1) / kMmaRows > 65535 || mask_kind < 0 ||
-      mask_kind > 2 || (mask_kind != kNoMask && mask == nullptr))
+      mask_kind > 2 || (mask_kind != kNoMask && (mask == nullptr || mask_sr < n)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f = static_cast<const float*>(sc);
+  if (dh == 64) {
+    const Int8Args a{f, mask, out, mask_sb, mask_sh, mask_sr, int8_out, b, n, h, scale,
+                     mask_value};
+    return static_cast<int>(launch_int8_wgmma<MASKED>(qkv, a, mask_kind, s));
+  }
   if (dh <= 32)
-    return static_cast<int>(launch<32, MASKED>(qkv, f, mask, out, int8_out, b, n, h, dh, mask_kind, mask_sb, mask_sh, scale, mask_value, s));
+    return static_cast<int>(launch<32, MASKED>(qkv, f, mask, out, int8_out, b, n, h, dh, mask_kind, mask_sb, mask_sh, mask_sr, scale, mask_value, s));
   if (dh <= 64)
-    return static_cast<int>(launch<64, MASKED>(qkv, f, mask, out, int8_out, b, n, h, dh, mask_kind, mask_sb, mask_sh, scale, mask_value, s));
-  return static_cast<int>(launch<128, MASKED>(qkv, f, mask, out, int8_out, b, n, h, dh, mask_kind, mask_sb, mask_sh, scale, mask_value, s));
+    return static_cast<int>(launch<64, MASKED>(qkv, f, mask, out, int8_out, b, n, h, dh, mask_kind, mask_sb, mask_sh, mask_sr, scale, mask_value, s));
+  return static_cast<int>(launch<128, MASKED>(qkv, f, mask, out, int8_out, b, n, h, dh, mask_kind, mask_sb, mask_sh, mask_sr, scale, mask_value, s));
 }
 
 template <int DHT, bool MASKED>
@@ -473,6 +487,7 @@ cudaError_t blocks_per_sm(int mask_kind, int* blocks) {
 
 template <bool MASKED>
 cudaError_t occupancy(int dh, int mask_kind, int* blocks) {
+  if (dh == 64) return int8_wgmma_blocks_per_sm<MASKED>(mask_kind, blocks);
   if (dh <= 32) return blocks_per_sm<32, MASKED>(mask_kind, blocks);
   if (dh <= 64) return blocks_per_sm<64, MASKED>(mask_kind, blocks);
   return blocks_per_sm<128, MASKED>(mask_kind, blocks);
@@ -484,33 +499,38 @@ cudaError_t occupancy(int dh, int mask_kind, int* blocks) {
 extern "C" {
 
 // K3.  qkv: int8 [B, N, 3*h*dh], 16-byte aligned; scales: float32[4] on the
-// device; out: int8 or bfloat16 [B, N, h*dh].  Returns cudaGetLastError()
-// after the launch.
+// device; out: int8 or bfloat16 [B, N, h*dh].  Head size 64 takes the wgmma
+// kernel, every other head size the mma.sync one.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue, nothing
+// launched, where TMA cannot map qkv at head size 64).
 int msvit_packed_attention_int8(const void* qkv, const void* scales,
                                 void* out, int int8_out, int b, int n, int h,
                                 int dh, float scale, void* stream) {
   return msvit::run<false>(qkv, scales, nullptr, out, int8_out, b, n, h, dh, 0,
-                           0, 0, scale, 0.f, stream);
+                           0, 0, 0, scale, 0.f, stream);
 }
 
 // K9: as msvit_packed_attention_int8, plus a mask.  mask_kind: 0 none, 1 bool
-// (one byte per entry), 2 additive bfloat16; mask_sb / mask_sh its image
-// and head strides in elements (0 where broadcast), its last two dims
-// contiguous [N, N].
+// (one byte per entry), 2 additive bfloat16; mask_sb / mask_sh / mask_sr its
+// image, head and row strides in elements (image and head 0 where
+// broadcast; row >= N), the keys of a row contiguous.  At head size 64 TMA
+// reads it: its base on 16 bytes and its pitches multiples of 16 bytes,
+// else cudaErrorInvalidValue.
 int msvit_packed_attention_int8_masked(const void* qkv, const void* scales,
                                        const void* mask, void* out,
                                        int int8_out, int b, int n, int h,
                                        int dh, int mask_kind, long long mask_sb,
-                                       long long mask_sh, float scale,
+                                       long long mask_sh, long long mask_sr, float scale,
                                        float mask_value, void* stream) {
   return msvit::run<true>(qkv, scales, mask, out, int8_out, b, n, h, dh,
-                          mask_kind, mask_sb, mask_sh, scale, mask_value,
+                          mask_kind, mask_sb, mask_sh, mask_sr, scale, mask_value,
                           stream);
 }
 
 // Blocks of K3 (masked 0) or K9 (masked 1, with this mask_kind) resident on
-// one SM at head size dh, by the runtime's occupancy calculator (registers
-// and shared memory), into *blocks.
+// one SM at head size dh (the wgmma kernel at 64, else the mma.sync one), by
+// the runtime's occupancy calculator (registers and shared memory), into
+// *blocks.
 int msvit_packed_attention_int8_occupancy(int dh, int masked, int mask_kind,
                                           int* blocks) {
   if (dh <= 0 || dh > 128 || mask_kind < 0 || mask_kind > 2 || blocks == nullptr)

@@ -77,9 +77,9 @@ _SIGNATURES = {
     "msvit_banded_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL,
                                _LL, _P],
     # qkv_q, scales[4], mask, out, int8_out, b, n, h, dh, mask_kind, mask_sb,
-    # mask_sh, scale, mask_value, stream
+    # mask_sh, mask_sr, scale, mask_value, stream
     "msvit_packed_attention_int8_masked": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                           _I, _LL, _LL, _F, _F, _P],
+                                           _I, _LL, _LL, _LL, _F, _F, _P],
     # wgmma, dh, blocks (out): K1-lse's bf16 blocks per SM
     "msvit_packed_attention_lse_occupancy": [_I, _I, ctypes.POINTER(_I)],
     # wgmma, which (0 dQ, 1 dK/dV), dh, blocks (out): K2's bf16 blocks per SM

@@ -39,9 +39,18 @@ cotangent alone is copied where TMA cannot take it (`tma_heads_operand`).
 * `packed_attention_int8_masked` — K9, the TPU kernel
   `_packed_int8_grouped`: K3 with a mask, the pre-scaled exp and the
   integer row sum (the multistate trunk's `attn_mode="int8"`).  Kernel: a
-  second entry point of `csrc/packed_attention_int8.cu` (K3's kernel with
-  the mask staged as a tile).  The TPU's head-pair grid and its VMEM gate
-  (`int8_grouped_vmem_ok`) are not ported: the port takes any N.
+  second entry point of `csrc/packed_attention_int8.cu`.  The TPU's
+  head-pair grid and its VMEM gate (`int8_grouped_vmem_ok`) are not
+  ported: the port takes any N.
+
+K3 and K9 take one of two routes, by `int8_kernel_route`: head size 64 the
+Hopper kernel on s8 `wgmma` fed by TMA (`csrc/attention_int8_wgmma.cuh`),
+other head sizes the `mma.sync` kernel.  Both count their launches by route
+(`route_counts()["K3"]`, `["K9"]`).  The wgmma route's TMA map is 3-D over
+the packed int8 qkv with a 64-byte swizzle (`tma_map_int8`): a qkv whose
+base or pitch TMA cannot take raises a `ValueError`.  K9's mask rides the
+same ring by TMA (`int8_mask_operand` pads the wrapper's copy of it where N
+needs it).  P.V's V^T is written in the key order of `int8_pv_key_order`.
 
 K1, K1-lse and K2 also stand for the TPU's head-grouped functions, which
 compute the same thing on a (B, H/2) grid for 512 to ~1100 tokens (the
@@ -292,6 +301,66 @@ def tma_heads_operand(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def int8_kernel_route(dh: int) -> str:
+    """The kernel route of K3 and K9 on the card: "wgmma" at head size 64
+    (s8 warpgroup products fed by TMA), "mma.sync" at any other head size
+    that is a multiple of 8 and at most 128.  The C entry points take the
+    same rule."""
+    if dh % 8 or not 0 < dh <= 128:
+        raise ValueError(f"head size {dh} unsupported (a multiple of 8, <= 128)")
+    return "wgmma" if dh == 64 else "mma.sync"
+
+
+TMA_BOX_S8 = (64, 64, 1)  # (head bytes, rows, images) of one int8 tile
+TMA_SWIZZLE_S8 = 64  # bytes: one 64-byte s8 head row
+
+
+def tma_map_int8(shape, data_ptr: int) -> dict:
+    """The geometry of the 3-D TMA map the int8 wgmma kernel (K3, K9 at
+    head size 64) builds over a packed int8 [B, N, W] qkv (W = 3D;
+    `csrc/hopper.cuh::map_rows_s8`): dims (W, N, B) innermost first,
+    pitches in bytes (W, N W), the box `TMA_BOX_S8` (one head's 64 bytes of
+    64 rows), a 64-byte swizzle; rows past N are zero-filled inside their
+    image.  Raises `ValueError` where TMA cannot take the tensor: a base off
+    16 bytes, a row pitch that is not a multiple of 16 bytes."""
+    b, n, w = shape
+    if data_ptr % 16:
+        raise ValueError(f"TMA: the tensor's base {data_ptr:#x} is not 16-byte aligned")
+    if w % 16:
+        raise ValueError(f"TMA: row pitch {w} bytes ([{b}, {n}, {w}] int8) is not a "
+                         f"multiple of 16")
+    return {"dims": (w, n, b), "pitches": (w, w * n), "box": TMA_BOX_S8,
+            "box_bytes": TMA_BOX_S8[0] * TMA_BOX_S8[1], "swizzle": TMA_SWIZZLE_S8}
+
+
+def int8_mask_operand(m: torch.Tensor) -> torch.Tensor:
+    """K9's mask on the wgmma route as its TMA map reads it (`csrc/hopper.cuh::
+    map_mask`): `m` ([B|1, 1|H, N, N] contiguous, bool bytes as uint8 or
+    bf16) where its base is on 16 bytes and its rows are a multiple of 16
+    bytes, else a copy of it whose rows are zero-padded to the next multiple
+    of 16 bytes (N % 8 != 0 in bf16, N % 16 != 0 in bool): the kernel reads
+    it through its row stride and never past key N."""
+    n = m.shape[-1]
+    step = 16 // m.element_size()
+    if m.data_ptr() % 16 == 0 and n % step == 0:
+        return m
+    padded = m.new_zeros(*m.shape[:-1], -(-n // step) * step)
+    padded[..., :n] = m
+    return padded
+
+
+def int8_pv_key_order() -> Tuple[int, ...]:
+    """The keys of one 32-key k-step of the int8 wgmma kernel's P.V, by
+    logical position: position 4t + i of the s8 A fragment holds key
+    (2t, 2t+1, 8+2t, 9+2t)[i] and position 16 + 4t + i key 16 + the same,
+    because each lane (g, t) packs its own s32 accumulator values (keys
+    8j+2t, 8j+2t+1) with no shuffle; V^T's bytes of each head column are
+    written in the same order (`csrc/attention_int8_wgmma.cuh::
+    int8_transpose_v`), so the product over keys is P.V exactly."""
+    half = [k for t in range(4) for k in (2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t)]
+    return tuple(half + [16 + k for k in half])
+
+
 def head_columns(num_heads: int, h: int, dh: int = 64) -> Tuple[int, int, int]:
     """The first element column of head h's q, k and v boxes in a packed
     [B, N, 3D] row (D = num_heads * dh): h dh, D + h dh, 2D + h dh."""
@@ -327,15 +396,18 @@ def _routed() -> dict:
         fused_attention, fused_attention_inference, fused_attention_lse)
 
     return {"K1": packed_attention, "K1-lse": packed_attention_lse,
-            "K2": packed_attention_bwd, "K4": fused_attention_inference,
+            "K2": packed_attention_bwd, "K3": packed_attention_int8,
+            "K4": fused_attention_inference,
             "K5": fused_attention, "K5-lse": fused_attention_lse,
             "K6": flash_attention_bwd, "K7": flash_attention,
-            "K7-lse": flash_attention_lse, "K10": token_rows}
+            "K7-lse": flash_attention_lse, "K9": packed_attention_int8_masked,
+            "K10": token_rows}
 
 
 def route_counts() -> dict:
-    """{"K1": {route: launches}, "K1-lse": ..., "K2", "K4", "K5", "K5-lse",
-    "K6", "K7", "K7-lse", "K10"} since each wrapper's `zero_counts`."""
+    """{"K1": {route: launches}, "K1-lse": ..., "K2", "K3", "K4", "K5",
+    "K5-lse", "K6", "K7", "K7-lse", "K9", "K10"} since each wrapper's
+    `zero_counts`."""
     return {k: routes_of(fn) for k, fn in _routed().items()}
 
 
@@ -708,6 +780,19 @@ def packed_attention_int8_plain(
     return merge_heads(o)
 
 
+def _check_int8_route(name: str, qkv_q: torch.Tensor, dh: int) -> str:
+    """K3's and K9's route for a qkv_q on the card; on the wgmma route its
+    TMA map must take it (`tma_map_int8`: a `ValueError` otherwise, never
+    a copy)."""
+    route = int8_kernel_route(dh)
+    if route == "wgmma":
+        try:
+            tma_map_int8(qkv_q.shape, qkv_q.data_ptr())
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+    return route
+
+
 def _packed_attention_k3(
     qkv_q: torch.Tensor,
     section_scales: torch.Tensor,
@@ -727,6 +812,7 @@ def _packed_attention_k3(
         )
     b, n, d, dh = _dims(qkv_q, num_heads)
     _check_cuda(qkv_q, "packed_attention_int8", dh, dtypes=(torch.int8,))
+    route = _check_int8_route("packed_attention_int8", qkv_q, dh)
     sc = _int8_scales(section_scales, out_inv_scale, qkv_q.device)
     out = torch.empty(
         (b, n, d), dtype=torch.int8 if int8_out else torch.bfloat16,
@@ -740,7 +826,7 @@ def _packed_attention_k3(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, "packed_attention_int8")
-    packed_attention_int8.launches += 1
+    _count_route(packed_attention_int8, route)
     return out
 
 
@@ -789,7 +875,7 @@ def packed_attention_int8(
         bool(int8_out))
 
 
-packed_attention_int8.launches = 0
+zero_counts(packed_attention_int8)
 
 
 # ---------------------------------------------------------------- K9 ----
@@ -858,7 +944,14 @@ def _packed_attention_k9(
     b, n, d, dh = _dims(qkv_q, num_heads)
     name = "packed_attention_int8_masked"
     _check_cuda(qkv_q, name, dh, dtypes=(torch.int8,))
+    route = _check_int8_route(name, qkv_q, dh)
     kind, m, sb, sh = _mask_args(mask, qkv_q, num_heads, name, additive=torch.bfloat16)
+    sr = n
+    if m is not None and route == "wgmma":
+        m = int8_mask_operand(m)
+        sr = m.stride(2)
+        sb = m.stride(0) if m.shape[0] > 1 else 0
+        sh = m.stride(1) if m.shape[1] > 1 else 0
     sc = _int8_scales(section_scales, out_inv_scale, qkv_q.device)
     out = torch.empty(
         (b, n, d), dtype=torch.int8 if int8_out else torch.bfloat16,
@@ -868,11 +961,11 @@ def _packed_attention_k9(
     with torch.cuda.device(qkv_q.device):
         code = lib.msvit_packed_attention_int8_masked(
             qkv_q.data_ptr(), sc.data_ptr(), _ptr(m), out.data_ptr(), int(int8_out),
-            b, n, num_heads, dh, kind, sb, sh, float(scale), float(mask_value),
+            b, n, num_heads, dh, kind, sb, sh, sr, float(scale), float(mask_value),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, code, name)
-    packed_attention_int8_masked.launches += 1
+    _count_route(packed_attention_int8_masked, route)
     return out
 
 
@@ -921,4 +1014,4 @@ def packed_attention_int8_masked(
         bool(int8_out), float(mask_value))
 
 
-packed_attention_int8_masked.launches = 0
+zero_counts(packed_attention_int8_masked)

@@ -1816,6 +1816,111 @@ def test_k3_k9_deterministic(dev, mask):
     torch.cuda.synchronize()
 
 
+# --------------------------- K3 and K9 on s8 wgmma fed by TMA (dh 64) ----
+# One persistent kernel (`csrc/attention_int8_wgmma.cuh`) for both, items
+# of 128 query rows, 64-key tiles; K9's mask tile rides the K ring by TMA.
+# The cases sit on and around the tiles' and items' edges; every launch's
+# route is read from the route counters.
+
+
+def _int8_took(before, kernel, want):
+    """Since `before` (a `route_counts()`), `kernel`'s launches by route
+    are `want` and no other routed kernel launched."""
+    now = route_counts()
+    for k, counts in now.items():
+        got = {r: c - before[k][r] for r, c in counts.items()}
+        assert got == (want if k == kernel else {r: 0 for r in counts}), (k, got)
+
+
+@pytest.mark.parametrize("mask", [None, "bool", "additive", "additive_per_head",
+                                  "bool_batch"])
+@pytest.mark.parametrize("n", [63, 64, 65, 127, 129])
+def test_k3_k9_wgmma_tile_edges(dev, mask, n):
+    """K3 (no mask) and K9 at head size 64 on the wgmma route against their
+    plain versions at the tile edges, bf16 and int8 out (`_int8_bars`);
+    a bool mask's row 0 is fully masked: mean(V) over the N real keys; four
+    launches, each on wgmma."""
+    from msvit_tpu_torch.ops.packed_attention import int8_kernel_route
+
+    assert int8_kernel_route(64) == "wgmma"
+    q, sec = _int8(2, n, 12 * 64, dev, seed=70 + n)
+    m = _k9_mask(mask, 2, 12, n, dev, seed=71 + n)
+    before = route_counts()
+    got, want, got_q, want_q = _k9_case(q, sec, 12, m)
+    _int8_took(before, "K9", {"wgmma": 2, "mma.sync": 0, "cuda_cores": 0})
+    _int8_bars(got, want, got_q, want_q)
+    if mask is not None and mask.startswith("bool"):
+        assert (got[:, 0].float() - _mean_v(q, sec)).abs().max().item() <= (
+            2e-2 * want.float().abs().max().item())
+    if mask is None:
+        before = route_counts()
+        with torch.inference_mode():
+            got = packed_attention_int8(q, sec, 12)
+            want = packed_attention_int8_plain(q, sec, 12)
+            inv = 127.0 / want.float().abs().amax()
+            got_q = packed_attention_int8(q, sec, 12, out_inv_scale=inv, int8_out=True)
+            want_q = packed_attention_int8_plain(q, sec, 12, out_inv_scale=inv, int8_out=True)
+        torch.cuda.synchronize()
+        _int8_took(before, "K3", {"wgmma": 2, "mma.sync": 0, "cuda_cores": 0})
+        _int8_bars(got, want, got_q, want_q)
+
+
+@pytest.mark.parametrize("dh", [32, 128])
+def test_k3_k9_other_head_sizes_take_mma_sync(dev, dh):
+    """dh 32 and 128 stay on the mma.sync kernel, K3 and K9 alike."""
+    from msvit_tpu_torch.ops.packed_attention import int8_kernel_route
+
+    assert int8_kernel_route(dh) == "mma.sync"
+    h = 256 // dh
+    q, sec = _int8(2, 130, h * dh, dev, seed=72 + dh)
+    before = route_counts()
+    _int8_bars(*_k9_case(q, sec, h, _k9_mask("additive", 2, h, 130, dev, seed=73)))
+    _int8_took(before, "K9", {"wgmma": 0, "mma.sync": 2, "cuda_cores": 0})
+    before = route_counts()
+    with torch.inference_mode():
+        packed_attention_int8(q, sec, h)
+    torch.cuda.synchronize()
+    _int8_took(before, "K3", {"wgmma": 0, "mma.sync": 1, "cuda_cores": 0})
+
+
+@pytest.mark.parametrize("mask", [None, "bool", "additive"])
+def test_k3_k9_wgmma_same_bits_twice(dev, mask):
+    """Two calls on the wgmma route at a ragged N give the same bits (no
+    atomics; a lane's and its quad's sums in a fixed order), bf16 and int8
+    out."""
+    from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked
+
+    q, sec = _int8(3, 129, 12 * 64, dev, seed=74)
+    m = _k9_mask(mask, 3, 12, 129, dev, seed=75)
+    with torch.inference_mode():
+        for out8 in (False, True):
+            inv = torch.tensor(3.0, device=dev) if out8 else None
+            runs = [packed_attention_int8_masked(q, sec, 12, mask=m, out_inv_scale=inv,
+                                                 int8_out=out8) for _ in range(2)]
+            assert torch.equal(*runs)
+            if mask is None:
+                runs = [packed_attention_int8(q, sec, 12, out_inv_scale=inv, int8_out=out8)
+                        for _ in range(2)]
+                assert torch.equal(*runs)
+    torch.cuda.synchronize()
+
+
+def test_k3_k9_wgmma_refuse_a_misaligned_qkv(dev):
+    """A qkv_q whose base is off 16 bytes raises a ValueError on the wgmma
+    route, K3 and K9 alike; it is not copied and nothing launches."""
+    from msvit_tpu_torch.ops.packed_attention import packed_attention_int8_masked
+
+    flat = torch.zeros(8 + 2 * 5 * 3 * 128, dtype=torch.int8, device=dev)
+    q = flat[8:].view(2, 5, 3 * 128)
+    sec = torch.full((3,), 0.01, device=dev)
+    before = route_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        packed_attention_int8(q, sec, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        packed_attention_int8_masked(q, sec, 2, mask=torch.zeros(2, 1, 5, 5, device=dev))
+    _int8_took(before, None, {})
+
+
 # ------------------------------------------------------------------ K10
 
 

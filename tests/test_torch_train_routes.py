@@ -97,7 +97,7 @@ def test_head_columns_address_the_packed_sections(h):
 
 def test_route_counters_and_the_cpu_path():
     """The wrappers take the plain versions on the CPU and count no launch;
-    `zero_counts` zeroes every route's count of the ten kernels."""
+    `zero_counts` zeroes every route's count of the twelve kernels."""
     from msvit_tpu_torch.ops import banded_attention as ba
     from msvit_tpu_torch.ops import flash_attention as fl
     from msvit_tpu_torch.ops import fused_attention as fa
@@ -105,12 +105,14 @@ def test_route_counters_and_the_cpu_path():
     routed = (pa.packed_attention, pa.packed_attention_lse, pa.packed_attention_bwd,
               fa.fused_attention_inference, fa.fused_attention, fa.fused_attention_lse,
               fl.flash_attention_bwd, fl.flash_attention, fl.flash_attention_lse,
-              ba.token_rows)
+              ba.token_rows, pa.packed_attention_int8, pa.packed_attention_int8_masked)
     pa.packed_attention_lse.wgmma_launches = 3
     fl.flash_attention.mma_launches = 2
     fa.fused_attention.mma_launches = 4
     fl.flash_attention_bwd.wgmma_launches = 5
     ba.token_rows.wgmma_launches = 6
+    pa.packed_attention_int8.wgmma_launches = 7
+    pa.packed_attention_int8_masked.mma_launches = 8
     pa.zero_counts(*routed)
     x = torch.randn(1, 7, 3 * 2 * 64)
     out, lse = pa.packed_attention_lse(x, 2)
@@ -126,9 +128,14 @@ def test_route_counters_and_the_cpu_path():
         fl.flash_attention_bwd(q, k, v, o, torch.randn_like(o), lse)
         ba.token_rows(torch.randn(1, 2 + 7, 3 * 2 * 64), torch.zeros(1, 7, dtype=torch.long),
                       2, 1)
+        xq = torch.randint(-127, 128, (1, 7, 3 * 2 * 64), dtype=torch.int8)
+        sec = torch.tensor([0.01, 0.02, 0.03])
+        pa.packed_attention_int8(xq, sec, 2)
+        pa.packed_attention_int8_masked(xq, sec, 2, mask=torch.zeros(1, 1, 7, 7))
     zero = {r: 0 for r in pa.ROUTES}
-    assert pa.route_counts() == {k: zero for k in ("K1", "K1-lse", "K2", "K4", "K5",
-                                                   "K5-lse", "K6", "K7", "K7-lse", "K10")}
+    assert pa.route_counts() == {k: zero for k in ("K1", "K1-lse", "K2", "K3", "K4", "K5",
+                                                   "K5-lse", "K6", "K7", "K7-lse", "K9",
+                                                   "K10")}
     assert all(fn.launches == 0 for fn in routed)
 
 
