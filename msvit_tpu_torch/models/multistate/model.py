@@ -58,6 +58,7 @@ from msvit_tpu_torch.models.clustering import cluster, max_children_bound
 from msvit_tpu_torch.models.multistate.config import MultiStateViTConfig
 from msvit_tpu_torch.ops.banded_attention import BandedSegments
 from msvit_tpu_torch.utils.math import multiclass_logits
+from msvit_tpu_torch.utils.profiling import span
 from msvit_tpu_torch.utils.rng import Rng, draw_seed, fold_in
 
 
@@ -101,16 +102,18 @@ def soft_mask(mask: torch.Tensor, config: MultiStateViTConfig) -> torch.Tensor:
 
 def recluster(config: MultiStateViTConfig, hidden: torch.Tensor,
               cluster_indices: torch.Tensor, cluster_tokens: torch.Tensor,
-              key, parents_bound: int):
-    """One clustering event: the children of every current cluster, the
-    parents' TX/RX pairs duplicated onto them.  Returns (cluster_indices
-    [B, N], cluster_tokens [B, C, 2, D], n_clusters [] or [B], the next
-    call's static parent bound)."""
+              key, parents_bound: int, layer: Optional[int] = None):
+    """One clustering event (before layer `layer`): the children of every
+    current cluster, the parents' TX/RX pairs duplicated onto them.  Returns
+    (cluster_indices [B, N], cluster_tokens [B, C, 2, D], n_clusters [] or
+    [B], the next call's static parent bound).  The clustering call is the
+    span `msvit.recluster` (attr `layer`)."""
     c = config.max_clusters
     b, _, d = hidden.shape
-    child_indices, n_children = cluster(
-        config.clustering, cluster_indices, hidden.detach().float(), key,
-        max_parents=parents_bound)
+    with span("msvit.recluster", layer=layer):
+        child_indices, n_children = cluster(
+            config.clustering, cluster_indices, hidden.detach().float(), key,
+            max_parents=parents_bound)
     cum = n_children.cumsum(-1)
     ids = torch.arange(c, device=hidden.device)
     if n_children.ndim == 1:  # pooled: one parent map for the batch
@@ -218,7 +221,7 @@ class MultiStateViTEncoderBackbone(nn.Module):
                 h_orig = sort.unsort(hidden_states)
                 child, cluster_tokens, n_clusters, parents_bound = recluster(
                     cfg, h_orig, sort.unsort(cluster_indices), cluster_tokens, step_key,
-                    parents_bound)
+                    parents_bound, i)
                 if banded:
                     hidden_states, cluster_indices = sort.resort(child, h_orig)
                 else:
@@ -306,8 +309,9 @@ class MultiStateViTEncoderModel(nn.Module):
             base = draw_seed(generator)
             g_emb = torch.Generator(pixel_values.device).manual_seed(fold_in(base, 0))
             seed = fold_in(base, 1)
-        out = self.backbone(self.embeddings(pixel_values, generator=g_emb), rng=rng,
-                            seed=seed, **output_kwargs)
+        with span("msvit.forward"):
+            out = self.backbone(self.embeddings(pixel_values, generator=g_emb), rng=rng,
+                                seed=seed, **output_kwargs)
         if self.add_pooling_layer:
             out["cluster_tokens"] = out["last_cluster_tokens"][:, :, 0, :]
             out["receiver_to_transmitter_attentions"] = out[

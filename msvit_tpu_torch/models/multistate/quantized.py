@@ -57,6 +57,7 @@ from msvit_tpu_torch.ops.gelu import gelu_erf_tanh
 from msvit_tpu_torch.ops.packed_attention import (
     merge_heads, packed_attention_int8_masked, unpack_qkv)
 from msvit_tpu_torch.ops.quant import int8_matmul, int8_matmul_prequant, quantize_weight
+from msvit_tpu_torch.utils.profiling import span
 
 
 @torch.inference_mode()
@@ -106,113 +107,114 @@ def quantized_multistate_apply(
     kernels iff the pixels are on the card.  The position table is
     resampled to the pixels' patch grid wherever its length differs, as in
     JAX, where `interpolate_pos_encoding` only asks for what a differing
-    grid already implies."""
-    if attn_mode not in ("bf16", "int8", "banded"):
-        raise ValueError(f"attn_mode must be 'bf16', 'int8' or 'banded'; got {attn_mode}")
-    cfg = config
-    cfg.check_supported()
-    b = pixel_values.shape[0]
-    d, h = cfg.hidden_size, cfg.num_attention_heads
-    c = cfg.max_clusters
-    eps = cfg.layer_norm_eps
-    rng = as_rng(rng)
+    grid already implies.  The forward is the span `msvit.forward`."""
+    with span("msvit.forward"):
+        if attn_mode not in ("bf16", "int8", "banded"):
+            raise ValueError(f"attn_mode must be 'bf16', 'int8' or 'banded'; got {attn_mode}")
+        cfg = config
+        cfg.check_supported()
+        b = pixel_values.shape[0]
+        d, h = cfg.hidden_size, cfg.num_attention_heads
+        c = cfg.max_clusters
+        eps = cfg.layer_norm_eps
+        rng = as_rng(rng)
 
-    def mm(site, x, wp):
-        if _record_scales is not None:
-            _record_scales[site] = x.float().abs().amax() / 127.0
-        s = act_scales.get(site) if act_scales else None
-        return int8_matmul(x, wp["w"], wp["bias"], act_scale=s)
-
-    emb = qparams["embeddings"]
-    x = mm("patch", patchify(pixel_values, cfg.patch_size), emb["patch_projection"])
-    pos = grid_position_table(emb["position_embeddings"], cfg, pixel_values, False)
-    hidden = x + pos.to(x.dtype)
-    n = hidden.shape[1]
-    kernels = pixel_values.is_cuda if use_kernels is None else use_kernels
-    int8_attn = (attn_mode == "int8" and kernels and act_scales is not None
-                 and "attn_0" in act_scales and _record_scales is None)
-    banded = attn_mode == "banded" and _record_scales is None
-    sort = SortedTokens(banded, b, n, hidden.device)
-
-    bb = qparams["backbone"]
-    cluster_tokens = initial_cluster_tokens(
-        bb["transmitter_token"], bb["receiver_token"], b, c, hidden.dtype)
-    cluster_indices = torch.zeros((b, n), dtype=torch.long, device=hidden.device)
-    n_clusters = torch.ones((), dtype=torch.long, device=hidden.device)
-    mask = None if banded else build_multistate_attention_mask(cluster_indices, n_clusters, c)
-
-    rx_to_tx = None
-    parents_bound = 1
-    for i in range(cfg.num_hidden_layers):
-        if i >= cfg.pregeneration_period and i % cfg.generation_period == 0:
-            rng, step_key = rng.split(2)
-            h_orig = sort.unsort(hidden)
-            child, cluster_tokens, n_clusters, parents_bound = recluster(
-                cfg, h_orig, sort.unsort(cluster_indices), cluster_tokens, step_key,
-                parents_bound)
-            if banded:
-                hidden, cluster_indices = sort.resort(child, h_orig)
-            else:
-                cluster_indices = child
-                mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
-
-        concat = torch.cat([cluster_tokens.reshape(b, 2 * c, d), hidden], 1)
-        last = i == cfg.num_hidden_layers - 1
-        if banded and last:  # the last layer: dense, the mask over sorted tokens
-            mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
-        additive = None if mask is None else soft_mask(mask, cfg)
-        lp = bb["layers"][f"layer_{i}"]
-
-        y = _layer_norm(concat, lp["norm1"], eps)
-        if int8_attn and not last:
-            sec = act_scales[f"attn_{i}"]  # [3]: q | k | v
-            s_proj = act_scales[f"proj_{i}"]
-            qkv_q = int8_matmul(y, lp["qkv"]["w"], lp["qkv"]["bias"],
-                                act_scale=act_scales.get(f"qkv_{i}"),
-                                out_inv_scale=(1.0 / sec).repeat_interleave(d))
-            out_q = packed_attention_int8_masked(qkv_q, sec, h, mask=additive,
-                                                 out_inv_scale=1.0 / s_proj, int8_out=True)
-            out = int8_matmul_prequant(out_q, s_proj, lp["proj"]["w"], lp["proj"]["bias"])
-        else:
-            qkv = mm(f"qkv_{i}", y, lp["qkv"])  # [B, 2C+N, 3D] bf16
+        def mm(site, x, wp):
             if _record_scales is not None:
-                ys = qkv.float().reshape(-1, 3, d).abs().amax(0)
-                _record_scales[f"attn_{i}"] = ys.amax(-1) / 127.0
-            if banded and not last:
-                dh = d // h
-                qkv_s = torch.cat([qkv[:, :, :d] * torch.tensor(dh**-0.5, dtype=qkv.dtype),
-                                   qkv[:, :, d:]], -1)
-                o = multistate_banded_attention(qkv_s, BandedSegments(
-                    cluster_indices, n_clusters, c, cfg.attention_mask_inf), h)
-            else:
-                q, k, v = unpack_qkv(qkv, h)
-                if last:
-                    o, probs = xla_attention(q, k, v, mask=additive)
-                    rx_to_tx = probs[:, :, 1:2 * c:2, 0:2 * c:2]
-                elif kernels:
-                    o, _ = multi_head_attention(q, k, v, mask=additive,
-                                                implementation="auto", inference=True)
+                _record_scales[site] = x.float().abs().amax() / 127.0
+            s = act_scales.get(site) if act_scales else None
+            return int8_matmul(x, wp["w"], wp["bias"], act_scale=s)
+
+        emb = qparams["embeddings"]
+        x = mm("patch", patchify(pixel_values, cfg.patch_size), emb["patch_projection"])
+        pos = grid_position_table(emb["position_embeddings"], cfg, pixel_values, False)
+        hidden = x + pos.to(x.dtype)
+        n = hidden.shape[1]
+        kernels = pixel_values.is_cuda if use_kernels is None else use_kernels
+        int8_attn = (attn_mode == "int8" and kernels and act_scales is not None
+                     and "attn_0" in act_scales and _record_scales is None)
+        banded = attn_mode == "banded" and _record_scales is None
+        sort = SortedTokens(banded, b, n, hidden.device)
+
+        bb = qparams["backbone"]
+        cluster_tokens = initial_cluster_tokens(
+            bb["transmitter_token"], bb["receiver_token"], b, c, hidden.dtype)
+        cluster_indices = torch.zeros((b, n), dtype=torch.long, device=hidden.device)
+        n_clusters = torch.ones((), dtype=torch.long, device=hidden.device)
+        mask = None if banded else build_multistate_attention_mask(cluster_indices, n_clusters, c)
+
+        rx_to_tx = None
+        parents_bound = 1
+        for i in range(cfg.num_hidden_layers):
+            if i >= cfg.pregeneration_period and i % cfg.generation_period == 0:
+                rng, step_key = rng.split(2)
+                h_orig = sort.unsort(hidden)
+                child, cluster_tokens, n_clusters, parents_bound = recluster(
+                    cfg, h_orig, sort.unsort(cluster_indices), cluster_tokens, step_key,
+                    parents_bound, i)
+                if banded:
+                    hidden, cluster_indices = sort.resort(child, h_orig)
                 else:
-                    o, _ = xla_attention(q, k, v, mask=additive)
-                o = merge_heads(o)
-            out = mm(f"proj_{i}", o, lp["proj"])  # ls1 folded
-        concat = concat + out
+                    cluster_indices = child
+                    mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
 
-        y = _layer_norm(concat, lp["norm2"], eps)
-        y = gelu_erf_tanh(mm(f"fc1_{i}", y, lp["fc1"]))
-        concat = concat + mm(f"fc2_{i}", y, lp["fc2"])  # ls2 folded
+            concat = torch.cat([cluster_tokens.reshape(b, 2 * c, d), hidden], 1)
+            last = i == cfg.num_hidden_layers - 1
+            if banded and last:  # the last layer: dense, the mask over sorted tokens
+                mask = build_multistate_attention_mask(cluster_indices, n_clusters, c)
+            additive = None if mask is None else soft_mask(mask, cfg)
+            lp = bb["layers"][f"layer_{i}"]
 
-        cluster_tokens = concat[:, :2 * c].reshape(b, c, 2, d)
-        hidden = concat[:, 2 * c:]
+            y = _layer_norm(concat, lp["norm1"], eps)
+            if int8_attn and not last:
+                sec = act_scales[f"attn_{i}"]  # [3]: q | k | v
+                s_proj = act_scales[f"proj_{i}"]
+                qkv_q = int8_matmul(y, lp["qkv"]["w"], lp["qkv"]["bias"],
+                                    act_scale=act_scales.get(f"qkv_{i}"),
+                                    out_inv_scale=(1.0 / sec).repeat_interleave(d))
+                out_q = packed_attention_int8_masked(qkv_q, sec, h, mask=additive,
+                                                     out_inv_scale=1.0 / s_proj, int8_out=True)
+                out = int8_matmul_prequant(out_q, s_proj, lp["proj"]["w"], lp["proj"]["bias"])
+            else:
+                qkv = mm(f"qkv_{i}", y, lp["qkv"])  # [B, 2C+N, 3D] bf16
+                if _record_scales is not None:
+                    ys = qkv.float().reshape(-1, 3, d).abs().amax(0)
+                    _record_scales[f"attn_{i}"] = ys.amax(-1) / 127.0
+                if banded and not last:
+                    dh = d // h
+                    qkv_s = torch.cat([qkv[:, :, :d] * torch.tensor(dh**-0.5, dtype=qkv.dtype),
+                                       qkv[:, :, d:]], -1)
+                    o = multistate_banded_attention(qkv_s, BandedSegments(
+                        cluster_indices, n_clusters, c, cfg.attention_mask_inf), h)
+                else:
+                    q, k, v = unpack_qkv(qkv, h)
+                    if last:
+                        o, probs = xla_attention(q, k, v, mask=additive)
+                        rx_to_tx = probs[:, :, 1:2 * c:2, 0:2 * c:2]
+                    elif kernels:
+                        o, _ = multi_head_attention(q, k, v, mask=additive,
+                                                    implementation="auto", inference=True)
+                    else:
+                        o, _ = xla_attention(q, k, v, mask=additive)
+                    o = merge_heads(o)
+                out = mm(f"proj_{i}", o, lp["proj"])  # ls1 folded
+            concat = concat + out
 
-    return {
-        "last_hidden_state": sort.unsort(hidden),
-        "last_cluster_tokens": cluster_tokens,
-        "cluster_tokens": cluster_tokens[:, :, 0, :],
-        "last_cluster_indices": sort.unsort(cluster_indices),
-        "num_clusters": n_clusters,
-        "receiver_to_transmitter_attentions": rx_to_tx,
-    }
+            y = _layer_norm(concat, lp["norm2"], eps)
+            y = gelu_erf_tanh(mm(f"fc1_{i}", y, lp["fc1"]))
+            concat = concat + mm(f"fc2_{i}", y, lp["fc2"])  # ls2 folded
+
+            cluster_tokens = concat[:, :2 * c].reshape(b, c, 2, d)
+            hidden = concat[:, 2 * c:]
+
+        return {
+            "last_hidden_state": sort.unsort(hidden),
+            "last_cluster_tokens": cluster_tokens,
+            "cluster_tokens": cluster_tokens[:, :, 0, :],
+            "last_cluster_indices": sort.unsort(cluster_indices),
+            "num_clusters": n_clusters,
+            "receiver_to_transmitter_attentions": rx_to_tx,
+        }
 
 
 @torch.inference_mode()

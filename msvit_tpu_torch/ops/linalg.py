@@ -6,6 +6,8 @@ from typing import Tuple
 
 import torch
 
+from msvit_tpu_torch.utils.profiling import span
+
 
 def pca_lowrank(x: torch.Tensor, q: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Centered rank-q PCA of x [..., n, d] in f32: (U [..., n, q], S [..., q],
@@ -19,12 +21,14 @@ def pca_lowrank(x: torch.Tensor, q: int) -> Tuple[torch.Tensor, torch.Tensor, to
     xc = x - x.mean(-2, keepdim=True)
     n, d = xc.shape[-2:]
     if d <= n:
-        w, v = torch.linalg.eigh(xc.mT @ xc)  # ascending
+        with span("sync.eigh"):  # the host reads eigh's error code
+            w, v = torch.linalg.eigh(xc.mT @ xc)  # ascending
         v = v.flip(-1)[..., :q]
         s = w.flip(-1)[..., :q].clamp_min(0.0).sqrt()
         u = (xc @ v) / s.clamp_min(1e-8)[..., None, :]
     else:
-        w, u_full = torch.linalg.eigh(xc @ xc.mT)
+        with span("sync.eigh"):
+            w, u_full = torch.linalg.eigh(xc @ xc.mT)
         u = u_full.flip(-1)[..., :q]
         s = w.flip(-1)[..., :q].clamp_min(0.0).sqrt()
         v = (xc.mT @ u) / s.clamp_min(1e-8)[..., None, :]

@@ -25,9 +25,11 @@ bf16 x bf16 products are exact in f32.
 discretisation of the JAX package's debug path).
 
 `eigh` syncs the host with the card (PyTorch checks its error code on
-the host): once per call on the [2k, 2k] Rayleigh-Ritz matrix with
-`eig_method="subspace"`.  The Cholesky factorisations use
-`cholesky_ex`, which does not.
+the host): at least once per call on the [2k, 2k] Rayleigh-Ritz matrix
+with `eig_method="subspace"`; the span `sync.eigh` marks it.  The Cholesky
+factorisations use `cholesky_ex`, which does not.  Each batched draw from
+`Rng` keys also waits, for the copy of the keys' words to the card
+(`utils/rng.py`, `sync.key_words`).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from msvit_tpu_torch.ops.kmeans import gather_rows, gumbel_top_k, top_k_indices
+from msvit_tpu_torch.utils.profiling import span
 from msvit_tpu_torch.utils.rng import KeyRows, normal_rows
 
 
@@ -101,7 +104,8 @@ def _topk_eig_subspace(
     for _ in range(iters):
         q = ortho(m_norm @ q)
     h = q.mT @ (m_norm @ q)
-    vals, vecs = torch.linalg.eigh((h + h.mT) / 2.0)  # ascending
+    with span("sync.eigh"):
+        vals, vecs = torch.linalg.eigh((h + h.mT) / 2.0)  # ascending
     return q @ vecs.flip(-1)[..., :k], vals.flip(-1)[..., :k]
 
 
@@ -131,7 +135,8 @@ def _embed(
     if eig_method == "subspace":
         v, eigvals = _topk_eig_subspace(m_norm, num_eig, eig_keys, eig_iters)
     elif eig_method == "eigh":
-        ev, evec = torch.linalg.eigh(m_norm)  # ascending
+        with span("sync.eigh"):
+            ev, evec = torch.linalg.eigh(m_norm)  # ascending
         eigvals = ev.flip(-1)[..., :num_eig]
         v = evec.flip(-1)[..., :num_eig]
     else:

@@ -27,13 +27,27 @@ synchronous `.cpu()` copy, so the two threads agree whatever stream the
 apply function used.
 
 Latency is measured per request on a monotonic clock (queued -> result
-on the host) and reported as p50/p95/p99 by `stats()`.
+on the host) and reported as p50/p95/p99 by `stats()`, beside each
+request's queue wait (queued -> its batch's launch) and the share of
+launched rows that were padding.  `stats()` covers every request the
+server has completed: it keeps 16 bytes a request.
+
+Spans (`utils/profiling.py`, recorded only while a profiler or a `record()`
+block is on): the dispatcher opens `serve.batch` from taking a batch's
+first request to its launch's return (attrs `bucket`, `requests`,
+`waits_s`: each request's queue wait, the list `stats()` reads), with children `serve.coalesce`
+(waiting for stragglers), `serve.assemble` (the numpy batch) and
+`serve.launch` (the apply function's call); the completer opens
+`serve.complete` with children `serve.device_wait` (the event's
+synchronize), `serve.copy` (to the host) and `serve.deliver` (the
+futures).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+from array import array
 import time
 from concurrent.futures import Future
 from typing import Any, Callable, List, Optional, Sequence
@@ -41,9 +55,11 @@ from typing import Any, Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from msvit_tpu_torch.utils.profiling import span
 
-def _percentile(xs: List[float], q: float) -> float:
-    if not xs:
+
+def _percentile(xs, q: float) -> float:
+    if len(xs) == 0:
         return float("nan")
     return float(np.percentile(np.asarray(xs), q))
 
@@ -116,8 +132,11 @@ class BatchingServer:
         # bounded in-flight launches: the dispatcher coalesces batch i+1
         # while the completer waits on batch i (depth 2 = double buffer)
         self._cq: "queue.Queue" = queue.Queue(maxsize=2)
-        self._latencies: List[float] = []
+        # per request, seconds: queued -> result, queued -> its batch's launch
+        self._latencies = array("d")
+        self._queue_waits = array("d")
         self._batch_sizes: List[int] = []
+        self._rows_launched = 0  # bucket rows, padding included
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._dispatch, daemon=True)
@@ -145,8 +164,10 @@ class BatchingServer:
 
     def stats(self) -> dict:
         with self._lock:
-            lats = list(self._latencies)
+            lats = np.array(self._latencies)
+            waits = np.array(self._queue_waits)
             sizes = list(self._batch_sizes)
+            rows = self._rows_launched
         return {
             "requests": len(lats),
             "p50_ms": _percentile(lats, 50) * 1e3,
@@ -154,6 +175,9 @@ class BatchingServer:
             "p99_ms": _percentile(lats, 99) * 1e3,
             "mean_batch": float(np.mean(sizes)) if sizes else float("nan"),
             "batches": len(sizes),
+            "queue_p50_ms": _percentile(waits, 50) * 1e3,
+            "queue_p95_ms": _percentile(waits, 95) * 1e3,
+            "pad_share": 1.0 - sum(sizes) / rows if rows else float("nan"),
         }
 
     def close(self) -> None:
@@ -184,13 +208,9 @@ class BatchingServer:
             return self.small_apply_fn
         return self.apply_fn
 
-    def _collect(self) -> list:
-        """Block for the first request, then coalesce up to max_batch for
-        at most max_wait."""
-        try:
-            first = self._q.get(timeout=0.05)
-        except queue.Empty:
-            return []
+    def _coalesce(self, first) -> list:
+        """Coalesce up to max_batch behind the first request for at most
+        max_wait."""
         items = [first]
         deadline = time.monotonic() + self.max_wait
         while len(items) < self.max_batch:
@@ -205,41 +225,55 @@ class BatchingServer:
 
     def _dispatch(self) -> None:
         while not self._stop.is_set():
-            items = self._collect()
-            if not items:
+            try:  # block for the first request
+                first = self._q.get(timeout=0.05)
+            except queue.Empty:
                 continue
-            b = self._bucket(len(items))
-            batch = np.zeros((b,) + self.example_shape, self.example_dtype)
-            for i, (_, x, _) in enumerate(items):
-                batch[i] = x
-            try:
-                out = self._fn_for_bucket(b)(batch)  # asynchronous launch
-                ev = _cuda_event(out)
-            except Exception as e:  # shape or launch error: fail these fast
-                for _, _, fut in items:
-                    fut.set_exception(e)
-                continue
+            with span("serve.batch") as batch_span:
+                with span("serve.coalesce"):
+                    items = self._coalesce(first)
+                b = self._bucket(len(items))
+                with span("serve.assemble"):
+                    batch = np.zeros((b,) + self.example_shape, self.example_dtype)
+                    for i, (_, x, _) in enumerate(items):
+                        batch[i] = x
+                launched = time.monotonic()
+                waits = [launched - t0 for t0, _, _ in items]  # read by stats() too
+                batch_span.set(bucket=b, requests=len(items), waits_s=waits)
+                try:
+                    with span("serve.launch"):
+                        out = self._fn_for_bucket(b)(batch)  # asynchronous launch
+                    ev = _cuda_event(out)
+                except Exception as e:  # shape or launch error: fail these fast
+                    for _, _, fut in items:
+                        fut.set_exception(e)
+                    continue
             # bounded queue: at most 2 batches in flight on the device
-            self._cq.put((out, ev, items))
+            self._cq.put((out, ev, items, b, waits))
 
     def _complete(self) -> None:
         while True:
             task = self._cq.get()
             if task is None:
                 return
-            out, ev, items = task
-            try:
-                if ev is not None:
-                    ev.synchronize()
-                out = _to_host(out)
-            except Exception as e:  # device-side failure
-                for _, _, fut in items:
-                    fut.set_exception(e)
-                continue
-            done = time.monotonic()
-            with self._lock:
-                self._batch_sizes.append(len(items))
-                for t0, _, _ in items:
-                    self._latencies.append(done - t0)
-            for i, (_, _, fut) in enumerate(items):
-                fut.set_result(_tree_map(lambda o: o[i], out))
+            out, ev, items, b, waits = task
+            with span("serve.complete"):
+                try:
+                    if ev is not None:
+                        with span("serve.device_wait"):
+                            ev.synchronize()
+                    with span("serve.copy"):
+                        out = _to_host(out)
+                except Exception as e:  # device-side failure
+                    for _, _, fut in items:
+                        fut.set_exception(e)
+                    continue
+                done = time.monotonic()
+                with self._lock:
+                    self._batch_sizes.append(len(items))
+                    self._rows_launched += b
+                    self._latencies.extend(done - t0 for t0, _, _ in items)
+                    self._queue_waits.extend(waits)
+                with span("serve.deliver"):
+                    for i, (_, _, fut) in enumerate(items):
+                        fut.set_result(_tree_map(lambda o: o[i], out))

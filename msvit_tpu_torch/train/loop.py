@@ -46,6 +46,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from msvit_tpu_torch.utils.profiling import span
 from msvit_tpu_torch.utils.rng import draw_seed
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
@@ -284,28 +285,36 @@ def train_step_fn(
     microbatches, each with a generator seeded from `generator`; their
     gradients are summed in f32 and divided by the count, so a mean loss
     gives the full-batch gradient.  monitor: aux gains `grad_norm` and
-    `grads_finite` (gradients and loss finite), device scalars."""
+    `grads_finite` (gradients and loss finite), device scalars.
+
+    Spans, each with CUDA events on a card (`utils/profiling.py`):
+    `train.forward` (the loss function), `train.backward` (with a
+    microbatch's f32 gradient sums) and `train.update` (norms, finiteness,
+    clip, optimizer, EMA)."""
     m = num_microbatches
 
     def step(model, opt_state, batch, generator, ema=None):
         params = [p for p in model.parameters() if p.requires_grad]
+        dev = params[0].device if params else None
         for p in params:
             p.grad = None
         if m > 1:
             acc, losses, auxs = None, [], []
             seeds = [draw_seed(generator) for _ in range(m)]
             for mb, seed in zip(_microbatches(batch, m), seeds):
-                loss, aux = loss_fn(model, mb, torch.Generator().manual_seed(seed))
-                loss.backward()
-                grads = [  # f32 sums
-                    torch.zeros_like(p, dtype=torch.float32) if p.grad is None
-                    else p.grad.float() for p in params]
-                for p in params:
-                    p.grad = None
-                if acc is None:
-                    acc = grads
-                else:
-                    torch._foreach_add_(acc, grads)
+                with span("train.forward", device=dev):
+                    loss, aux = loss_fn(model, mb, torch.Generator().manual_seed(seed))
+                with span("train.backward", device=dev):
+                    loss.backward()
+                    grads = [  # f32 sums
+                        torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                        else p.grad.float() for p in params]
+                    for p in params:
+                        p.grad = None
+                    if acc is None:
+                        acc = grads
+                    else:
+                        torch._foreach_add_(acc, grads)
                 losses.append(loss.detach())
                 auxs.append(aux)
             torch._foreach_div_(acc, float(m))
@@ -313,33 +322,36 @@ def train_step_fn(
                 p.grad = a.to(p.dtype)
             loss, aux = torch.stack(losses).mean(), _mean_aux(auxs)
         else:
-            loss, aux = loss_fn(model, batch, generator)
-            loss.backward()
+            with span("train.forward", device=dev):
+                loss, aux = loss_fn(model, batch, generator)
+            with span("train.backward", device=dev):
+                loss.backward()
             loss = loss.detach()
-        grads = [p.grad for p in params if p.grad is not None]
-        finite = None
-        clip = opt_state.spec.clip_norm
-        if monitor or clip or opt_state.spec.max_nonfinite is not None:
-            # per-tensor L2 norms: one foreach pass gives both the global
-            # norm and the finiteness (a NaN or Inf makes its norm
-            # non-finite; an f32 sum of squares past 3e38 counts as bad)
-            norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
-            finite = torch.isfinite(norms).all()
-            norm = torch.linalg.vector_norm(norms)
-            if monitor:
-                aux = dict(aux or {})
-                aux["grad_norm"] = norm  # of the unclipped gradients
-                aux["grads_finite"] = finite & torch.isfinite(loss.float()).all()
-            if clip:
-                # optax: g where norm < clip, else g / norm * clip
-                torch._foreach_mul_(grads, clip / norm.clamp_min(clip))
-        opt_state.update(finite)
-        if ema_decay is not None:
-            named = dict(model.named_parameters())
-            e = list(ema.values())
-            torch._foreach_mul_(e, ema_decay)
-            torch._foreach_add_(e, [named[n].detach().to(t.dtype) for n, t in ema.items()],
-                                alpha=1.0 - ema_decay)
+        with span("train.update", device=dev):
+            grads = [p.grad for p in params if p.grad is not None]
+            finite = None
+            clip = opt_state.spec.clip_norm
+            if monitor or clip or opt_state.spec.max_nonfinite is not None:
+                # per-tensor L2 norms: one foreach pass gives both the global
+                # norm and the finiteness (a NaN or Inf makes its norm
+                # non-finite; an f32 sum of squares past 3e38 counts as bad)
+                norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
+                finite = torch.isfinite(norms).all()
+                norm = torch.linalg.vector_norm(norms)
+                if monitor:
+                    aux = dict(aux or {})
+                    aux["grad_norm"] = norm  # of the unclipped gradients
+                    aux["grads_finite"] = finite & torch.isfinite(loss.float()).all()
+                if clip:
+                    # optax: g where norm < clip, else g / norm * clip
+                    torch._foreach_mul_(grads, clip / norm.clamp_min(clip))
+            opt_state.update(finite)
+            if ema_decay is not None:
+                named = dict(model.named_parameters())
+                e = list(ema.values())
+                torch._foreach_mul_(e, ema_decay)
+                torch._foreach_add_(e, [named[n].detach().to(t.dtype) for n, t in ema.items()],
+                                    alpha=1.0 - ema_decay)
         return loss, aux
 
     return step

@@ -12,6 +12,7 @@ from msvit_tpu_torch.train.checkpoint import CheckpointManager
 from msvit_tpu_torch.train.loop import (
     LossFn, Optimizer, apply_if_finite, train_step_fn)
 from msvit_tpu_torch.utils.metrics import MetricsLogger
+from msvit_tpu_torch.utils.profiling import span
 from msvit_tpu_torch.utils.rng import fold_in
 
 
@@ -24,7 +25,12 @@ class Trainer:
     `grads_finite` reach the metrics.  With `ema_decay`, `ema_params`
     (parameter name -> tensor) tracks an exponential moving average of the
     parameters; it is checkpointed and restored with them.  The host reads
-    the loss only at log boundaries."""
+    the loss only at log boundaries.
+
+    Spans (`utils/profiling.py`): `train.step` around each step, with the
+    step function's `train.forward`, `train.backward` and `train.update`
+    inside it, and at a log boundary `train.log`, whose host reads are
+    `sync.loss_read` and `sync.metrics_read`."""
 
     def __init__(
         self,
@@ -107,20 +113,24 @@ class Trainer:
         for batch in batches:
             if self.step >= num_steps:
                 break
-            gen = torch.Generator().manual_seed(fold_in(seed, self.step))
-            loss_dev, aux = self.step_fn(
-                self.model, self.opt_state, batch, gen, self.ema_params)
-            self.step += 1
-            if self.step % self.log_every == 0 or self.step == num_steps:
-                loss = float(loss_dev)  # the host's only read of the step
-                if self.metrics:
-                    scalars = {
-                        k: float(v) for k, v in (aux or {}).items()
-                        if k != "loss" and torch.as_tensor(v).ndim == 0
-                    }
-                    self.metrics.log(self.step, loss=loss, **scalars)
-            if self.ckpt:
-                self.ckpt.maybe_save(self.step, self._snapshot(batches))
+            with span("train.step", step=self.step):
+                gen = torch.Generator().manual_seed(fold_in(seed, self.step))
+                loss_dev, aux = self.step_fn(
+                    self.model, self.opt_state, batch, gen, self.ema_params)
+                self.step += 1
+                if self.step % self.log_every == 0 or self.step == num_steps:
+                    with span("train.log"):
+                        with span("sync.loss_read"):
+                            loss = float(loss_dev)  # the host's only read of the step
+                        if self.metrics:
+                            with span("sync.metrics_read"):
+                                scalars = {
+                                    k: float(v) for k, v in (aux or {}).items()
+                                    if k != "loss" and torch.as_tensor(v).ndim == 0
+                                }
+                            self.metrics.log(self.step, loss=loss, **scalars)
+                if self.ckpt:
+                    self.ckpt.maybe_save(self.step, self._snapshot(batches))
         if self.ckpt:
             self.ckpt.close()
         if self.metrics:

@@ -35,6 +35,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from msvit_tpu_torch.utils.profiling import span
+
 _U64 = 2**64
 _M32 = 0xFFFFFFFF
 
@@ -187,22 +189,27 @@ def image_streams(key, b, device):
     whose row i is the key's words folded with i (a symbolic b traces); for
     any other stream object, `KeyRows(key.split(b))` (b concrete)."""
     if isinstance(key, Rng):
-        base = torch.tensor(key.words(), dtype=torch.int64, device=device)
+        with span("sync.key_words"):  # a blocking copy to the device
+            base = torch.tensor(key.words(), dtype=torch.int64, device=device)
         return StreamRows(fold_words(base, torch.arange(b, device=device)))
     return KeyRows(key.split(b))
 
 
 def _key_words(keys: Sequence, device) -> Optional[torch.Tensor]:
     """Key words of `keys`: [C, 4] int64 if every one is an `Rng`, [G, C, 4]
-    if every one is a `StreamRows` or a `KeyRows` of `Rng`s; else None."""
+    if every one is a `StreamRows` or a `KeyRows` of `Rng`s; else None.
+    Words made on the host reach the device by a blocking copy (the span
+    `sync.key_words`)."""
     if all(isinstance(k, Rng) for k in keys):
-        return torch.tensor([k.words() for k in keys], dtype=torch.int64, device=device)
+        with span("sync.key_words"):
+            return torch.tensor([k.words() for k in keys], dtype=torch.int64, device=device)
     if all(isinstance(k, StreamRows) for k in keys):
         return torch.stack([k.words.to(device) for k in keys], dim=1)
     if all(isinstance(k, KeyRows) and all(isinstance(r, Rng) for r in k.keys)
            for k in keys):
-        return torch.tensor([[r.words() for r in k.keys] for k in keys],
-                            dtype=torch.int64, device=device).transpose(0, 1)
+        with span("sync.key_words"):
+            return torch.tensor([[r.words() for r in k.keys] for k in keys],
+                                dtype=torch.int64, device=device).transpose(0, 1)
     return None
 
 

@@ -2575,3 +2575,67 @@ def test_registered_ops_pass_opcheck_on_the_card(dev):
                         for a in args])
         assert (fake.shape, fake.dtype, fake.stride()) == (real.shape, real.dtype,
                                                            real.stride()), op
+
+
+def test_device_spans_resolve_to_device_ms(dev):
+    """A `device=True` span times the device between its two CUDA events,
+    not the host: a ~50-ms sleep kernel launched inside it returns at once
+    on the host."""
+    from msvit_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    profiling.reset()
+    try:
+        with profiling.record():
+            with profiling.span("sleep", device=True):
+                torch.cuda._sleep(100_000_000)  # cycles: ~50 ms at 1.98 GHz
+            with profiling.span("host"):
+                pass
+        sleep, host = profiling.spans()
+        row = profiling.summary()
+    finally:
+        profiling.reset()
+    host_ms = (sleep["end_ns"] - sleep["start_ns"]) / 1e6
+    assert sleep["device_ms"] >= 20.0 and host_ms < sleep["device_ms"]
+    assert "device_ms" not in host and row["sleep"]["device_ms"] == sleep["device_ms"]
+
+
+def test_monitored_trainer_steps_make_no_host_sync_while_recording(dev):
+    """Steps between log boundaries of a monitored `Trainer` run under
+    `set_sync_debug_mode("error")` with spans recorded; each step's three
+    phases carry device milliseconds."""
+    from msvit_tpu_torch.models.base import BaseViTConfig, ViTForImageClassification
+    from msvit_tpu_torch.train import Trainer, make_optimizer
+    from msvit_tpu_torch.utils import profiling
+
+    cfg = BaseViTConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=1,
+                        image_size=32, patch_size=16)
+    with torch.device(dev):
+        model = ViTForImageClassification(cfg, 10, generator=torch.Generator(dev).manual_seed(0))
+
+    def loss_fn(model, batch, generator):
+        logits = model(batch["pixel_values"], generator=generator)
+        return torch.nn.functional.cross_entropy(logits, batch["labels"]), {}
+
+    g = torch.Generator(dev).manual_seed(1)
+    batch = {"pixel_values": torch.randn(8, 32, 32, 3, generator=g, device=dev),
+             "labels": torch.randint(0, 10, (8,), generator=g, device=dev)}
+    trainer = Trainer(loss_fn, make_optimizer(1e-3), model, log_every=25, monitor=True)
+    trainer.fit(iter([batch]), 1, seed=0)  # warm-up; its one step logs
+    torch.cuda.synchronize()
+    profiling.reset()
+    try:
+        with profiling.record():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                trainer.fit(iter([batch] * 3), 100, seed=0)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        got = profiling.spans()
+    finally:
+        profiling.reset()
+    assert trainer.step == 4
+    for phase in ("train.forward", "train.backward", "train.update"):
+        ms = [s["device_ms"] for s in got if s["name"] == phase]
+        assert len(ms) == 3 and min(ms) > 0, (phase, ms)
+    assert not [s for s in got if s["name"].startswith(("train.log", "sync."))]

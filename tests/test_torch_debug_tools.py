@@ -24,7 +24,7 @@ from msvit_tpu_torch.models.clustering import spectral_debug_labels
 from msvit_tpu_torch.ops import hdbscan as th
 from msvit_tpu_torch.ops import tsne as tt
 from msvit_tpu_torch.utils import arrays as tarrays
-from msvit_tpu_torch.utils.profiling import BlockTimer
+from msvit_tpu_torch.utils import profiling
 
 sklearn_cluster = pytest.importorskip("sklearn.cluster")
 
@@ -292,11 +292,14 @@ def test_model_size_and_timers():
     with tutils.Timer() as t:
         sum(range(1000))
     assert t.duration >= 0.0
-    timer = BlockTimer()
-    for _ in range(2):
-        with timer("a", device=torch.zeros(1)):
-            pass
-    assert list(timer.summary()) == ["a"] and timer.counts["a"] == 2
+    profiling.reset()
+    with profiling.record():
+        for _ in range(2):
+            with profiling.span("a", device=torch.zeros(1).device):
+                pass
+    row = profiling.summary()
+    profiling.reset()
+    assert list(row) == ["a"] and row["a"]["count"] == 2 and row["a"]["host_ms"] >= 0.0
 
 
 def test_arrays_helpers_match_jax(capsys):
